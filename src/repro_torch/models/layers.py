@@ -1,0 +1,133 @@
+"""Primitive layers shared by the dense attention stacks.
+
+Plain functions over explicit parameter dicts of tensors — the same
+layout as the JAX package, with a leading layer axis on every per-layer
+leaf, so weights cross over through :mod:`repro_torch.weights` unchanged.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16,
+            # engine ❼ activation/KV compression: 1-byte storage
+            "fp8": torch.float8_e4m3fn}[name]
+
+
+# --------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+# --------------------------------------------------------------------- rotary
+def rotary_embedding(positions: torch.Tensor, head_dim: int,
+                     theta: float = 10000.0):
+    """Return (sin, cos) of shape positions.shape + (head_dim//2,)."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rotary(x: torch.Tensor, sin: torch.Tensor,
+                 cos: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); sin/cos: (..., seq, head_dim//2).
+    Split-half rotation, as in the JAX package."""
+    dt = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    s = sin[..., None, :]  # broadcast over heads axis
+    c = cos[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(dt)
+
+
+# ------------------------------------------------------------------ matmul
+def matmul_w(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul supporting elastic factored weights: ``w`` is a dense
+    tensor or a low-rank pair ``{"u": (d_in, r), "v": (r, d_out)}``
+    executed as two thin matmuls."""
+    if isinstance(w, dict):
+        return (x @ w["u"]) @ w["v"]
+    return x @ w
+
+
+# ----------------------------------------------------------------------- FFN
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def ffn_apply(params: Params, x: torch.Tensor, *, gated: bool,
+              activation: str) -> torch.Tensor:
+    act = {"silu": F.silu, "gelu": _gelu_tanh}[activation]
+    if gated:
+        h = act(matmul_w(x, params["w_gate"])) * matmul_w(x, params["w_up"])
+    else:
+        h = act(matmul_w(x, params["w_up"]))
+    if "ghost_src" in params:
+        # η4 (GhostNet): half the hidden features are computed, the rest
+        # are generated by a cheap per-channel linear map of a computed one
+        ghost = h.index_select(-1, params["ghost_src"]) * params["ghost_scale"]
+        h = torch.cat([h, ghost.to(h.dtype)], dim=-1)
+    return matmul_w(h, params["w_down"])
+
+
+# ----------------------------------------------------------------- embedding
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied LM head: (..., d) @ (vocab, d)^T -> (..., vocab)."""
+    return x @ table.T
+
+
+# --------------------------------------------------------------------- misc
+# keys kept in float32 regardless of activation dtype (stability-critical)
+_F32_KEYS = ("a_log", "d_skip", "dt_bias", "router")
+
+
+def cast_params(params: Params, act_dtype: torch.dtype) -> Params:
+    """Cast floating weights to the activation dtype for execution; leaves
+    whose name contains one of ``_F32_KEYS`` stay as they are.  Leaves
+    already in ``act_dtype`` are returned as they are (no copy), so casting
+    an already-cast dict is free."""
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, str(k)) for k, v in tree.items()}
+        if any(k in name for k in _F32_KEYS):
+            return tree
+        if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+            return tree.to(act_dtype)
+        return tree
+    return walk(params, "")
+
+
+def layer_slice(stack: Params, j: int) -> Params:
+    """Layer ``j`` of a stacked per-layer parameter dict."""
+    return {k: layer_slice(v, j) if isinstance(v, dict) else v[j]
+            for k, v in stack.items()}
+
+
+def mask_padded_logits_raw(logits: torch.Tensor,
+                           vocab_size: int) -> torch.Tensor:
+    if logits.shape[-1] == vocab_size:
+        return logits
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill(ids >= vocab_size, -1e30)

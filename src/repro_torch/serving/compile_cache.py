@@ -1,0 +1,133 @@
+"""Process-wide cache of serving programs.
+
+``CompileCache`` keys program sets on ``(cfg, opts, slots, max_seq,
+domain)`` and hands the *same* program objects to every engine that
+asks, exactly as the JAX package's cache does for its jitted programs.
+PyTorch runs eagerly and has no jit, so here a "compile" is the first
+build of a program for its key: the engine counts it in
+``ServeStats.recompiles``, which therefore keeps its meaning — 0 for an
+engine whose programs were all built already, and no growth across
+occupancy churn, because block tables, positions and sampling state are
+runtime tensors and never enter a key.
+
+Paged-mode programs are lazy dicts keyed on the pool geometry
+``(num_blocks, block_size)`` (and the prompt bucket and burst k-bucket
+for admission), as in the JAX package:
+
+* ``paged_decode(nb, bs)`` — one batched sampling step through the paged
+  decode kernel (slot cache and pool updated in place)
+* ``paged_prefill_batch(bucket, k, nb, bs)`` — burst admission that
+  writes prefilled KV into destination blocks
+* ``paged_admit`` — writes ``pos`` + sampling state into one slot
+  (prefix-cache re-admission)
+* ``copy_block(nb, bs)`` — copy-on-write block duplication
+* ``sample_first`` — draws a first token from a cached logits row
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Tuple
+
+from ..models.configs import ModelConfig
+from ..models.model import (admit_slot, paged_copy_block,
+                            paged_kernel_sample_batched_step,
+                            paged_prefill_admit, sample_logits)
+from ..models.runtime import RuntimeOptions
+
+Key = Tuple[ModelConfig, RuntimeOptions, int, int, str]
+
+
+class ServePrograms:
+    """The serving programs for one (cfg, opts, slots, max_seq, domain)."""
+
+    def __init__(self, cfg: ModelConfig, opts: RuntimeOptions):
+        self._cfg, self._opts = cfg, opts
+        self.sample_first: Callable = functools.partial(
+            _sample_first, vocab=cfg.vocab_size)
+        self._paged_decodes: Dict[Tuple[int, int], Callable] = {}
+        self._paged_prefill_batches: Dict[Tuple[int, int, int, int],
+                                          Callable] = {}
+        self._paged_admit: Dict[str, Callable] = {}
+        self._copy_blocks: Dict[Tuple[int, int], Callable] = {}
+
+    def paged_decode(self, num_blocks: int,
+                     block_size: int) -> Tuple[Callable, bool]:
+        """The batched paged sampling step for one pool geometry, plus
+        whether this call built it.  Block tables ride in as runtime
+        data, so every occupancy shares this one program."""
+        key = (num_blocks, block_size)
+        fresh = key not in self._paged_decodes
+        if fresh:
+            if not self._opts.paged_kernel:
+                raise NotImplementedError(
+                    "the gather-to-dense paged step is not ported; "
+                    "serve with RuntimeOptions(paged_kernel=True)")
+            self._paged_decodes[key] = functools.partial(
+                _paged_decode, cfg=self._cfg, opts=self._opts)
+        return self._paged_decodes[key], fresh
+
+    def paged_prefill_batch(self, bucket: int, k: int, num_blocks: int,
+                            block_size: int) -> Tuple[Callable, bool]:
+        """Burst admission into the paged cache for ``(prompt bucket,
+        k-bucket)``: KV rows go into destination blocks, ``pos`` and
+        sampling state into slots."""
+        key = (bucket, k, num_blocks, block_size)
+        fresh = key not in self._paged_prefill_batches
+        if fresh:
+            self._paged_prefill_batches[key] = functools.partial(
+                _paged_prefill, cfg=self._cfg, opts=self._opts)
+        return self._paged_prefill_batches[key], fresh
+
+    def paged_admit(self) -> Tuple[Callable, bool]:
+        """``admit_slot`` over the paged (KV-less) slot cache."""
+        fresh = "admit" not in self._paged_admit
+        if fresh:
+            self._paged_admit["admit"] = admit_slot
+        return self._paged_admit["admit"], fresh
+
+    def copy_block(self, num_blocks: int,
+                   block_size: int) -> Tuple[Callable, bool]:
+        """Copy-on-write block duplication, one program per geometry."""
+        key = (num_blocks, block_size)
+        fresh = key not in self._copy_blocks
+        if fresh:
+            self._copy_blocks[key] = paged_copy_block
+        return self._copy_blocks[key], fresh
+
+
+def _sample_first(logits_row, key, temp, top_k, *, vocab):
+    return sample_logits(logits_row, key, temp, top_k, vocab)
+
+
+def _paged_decode(params, slot_cache, pool, tokens, tables, *, cfg, opts):
+    return paged_kernel_sample_batched_step(params, cfg, slot_cache, pool,
+                                            tokens, tables, opts)
+
+
+def _paged_prefill(params, slot_cache, pool, tokens, slot_ids, keys, temps,
+                   top_ks, dest, *, cfg, opts):
+    return paged_prefill_admit(params, cfg, slot_cache, pool, tokens,
+                               slot_ids, keys, temps, top_ks, dest, opts)
+
+
+class CompileCache:
+    """Shares :class:`ServePrograms` across engines.  Thread-hostile like
+    the rest of the serving layer (one engine loop per process)."""
+
+    def __init__(self):
+        self._entries: Dict[Key, ServePrograms] = {}
+
+    def entry_for(self, cfg: ModelConfig, opts: RuntimeOptions, slots: int,
+                  max_seq: int, domain: str = ""
+                  ) -> Tuple[ServePrograms, bool]:
+        key: Key = (cfg, opts, slots, max_seq, domain)
+        entry = self._entries.get(key)
+        if entry is not None:
+            return entry, False
+        entry = ServePrograms(cfg, opts)
+        self._entries[key] = entry
+        return entry, True
+
+
+# Engines that aren't handed an explicit cache share this one.
+GLOBAL_COMPILE_CACHE = CompileCache()
