@@ -11,7 +11,29 @@ from typing import Optional
 
 import torch
 
+from .flash_attn import flash_attention
+from .fused_ffn import fused_ffn
 from .paged_decode_attn import paged_decode_attention
+
+
+def gated_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    """``(act(x @ w_gate) * (x @ w_up)) @ w_down``, f32 inside.
+
+    x: (M, D); w_gate/w_up: (D, F); w_down: (F, D).  The device of ``x``
+    picks the fused kernel or its plain version."""
+    return fused_ffn(x, w_gate, w_up, w_down, activation)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int = 0,
+              kv_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, S, hd); k, v: (B, K, S, hd) with K dividing H — K == H
+    is the JAX package's pre-broadcast layout, K < H reads grouped KV
+    heads with no broadcast copy.  The device of ``q`` picks the flash
+    kernel or its plain version."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           kv_len=kv_len)
 
 
 def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,

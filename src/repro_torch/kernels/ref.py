@@ -56,3 +56,49 @@ def paged_decode_attn_ref(q: torch.Tensor, k_blocks: torch.Tensor,
     p_attn = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", p_attn, vf)
     return out.reshape(slots, h, hd).to(q.dtype)
+
+
+def _act(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": torch.nn.functional.silu,
+            "gelu": lambda t: torch.nn.functional.gelu(
+                t, approximate="tanh")}[name]
+
+
+def fused_ffn_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                  w_down: torch.Tensor, activation: str = "silu"
+                  ) -> torch.Tensor:
+    """Gated FFN ``(act(x @ w_gate) * (x @ w_up)) @ w_down``.
+
+    x: (M, D); w_gate/w_up: (D, F); w_down: (F, D).  Computed in f32 and
+    rounded once to x's dtype; ``activation`` is silu or tanh-gelu."""
+    xf = x.float()
+    h = _act(activation)(xf @ w_gate.float()) * (xf @ w_up.float())
+    return (h @ w_down.float()).to(x.dtype)
+
+
+def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0,
+                   kv_len: Optional[int] = None) -> torch.Tensor:
+    """Attention with the flash kernel's masks.
+
+    q, k, v: (B, H, S, hd), KV heads already broadcast to the query
+    heads.  Keys are masked by ``causal`` (col <= row), ``window``
+    (col > row - window) and ``kv_len`` (col < kv_len).  A query row with
+    no valid key outputs exactly zero.  f32 inside, out in q's dtype."""
+    s, hd = q.shape[-2:]
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    rows = torch.arange(s, device=q.device)[:, None]
+    cols = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= rows >= cols
+    if window:
+        mask &= cols > rows - window
+    if kv_len is not None:
+        mask &= cols < kv_len
+    scores = scores.masked_fill(~mask, -1e30)
+    p = torch.softmax(scores, dim=-1) * mask.any(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)

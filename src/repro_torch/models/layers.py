@@ -11,6 +11,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kernel_ops
+
 Params = Dict[str, Any]
 
 
@@ -75,6 +77,18 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def ffn_apply(params: Params, x: torch.Tensor, *, gated: bool,
               activation: str) -> torch.Tensor:
+    if gated and "ghost_src" not in params and not any(
+            isinstance(params[k], dict)
+            for k in ("w_gate", "w_up", "w_down")):
+        # a dense gated FFN is one call of the fused kernel on the card
+        # (its plain version on the CPU): f32 inside, one rounding
+        lead = x.shape[:-1]
+        y = kernel_ops.gated_ffn(x.reshape(-1, x.shape[-1]),
+                                 params["w_gate"], params["w_up"],
+                                 params["w_down"], activation)
+        return y.reshape(*lead, y.shape[-1])
+    # the forms the fused kernel does not take, as plain ops: non-gated
+    # FFNs, factored {"u","v"} weights and η4 ghost features
     act = {"silu": F.silu, "gelu": _gelu_tanh}[activation]
     if gated:
         h = act(matmul_w(x, params["w_gate"])) * matmul_w(x, params["w_up"])

@@ -170,16 +170,13 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def _attn_prefill_kv(layer, x, cfg, opts, window: int = 0):
     """Run a transformer block, returning (x, K, V) of the self-attention
     (K rotated, as the cache stores it)."""
-    s = x.shape[1]
-    impl = _select_impl(cfg, opts, s, window)
-    if impl != "full":
-        raise NotImplementedError(f"attention impl {impl!r} is not ported "
-                                  "yet; only 'full'")
     y, k_rot, v = attn_mod.self_attention(
         layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps),
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        causal=True, window=window)
+        causal=True, window=window,
+        impl=_select_impl(cfg, opts, x.shape[1], window),
+        q_chunk=opts.q_chunk, k_chunk=opts.k_chunk)
     x = x + y.to(x.dtype)
     x, _ = ffn_or_moe_block(layer, x, cfg, opts)
     return x, k_rot, v

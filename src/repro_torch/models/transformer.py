@@ -3,7 +3,9 @@
 Layer stacks keep the JAX package's *stacked* parameter layout (every
 per-layer leaf has a leading layer axis), and the layer walk is a Python
 loop where the JAX package scans.  Only the dense attention family
-(``ATTN`` / ``LOCAL`` blocks, dense FFN) is ported so far.
+(``ATTN`` / ``LOCAL`` blocks, dense FFN) is ported so far.  On the card
+every prefill block runs the flash attention kernel and the fused FFN
+kernel (through ``attention._attend`` and ``layers.ffn_apply``).
 """
 from __future__ import annotations
 
@@ -94,7 +96,8 @@ def attn_block(layer: Params, x: torch.Tensor, cfg: ModelConfig,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         causal=causal, window=window,
-        impl=_select_impl(cfg, opts, s, window))
+        impl=_select_impl(cfg, opts, s, window),
+        q_chunk=opts.q_chunk, k_chunk=opts.k_chunk)
     return x + h.to(x.dtype)
 
 

@@ -9,8 +9,13 @@
   ragged/zero/full-tail positions x window 0/1/5.  Both sides compute in
   f32 from identical inputs: atol 1e-5.  int8 pools stay inside the JAX
   suite's own error bound (0.05) of the f32 pool.
-* The CUDA kernel itself is held against this plain version on the
-  card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+* The flash attention kernel's plain version (``flash_attn_ref``, through
+  ``ops.attention``) against the JAX oracle and the Pallas kernel in
+  interpret mode, over the masks of the JAX flash and window suites.
+* The fused FFN's plain version (``fused_ffn_ref``, through
+  ``ops.gated_ffn``) against the JAX oracle and the Pallas kernel.
+* The CUDA kernels themselves are held against these plain versions on
+  the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -19,6 +24,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.kernels import flash_attention as pallas_flash
+from repro.kernels import fused_ffn as pallas_ffn
 from repro.kernels import paged_decode_attention as pallas_paged
 from repro.kernels import ref as jref
 from repro.kernels.act_quant import kv_dequant_rows as j_dequant
@@ -189,3 +196,133 @@ def test_wrapper_on_cpu_never_launches():
     before = paged_decode_attention.launches
     _run_both(arrs, {}, "float32", 0)
     assert paged_decode_attention.launches == before
+
+
+# ------------------------------------------------------- flash attention --
+def _qkv(seed, b, h, s, hd, kvh=None):
+    rng = np.random.default_rng(seed)
+    kvh = kvh or h
+    return (rng.standard_normal((b, h, s, hd)).astype(np.float32),
+            rng.standard_normal((b, kvh, s, hd)).astype(np.float32),
+            rng.standard_normal((b, kvh, s, hd)).astype(np.float32))
+
+
+# the masks of tests/test_kernels.py's flash and window suites
+FLASH_CASES = [
+    dict(s=256, hd=64, causal=True, window=0),
+    dict(s=256, hd=64, causal=True, window=64),
+    dict(s=128, hd=32, causal=True, window=0),
+    dict(s=128, hd=32, causal=True, window=64),
+    dict(s=64, hd=32, causal=False, window=0),
+    dict(s=64, hd=32, causal=True, window=0, kv_len=0),
+    dict(s=64, hd=32, causal=True, window=1, kv_len=24),
+    dict(s=64, hd=32, causal=True, window=0, kv_len=32),
+    dict(s=64, hd=32, causal=True, window=1),
+    dict(s=64, hd=32, causal=True, window=1000),
+    dict(s=64, hd=32, causal=False, window=8),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[
+    "-".join(f"{k}{v}" for k, v in c.items()) for c in FLASH_CASES])
+def test_flash_plain_matches_jax(case):
+    """The port's ``flash_attn_ref`` (through ``ops.attention``) against
+    the JAX oracle and the Pallas kernel in interpret mode (blocks of 32,
+    so the online softmax crosses blocks).  All compute in f32 from the
+    same inputs and differ in the order of sums: atol 2e-5."""
+    case = dict(case)
+    s, hd = case.pop("s"), case.pop("hd")
+    q, k, v = _qkv(s + hd, 2, 2, s, hd)
+    out_t = ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), **case).numpy()
+    out_j = np.asarray(jref.flash_attn_ref(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), **case))
+    np.testing.assert_allclose(out_t, out_j, atol=2e-5, rtol=1e-4)
+    out_k = np.asarray(pallas_flash(
+        jnp.asarray(q.reshape(4, s, hd)), jnp.asarray(k.reshape(4, s, hd)),
+        jnp.asarray(v.reshape(4, s, hd)), block_q=32, block_k=32,
+        interpret=True, **case)).reshape(2, 2, s, hd)
+    np.testing.assert_allclose(out_t, out_k, atol=2e-5, rtol=1e-4)
+    # rows left with no valid key are exactly zero in all three
+    rows = np.arange(s)[:, None]
+    cols = np.arange(s)[None, :]
+    valid = np.broadcast_to(cols < case.get("kv_len", s), (s, s)).copy()
+    if case["causal"]:
+        valid &= cols <= rows
+    if case["window"]:
+        valid &= cols > rows - case["window"]
+    dead = ~valid.any(axis=1)
+    for out in (out_t, out_j, out_k):
+        assert (out[:, :, dead] == 0).all()
+
+
+def test_flash_grouped_kv_heads_equal_broadcast():
+    """K < H (the model's GQA layout) reads kv head h // (H/K): equal to
+    the JAX oracle on KV heads broadcast to the query heads."""
+    q, k, v = _qkv(7, 2, 8, 48, 16, kvh=2)
+    out_t = ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), window=9).numpy()
+    kb, vb = (np.repeat(a, 4, axis=1) for a in (k, v))
+    out_j = jref.flash_attn_ref(jnp.asarray(q), jnp.asarray(kb),
+                                jnp.asarray(vb), window=9)
+    np.testing.assert_allclose(out_t, np.asarray(out_j), atol=2e-5)
+
+
+# ---------------------------------------------------------- fused FFN ----
+@pytest.mark.parametrize("m,d,f", [(128, 64, 256), (64, 96, 128),
+                                   (100, 64, 128)])
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+def test_fused_ffn_plain_matches_jax(m, d, f, activation):
+    """f32: the port's plain version against the JAX oracle and the
+    Pallas kernel in interpret mode; sums in another order only."""
+    rng = np.random.default_rng(m + d + f)
+    x = (rng.standard_normal((m, d)) * 0.5).astype(np.float32)
+    wg, wu = (rng.standard_normal((d, f)).astype(np.float32) * 0.1
+              for _ in range(2))
+    wd = rng.standard_normal((f, d)).astype(np.float32) * 0.1
+    out_t = ops.gated_ffn(*(torch.from_numpy(a) for a in (x, wg, wu, wd)),
+                          activation).numpy()
+    out_j = jref.fused_ffn_ref(*(jnp.asarray(a) for a in (x, wg, wu, wd)),
+                               activation)
+    np.testing.assert_allclose(out_t, np.asarray(out_j), atol=2e-5,
+                               rtol=1e-4)
+    if m % 64 == 0:                     # Pallas takes whole tiles only
+        out_k = pallas_ffn(*(jnp.asarray(a) for a in (x, wg, wu, wd)),
+                           activation=activation, block_m=64, block_f=64,
+                           interpret=True)
+        np.testing.assert_allclose(out_t, np.asarray(out_k), atol=2e-5,
+                                   rtol=1e-4)
+
+
+def test_fused_ffn_plain_bf16():
+    """bf16: the port and the JAX oracle both sum in f32 and round once,
+    so they differ by at most one bf16 ulp (2**-8 relative).  The Pallas
+    kernel rounds its output in bf16 after each F tile (two tiles here):
+    two more roundings of partial sums up to the output's magnitude, so
+    it is held at the JAX suite's own atol 3e-2."""
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((128, 64)) * 0.5).astype(np.float32)
+    wg, wu = (rng.standard_normal((64, 256)).astype(np.float32) * 0.1
+              for _ in range(2))
+    wd = rng.standard_normal((256, 64)).astype(np.float32) * 0.1
+    targs = [torch.from_numpy(a).to(torch.bfloat16) for a in (x, wg, wu, wd)]
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (x, wg, wu, wd)]
+    out_t = ops.gated_ffn(*targs).float().numpy()
+    assert ops.gated_ffn(*targs).dtype == torch.bfloat16
+    out_j = np.asarray(jref.fused_ffn_ref(*jargs, "silu"), np.float32)
+    np.testing.assert_allclose(out_t, out_j, atol=1e-6, rtol=2 ** -8)
+    out_k = np.asarray(pallas_ffn(*jargs, block_m=64, block_f=128,
+                                  interpret=True), np.float32)
+    np.testing.assert_allclose(out_t, out_k, atol=3e-2)
+
+
+def test_cpu_calls_of_attention_and_gated_ffn_never_launch():
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.fused_ffn import fused_ffn
+    before = (flash_attention.launches, fused_ffn.launches)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 2, 16, 16))
+    ops.attention(q, k, v)
+    x = torch.ones(4, 16)
+    ops.gated_ffn(x, torch.ones(16, 32), torch.ones(16, 32),
+                  torch.ones(32, 16), "gelu")
+    assert (flash_attention.launches, fused_ffn.launches) == before

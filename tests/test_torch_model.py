@@ -274,3 +274,62 @@ def test_not_ported_families_raise():
         tm.init_cache(get_config("mamba2-370m"), 1, 16, device="cpu")
     with pytest.raises(NotImplementedError):
         t_init_params(get_config("mixtral-8x7b").reduced(), device="cpu")
+
+
+# ----------------------------------------------- chunked / long prefill ----
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+def test_chunked_attention_matches_reference(causal, window):
+    """Several query and KV chunks (q_chunk 64, k_chunk 128 over S 256),
+    GQA 4/2: the same online softmax in both packages, f32."""
+    from repro.models.attention import chunked_attention as j_chunked
+    from repro_torch.models.attention import chunked_attention
+    rng = np.random.default_rng(11 + window)
+    q = rng.standard_normal((2, 256, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 256, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, q_chunk=64, k_chunk=128)
+    out_t = chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              **kw)
+    out_j = j_chunked(*(jnp.asarray(a) for a in (q, k, v)), **kw)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("bucket", [1024, 2048])
+def test_long_prefill_matches_reference(bucket):
+    """A prompt at bucket 1024 (JAX picks ``full``) and 2048 (JAX picks
+    ``chunked``, q_chunk 512 / k_chunk 1024), f32 activations: logits,
+    K and V of the port's prefill equal the JAX package's within the
+    f32 tolerance of the other prefill tests (sums in another order)."""
+    jcfg, tcfg = _cfgs(**F32)
+    assert tt._select_impl(tcfg, RuntimeOptions(), bucket, 0) == \
+        jt._select_impl(jcfg, JOpts(), bucket, 0) == \
+        ("full" if bucket == 1024 else "chunked")
+    toks = np.random.default_rng(bucket).integers(0, 300, (1, bucket))
+    toks = toks.astype(np.int32)
+    opts = JOpts(kv_cache_dtype="float32")
+    topts = RuntimeOptions(kv_cache_dtype="float32")
+    j_logits, j_cache = jax.jit(
+        lambda t: jm.prefill(J_PARAMS, jcfg, t,
+                             jm.init_cache(jcfg, 1, bucket, opts), opts)
+    )(jnp.asarray(toks))
+    t_logits, t_cache = tm.prefill(
+        T_PARAMS, tcfg, torch.from_numpy(toks),
+        tm.init_cache(tcfg, 1, bucket, topts, device="cpu"), topts)
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=1e-4)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(t_cache[name].numpy(),
+                                   np.asarray(j_cache[name]), atol=1e-4)
+
+
+def test_banded_attention_is_not_ported_and_raises():
+    """``banded`` (the JAX choice for a sliding window over a long
+    prompt) is not ported: selecting it raises rather than computing
+    another function."""
+    tcfg = _cfgs(**F32)[1]
+    assert tt._select_impl(tcfg, RuntimeOptions(), 64, 8) == "banded"
+    x = torch.zeros((1, 64, 64))
+    with pytest.raises(NotImplementedError):
+        tt.attn_block(tl.layer_slice(T_PARAMS["layers"], 0), x, tcfg,
+                      RuntimeOptions(), window=8)

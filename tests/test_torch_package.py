@@ -76,10 +76,12 @@ def test_entry_points_default_to_cuda():
 
 def test_kernel_build_names_follow_the_sources():
     sources = sorted(_build.CSRC.glob("*.cu"))
-    assert [s.stem for s in sources] == ["paged_decode_attn"]
-    lib = _build.library_path(sources[0])
-    assert lib.parent == _build.BUILD_DIR
-    assert lib.name.startswith("libpaged_decode_attn-") and lib.suffix == ".so"
+    assert [s.stem for s in sources] == ["flash_attn", "fused_ffn",
+                                         "paged_decode_attn"]
+    for src in sources:
+        lib = _build.library_path(src)
+        assert lib.parent == _build.BUILD_DIR
+        assert lib.name.startswith(f"lib{src.stem}-") and lib.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # the build directory is git-ignored
     root = PKG_DIR.parents[1]

@@ -189,3 +189,31 @@ def test_option_validation():
     eng.submit(Request(rid=0, prompt=_prompt(5, 0), max_new_tokens=3))
     with pytest.raises(NotImplementedError):     # gather step not ported
         eng.drain()
+
+
+def test_long_prompts_at_max_seq_2048_match_reference():
+    """max_seq 2048: a 700-token prompt (bucket 1024, ``full``) and a
+    1500-token prompt (bucket 2048 == max_seq, ``chunked``; it decodes
+    once at the clamped row and stops, fault R1) beside a short one.
+    Greedy streams and engine counters equal the JAX engine's (f32)."""
+    mix = [(700, 5, 0, 0.0), (1500, 4, 0, 0.0), (30, 3, 1, 0.0)]
+    cfg_kw = dict(activation_dtype="float32")
+    opts = dataclasses.replace(DEFAULT_OPTIONS, paged_kernel=True,
+                               kv_dtype="int8")
+    j_eng = JEngine(J_CFG.with_updates(**cfg_kw), J_PARAMS, slots=2,
+                    max_seq=2048, opts=opts, decode_mode="paged",
+                    compile_cache=J_CC)
+    t_eng = ServingEngine(
+        get_config("paper-backbone").with_updates(**TINY, **cfg_kw),
+        T_PARAMS, slots=2, max_seq=2048,
+        opts=RuntimeOptions(paged_kernel=True, kv_dtype="int8"),
+        compile_cache=CompileCache(), device="cpu")
+    streams = []
+    for eng, req_t in ((j_eng, JRequest), (t_eng, Request)):
+        reqs = [req_t(rid=i, prompt=_prompt(n, i), max_new_tokens=b)
+                for i, (n, b, _, _) in enumerate(mix)]
+        streams.append(_drive(eng, reqs, mix))
+    assert streams[0] == streams[1]
+    assert [len(s) for s in streams[1]] == [5, 2, 3]
+    for name in COUNTERS:
+        assert getattr(t_eng.stats, name) == getattr(j_eng.stats, name), name
