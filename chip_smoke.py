@@ -14,20 +14,27 @@ Phases (any failure exits non-zero):
    (tolerances below): K1 paged decode attention at max_seq 512 and 2048
    tables, K2 flash attention over its masks, dtypes, head dims, head
    groupings and lengths up to 2048, K3 fused gated FFN over both
-   activations, dtypes, ragged and large M and two widths.  Each is then
-   timed at the serving path's shapes beside its plain version, its
-   byte/operation bound and one library call.
-3. serving — ``ServingEngine`` serves full-width ``paper-backbone``
-   (paged pool, ``paged_kernel=True``, ``kv_dtype="int8"``) from random
-   weights made from a seed: two waves of 16 short requests at max_seq
+   activations, dtypes, ragged and large M and two widths, K6 SSD scan
+   over ragged and multi-chunk lengths, groups, head/state widths,
+   dtypes and both layouts.  Each is then timed at the serving path's
+   shapes beside its plain version, its byte/operation bound and one
+   library call where there is one.
+3. serving — ``ServingEngine`` serves from random weights made from a
+   seed: full-width ``paper-backbone`` paged (``paged_kernel=True``,
+   ``kv_dtype="int8"``) in two waves of 16 short requests at max_seq
    512, then a long wave of 16 requests at max_seq 2048 (prompt buckets
-   1024 and 2048, served twice).  Asserts budgets, the launches of each
-   kernel against the engine's decode steps and prefill calls, and no
-   new program when a wave repeats; prints TTFT per bucket, the
-   decode-step time and a profile of a decode step.
-4. card against CPU — an f32-activation variant serves 5 greedy requests
-   (one at bucket 1024) on the card and through the port's plain
-   versions on the CPU; the token streams must be equal.
+   1024 and 2048, served twice); full-width ``mamba2-370m`` in the
+   batched mode, two waves of 16 requests of 8-2000 tokens at max_seq
+   4096; and one short batched wave of ``paper-backbone``.  Asserts
+   budgets, the launches of each kernel against each path's decode
+   steps and prefill calls, and no new program when a wave repeats;
+   prints TTFT per bucket, the decode-step time and device profiles of
+   a decode step and of a long prefill call.
+4. card against CPU — f32-activation variants serve greedy requests on
+   the card and through the port's plain versions on the CPU: 5 of
+   ``paper-backbone`` paged (one at bucket 1024) and 4 of
+   ``mamba2-370m`` batched with f32 caches; the token streams must be
+   equal.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the serving path and its times; the last line is
@@ -56,6 +63,12 @@ TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=1e-2)}
 FFN_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
            "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+# the SSD scan's y reaches |y| ~ 20 after f32 sums of up to 256 x 128
+# terms taken in another order than the plain einsums: atol 1e-3 (~5e-5
+# of the largest output); its final state (|state| ~ 3) atol 1e-4
+SSD_TOL = {"float32": dict(atol=1e-3, rtol=1e-4),
+           "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+STATE_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def log(msg: str) -> None:
@@ -444,6 +457,126 @@ def phase_ffn(torch):
             "shape": "M 8 (a decode step), D 256, F 1024, bf16, silu"}
 
 
+def ssd_case(torch, gen, b, s, h, g, p, n, dtype):
+    """x (B,S,H,P) and b, c (B,S,G,N) as views of one (B,S,conv_dim)
+    buffer, like the model's views of its conv output; dt (B,S,H) f32
+    after softplus; a (H,) < 0."""
+    dt_ = getattr(torch, dtype)
+    conv = torch.randn(b, s, h * p + 2 * g * n, generator=gen)
+    conv[..., h * p:] *= n ** -0.25
+    conv = conv.to(dt_).cuda()
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bm = conv[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = conv[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen) - 1.0).cuda()
+    a = -torch.exp(torch.randn(h, generator=gen) * 0.5).cuda()
+    return x, dt, a, bm, cm
+
+
+def ssd_work(b, s, h, g, p, n, chunk, x_bytes, y_bytes):
+    """(bytes, operations) one SSD scan needs: each input read once and
+    each output written once; the products over the causal pairs of
+    each chunk (scores over N, weights times x over P) plus the carried
+    state's term and the state update (2 P N a row each)."""
+    nbytes = (b * s * h * p * (x_bytes + y_bytes) + b * s * h * 4 + h * 4
+              + 2 * b * s * g * n * x_bytes + b * h * p * n * 4)
+    flops = 0
+    for c0 in range(0, s, chunk):
+        rows = min(chunk, s - c0)
+        flops += rows * (rows + 1) // 2 * 2 * (n + p) + rows * 4 * p * n
+    return nbytes, flops * b * h
+
+
+def phase_ssd(torch):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_kernel_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import ssd_scan_ref
+    gen = torch.Generator().manual_seed(8642)
+    max_err = 0.0
+    n_cases = 0
+    for s in (16, 200, 256, 1000, 2048):
+        for p, n in ((64, 128), (32, 32)):
+            for dtype in ("bfloat16", "float32"):
+                for g in (1, 4):
+                    # the model's layout, against ssm.ssd_scan_ref
+                    x, dt, a, bm, cm = ssd_case(torch, gen, 2, s, 8, g, p, n,
+                                                dtype)
+                    y, st = ssd_scan(x, dt, a, bm, cm, chunk=256)
+                    yr, str_ = ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
+                    torch.cuda.synchronize()
+                    what = f"S={s} P={p} N={n} G={g} {dtype}"
+                    err = check_close("ssd_scan", y, yr, SSD_TOL[dtype],
+                                      "y " + what)
+                    check_close("ssd_scan", st, str_, STATE_TOL,
+                                "state " + what)
+                    y2, st2 = ssd_scan(x, dt, a, bm, cm, chunk=256)
+                    if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                        raise AssertionError("ssd_scan does not repeat")
+                    max_err = max(max_err, err)
+                    n_cases += 1
+                # the Pallas layout through ops.ssd (f32 y), against
+                # ref.ssd_scan_kernel_ref: 8 rows, each its own head
+                x, dt, a, bm, cm = ssd_case(torch, gen, 1, s, 8, 8, p, n,
+                                            dtype)
+                kx, kdt = x[0].transpose(0, 1), dt[0].transpose(0, 1)
+                kb, kc = bm[0].transpose(0, 1), cm[0].transpose(0, 1)
+                y, st = ops.ssd(kx, kdt, a, kb, kc, chunk=128)
+                yr, str_ = ssd_scan_kernel_ref(kx.float(), kdt, a, kb, kc,
+                                               128)
+                torch.cuda.synchronize()
+                what = f"ops.ssd S={s} P={p} N={n} {dtype}"
+                err = check_close("ssd_scan", y, yr, SSD_TOL["float32"],
+                                  "y " + what)
+                check_close("ssd_scan", st, str_, STATE_TOL, "state " + what)
+                max_err = max(max_err, err)
+                n_cases += 1
+    log(f"ssd_scan == plain version on {n_cases} cases, max_abs_err "
+        f"{max_err:.3g}")
+
+    # the mamba2 prefill burst, the main path's shape: 8 prompts x 2048
+    # tokens, 32 heads of 64, state 128, one group, chunk 256, x/b/c as
+    # views of a 2304-wide conv row; checked in f32 and in bf16, then
+    # timed in bf16 in and out
+    b, s, h, g, p, n = 8, 2048, 32, 1, 64, 128
+    for dtype in ("float32", "bfloat16"):
+        x, dt, a, bm, cm = ssd_case(torch, gen, b, s, h, g, p, n, dtype)
+        y, st = ssd_scan(x, dt, a, bm, cm, chunk=256)
+        yr, str_ = ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
+        torch.cuda.synchronize()
+        what = f"burst {b} x {s} H={h} G={g} {dtype}"
+        err = check_close("ssd_scan", y, yr, SSD_TOL[dtype], "y " + what)
+        check_close("ssd_scan", st, str_, STATE_TOL, "state " + what)
+        max_err = max(max_err, err)
+        n_cases += 1
+        del y, st, yr, str_
+    log(f"ssd_scan == plain version at the burst shape in f32 and bf16; "
+        f"{n_cases} cases in all, max_abs_err {max_err:.3g}")
+    ms = cuda_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=256),
+                 iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: ssd_scan_ref(x, dt, a, bm, cm,
+                                                   chunk=256),
+                       iters=3, warmup=1)
+    nbytes, flops = ssd_work(b, s, h, g, p, n, 256, 2, 2)
+    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    log(f"ssd_scan ({b} x {s} tokens, H {h}, P {p}, N {n}, bf16, chunk "
+        f"256): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+        f"{bound_ms:.5f} ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB); no library call computes it")
+    one_ms = cuda_ms(torch, lambda: ssd_scan(x[:1], dt[:1], a, bm[:1],
+                                             cm[:1], chunk=256),
+                     iters=10, warmup=2)
+    log(f"ssd_scan (1 x {s} tokens, 32 blocks): kernel_ms {one_ms:.4f}")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:82",
+            "launches": None, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": "8 x 2048 tokens, H 32, P 64, N 128, bf16, chunk 256"}
+
+
 # ---------------------------------------------------------------- phase 3
 def _prompts(n_req, seed, vocab):
     """``n_req`` prompts of 8..200 tokens.  The lengths are fixed, so every
@@ -505,38 +638,48 @@ def serve_wave(torch, eng, prompts, rid_base, new_tokens):
     return (eng.stats.tokens_out - tokens0) / wall, step_ms, reqs
 
 
-def zero_counts():
+def _kernel_fns():
     from repro_torch.kernels import (flash_attention, fused_ffn,
-                                     paged_decode_attention)
-    for fn in (paged_decode_attention, flash_attention, fused_ffn):
+                                     paged_decode_attention, ssd_scan)
+    return {"paged_decode_attention": paged_decode_attention,
+            "flash_attention": flash_attention, "fused_ffn": fused_ffn,
+            "ssd_scan": ssd_scan}
+
+
+def zero_counts():
+    for fn in _kernel_fns().values():
         fn.launches = 0
 
 
 def check_counts(engines, what):
     """Read the launch counts of one path's run and hold them to the
-    counters of the engines that served it.  Returns ``{kernel name:
+    counters of the engines that served it: the paged step runs K1 and
+    K3 per layer, the dense batched step K3; a dense prefill call runs
+    K2 and K3 per layer, an SSM prefill call K6.  Every kernel of the
+    path must have launched, and no other.  Returns ``{kernel name:
     launches}``."""
-    from repro_torch.kernels import (flash_attention, fused_ffn,
-                                     paged_decode_attention)
-    layers = engines[0].cfg.num_layers
+    eng = engines[0]
+    layers = eng.cfg.num_layers
     decode = sum(e.stats.decode_calls for e in engines)
     prefill = sum(e.stats.prefill_calls for e in engines)
-    counts = {"paged_decode_attention": paged_decode_attention.launches,
-              "flash_attention": flash_attention.launches,
-              "fused_ffn": fused_ffn.launches}
-    expect = {"paged_decode_attention": decode * layers,
-              "flash_attention": prefill * layers,
-              "fused_ffn": (prefill + decode) * layers}
+    counts = {name: fn.launches for name, fn in _kernel_fns().items()}
+    expect = dict.fromkeys(counts, 0)
+    if eng.cfg.arch_type == "ssm":
+        expect["ssd_scan"] = prefill * layers
+    else:
+        expect["flash_attention"] = prefill * layers
+        expect["fused_ffn"] = (prefill + decode) * layers
+        if eng.decode_mode == "paged":
+            expect["paged_decode_attention"] = decode * layers
     if counts != expect:
         raise AssertionError(f"{what}: launches {counts}, expected {expect} "
                              f"({decode} decode steps, {prefill} prefill "
                              f"calls, {layers} layers)")
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"{what}: {name} never launched")
+    if not decode or not prefill:
+        raise AssertionError(f"{what}: the path did not run")
     log(f"{what}: {decode} decode steps, {prefill} prefill calls -> "
         f"launches {counts}")
-    return counts
+    return {name: n for name, n in counts.items() if n}
 
 
 def ttft_by_bucket(eng, reqs):
@@ -562,8 +705,8 @@ def phase_serving(torch, name):
 
     # --- path 1: two waves of short prompts at max_seq 512
     eng = ServingEngine(cfg, params, slots=8, max_seq=512, block_size=16,
-                        opts=opts, compile_cache=CompileCache(),
-                        device="cuda")
+                        opts=opts, decode_mode="paged",
+                        compile_cache=CompileCache(), device="cuda")
     zero_counts()
     tps1, ms1, _ = serve_wave(torch, eng, _prompts(16, 1, cfg.vocab_size),
                               0, 32)
@@ -592,8 +735,8 @@ def phase_serving(torch, name):
     zero_counts()
     for wave in range(2):
         eng = ServingEngine(cfg, params, slots=8, max_seq=2048,
-                            block_size=16, opts=opts, compile_cache=cache,
-                            device="cuda")
+                            block_size=16, opts=opts, decode_mode="paged",
+                            compile_cache=cache, device="cuda")
         engines.append(eng)
         tps, ms, reqs = serve_wave(
             torch, eng, _long_prompts(10 + wave, cfg.vocab_size),
@@ -614,8 +757,71 @@ def phase_serving(torch, name):
         totals[k] = totals.get(k, 0) + n
     profile_long_prefill(torch, lambda: ServingEngine(
         cfg, params, slots=8, max_seq=2048, block_size=16, opts=opts,
-        compile_cache=cache, device="cuda"))
+        decode_mode="paged", compile_cache=cache, device="cuda"))
     return totals
+
+
+def _mamba_prompts(seed, vocab):
+    """16 prompts of 8..2000 tokens, two in each bucket from 16 to 2048,
+    interleaved short and long.  The lengths are fixed, so a repeat hits
+    the same buckets and bursts; ``seed`` draws the tokens."""
+    import numpy as np
+    lens = [8, 2000, 30, 900, 60, 400, 100, 200,
+            12, 1800, 25, 1000, 50, 500, 120, 250]
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def phase_batched(torch, name):
+    """The batched decode mode: full-width mamba2-370m (two waves, K6 on
+    every prefill), then a short wave of full-width paper-backbone
+    (dense KV, K2 and K3).  Returns the K6 launches of the mamba path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import CompileCache, ServingEngine
+    cfg = get_config("mamba2-370m")
+    params = init_params(cfg, seed=0, device="cuda")
+    cache = CompileCache()
+
+    def engine():
+        return ServingEngine(cfg, params, slots=8, max_seq=4096,
+                             decode_mode="batched", compile_cache=cache,
+                             device="cuda")
+
+    eng = engine()
+    zero_counts()
+    tps1, ms1, reqs1 = serve_wave(torch, eng,
+                                  _mamba_prompts(1, cfg.vocab_size), 0, 32)
+    warm = eng.stats.recompiles
+    tps2, ms2, reqs2 = serve_wave(torch, eng,
+                                  _mamba_prompts(2, cfg.vocab_size), 100, 32)
+    counts = check_counts([eng], "mamba2-370m batched, two waves")
+    if eng.stats.recompiles != warm:
+        raise AssertionError(f"the second mamba2 wave built "
+                             f"{eng.stats.recompiles - warm} new programs")
+    log(f"serving mamba2-370m batched on {name}: wave 1 {tps1:.1f} tok/s, "
+        f"{ms1:.3f} ms/decode step; wave 2 {tps2:.1f} tok/s, {ms2:.3f} "
+        f"ms/decode step; decode steps {eng.stats.decode_calls}, prefill "
+        f"calls {eng.stats.prefill_calls}, programs built {warm}")
+    for wave, (e, reqs) in enumerate(((eng, reqs1), (eng, reqs2))):
+        log(f"  mamba2 wave {wave + 1} TTFT by bucket: " + "; ".join(
+            f"{b}: mean {mean:.1f} ms, max {mx:.1f} ms over {n}"
+            for b, (mean, mx, n) in ttft_by_bucket(e, reqs).items()))
+    profile_decode_steps(torch, eng, ms2)
+    profile_long_prefill(torch, engine)
+
+    # --- paper-backbone, dense KV in the batched mode: one short wave
+    pcfg = get_config("paper-backbone")
+    peng = ServingEngine(pcfg, init_params(pcfg, seed=0, device="cuda"),
+                         slots=8, max_seq=512, decode_mode="batched",
+                         compile_cache=CompileCache(), device="cuda")
+    zero_counts()
+    tps, ms, _ = serve_wave(torch, peng, _prompts(16, 4, pcfg.vocab_size),
+                            3000, 32)
+    check_counts([peng], "paper-backbone batched (dense KV), one wave")
+    log(f"serving paper-backbone batched on {name}: {tps:.1f} tok/s, "
+        f"{ms:.3f} ms/decode step")
+    return counts
 
 
 def device_profile(torch, fn, reps, wall_ms, what):
@@ -643,7 +849,7 @@ def device_profile(torch, fn, reps, wall_ms, what):
     ops = sum(e.count for e in kernels) / reps
     log(f"{what}: device busy {busy_ms:.3f} ms over {ops:.0f} device ops; "
         f"idle share {1 - busy_ms / wall_ms:.3f} of {wall_ms:.3f} ms")
-    for e in sorted(kernels, key=device_us, reverse=True)[:6]:
+    for e in sorted(kernels, key=device_us, reverse=True)[:8]:
         log(f"  {device_us(e) / 1e3 / reps:.4f} ms  {e.count / reps:5.0f}x  "
             f"{e.key[:70]}")
 
@@ -706,32 +912,32 @@ def top2_margin(torch, params, cfg, tokens):
     return float(top[0] - top[1])
 
 
-def phase_card_vs_cpu(torch):
+def card_vs_cpu(torch, cfg, lens, new_tokens, seed, what, **engine_kw):
+    """Greedy streams of ``cfg`` (f32 activations) from the same seeded
+    weights on the card and on the CPU must be equal; on a mismatch the
+    CPU's top-2 logit margin at the first differing token is printed."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    from repro_torch.models.runtime import RuntimeOptions
     from repro_torch.serving import (CompileCache, Request, SamplingOpts,
                                      ServingEngine)
-    cfg = get_config("paper-backbone").with_updates(
-        activation_dtype="float32")
-    opts = RuntimeOptions(paged_kernel=True, kv_dtype="int8")
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (8, 37, 120, 200, 700)]
+               for n in lens]
     streams = {}
     for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
         params = init_params(cfg, seed=0, device=device)
-        eng = ServingEngine(cfg, params, slots=4, max_seq=2048,
-                            block_size=16, opts=opts,
-                            compile_cache=CompileCache(), device=device)
-        reqs = [Request(rid=i, prompt=p, max_new_tokens=32,
+        eng = ServingEngine(cfg, params, slots=4,
+                            compile_cache=CompileCache(), device=device,
+                            **engine_kw)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens,
                         sampling=SamplingOpts(temperature=0.0))
                 for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
         eng.drain()
         streams[device] = [tuple(r.generated) for r in reqs]
+        log(f"{what} on {device}: {time.perf_counter() - t0:.1f} s")
     if streams["cuda"] != streams["cpu"]:
         for p, a, b in zip(prompts, streams["cuda"], streams["cpu"]):
             if a != b:
@@ -741,18 +947,39 @@ def phase_card_vs_cpu(torch):
                 log(f"prompt of {len(p)} tokens: streams differ at step "
                     f"{i} (card {a[i]}, CPU {b[i]}); CPU top-2 logit "
                     f"margin there {margin:.3g}")
-        raise AssertionError(f"card and CPU greedy streams differ:\n"
+        raise AssertionError(f"{what}: card and CPU greedy streams differ:\n"
                              f"cuda {streams['cuda']}\ncpu  {streams['cpu']}")
-    log(f"card == CPU greedy streams on {len(prompts)} requests x 32 tokens "
-        "(prompts 8..700, buckets 16..1024)")
+    log(f"{what}: card == CPU greedy streams on {len(prompts)} requests x "
+        f"{new_tokens} tokens (prompts {min(lens)}..{max(lens)})")
+
+
+def phase_card_vs_cpu(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.runtime import RuntimeOptions
+    card_vs_cpu(torch, get_config("paper-backbone").with_updates(
+        activation_dtype="float32"), (8, 37, 120, 200, 700), 32, 3,
+        "paper-backbone paged int8 (buckets 16..1024)", max_seq=2048,
+        block_size=16, decode_mode="paged",
+        opts=RuntimeOptions(paged_kernel=True, kv_dtype="int8"))
+    # the caches in f32 too: a bf16 conv cache rounds every layer's conv
+    # tail at every step, so the f32 summation-order differences of card
+    # and CPU (~1e-6) flip bf16 ulps that compound into other tokens
+    # after some steps
+    card_vs_cpu(torch, get_config("mamba2-370m").with_updates(
+        activation_dtype="float32"), (8, 50, 120, 200), 16, 4,
+        "mamba2-370m batched, f32 caches (buckets 16..256)", max_seq=512,
+        decode_mode="batched",
+        opts=RuntimeOptions(kv_cache_dtype="float32"))
 
 
 def main() -> int:
     import torch
     smi = phase_device(torch)
     name = torch.cuda.get_device_name(0)
-    kernels = [phase_paged(torch), phase_flash(torch), phase_ffn(torch)]
+    kernels = [phase_paged(torch), phase_flash(torch), phase_ffn(torch),
+               phase_ssd(torch)]
     launches = phase_serving(torch, smi)
+    launches.update(phase_batched(torch, smi))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     phase_card_vs_cpu(torch)

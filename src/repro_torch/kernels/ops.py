@@ -14,6 +14,9 @@ import torch
 from .flash_attn import flash_attention
 from .fused_ffn import fused_ffn
 from .paged_decode_attn import paged_decode_attention
+from .ssd_scan import ssd_scan
+
+__all__ = ["gated_ffn", "attention", "paged_attention", "ssd", "ssd_scan"]
 
 
 def gated_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -54,3 +57,17 @@ def paged_attention(q: torch.Tensor, k_blocks: torch.Tensor,
     return paged_decode_attention(q, k_blocks, v_blocks, tables, pos, k_new,
                                   v_new, k_scale=k_scale, v_scale=v_scale,
                                   window=window)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, chunk: int = 128):
+    """Chunked SSD scan in the JAX package's kernel layout: x (BH, S, P),
+    dt (BH, S), a (BH,), b, c (BH, S, N) — every row its own sequence and
+    head, i.e. the model layout's view B = 1, H = G = BH.  Returns
+    ``(y (BH, S, P) f32, final state (BH, P, N) f32)`` like the Pallas
+    kernel (y as a view of the model layout's (1, S, BH, P) result).  The
+    device of ``x`` picks the kernel or its plain version."""
+    y, state = ssd_scan(x.transpose(0, 1)[None], dt.transpose(0, 1)[None],
+                        a, b.transpose(0, 1)[None], c.transpose(0, 1)[None],
+                        chunk=chunk, out_dtype=torch.float32)
+    return y[0].transpose(0, 1), state[0]

@@ -102,3 +102,90 @@ def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1) * mask.any(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+# ------------------------------------------------------------- ssd_scan ----
+def segsum(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular segment sums: out[..., i, j] = sum_{k=j+1..i}
+    x[..., k], and -inf above the diagonal."""
+    t = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    ss = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    return ss.masked_fill(~mask, float("-inf"))
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+                 initial_state: Optional[torch.Tensor] = None):
+    """Chunked SSD (Mamba2's state-space duality), the plain version.
+
+    x: (B, S, H, P) input (pre-discretization); dt: (B, S, H) positive
+    step sizes (softplus applied by the caller); a: (H,) negative decay
+    rates; b, c: (B, S, G, N) input/output projections, G groups
+    broadcast to H.  A ragged S is padded to a whole chunk with dt = 0
+    rows (decay exp(0) = 1 and zero input leave the carried state as it
+    is, so the final state is exact).  Returns (y (B, S, H, P) in x's
+    dtype, final state (B, H, P, N) f32).  The einsums materialise
+    (B, S/chunk, H, chunk, chunk) f32 decays: a test oracle, not a
+    serving path."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    chunk = min(chunk, s)
+    if s % chunk:
+        pad = chunk - s % chunk
+        y, final = ssd_scan_ref(
+            torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)),
+            torch.nn.functional.pad(dt, (0, 0, 0, pad)), a,
+            torch.nn.functional.pad(b, (0, 0, 0, 0, 0, pad)),
+            torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad)),
+            chunk=chunk, initial_state=initial_state)
+        return y[:, :s], final
+    nc = s // chunk
+    rep = h // g
+
+    xd = (x * dt[..., None]).float()                     # discretized input
+    bh = b.repeat_interleave(rep, dim=2).float()         # (B, S, H, N)
+    ch = c.repeat_interleave(rep, dim=2).float()
+    xb = xd.reshape(bsz, nc, chunk, h, p)
+    bb = bh.reshape(bsz, nc, chunk, h, n)
+    cb = ch.reshape(bsz, nc, chunk, h, n)
+    da = (dt.float() * a.float()).reshape(bsz, nc, chunk, h)
+    da = da.movedim(-1, -2)                              # (B, nc, H, L)
+    da_cs = torch.cumsum(da, dim=-1)
+
+    # intra-chunk (diagonal blocks)
+    decay = torch.exp(segsum(da))                        # (B, nc, H, L, L)
+    y_diag = torch.einsum("bclhn,bcshn,bchls,bcshp->bclhp", cb, bb, decay,
+                          xb)
+    # chunk-final states
+    decay_states = torch.exp(da_cs[..., -1:] - da_cs)    # (B, nc, H, L)
+    states = torch.einsum("bclhn,bchl,bclhp->bchpn", bb, decay_states, xb)
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(da_cs[..., -1])              # (B, nc, H)
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if initial_state is None else initial_state.float())
+    prev = []
+    for ci in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    prev_states = torch.stack(prev, dim=1)               # (B, nc, H, P, N)
+    # contribution of the carried state
+    state_decay = torch.exp(da_cs)                       # (B, nc, H, L)
+    y_off = torch.einsum("bclhn,bchpn,bchl->bclhp", cb, prev_states,
+                         state_decay)
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    return y.to(x.dtype), state
+
+
+def ssd_scan_kernel_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor, chunk: int):
+    """Per-(batch·head) SSD in the kernel's layout: x (BH, S, P), dt
+    (BH, S), a (BH,), b, c (BH, S, N).  Each row is its own sequence and
+    head — the view B = 1, H = G = BH of :func:`ssd_scan_ref`.  Returns
+    (y (BH, S, P) in x's dtype, final state (BH, P, N) f32)."""
+    y, st = ssd_scan_ref(x.transpose(0, 1)[None], dt.transpose(0, 1)[None],
+                         a, b.transpose(0, 1)[None], c.transpose(0, 1)[None],
+                         chunk=chunk)
+    return y[0].transpose(0, 1), st[0]

@@ -7,8 +7,10 @@ through the flash kernel (:func:`repro_torch.kernels.ops.attention`),
 which computes the same function with bounded memory; on the CPU they
 run as the plain ``full_attention`` and ``chunked_attention`` below, as
 the JAX package runs them.  ``banded`` is not ported yet.  Decode
-attention on the serving path reads the paged pool through
-:func:`repro_torch.kernels.ops.paged_attention`.
+attention reads the paged pool through
+:func:`repro_torch.kernels.ops.paged_attention`, or a dense cache through
+the plain :func:`decode_attention` (plain ``jnp`` in the JAX package
+too).
 """
 from __future__ import annotations
 
@@ -137,6 +139,47 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_chunk=q_chunk, k_chunk=min(k_chunk, s))
     return full_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: int = 0) -> torch.Tensor:
+    """One-token attention against a dense cache.
+
+    q: (B, H, hd); caches: (B, S, K, hd); pos: a scalar or (B,) — the
+    row of the current token, which the cache already holds.  Columns
+    ``<= pos`` are attended; ``window > 0`` keeps the static-width
+    window ending at ``pos`` that the JAX package slices (its start
+    clipped to ``[0, S - window]``)."""
+    b, h, hd = q.shape
+    kheads, s_len = k_cache.shape[2], k_cache.shape[1]
+    p = pos.reshape(-1, 1).expand(b, 1)
+    cols = torch.arange(s_len, device=q.device)[None, :]
+    mask = cols <= p
+    if window and window < s_len:
+        start = torch.clamp(p + 1 - window, 0, s_len - window)
+        mask &= (cols >= start) & (cols < start + window)
+    qg = q.reshape(b, kheads, h // kheads, hd).float()
+    scores = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float()) \
+        * (1.0 / math.sqrt(hd))
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", probs, v_cache.float())
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor,
+                    pos: torch.Tensor):
+    """Insert one token per row, in place.  k_new/v_new: (B, K, hd); pos:
+    a scalar or (B,), clamped to ``S - 1`` as ``dynamic_update_slice``
+    clamps its start in the JAX package.  Returns the caches."""
+    b, s_len = k_cache.shape[0], k_cache.shape[1]
+    rows = torch.clamp(pos.reshape(-1).expand(b), max=s_len - 1).long()
+    idx = torch.arange(b, device=k_cache.device)
+    k_cache[idx, rows] = k_new.to(k_cache.dtype)
+    v_cache[idx, rows] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
 
 
 def self_attention(params: Params, x: torch.Tensor, *, num_heads: int,

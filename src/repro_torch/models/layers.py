@@ -33,6 +33,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x * (1.0 + scale.float())).to(dt)
 
 
+def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2-style gated RMSNorm: norm(x * silu(gate)) * (1+scale); the
+    silu in f32, then back to x's dtype."""
+    return rms_norm(x * F.silu(gate.float()).to(x.dtype), scale, eps)
+
+
 # --------------------------------------------------------------------- rotary
 def rotary_embedding(positions: torch.Tensor, head_dim: int,
                      theta: float = 10000.0):
@@ -110,6 +117,38 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: (..., d) @ (vocab, d)^T -> (..., vocab)."""
     return x @ table.T
+
+
+def matmul_promote(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as ``jnp`` computes a
+    product of mixed float dtypes (f32 @ bf16 is an f32 product)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+# -------------------------------------------------------------- conv frontend
+def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv.  x: (B, S, C); weight: (C, W); bias: (C,).
+    The W taps are summed in f32 as shifted products (no (B, S, C, W)
+    window tensor), rounded once to x's dtype, then the bias is added."""
+    w = weight.shape[1]
+    s = x.shape[1]
+    pad = F.pad(x.float(), (0, 0, w - 1, 0))
+    wf = weight.float()
+    out = pad[:, 0:s] * wf[:, 0]
+    for k in range(1, w):
+        out = out + pad[:, k:k + s] * wf[:, k]
+    return (out.to(x.dtype) + bias).to(x.dtype)
+
+
+def causal_conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
+                       weight: torch.Tensor, bias: torch.Tensor):
+    """One decode step.  x_t: (B, C); conv_state: (B, W-1, C).  Returns
+    ``(out (B, C), new state (B, W-1, C))``."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)    # (B, W, C)
+    out = torch.einsum("bwc,cw->bc", window.float(), weight.float())
+    return (out.to(x_t.dtype) + bias).to(x_t.dtype), window[:, 1:, :]
 
 
 # --------------------------------------------------------------------- misc

@@ -1,11 +1,15 @@
-"""Model API of the serving path: prefill, paged pool and the paged step.
+"""Model API of the serving path: prefill, the dense and paged decode
+steps, and burst admission.
 
-Ported from the JAX package for attention stacks.  Caches are dicts of
-tensors in the JAX package's layouts.  Where the JAX package returns a
-new pool or slot cache (and the serving engine donates the old buffers),
-these functions update the tensors they are given in place and return
-the same dicts — the pool is the largest object on the card and is never
-copied.  The layer walk is a Python loop where the JAX package scans.
+Ported from the JAX package for dense attention stacks and the SSM
+stack.  Caches are dicts of tensors in the JAX package's layouts.  Where
+the JAX package returns a new cache, pool or slot cache (and the serving
+engine donates the old buffers), these functions update the tensors they
+are given in place and return the same dicts: the pool, the dense KV and
+the SSM state are the largest objects on the card and are never copied
+by a step.  The layer walk is a Python loop where the JAX package scans,
+and the slot axis of the batched steps is a batch dimension where the
+JAX package ``vmap``s a batch=1 step.
 
 Sampling keys are ``int64`` tensors holding the two uint32 words of a
 threefry key (see :mod:`repro_torch.models.prng`).
@@ -15,9 +19,11 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import attention as attn_mod
 from . import prng
+from . import ssm as ssm_mod
 from ..kernels import ops as kernel_ops
 from ..kernels.act_quant import kv_quant_rows
 from .configs import LOCAL, ModelConfig
@@ -30,10 +36,13 @@ from .transformer import _pattern_period, _select_impl, ffn_or_moe_block
 
 Cache = Dict[str, Any]
 
-__all__ = ["init_cache", "prefill", "Cache", "init_slot_cache",
-           "admit_slot", "sample_logits", "init_paged_pool",
-           "init_paged_slot_cache", "paged_kernel_sample_batched_step",
-           "paged_prefill_admit", "paged_copy_block"]
+__all__ = ["init_cache", "prefill", "decode_step", "Cache",
+           "init_slot_cache", "write_cache_slot", "admit_slot",
+           "sample_logits", "sample_step", "sample_batched_step",
+           "greedy_batched_step", "batched_prefill_admit",
+           "init_paged_pool", "init_paged_slot_cache",
+           "paged_kernel_sample_batched_step", "paged_prefill_admit",
+           "paged_copy_block"]
 
 
 def _n_attn_layers(cfg: ModelConfig) -> int:
@@ -42,26 +51,46 @@ def _n_attn_layers(cfg: ModelConfig) -> int:
     return cfg.num_layers
 
 
-def _check_attention_stack(cfg: ModelConfig) -> None:
-    if cfg.arch_type in ("ssm", "hybrid", "moe") or cfg.is_encoder_decoder \
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.arch_type in ("hybrid", "moe") or cfg.is_encoder_decoder \
             or cfg.vision_embed_dim:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention stacks are ported so far")
+            f"{cfg.name}: only dense attention stacks and the SSM stack "
+            "are ported so far")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                opts: RuntimeOptions = DEFAULT_OPTIONS,
                device: str = "cuda") -> Cache:
-    _check_attention_stack(cfg)
+    """A zeroed decode cache: ``pos``, attention ``k``/``v`` of shape
+    ``(layers, batch, max_seq, kv_heads, head_dim)`` in
+    ``kv_cache_dtype`` for attention stacks; for the SSM stack the f32
+    ``ssm`` state ``(layers, batch, H, P, N)`` and the ``conv`` tail
+    ``(layers, batch, W-1, conv_dim)`` in ``kv_cache_dtype``."""
+    _check_ported(cfg)
     kv_dt = dtype_of(opts.kv_cache_dtype)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=kv_dt, device=device),
-            "v": torch.zeros(shape, dtype=kv_dt, device=device)}
+    cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    n_attn = _n_attn_layers(cfg)
+    if n_attn:
+        shape = (n_attn, batch, max_seq, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=kv_dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=kv_dt, device=device)
+    if cfg.arch_type == "ssm":
+        st, cv = ssm_mod.mamba_state_shapes(cfg, batch)
+        cache["ssm"] = torch.zeros((cfg.num_layers,) + st,
+                                   dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros((cfg.num_layers,) + cv, dtype=kv_dt,
+                                    device=device)
+    return cache
 
 
 # ====================================================== slot-stacked cache ==
+# The serving engine holds ONE cache for all of its decode slots: every
+# leaf of a batch=1 cache gains a leading ``(slots,)`` axis, ``pos``
+# included (each slot sits at its own position).  The batched steps view
+# that cache as one batch of ``slots`` sequences.
+
 def init_slot_cache(cfg: ModelConfig, slots: int, max_seq: int,
                     opts: RuntimeOptions = DEFAULT_OPTIONS,
                     device: str = "cuda") -> Cache:
@@ -82,24 +111,45 @@ def _sample_state(slots: int, device) -> Cache:
             "top_k": torch.zeros((slots,), dtype=torch.int32, device=device)}
 
 
+def _put(arr: torch.Tensor, slot, val) -> None:
+    """``arr[slot] = val`` in place; ``slot`` may be an int or a
+    one-element tensor already on the device (no host sync)."""
+    idx = torch.as_tensor(slot, device=arr.device).reshape(1).long()
+    val = torch.as_tensor(val, device=arr.device).to(arr.dtype)
+    arr.index_copy_(0, idx, val.reshape((1,) + tuple(arr.shape[1:])))
+
+
+def write_cache_slot(stacked: Cache, cache: Cache, slot) -> Cache:
+    """Write a batch=1 cache (e.g. a fresh prefill) into slot ``slot`` of
+    a slot-stacked cache, in place, leaf by leaf (every leaf of
+    ``cache`` must have its slot's shape)."""
+    for name, leaf in cache.items():
+        _put(stacked[name], slot, leaf)
+    return stacked
+
+
 def admit_slot(stacked: Cache, cache: Cache, slot, key: torch.Tensor,
                temp, top_k) -> Cache:
     """Write a batch=1 *model* cache plus its slot sampling state
     (``key (2,)``, ``temp ()``, ``top_k ()``) into slot ``slot`` of a
-    slot-stacked serving cache, in place.  ``slot`` may be an int or a
-    one-element tensor already on the device (no host sync)."""
-    def put(arr, val):
-        idx = torch.as_tensor(slot, device=arr.device).reshape(1).long()
-        val = torch.as_tensor(val, device=arr.device).to(arr.dtype)
-        arr.index_copy_(0, idx, val.reshape((1,) + tuple(arr.shape[1:])))
-
-    for name, leaf in cache.items():
-        put(stacked[name], leaf)
+    slot-stacked serving cache, in place."""
+    write_cache_slot(stacked, cache, slot)
     s = stacked["sample"]
-    put(s["key"], key)
-    put(s["temp"], temp)
-    put(s["top_k"], top_k)
+    _put(s["key"], slot, key)
+    _put(s["temp"], slot, temp)
+    _put(s["top_k"], slot, top_k)
     return stacked
+
+
+def _slot_view(stacked: Cache) -> Cache:
+    """The slot-stacked cache seen as one model cache of batch ``slots``:
+    each ``(slots, layers, 1, ...)`` leaf as a ``(layers, slots, ...)``
+    view (writes land in the stacked tensors), ``pos`` per slot."""
+    view = {"pos": stacked["pos"]}
+    for name, leaf in stacked.items():
+        if name not in ("pos", "sample"):
+            view[name] = leaf[:, :, 0].transpose(0, 1)
+    return view
 
 
 # ================================================================ sampling ==
@@ -138,28 +188,42 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, Cache]:
     """Process a prompt, filling the cache.  Returns (logits, cache).
 
-    Attention stacks only: one walk over the stacked layers computes the
-    activations and captures each layer's rotated K and V (padded to the
-    cache's ``max_seq``)."""
-    _check_attention_stack(cfg)
+    One walk over the stacked layers computes the activations and
+    captures each layer's cache entries: rotated K and V (padded to the
+    cache's ``max_seq``) for attention stacks, the final SSM state and
+    the conv tail for the SSM stack.  Left-padding tokens run through
+    the conv and the scan like any other token, as in the JAX package."""
+    _check_ported(cfg)
     act_dt = dtype_of(cfg.activation_dtype)
     params = cast_params(params, act_dt)
     x = embed_lookup(params["embed"], tokens).to(act_dt)
     s = x.shape[1]
-    max_seq = cache["k"].shape[2]
     kv_dt = dtype_of(opts.kv_cache_dtype)
     kinds, _ = _pattern_period(cfg)
     new_cache = dict(cache)
-    ks, vs = [], []
-    for j in range(cfg.num_layers):
-        layer = layer_slice(params["layers"], j)
-        w = cfg.sliding_window if kinds[j % len(kinds)] == LOCAL else 0
-        x, kk, vv = _attn_prefill_kv(layer, x, cfg, opts, window=w)
-        ks.append(kk.to(kv_dt))
-        vs.append(vv.to(kv_dt))
-    pad = (0, 0, 0, 0, 0, max_seq - s)
-    new_cache["k"] = torch.nn.functional.pad(torch.stack(ks), pad)
-    new_cache["v"] = torch.nn.functional.pad(torch.stack(vs), pad)
+    if cfg.arch_type == "ssm":
+        sts, cvs = [], []
+        for j in range(cfg.num_layers):
+            layer = layer_slice(params["layers"], j)
+            y, st, cv = ssm_mod.mamba_forward_states(
+                layer["mamba"], rms_norm(x, layer["ln"], cfg.norm_eps), cfg)
+            x = x + y.to(x.dtype)
+            sts.append(st)
+            cvs.append(cv.to(kv_dt))
+        new_cache["ssm"] = torch.stack(sts)
+        new_cache["conv"] = torch.stack(cvs)
+    else:
+        max_seq = cache["k"].shape[2]
+        ks, vs = [], []
+        for j in range(cfg.num_layers):
+            layer = layer_slice(params["layers"], j)
+            w = cfg.sliding_window if kinds[j % len(kinds)] == LOCAL else 0
+            x, kk, vv = _attn_prefill_kv(layer, x, cfg, opts, window=w)
+            ks.append(kk.to(kv_dt))
+            vs.append(vv.to(kv_dt))
+        pad = (0, 0, 0, 0, 0, max_seq - s)
+        new_cache["k"] = F.pad(torch.stack(ks), pad)
+        new_cache["v"] = F.pad(torch.stack(vs), pad)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = mask_padded_logits_raw(unembed(params["embed"], x),
                                     cfg.vocab_size)
@@ -180,6 +244,194 @@ def _attn_prefill_kv(layer, x, cfg, opts, window: int = 0):
     x = x + y.to(x.dtype)
     x, _ = ffn_or_moe_block(layer, x, cfg, opts)
     return x, k_rot, v
+
+
+# =========================================================== decode blocks ==
+def _apply_rot1(x: torch.Tensor, sin, cos) -> torch.Tensor:
+    """x: (B, H, hd) one-token rotary."""
+    return apply_rotary(x[:, None], sin, cos)[:, 0]
+
+
+def _decode_qkv(layer: Params, x: torch.Tensor, sin, cos, cfg: ModelConfig):
+    """The one-token attention projections: q (B, H, hd) and k, v
+    (B, kvh, hd), q and k rotated by each row's ``sin``/``cos``."""
+    b, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+    a = layer["attn"]
+    q = matmul_w(h, a["wq"]).reshape(b, cfg.num_heads, hd)
+    k = matmul_w(h, a["wk"]).reshape(b, cfg.num_kv_heads, hd)
+    v = matmul_w(h, a["wv"]).reshape(b, cfg.num_kv_heads, hd)
+    if "bq" in a:
+        q = q + a["bq"].reshape(cfg.num_heads, hd)
+        k = k + a["bk"].reshape(cfg.num_kv_heads, hd)
+        v = v + a["bv"].reshape(cfg.num_kv_heads, hd)
+    return _apply_rot1(q, sin, cos), _apply_rot1(k, sin, cos), v
+
+
+def _decode_out(layer: Params, x: torch.Tensor, out: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Output projection of the attention ``out`` (B, H, hd), then the
+    FFN block."""
+    b, _ = x.shape
+    x = x + matmul_w(out.reshape(b, -1), layer["attn"]["wo"]).to(x.dtype)
+    h2 = rms_norm(x, layer["ln2"], cfg.norm_eps)
+    y = ffn_apply(layer["ffn"], h2, gated=cfg.gated_ffn,
+                  activation=cfg.activation)
+    return x + y.to(x.dtype)
+
+
+def _attn_decode(layer: Params, x: torch.Tensor, k_cache, v_cache, pos,
+                 sin, cos, cfg: ModelConfig, opts: RuntimeOptions, *,
+                 window: int) -> torch.Tensor:
+    """One-token attention block over a dense cache.  x: (B, D);
+    ``k_cache``/``v_cache``: one layer's (B, max_seq, kvh, hd), written
+    in place at each row's ``pos`` (B,)."""
+    q, k, v = _decode_qkv(layer, x, sin, cos, cfg)
+    attn_mod.update_kv_cache(k_cache, v_cache, k, v, pos)
+    out = attn_mod.decode_attention(q, k_cache, v_cache, pos,
+                                    window=window or opts.decode_window)
+    return _decode_out(layer, x, out, cfg)
+
+
+def _mamba_decode(layer: Params, x: torch.Tensor, ssm_state, conv_state,
+                  cfg: ModelConfig):
+    """One Mamba block step; ``ssm_state`` and ``conv_state`` (one layer
+    of the cache) are updated in place."""
+    h = rms_norm(x, layer["ln"], cfg.norm_eps)
+    y, _, _ = ssm_mod.mamba_step(layer["mamba"], h, ssm_state, conv_state,
+                                 cfg)
+    return x + y.to(x.dtype)
+
+
+# ================================================================= decode ==
+def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
+                token: torch.Tensor, opts: RuntimeOptions = DEFAULT_OPTIONS
+                ) -> Tuple[torch.Tensor, Cache]:
+    """Logits for ONE new token per sequence.
+
+    token: (B,) int32; the cache's leaves are ``(layers, B, ...)`` and
+    ``pos`` is a scalar or one position per row.  The KV rows and the
+    SSM/conv state are written in place.  Returns ``(logits (B,
+    padded vocab), cache)`` with ``pos`` advanced by one.
+
+    The KV write row and the attention length are clamped to ``max_seq -
+    1``, as the JAX package's ``dynamic_update_slice`` clamps them: a
+    prompt whose bucket equals ``max_seq`` decodes once at ``pos ==
+    max_seq`` and its new token replaces the last cached key, and free
+    slots of the engine, whose ``pos`` keeps rising, stay in range."""
+    _check_ported(cfg)
+    act_dt = dtype_of(cfg.activation_dtype)
+    params = cast_params(params, act_dt)
+    x = embed_lookup(params["embed"], token).to(act_dt)      # (B, D)
+    pos = cache["pos"]
+    if cfg.arch_type == "ssm":
+        for j in range(cfg.num_layers):
+            layer = layer_slice(params["layers"], j)
+            x = _mamba_decode(layer, x, cache["ssm"][j], cache["conv"][j],
+                              cfg)
+    else:
+        rows = pos.expand(x.shape[0]) if pos.dim() == 0 else pos
+        sin, cos = rotary_embedding(rows[:, None], cfg.resolved_head_dim,
+                                    cfg.rope_theta)
+        att_pos = torch.clamp(rows, max=cache["k"].shape[2] - 1)
+        kinds, _ = _pattern_period(cfg)
+        for j in range(cfg.num_layers):
+            layer = layer_slice(params["layers"], j)
+            w = cfg.sliding_window if kinds[j % len(kinds)] == LOCAL else 0
+            x = _attn_decode(layer, x, cache["k"][j], cache["v"][j],
+                             att_pos, sin, cos, cfg, opts, window=w)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = mask_padded_logits_raw(unembed(params["embed"], x),
+                                    cfg.vocab_size)
+    cache["pos"] = pos + 1
+    return logits, cache
+
+
+def sample_step(params: Params, cfg: ModelConfig, cache: Cache,
+                token: torch.Tensor, opts: RuntimeOptions = DEFAULT_OPTIONS
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One sampling decode step for a single sequence: ``token`` is a
+    ``()`` int32 scalar; ``cache`` a batch=1 cache carrying a
+    ``"sample"`` dict ``{key (2,), temp (), top_k ()}``.  Returns
+    ``(next token, cache)`` with the key advanced."""
+    logits, cache = decode_step(params, cfg, cache, token[None], opts)
+    s = cache["sample"]
+    nxt, key = sample_logits(logits[0], s["key"], s["temp"], s["top_k"],
+                             cfg.vocab_size)
+    s["key"] = key
+    return nxt, cache
+
+
+def sample_batched_step(params: Params, cfg: ModelConfig, cache: Cache,
+                        tokens: torch.Tensor,
+                        opts: RuntimeOptions = DEFAULT_OPTIONS):
+    """One sampling decode step over a slot-stacked cache: the batch=1
+    step of every slot at once, the slot axis as the batch (the JAX
+    package ``vmap``s :func:`sample_step`).  Per-slot temperature, top-k
+    and key come from ``cache["sample"]``; a slot at temperature 0 takes
+    exactly the argmax.  Free slots are decoded too and their outputs
+    ignored.  The cache is updated in place.  Returns ``(next tokens
+    (slots,), positions (slots,), cache)``."""
+    logits, view = decode_step(params, cfg, _slot_view(cache), tokens, opts)
+    s = cache["sample"]
+    nxt, keys = sample_logits(logits, s["key"], s["temp"], s["top_k"],
+                              cfg.vocab_size)
+    s["key"].copy_(keys)
+    cache["pos"] = view["pos"]
+    return nxt, cache["pos"], cache
+
+
+def greedy_batched_step(params: Params, cfg: ModelConfig, cache: Cache,
+                        tokens: torch.Tensor,
+                        opts: RuntimeOptions = DEFAULT_OPTIONS):
+    """One greedy decode step over a slot-stacked cache: the argmax of
+    every slot, with no sampling work (keys are left as they are).
+    Returns ``(next tokens (slots,), positions (slots,), cache)``."""
+    logits, view = decode_step(params, cfg, _slot_view(cache), tokens, opts)
+    nxt = torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+    cache["pos"] = view["pos"]
+    return nxt, cache["pos"], cache
+
+
+# ===================================================== batched admission ====
+def batched_prefill_admit(params: Params, cfg: ModelConfig, stacked: Cache,
+                          tokens: torch.Tensor, slot_ids: torch.Tensor,
+                          keys: torch.Tensor, temps: torch.Tensor,
+                          top_ks: torch.Tensor, opts: RuntimeOptions,
+                          max_seq: int):
+    """Prefill ``k`` left-padded same-bucket prompts in ONE call and write
+    each row's cache, sampling state and first sampled token into its
+    decode slot of the slot-stacked cache (in place).
+
+    ``tokens`` is ``(k, bucket)`` int32; ``slot_ids``/``keys``/``temps``/
+    ``top_ks`` are per row.  Rows are written in order, so a burst padded
+    up to a k-bucket by *prepended* rows aimed at the first real row's
+    slot is overwritten by that row.  The scratch cache is sized to the
+    bucket; each row's KV is zero-padded to ``max_seq`` when it is
+    written.  Returns ``((k,) first tokens, stacked cache)``."""
+    k, bucket = tokens.shape
+    cache = init_cache(cfg, k, min(bucket, max_seq), opts,
+                       device=tokens.device)
+    logits, cache = prefill(params, cfg, tokens, cache, opts)
+    first, new_keys = sample_logits(logits[:, -1], keys, temps, top_ks,
+                                    cfg.vocab_size)
+    for i in range(k):
+        # batch lives at axis 1 of every leaf but the scalar ``pos``
+        row = {}
+        for name, a in cache.items():
+            if a.dim() == 0:
+                row[name] = a
+                continue
+            r = a[:, i:i + 1]
+            want = stacked[name].shape[1:]
+            pad = []
+            for have, full in zip(reversed(r.shape), reversed(want)):
+                pad += [0, full - have]
+            row[name] = F.pad(r, pad) if any(pad) else r
+        admit_slot(stacked, row, slot_ids[i], new_keys[i], temps[i],
+                   top_ks[i])
+    return first, stacked
 
 
 # ============================================================ paged cache ==
@@ -223,7 +475,7 @@ def init_paged_slot_cache(cfg: ModelConfig, slots: int, max_seq: int,
                           device: str = "cuda") -> Cache:
     """A slot-stacked serving cache *without* the dense ``k``/``v`` leaves
     (those live in the block pool): ``pos`` and the ``"sample"`` dict."""
-    _check_attention_stack(cfg)
+    _check_ported(cfg)
     return {"pos": torch.zeros((slots,), dtype=torch.int32, device=device),
             "sample": _sample_state(slots, device)}
 
@@ -244,11 +496,6 @@ def _scatter_kv_rows(pool: Cache, rk: torch.Tensor, rv: torch.Tensor,
     return pool
 
 
-def _apply_rot1(x: torch.Tensor, sin, cos) -> torch.Tensor:
-    """x: (B, H, hd) one-token rotary."""
-    return apply_rotary(x[:, None], sin, cos)[:, 0]
-
-
 def _attn_decode_paged(layer: Params, x: torch.Tensor, kb, vb, ks, vs,
                        tables, pos, sin, cos, cfg: ModelConfig,
                        opts: RuntimeOptions, *, window: int):
@@ -260,28 +507,11 @@ def _attn_decode_paged(layer: Params, x: torch.Tensor, kb, vb, ks, vs,
     runs through :func:`kernel_ops.paged_attention`; the new token's KV
     is *returned* — ``(slots, kvh, hd)`` each — for one batched scatter
     at the end of the step."""
-    b, _ = x.shape
-    hd = cfg.resolved_head_dim
-    h = rms_norm(x, layer["ln1"], cfg.norm_eps)
-    a = layer["attn"]
-    q = matmul_w(h, a["wq"]).reshape(b, cfg.num_heads, hd)
-    k = matmul_w(h, a["wk"]).reshape(b, cfg.num_kv_heads, hd)
-    v = matmul_w(h, a["wv"]).reshape(b, cfg.num_kv_heads, hd)
-    if "bq" in a:
-        q = q + a["bq"].reshape(cfg.num_heads, hd)
-        k = k + a["bk"].reshape(cfg.num_kv_heads, hd)
-        v = v + a["bv"].reshape(cfg.num_kv_heads, hd)
-    q = _apply_rot1(q, sin, cos)
-    k = _apply_rot1(k, sin, cos)
+    q, k, v = _decode_qkv(layer, x, sin, cos, cfg)
     w = window or opts.decode_window
     out = kernel_ops.paged_attention(q, kb, vb, tables, pos, k,
                                      v.contiguous(), ks, vs, window=w)
-    x = x + matmul_w(out.reshape(b, cfg.num_heads * hd),
-                     a["wo"]).to(x.dtype)
-    h2 = rms_norm(x, layer["ln2"], cfg.norm_eps)
-    y = ffn_apply(layer["ffn"], h2, gated=cfg.gated_ffn,
-                  activation=cfg.activation)
-    return x + y.to(x.dtype), k, v
+    return _decode_out(layer, x, out, cfg), k, v
 
 
 def paged_kernel_sample_batched_step(params: Params, cfg: ModelConfig,

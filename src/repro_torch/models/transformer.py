@@ -2,10 +2,12 @@
 
 Layer stacks keep the JAX package's *stacked* parameter layout (every
 per-layer leaf has a leading layer axis), and the layer walk is a Python
-loop where the JAX package scans.  Only the dense attention family
-(``ATTN`` / ``LOCAL`` blocks, dense FFN) is ported so far.  On the card
-every prefill block runs the flash attention kernel and the fused FFN
-kernel (through ``attention._attend`` and ``layers.ffn_apply``).
+loop where the JAX package scans.  Ported so far: the dense attention
+family (``ATTN`` / ``LOCAL`` blocks, dense FFN) and the attention-free
+SSM stack (``MAMBA`` blocks).  On the card every prefill block runs the
+flash attention kernel and the fused FFN kernel (through
+``attention._attend`` and ``layers.ffn_apply``), and every Mamba block
+the SSD scan kernel (through ``ssm.mamba_forward``).
 """
 from __future__ import annotations
 
@@ -15,17 +17,18 @@ from typing import Tuple
 import torch
 
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .configs import ATTN, LOCAL, MAMBA, ModelConfig
 from .layers import Params, dtype_of, ffn_apply, rms_norm
 from .runtime import RuntimeOptions
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.is_encoder_decoder \
+    if cfg.arch_type not in ("dense", "ssm") or cfg.is_encoder_decoder \
             or cfg.vision_embed_dim:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention stacks are ported so far "
-            f"(arch_type={cfg.arch_type!r})")
+            f"{cfg.name}: only dense attention stacks and the SSM stack "
+            f"are ported so far (arch_type={cfg.arch_type!r})")
 
 
 # ----------------------------------------------------------------- init ----
@@ -45,6 +48,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype)
 
+    if cfg.arch_type == "ssm":
+        layers = {"ln": zeros((n, d)), "mamba": _mamba_init(cfg, n, normal,
+                                                            zeros)}
+        return _to_device({"embed": normal((cfg.padded_vocab, d), 0.02),
+                           "final_norm": zeros((d,)), "layers": layers},
+                          device)
     attn = {
         "wq": normal((n, d, cfg.q_dim), 1.0 / math.sqrt(d)),
         "wk": normal((n, d, cfg.kv_dim), 1.0 / math.sqrt(d)),
@@ -65,6 +74,27 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                    "ln2": zeros((n, d)), "ffn": ffn},
     }
     return _to_device(params, device)
+
+
+def _mamba_init(cfg: ModelConfig, n: int, normal, zeros) -> Params:
+    """The stacked Mamba2 block parameters of ``ssm.mamba_init`` in the
+    JAX package: same shapes, scales and dtypes (``a_log``, ``d_skip``
+    and ``dt_bias`` f32)."""
+    d, di = cfg.d_model, cfg.ssm_d_inner
+    nh, st, gr = cfg.ssm_num_heads, cfg.ssm_state_dim, cfg.ssm_ngroups
+    conv_dim, w = cfg.ssm_conv_dim, cfg.ssm_conv_width
+    in_dim = 2 * di + 2 * gr * st + nh
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32))
+    return {
+        "in_proj": normal((n, d, in_dim), 1.0 / math.sqrt(d)),
+        "conv_w": normal((n, conv_dim, w), 1.0 / math.sqrt(w)),
+        "conv_b": zeros((n, conv_dim)),
+        "a_log": a_log.expand(n, nh).clone(),
+        "d_skip": torch.ones((n, nh), dtype=torch.float32),
+        "dt_bias": torch.zeros((n, nh), dtype=torch.float32),
+        "out_proj": normal((n, di, d), 1.0 / math.sqrt(di)),
+        "norm_scale": zeros((n, di)),
+    }
 
 
 def _to_device(tree, device):
@@ -119,6 +149,13 @@ def transformer_block(layer: Params, x: torch.Tensor, cfg: ModelConfig,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     x = attn_block(layer, x, cfg, opts, window=window, causal=causal)
     return ffn_or_moe_block(layer, x, cfg, opts)
+
+
+def mamba_block(layer: Params, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    return x + ssm_mod.mamba_forward(
+        layer["mamba"], rms_norm(x, layer["ln"], cfg.norm_eps),
+        cfg).to(x.dtype)
 
 
 def _pattern_period(cfg: ModelConfig) -> Tuple[Tuple[str, ...], bool]:

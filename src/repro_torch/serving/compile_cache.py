@@ -10,9 +10,24 @@ engine whose programs were all built already, and no growth across
 occupancy churn, because block tables, positions and sampling state are
 runtime tensors and never enter a key.
 
-Paged-mode programs are lazy dicts keyed on the pool geometry
-``(num_blocks, block_size)`` (and the prompt bucket and burst k-bucket
-for admission), as in the JAX package:
+The batched mode's programs, as in the JAX package:
+
+* ``decode`` — one sampling step over the slot-stacked cache (updated
+  in place where the JAX package donates it)
+* ``decode_greedy`` — the pure-argmax step, which the engine takes on
+  ticks where no active slot samples
+* ``sample_first`` — draws a first token from a prefill's logits row
+* ``admit_slot`` — writes a batch=1 prefill and its sampling state into
+  one slot
+* ``prefill(bucket)`` — batch=1 prefill for one prompt bucket, lazy
+* ``prefill_batch(bucket, k)`` — ONE-call burst admission of ``(k,
+  bucket)`` prompts into their slots, lazy, keyed on the k-bucket
+
+Those built with the entry count no compile of their own, as in the
+JAX package (whose ``jit`` objects are made there and compile at first
+call); the lazy ones count one each.  Paged-mode programs are lazy dicts
+keyed on the pool geometry ``(num_blocks, block_size)`` (and the prompt
+bucket and burst k-bucket for admission), as in the JAX package:
 
 * ``paged_decode(nb, bs)`` — one batched sampling step through the paged
   decode kernel (slot cache and pool updated in place)
@@ -29,9 +44,11 @@ import functools
 from typing import Callable, Dict, Tuple
 
 from ..models.configs import ModelConfig
-from ..models.model import (admit_slot, paged_copy_block,
+from ..models.model import (admit_slot, batched_prefill_admit,
+                            greedy_batched_step, paged_copy_block,
                             paged_kernel_sample_batched_step,
-                            paged_prefill_admit, sample_logits)
+                            paged_prefill_admit, prefill,
+                            sample_batched_step, sample_logits)
 from ..models.runtime import RuntimeOptions
 
 Key = Tuple[ModelConfig, RuntimeOptions, int, int, str]
@@ -40,15 +57,43 @@ Key = Tuple[ModelConfig, RuntimeOptions, int, int, str]
 class ServePrograms:
     """The serving programs for one (cfg, opts, slots, max_seq, domain)."""
 
-    def __init__(self, cfg: ModelConfig, opts: RuntimeOptions):
-        self._cfg, self._opts = cfg, opts
+    def __init__(self, cfg: ModelConfig, opts: RuntimeOptions,
+                 max_seq: int):
+        self._cfg, self._opts, self._max_seq = cfg, opts, max_seq
+        self.decode: Callable = functools.partial(
+            _decode, step=sample_batched_step, cfg=cfg, opts=opts)
+        self.decode_greedy: Callable = functools.partial(
+            _decode, step=greedy_batched_step, cfg=cfg, opts=opts)
         self.sample_first: Callable = functools.partial(
             _sample_first, vocab=cfg.vocab_size)
+        self.admit_slot: Callable = admit_slot
+        self._prefills: Dict[int, Callable] = {}
+        self._prefill_batches: Dict[Tuple[int, int], Callable] = {}
         self._paged_decodes: Dict[Tuple[int, int], Callable] = {}
         self._paged_prefill_batches: Dict[Tuple[int, int, int, int],
                                           Callable] = {}
         self._paged_admit: Dict[str, Callable] = {}
         self._copy_blocks: Dict[Tuple[int, int], Callable] = {}
+
+    def prefill(self, bucket: int) -> Tuple[Callable, bool]:
+        """The batch=1 prefill for one prompt bucket, plus whether this
+        call built it."""
+        fresh = bucket not in self._prefills
+        if fresh:
+            self._prefills[bucket] = functools.partial(
+                _prefill, cfg=self._cfg, opts=self._opts)
+        return self._prefills[bucket], fresh
+
+    def prefill_batch(self, bucket: int, k: int) -> Tuple[Callable, bool]:
+        """The one-call burst admission for ``(prompt bucket, k-bucket)``:
+        prefill ``(k, bucket)`` stacked prompts and write each row's cache
+        and sampling state into its slot of the slot-stacked cache."""
+        fresh = (bucket, k) not in self._prefill_batches
+        if fresh:
+            self._prefill_batches[(bucket, k)] = functools.partial(
+                _prefill_batch, cfg=self._cfg, opts=self._opts,
+                max_seq=self._max_seq)
+        return self._prefill_batches[(bucket, k)], fresh
 
     def paged_decode(self, num_blocks: int,
                      block_size: int) -> Tuple[Callable, bool]:
@@ -99,6 +144,20 @@ def _sample_first(logits_row, key, temp, top_k, *, vocab):
     return sample_logits(logits_row, key, temp, top_k, vocab)
 
 
+def _decode(params, cache, tokens, *, step, cfg, opts):
+    return step(params, cfg, cache, tokens, opts)
+
+
+def _prefill(params, cache, tokens, *, cfg, opts):
+    return prefill(params, cfg, tokens, cache, opts)
+
+
+def _prefill_batch(params, stacked, tokens, slot_ids, keys, temps, top_ks,
+                   *, cfg, opts, max_seq):
+    return batched_prefill_admit(params, cfg, stacked, tokens, slot_ids,
+                                 keys, temps, top_ks, opts, max_seq)
+
+
 def _paged_decode(params, slot_cache, pool, tokens, tables, *, cfg, opts):
     return paged_kernel_sample_batched_step(params, cfg, slot_cache, pool,
                                             tokens, tables, opts)
@@ -124,7 +183,7 @@ class CompileCache:
         entry = self._entries.get(key)
         if entry is not None:
             return entry, False
-        entry = ServePrograms(cfg, opts)
+        entry = ServePrograms(cfg, opts, max_seq)
         self._entries[key] = entry
         return entry, True
 

@@ -1,10 +1,21 @@
-"""Paged serving runtime: request scheduler + slot-batched decode engine.
+"""Serving runtime: request scheduler + slot-batched decode engine.
 
-Port of the JAX package's ``ServingEngine`` for ``decode_mode="paged"``.
-Requests queue, are admitted into fixed decode slots by burst prefill
-into a :class:`~repro_torch.serving.paging.BlockPool`, and every tick one
-slot-batched decode step reads KV straight through the block tables
-with the paged decode kernel and samples on the device.
+Port of the JAX package's ``ServingEngine``.  Requests queue, are
+admitted into fixed decode slots by burst prefill, and every tick one
+slot-batched decode step advances every slot and samples on the device.
+Two decode modes:
+
+* ``decode_mode="batched"`` (the default, as in the JAX package) — ONE
+  slot-stacked cache of shape ``(slots, ...)`` (dense KV for attention
+  stacks, SSM and conv state for the SSM stack) and one step per tick.
+  Free slots are decoded too and their outputs ignored, never skipped.
+  Ticks on which no active slot samples take the pure-argmax step.
+  ``prefill_mode="per_request"`` admits one request per prefill call
+  instead of a burst.
+* ``decode_mode="paged"`` — self-attention KV lives in a
+  :class:`~repro_torch.serving.paging.BlockPool` and the step reads it
+  straight through the block tables with the paged decode kernel
+  (``paged_kernel=True``; ``kv_dtype="int8"`` stores the pool int8).
 
 * Admission drains every waiting request that shares the head-of-line
   request's prompt bucket and prefills the burst in ONE call (burst
@@ -12,20 +23,20 @@ with the paged decode kernel and samples on the device.
   bursts padded with leading throwaway rows).  The head is never
   skipped, so later same-bucket arrivals cannot starve an earlier
   waiter from another bucket.
-* Prompt blocks are deduplicated by prefix chain hash after each burst
+* (paged) Prompt blocks are deduplicated by prefix chain hash after each burst
   (copy-on-write: decode always writes a private tail block), and a
   full-prompt prefix cache re-admits an already-seen padded prompt with
   no prefill call at all.
-* Block tables are runtime data of constant shape, so occupancy,
-  sharing and admission churn never build a new program;
+* Block tables and positions are runtime data of constant shape, so
+  occupancy, sharing and admission churn never build a new program;
   ``ServeStats.recompiles`` counts the programs this engine's requests
   caused to be built (see :mod:`repro_torch.serving.compile_cache`).
 * Where the JAX package donates the slot cache and the pool to each
   step, this engine's steps update them in place.
 
-Not ported yet: the ``batched`` and ``per_slot`` decode modes,
-freeze/thaw (and with it preemption under pool pressure and
-``swap_model``), and the injected-OOM admission hold-off.
+Not ported yet: the ``per_slot`` decode mode, freeze/thaw (and with it
+preemption under pool pressure and ``swap_model``), and the
+injected-OOM admission hold-off.
 """
 from __future__ import annotations
 
@@ -40,7 +51,8 @@ import torch
 
 from ..models.configs import ModelConfig
 from ..models.layers import Params, cast_params, dtype_of
-from ..models.model import init_paged_pool, init_paged_slot_cache
+from ..models.model import (init_cache, init_paged_pool,
+                            init_paged_slot_cache, init_slot_cache)
 from ..models.runtime import DEFAULT_OPTIONS, RuntimeOptions
 from ..obs.metrics import MetricsRegistry
 from ..obs.recorder import NULL_RECORDER
@@ -49,8 +61,9 @@ from .paging import (DEFAULT_BLOCK_SIZE, TRASH_BLOCK, BlockPool,
                      PrefixCache, PrefixEntry, block_hash_chain)
 from .sampling import DEFAULT_SAMPLING, SamplingOpts, request_key
 
-DECODE_MODES = ("paged",)
-_LATER_MODES = ("batched", "per_slot")
+DECODE_MODES = ("batched", "paged")
+_LATER_MODES = ("per_slot",)
+PREFILL_MODES = ("batched", "per_request")
 
 # default observability pids: distinct per engine so two untagged
 # engines sharing one TraceRecorder never interleave on one track
@@ -130,12 +143,16 @@ class ServeStats:
 
 
 class ServingEngine:
-    """Slot-based continuous batching over a paged KV pool.
+    """Slot-based continuous batching.
 
     ``slots`` fixes the decode batch width (requests beyond it queue);
-    ``max_seq`` bounds prompt+generation length per slot.  ``opts`` must
-    select the block-table step (``paged_kernel=True``); ``kv_dtype=
-    "int8"`` stores the pool int8 with per-row scales.  ``sampling`` is
+    ``max_seq`` bounds prompt+generation length per slot.  In the paged
+    mode ``opts`` must select the block-table step (``paged_kernel=
+    True``); ``kv_dtype="int8"`` stores the pool int8 with per-row
+    scales.  The batched mode keeps its dense cache in
+    ``kv_cache_dtype`` and refuses both paged options; its
+    ``prefill_mode`` is ``"batched"`` (bursts) or ``"per_request"``.
+    ``sampling`` is
     the default :class:`SamplingOpts` for requests that carry none.
     ``compile_cache`` / ``compile_domain`` share programs across engines,
     keyed on ``(cfg, opts, slots, max_seq, domain)``.  ``device`` is
@@ -144,7 +161,8 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params: Params, *, slots: int = 8,
                  max_seq: int = 512, opts: RuntimeOptions = DEFAULT_OPTIONS,
-                 decode_mode: str = "paged",
+                 decode_mode: str = "batched",
+                 prefill_mode: str = "batched",
                  sampling: SamplingOpts = DEFAULT_SAMPLING,
                  compile_cache: Optional[CompileCache] = None,
                  compile_domain: str = "",
@@ -163,25 +181,33 @@ class ServingEngine:
         if decode_mode not in DECODE_MODES:
             raise ValueError(f"unknown decode_mode {decode_mode!r}; "
                              f"expected one of {DECODE_MODES}")
-        # every prompt bucket (powers of two from 16, capped at max_seq)
-        # must be block-aligned so prompts fill whole blocks and decode
-        # always writes a private tail block
-        if block_size < 1 or block_size & (block_size - 1) \
-                or block_size > 16:
-            raise ValueError(f"block_size {block_size} must be a "
-                             "power of two <= 16")
-        if max_seq % block_size:
-            raise ValueError(f"block_size {block_size} must divide "
-                             f"max_seq {max_seq}")
-        per_slot_blocks = max_seq // block_size
-        if pool_blocks is None:
-            # dense-equivalent capacity plus the trash block; prefix
-            # sharing only ever *reduces* usage below this
-            pool_blocks = slots * per_slot_blocks + 1
-        if pool_blocks < per_slot_blocks + 1:
-            raise ValueError(f"pool_blocks {pool_blocks} cannot hold "
-                             "one full-length request (need "
-                             f"{per_slot_blocks + 1})")
+        if prefill_mode not in PREFILL_MODES:
+            raise ValueError(f"unknown prefill_mode {prefill_mode!r}; "
+                             f"expected one of {PREFILL_MODES}")
+        if decode_mode == "paged":
+            # every prompt bucket (powers of two from 16, capped at
+            # max_seq) must be block-aligned so prompts fill whole blocks
+            # and decode always writes a private tail block
+            if block_size < 1 or block_size & (block_size - 1) \
+                    or block_size > 16:
+                raise ValueError(f"block_size {block_size} must be a "
+                                 "power of two <= 16")
+            if max_seq % block_size:
+                raise ValueError(f"block_size {block_size} must divide "
+                                 f"max_seq {max_seq}")
+            per_slot_blocks = max_seq // block_size
+            if pool_blocks is None:
+                # dense-equivalent capacity plus the trash block; prefix
+                # sharing only ever *reduces* usage below this
+                pool_blocks = slots * per_slot_blocks + 1
+            if pool_blocks < per_slot_blocks + 1:
+                raise ValueError(f"pool_blocks {pool_blocks} cannot hold "
+                                 "one full-length request (need "
+                                 f"{per_slot_blocks + 1})")
+        elif opts.kv_dtype != "auto" or opts.paged_kernel:
+            raise ValueError("kv_dtype/paged_kernel are paged-pool options; "
+                             f"decode_mode={decode_mode!r} keeps its dense "
+                             "cache in kv_cache_dtype")
         self.cfg = cfg
         self.device = torch.device(device)
         # execution copy of the weights, cast once (the JAX package casts
@@ -191,6 +217,10 @@ class ServingEngine:
         self.max_seq = max_seq
         self.opts = opts
         self.decode_mode = decode_mode
+        # the paged path only has burst admission (its per-request path
+        # is the k=1 burst)
+        self.prefill_mode = "batched" if decode_mode == "paged" \
+            else prefill_mode
         self.block_size = block_size
         self.pool_blocks = pool_blocks
         self.prefix_entries = prefix_entries
@@ -229,6 +259,18 @@ class ServingEngine:
             self._note_compile("programs")
         return entry
 
+    def _prefill_fn(self, bucket: int) -> Callable:
+        fn, fresh = self._programs.prefill(bucket)
+        if fresh:
+            self._note_compile("prefill", bucket=bucket)
+        return fn
+
+    def _prefill_batch_fn(self, bucket: int, k: int) -> Callable:
+        fn, fresh = self._programs.prefill_batch(bucket, k)
+        if fresh:
+            self._note_compile("prefill_batch", bucket=bucket, k=k)
+        return fn
+
     def _paged_decode_fn(self) -> Callable:
         fn, fresh = self._programs.paged_decode(self.pool_blocks,
                                                 self.block_size)
@@ -258,6 +300,10 @@ class ServingEngine:
         return fn
 
     def _reset_caches(self) -> None:
+        if self.decode_mode == "batched":
+            self._cache = init_slot_cache(self.cfg, self.slots, self.max_seq,
+                                          self.opts, self.device)
+            return
         self._cache = init_paged_slot_cache(self.cfg, self.slots,
                                             self.max_seq, self.opts,
                                             self.device)
@@ -278,10 +324,10 @@ class ServingEngine:
             self._blocks.shared_blocks)
 
     @property
-    def block_pool(self) -> BlockPool:
-        """The host-side block allocator — exposed so tests and benches
-        can assert refcounts/sharing."""
-        return self._blocks
+    def block_pool(self) -> Optional[BlockPool]:
+        """The host-side block allocator (``None`` off the paged path) —
+        exposed so tests and benches can assert refcounts/sharing."""
+        return self._blocks if self.decode_mode == "paged" else None
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -384,11 +430,12 @@ class ServingEngine:
     def _admit_burst(self, batch: List[Request], bucket: int,
                      free: List[int]) -> None:
         """ONE call admits the whole burst: stacked ``(k, bucket)``
-        prompts are prefilled together, their KV written into freshly
-        allocated blocks and every row's ``pos`` + sampling state into
-        its slot.  Bursts smaller than their k-bucket are padded with
-        leading throwaway rows aimed at the first real slot and the
-        trash block — written first, overwritten by the real row."""
+        prompts are prefilled together and every row's cache and
+        sampling state is written into its slot (in the paged mode its
+        KV into freshly allocated blocks and its ``pos`` into the slot).
+        Bursts smaller than their k-bucket are padded with leading
+        throwaway rows aimed at the first real slot (and the trash
+        block) — written first, overwritten by the real row."""
         k = len(batch)
         kb = self._k_bucket(k)
         pad = kb - k
@@ -413,19 +460,27 @@ class ServingEngine:
                                 args={"bucket": bucket, "k": k,
                                       "k_bucket": kb,
                                       "rids": [r.rid for r in batch]})
-        nblk = bucket // self.block_size
-        dest = np.zeros((kb, nblk), np.int32)
-        for i, req in enumerate(batch):
-            ids = self._blocks.alloc(nblk)
-            dest[pad + i] = ids
-            for j, b in enumerate(ids):
-                self._blocks.assign(slots_for[i], j, b)
-        fn = self._paged_prefill_fn(bucket, kb)
-        first, last, self._cache, self._pool = fn(
-            self.params, self._cache, self._pool, self._to_device(toks),
-            self._to_device(slot_ids), self._to_device(keys),
-            self._to_device(temps), self._to_device(top_ks),
-            self._to_device(dest))
+        paged = self.decode_mode == "paged"
+        if paged:
+            nblk = bucket // self.block_size
+            dest = np.zeros((kb, nblk), np.int32)
+            for i, req in enumerate(batch):
+                ids = self._blocks.alloc(nblk)
+                dest[pad + i] = ids
+                for j, b in enumerate(ids):
+                    self._blocks.assign(slots_for[i], j, b)
+            fn = self._paged_prefill_fn(bucket, kb)
+            first, last, self._cache, self._pool = fn(
+                self.params, self._cache, self._pool, self._to_device(toks),
+                self._to_device(slot_ids), self._to_device(keys),
+                self._to_device(temps), self._to_device(top_ks),
+                self._to_device(dest))
+        else:
+            fn = self._prefill_batch_fn(bucket, kb)
+            first, self._cache = fn(
+                self.params, self._cache, self._to_device(toks),
+                self._to_device(slot_ids), self._to_device(keys),
+                self._to_device(temps), self._to_device(top_ks))
         first = first.cpu().numpy()
         self.stats.prefill_calls += 1
         stamp = time.perf_counter()
@@ -434,6 +489,9 @@ class ServingEngine:
                               cat="engine", wall_s=stamp)
         for i, req in enumerate(batch):
             slot = slots_for[i]
+            if not paged:
+                self._emit_first(req, int(first[pad + i]), stamp, free, slot)
+                continue
             # dedup freshly written prompt blocks against live blocks
             # holding the same padded-prefix chain hash, then cache the
             # whole prefill for prefix-skip re-admission
@@ -494,6 +552,43 @@ class ServingEngine:
             self._blocks.release_slot(slot)
         self._update_block_gauges()
 
+    def _admit_one(self, req: Request, free: List[int]) -> None:
+        """Sequential admission: one batch=1 prefill call for this
+        request, its first token drawn by the same ``sample_logits`` the
+        batched paths use."""
+        slot = free.pop(0)
+        bucket = self._bucket(len(req.prompt))
+        self._truncate(req, bucket)
+        if self.recorder.enabled:
+            self.recorder.begin("engine.prefill", pid=self.pid,
+                                tid="engine", cat="engine",
+                                args={"bucket": bucket, "k": 1,
+                                      "rids": [req.rid]})
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, bucket - len(req.prompt):] = req.prompt  # left-pad
+        cache = init_cache(self.cfg, 1, self.max_seq, self.opts, self.device)
+        logits, cache = self._prefill_fn(bucket)(
+            self.params, cache, self._to_device(toks))
+        self.stats.prefill_calls += 1
+        s = self._sampling_of(req)
+        key = self._to_device(request_key(s.seed, req.rid,
+                                          len(req.generated))
+                              .astype(np.int64))
+        temp = torch.tensor(s.temperature, dtype=torch.float32,
+                            device=self.device)
+        top_k = torch.tensor(s.top_k, dtype=torch.int32, device=self.device)
+        tok, key = self._programs.sample_first(logits[0, -1], key, temp,
+                                               top_k)
+        nxt = int(tok)
+        stamp = time.perf_counter()
+        if self.recorder.enabled:
+            self.recorder.end("engine.prefill", pid=self.pid, tid="engine",
+                              cat="engine", wall_s=stamp)
+        if not self._emit_first(req, nxt, stamp, free, slot):
+            return
+        self._cache = self._programs.admit_slot(self._cache, cache, slot,
+                                                key, temp, top_k)
+
     def _admit(self) -> None:
         free = [s for s in range(self.slots) if self._active[s] is None]
         while free and self._queue:
@@ -504,8 +599,15 @@ class ServingEngine:
                 self._queue.popleft()
                 head.done = True
                 continue
-            if not self._admit_paged_head(head, free):
-                break               # pool exhausted: wait for decode frees
+            if self.decode_mode == "paged":
+                if not self._admit_paged_head(head, free):
+                    break           # pool exhausted: wait for decode frees
+            elif self.prefill_mode == "batched":
+                bucket, batch = self._gather_burst(len(free))
+                self._admit_burst(batch, bucket, free)
+            else:
+                self._queue.popleft()
+                self._admit_one(head, free)
 
     def _admit_paged_head(self, head: Request, free: List[int]) -> bool:
         """Admit the head request (plus any same-bucket burst).  Returns
@@ -544,6 +646,7 @@ class ServingEngine:
         token append, finish detection and trace emission."""
         nxt, pos = torch.stack([nxt.to(torch.int32),
                                 pos.to(torch.int32)]).cpu().numpy()
+        paged = self.decode_mode == "paged"
         emitted = 0
         freed_blocks = False
         rec = self.recorder
@@ -553,7 +656,8 @@ class ServingEngine:
                 continue
             req.generated.append(int(nxt[slot]))
             emitted += 1
-            self._slot_pos[slot] = int(pos[slot])
+            if paged:
+                self._slot_pos[slot] = int(pos[slot])
             if self._sampling_of(req).temperature > 0:
                 self.stats.sampled_tokens += 1
             if rec.enabled:
@@ -564,8 +668,9 @@ class ServingEngine:
                     or int(pos[slot]) >= self.max_seq - 1:
                 req.done = True
                 self._active[slot] = None
-                self._blocks.release_slot(slot)
-                freed_blocks = True
+                if paged:
+                    self._blocks.release_slot(slot)
+                    freed_blocks = True
                 if rec.enabled:
                     rec.end("req.slot", pid=self.pid, tid=f"slot{slot}",
                             cat="request", wall_s=stamp,
@@ -574,6 +679,25 @@ class ServingEngine:
         if freed_blocks:
             self._update_block_gauges()
         return emitted
+
+    def _decode_batched(self) -> int:
+        if not any(r is not None for r in self._active):
+            return 0
+        tokens = np.zeros(self.slots, np.int32)
+        sampling = False
+        for slot, req in enumerate(self._active):
+            if req is not None:
+                tokens[slot] = req.generated[-1]
+                sampling = sampling or \
+                    self._sampling_of(req).temperature > 0
+        # all-greedy ticks take the pure-argmax step; tokens are the same
+        # either way, so mixed workloads can alternate
+        step_fn = (self._programs.decode if sampling
+                   else self._programs.decode_greedy)
+        nxt, pos, self._cache = step_fn(self.params, self._cache,
+                                        self._to_device(tokens))
+        self.stats.decode_calls += 1
+        return self._bookkeep_decode(nxt, pos)
 
     # ------------------------------------------------------ paged decode --
     def _alloc_blocks_reclaiming(self, n: int) -> Optional[List[int]]:
@@ -643,7 +767,8 @@ class ServingEngine:
         if rec.enabled:
             rec.begin("engine.step", pid=self.pid, tid="engine",
                       cat="engine", wall_s=t0)
-        emitted = self._decode_paged()
+        emitted = (self._decode_batched() if self.decode_mode == "batched"
+                   else self._decode_paged())
         self.stats.steps += 1
         self.stats.tokens_out += emitted
         t1 = time.perf_counter()

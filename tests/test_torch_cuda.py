@@ -11,7 +11,9 @@ Tolerance: kernel and plain version both accumulate in f32 and differ
 only in the order of the sums (the softmax's, or the FFN's over D and
 F); bf16 outputs may round one bf16 ulp apart (2**-8 relative).  The
 FFN's f32 sums run over up to D + F = 5120 terms, so its f32 tolerance
-is a little wider.
+is a little wider.  The SSD scan's outputs reach |y| ~ 20 after sums of
+up to 256 x 128 terms, so its f32 atol is 1e-3 (about 5e-5 of the
+largest output).
 """
 import numpy as np
 import pytest
@@ -24,7 +26,9 @@ from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.fused_ffn import fused_ffn
 from repro_torch.kernels.paged_decode_attn import paged_decode_attention
 from repro_torch.kernels.ref import (flash_attn_ref, fused_ffn_ref,
-                                     paged_decode_attn_ref)
+                                     paged_decode_attn_ref,
+                                     ssd_scan_kernel_ref, ssd_scan_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import init_params
 from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.serving import (CompileCache, Request, SamplingOpts,
@@ -36,6 +40,9 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
 FFN_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
            torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+SSD_TOL = {torch.float32: dict(atol=1e-3, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+STATE_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 @pytest.fixture
@@ -137,6 +144,7 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
     for device in ("cuda", "cpu"):
         eng = ServingEngine(cfg, init_params(cfg, seed=1, device=device),
                             slots=2, max_seq=64, opts=opts,
+                            decode_mode="paged",
                             compile_cache=CompileCache(), device=device)
         before = [fn.launches for fn in (paged_decode_attention,
                                          flash_attention, fused_ffn)]
@@ -271,3 +279,127 @@ def test_ffn_kernel_rejects_what_it_does_not_take(cuda):
         fused_ffn(x, wg, wu, wd, "relu")
     with pytest.raises(ValueError):                 # wrong F
         fused_ffn(x, wg, wu, wd[:64])
+
+
+# -------------------------------------------------------- ssd scan (K6) --
+def _ssd(seed, b, s, h, g, p, n, dtype):
+    """x (B,S,H,P), dt (B,S,H) f32 after softplus, a (H,) < 0, b, c
+    (B,S,G,N), all on the card; b and c are views of one (B,S,2,G,N)
+    buffer, as the model's are views of the conv output."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+
+    x = normal(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, h) - 1.0)
+    a = -torch.exp(normal(h) * 0.5)
+    bc = (normal(b, s, 2, g, n) * n ** -0.25).to(dtype)
+    return x, dt, a, bc[:, :, 0], bc[:, :, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n", [(64, 128), (32, 32)])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("s", [16, 200, 256, 1000])
+def test_ssd_kernel_matches_plain_version(cuda, dtype, p, n, g, s):
+    args = _ssd(s + p + g, 2, s, 8, g, p, n, dtype)
+    before = ssd_scan.launches
+    y, st = ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    yr, str_ = ssd_scan_ref(*args, chunk=256)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y, yr, **SSD_TOL[dtype])
+    torch.testing.assert_close(st, str_, **STATE_TOL)
+    y2, st2 = ssd_scan(*args, chunk=256)
+    assert torch.equal(y, y2) and torch.equal(st, st2)    # no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [16, 64, 100])
+def test_ssd_kernel_chunks_and_initial_state(cuda, chunk):
+    args = _ssd(chunk, 1, 300, 4, 2, 64, 64, torch.float32)
+    init = torch.randn(1, 4, 64, 64, device="cuda")
+    y, st = ssd_scan(*args, chunk=chunk, initial_state=init)
+    yr, str_ = ssd_scan_ref(*args, chunk=chunk, initial_state=init)
+    torch.testing.assert_close(y, yr, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(st, str_, **STATE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_layout_of_ops_ssd(cuda, dtype):
+    """ops.ssd takes the Pallas layout (BH, S, P) and returns f32 y."""
+    x, dt, a, b, c = _ssd(9, 1, 512, 6, 6, 32, 128, dtype)
+    kx, kdt = x[0].transpose(0, 1), dt[0].transpose(0, 1)
+    kb, kc = b[0].transpose(0, 1), c[0].transpose(0, 1)
+    y, st = ops.ssd(kx, kdt, a, kb, kc, chunk=128)
+    yr, str_ = ssd_scan_kernel_ref(kx.float(), kdt, a, kb, kc, 128)
+    assert y.dtype == torch.float32 and y.shape == kx.shape
+    torch.testing.assert_close(y, yr, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(st, str_, **STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, a, b, c = _ssd(2, 1, 64, 4, 2, 64, 128, torch.float32)
+    with pytest.raises(ValueError):                 # mixed dtypes
+        ssd_scan(x, dt, a, b.to(torch.bfloat16), c, chunk=64)
+    with pytest.raises(ValueError):                 # 3 groups for 4 heads
+        ssd_scan(x, dt, a, b[:, :, :1].expand(1, 64, 3, 128),
+                 c[:, :, :1].expand(1, 64, 3, 128), chunk=64)
+    with pytest.raises(ValueError):                 # head_dim 48
+        ssd_scan(x[..., :48], dt, a, b, c, chunk=64)
+    with pytest.raises(ValueError):                 # f32 in, bf16 out
+        ssd_scan(x, dt, a, b, c, chunk=64, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                 # dt on the CPU
+        ssd_scan(x, dt.cpu(), a, b, c, chunk=64)
+    with pytest.raises(ValueError):                 # chunk above 1024
+        ssd_scan(*_ssd(3, 1, 1100, 4, 2, 64, 128, torch.float32),
+                 chunk=2048)
+
+
+# ------------------------------------------------------ batched engine --
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba2-370m", "paper-backbone"])
+def test_batched_engine_on_card_matches_cpu(cuda, name):
+    """The batched mode on a tiny f32 variant: card and CPU streams are
+    equal; the SSM stack runs the SSD kernel once per layer per prefill
+    call, the dense stack the flash kernel once per layer per prefill
+    call and the fused FFN once per layer per prefill call or step."""
+    base = get_config(name)
+    cfg = (base.reduced(d_model=64).with_updates(vocab_size=300,
+                                                 ssm_chunk=16)
+           if name == "mamba2-370m" else base.with_updates(
+               num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+               head_dim=16, d_ff=128, vocab_size=300))
+    cfg = cfg.with_updates(activation_dtype="float32")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 300, n).astype(np.int32)
+               for n in (5, 20, 40)]
+    kernels = (ssd_scan, flash_attention, fused_ffn, paged_decode_attention)
+    streams = {}
+    for device in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, init_params(cfg, seed=2, device=device),
+                            slots=2, max_seq=64,
+                            compile_cache=CompileCache(), device=device)
+        before = [fn.launches for fn in kernels]
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6,
+                        sampling=SamplingOpts(temperature=0.8 * (i % 2),
+                                              seed=3))
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.drain()
+        streams[device] = [tuple(r.generated) for r in reqs]
+        if device == "cuda":
+            n, pf = cfg.num_layers, eng.stats.prefill_calls
+            dc = eng.stats.decode_calls
+            want = ([n * pf, 0, 0, 0] if name == "mamba2-370m"
+                    else [0, n * pf, n * (pf + dc), 0])
+            assert [fn.launches - b for fn, b in zip(kernels, before)] \
+                == want
+    assert streams["cuda"] == streams["cpu"]
