@@ -16,9 +16,13 @@ Phases (any failure exits non-zero):
    groupings and lengths up to 2048, K3 fused gated FFN over both
    activations, dtypes, ragged and large M and two widths, K6 SSD scan
    over ragged and multi-chunk lengths, groups, head/state widths,
-   dtypes and both layouts.  Each is then timed at the serving path's
-   shapes beside its plain version, its byte/operation bound and one
-   library call where there is one.
+   dtypes and both layouts, K4/K5 activation quantization (int8 and
+   packed int4, quant and dequant) over M 1..16384, n 128..50280 (ragged),
+   f32/bf16 in and out and leading dimensions through ``act_compress``,
+   bit-equal.  Each is then timed at its path's shapes beside its plain
+   version, its byte/operation bound and one library call where there is
+   one (for K4/K5, which no one call computes, a device-to-device copy of
+   the same input bytes as the bandwidth reference).
 3. serving — ``ServingEngine`` serves from random weights made from a
    seed: full-width ``paper-backbone`` paged (``paged_kernel=True``,
    ``kv_dtype="int8"``) in two waves of 16 short requests at max_seq
@@ -30,15 +34,27 @@ Phases (any failure exits non-zero):
    steps and prefill calls, and no new program when a wave repeats;
    prints TTFT per bucket, the decode-step time and device profiles of
    a decode step and of a long prefill call.
-4. card against CPU — f32-activation variants serve greedy requests on
+4. engine — the model-adaptive engine's entry points on the card at full
+   width: one ``model.prefill`` of 8 x 2048 tokens each of
+   ``mamba2-370m`` (K6) and ``paper-backbone`` (dense bf16 KV, K2/K3);
+   their SSM state, last logits and K/V rows go through
+   ``act_compress`` at 8 and 4 bits (K4/K5), held bit-equal to the plain
+   versions, with the codec's error bounds and byte counts asserted; the
+   int8 SSM state swaps out to pinned host memory and back bit-exactly
+   (measured GB/s beside the swap model's); the host-side planners
+   (graph, fusion, memory plan, parallelism, partition, placement on
+   every pool, remat policy and sub-batches under the card's free
+   memory) run on both configs.  Launches of every kernel are counted.
+5. card against CPU — f32-activation variants serve greedy requests on
    the card and through the port's plain versions on the CPU: 5 of
    ``paper-backbone`` paged (one at bucket 1024) and 4 of
    ``mamba2-370m`` batched with f32 caches; the token streams must be
    equal.
 
 The line before the last is a JSON object listing every kernel with its
-launches on the serving path and its times; the last line is
-``{"ok": true, "device": {...}}``.
+launches on its main path and its times (K4 and K5 as their four entry
+points: act_quant, act_dequant, act_quant4, act_dequant4); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -577,6 +593,152 @@ def phase_ssd(torch):
             "shape": "8 x 2048 tokens, H 32, P 64, N 128, bf16, chunk 256"}
 
 
+# K4/K5: the SSM state of mamba2-370m after an (8, 2048) prefill, as rows
+# of its state dimension, is the timed shape (the engine phase compresses
+# it): 48 layers x 8 x 32 heads x 64 rows of 128 f32
+ACT_ROWS, ACT_N = 48 * 8 * 32 * 64, 128
+ACT_REPLACES = {"act_quant": "src/repro/kernels/act_quant.py:47",
+                "act_dequant": "src/repro/kernels/act_quant.py:70",
+                "act_quant4": "src/repro/kernels/act_quant.py:113",
+                "act_dequant4": "src/repro/kernels/act_quant.py:154"}
+
+
+def codec_bit_equal(torch, x, what):
+    """K4 and K5 on ``x`` (M, n) against their plain versions on the
+    card: codes, packed bytes and scales, and the dequantized values in
+    bf16 and f32, all bit-equal.  Raises on the first difference."""
+    from repro_torch.kernels import (act_dequant, act_dequant4, act_quant,
+                                     act_quant4)
+    from repro_torch.kernels import ref
+    n = x.shape[1]
+    for quant, dequant, pq, pdq, kw in (
+            (act_quant, act_dequant, ref.act_quant_ref,
+             ref.act_dequant_ref, {}),
+            (act_quant4, act_dequant4, ref.act_quant4_ref,
+             ref.act_dequant4_ref, {"n": n})):
+        q, s = quant(x)
+        qr, sr = pq(x)
+        if not (torch.equal(q, qr) and torch.equal(s, sr)):
+            raise AssertionError(f"{quant.__name__} differs from its plain "
+                                 f"version: {what}")
+        if quant is act_quant4 and n % 128 and not bool(
+                (q[:, (n + 1) // 2:] == 0x88).all()):
+            raise AssertionError(f"act_quant4 padding bytes are not 0x88: "
+                                 f"{what}")
+        for od in (torch.bfloat16, torch.float32):
+            if not torch.equal(dequant(q, s, od, **kw),
+                               pdq(qr, sr, od, **kw)):
+                raise AssertionError(f"{dequant.__name__} -> {od} differs "
+                                     f"from its plain version: {what}")
+        del q, s, qr, sr
+
+
+def phase_act_quant(torch):
+    from repro_torch.engine import act_compress
+    from repro_torch.kernels import (act_dequant, act_dequant4, act_quant,
+                                     act_quant4)
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    n_cases = 0
+    for m in (1, 7, 256, 16384):
+        for n in (128, 256, 2048, 50280):
+            for dtype in ("float32", "bfloat16"):
+                x = torch.randn(m, n, generator=gen, device="cuda") * 3
+                x[0, :128] = 0.0                  # an all-zero block
+                codec_bit_equal(torch, x.to(getattr(torch, dtype)),
+                                f"M={m} n={n} {dtype}")
+                n_cases += 1
+                del x
+    # leading dimensions and a ragged last axis through act_compress:
+    # the card's codec equals the CPU's plain one bit for bit
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(3, 5, 50280, generator=gen, device="cuda")
+             * 3).to(dtype)
+        xc = x.cpu()
+        pairs = [(act_compress.quantize_int8(x),
+                  act_compress.quantize_int8(xc)),
+                 (act_compress.quantize_int4(x),
+                  act_compress.quantize_int4(xc))]
+        for (q, s), (qc, sc) in pairs:
+            if not (torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)):
+                raise AssertionError(f"act_compress on the card differs "
+                                     f"from the CPU ({dtype})")
+        (q, s), (qc, sc) = pairs[0]
+        (p, s4), (pc, s4c) = pairs[1]
+        for od in (torch.bfloat16, torch.float32):
+            if not (torch.equal(act_compress.dequantize_int8(q, s, od).cpu(),
+                                act_compress.dequantize_int8(qc, sc, od))
+                    and torch.equal(
+                        act_compress.dequantize_int4(p, s4, 50280, od).cpu(),
+                        act_compress.dequantize_int4(pc, s4c, 50280, od))):
+                raise AssertionError(f"act_compress dequant on the card "
+                                     f"differs from the CPU ({dtype}->{od})")
+        n_cases += 1
+    torch.cuda.synchronize()
+    log(f"act_quant/act_dequant/act_quant4/act_dequant4 == plain version "
+        f"bit for bit on {n_cases} cases (M 1..16384, n 128..50280, f32/bf16 "
+        f"in, bf16/f32 out, act_compress (3, 5, 50280) card == CPU)")
+
+    # timing at the path's shape: the mamba2 SSM state as rows of 128 f32
+    x = torch.randn(ACT_ROWS, ACT_N, generator=gen, device="cuda")
+    q, s = act_quant(x)
+    p, s4 = act_quant4(x)
+    nb = ACT_N // 128
+    calls = {
+        "act_quant": (lambda: act_quant(x),
+                      lambda: ref.act_quant_ref(x),
+                      x.numel() * 4, ACT_ROWS * (ACT_N + 4 * nb), 5),
+        "act_quant4": (lambda: act_quant4(x),
+                       lambda: ref.act_quant4_ref(x),
+                       x.numel() * 4, ACT_ROWS * (ACT_N // 2 + 4 * nb), 6),
+        "act_dequant": (lambda: act_dequant(q, s),
+                        lambda: ref.act_dequant_ref(q, s),
+                        q.numel() + s.numel() * 4, x.numel() * 2, 1),
+        "act_dequant4": (lambda: act_dequant4(p, s4),
+                         lambda: ref.act_dequant4_ref(p, s4),
+                         p.numel() + s4.numel() * 4, x.numel() * 2, 3),
+    }
+    qr, sr = ref.act_quant_ref(x)
+    pr, s4r = ref.act_quant4_ref(x)
+    errs = {"act_quant": max(float((q.int() - qr.int()).abs().max()),
+                             float((s - sr).abs().max())),
+            "act_quant4": max(float((p.int() - pr.int()).abs().max()),
+                              float((s4 - s4r).abs().max())),
+            "act_dequant": float((act_dequant(q, s).float()
+                                  - ref.act_dequant_ref(q, s).float()
+                                  ).abs().max()),
+            "act_dequant4": float((act_dequant4(p, s4).float()
+                                   - ref.act_dequant4_ref(p, s4).float()
+                                   ).abs().max())}
+    del qr, sr, pr, s4r
+    rows = {}
+    for name, (fn, plain, in_bytes, out_bytes, ops) in calls.items():
+        ms = cuda_ms(torch, fn, iters=50, warmup=5)
+        plain_ms = cuda_ms(torch, plain, iters=5, warmup=2)
+        src = torch.empty(in_bytes, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        copy_ms = cuda_ms(torch, lambda: dst.copy_(src), iters=50, warmup=5)
+        del src, dst
+        bound_ms, bound_by = bound(in_bytes + out_bytes, ops * x.numel(),
+                                   H100_F32_FLOPS)
+        log(f"{name} ({ACT_ROWS} x {ACT_N}, f32 in / bf16 out, "
+            f"{(in_bytes + out_bytes) / 1e6:.1f} MB): kernel_ms {ms:.4f} "
+            f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}) "
+            f"copy_ms {copy_ms:.4f} (a device copy of the "
+            f"{in_bytes / 1e6:.1f} MB input: the bandwidth reference; no "
+            f"one library call computes it)")
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/act_quant.cu",
+                      "replaces": ACT_REPLACES[name], "launches": None,
+                      "max_abs_err": errs[name], "ms": ms,
+                      "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None, "copy_ms": copy_ms,
+                      "shape": f"{ACT_ROWS} x {ACT_N} f32 (the mamba2-370m "
+                               f"SSM state), dequant to bf16"}
+    return [rows[k] for k in ACT_REPLACES]
+
+
 # ---------------------------------------------------------------- phase 3
 def _prompts(n_req, seed, vocab):
     """``n_req`` prompts of 8..200 tokens.  The lengths are fixed, so every
@@ -639,11 +801,14 @@ def serve_wave(torch, eng, prompts, rid_base, new_tokens):
 
 
 def _kernel_fns():
-    from repro_torch.kernels import (flash_attention, fused_ffn,
+    from repro_torch.kernels import (act_dequant, act_dequant4, act_quant,
+                                     act_quant4, flash_attention, fused_ffn,
                                      paged_decode_attention, ssd_scan)
     return {"paged_decode_attention": paged_decode_attention,
             "flash_attention": flash_attention, "fused_ffn": fused_ffn,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "act_quant": act_quant,
+            "act_dequant": act_dequant, "act_quant4": act_quant4,
+            "act_dequant4": act_dequant4}
 
 
 def zero_counts():
@@ -901,6 +1066,203 @@ def profile_long_prefill(torch, make_engine):
 
 
 # ---------------------------------------------------------------- phase 4
+PINNED_BYTES = 256 << 20
+
+
+def pinned_rates(torch, nbytes=PINNED_BYTES):
+    """Device->host and host->device copy rates through pinned host
+    memory, in GB/s (CUDA events around 10 copies of ``nbytes``)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    d2h = cuda_ms(torch, lambda: host.copy_(dev, non_blocking=True), iters=10,
+                  warmup=2)
+    h2d = cuda_ms(torch, lambda: dev.copy_(host, non_blocking=True), iters=10,
+                  warmup=2)
+    return nbytes / d2h / 1e6, nbytes / h2d / 1e6
+
+
+def compress_checked(torch, name, t):
+    """One tensor of the path through ``act_compress`` at 8 and 4 bits:
+    codes and scales bit-equal to the plain versions, the JAX suite's
+    error bounds, and the bytes held against ``compressed_bytes``.
+    Returns the int8 codes and scales."""
+    from repro_torch.engine import (compressed_bytes, compression_error,
+                                    dequantize_int4, dequantize_int8,
+                                    quantize_int4, quantize_int8)
+    from repro_torch.kernels import ref
+    if not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{name}: the model produced non-finite values")
+    n = t.shape[-1]
+    nb = -(-n // 128)
+    rows = t.numel() // n
+    q8, s8 = quantize_int8(t)
+    d8 = dequantize_int8(q8, s8, torch.float32)
+    p4, s4 = quantize_int4(t)
+    d4 = dequantize_int4(p4, s4, n, torch.float32)
+    flat = t.reshape(rows, n)
+    qr, sr = ref.act_quant_ref(flat)
+    pr, s4r = ref.act_quant4_ref(flat)
+    if not (torch.equal(q8.reshape(rows, n), qr)
+            and torch.equal(s8.reshape(rows, nb), sr)
+            and torch.equal(p4.reshape(rows, nb * 64), pr)
+            and torch.equal(s4.reshape(rows, nb), s4r)
+            and torch.equal(d8.reshape(rows, n),
+                            ref.act_dequant_ref(qr, sr, torch.float32))
+            and torch.equal(d4.reshape(rows, n), ref.act_dequant4_ref(
+                pr, s4r, torch.float32, n))):
+        raise AssertionError(f"{name}: the codec on the card differs from "
+                             "its plain version")
+    del qr, sr, pr, s4r, d8, d4
+    e8, e4 = compression_error(t, 8), compression_error(t, 4)
+    if not (e8 < 0.02 and e4 > e8):
+        raise AssertionError(f"{name}: compression errors int8 {e8}, int4 "
+                             f"{e4} (want int8 < 0.02 and int4 > int8)")
+    held8 = q8.numel() * q8.element_size() + s8.numel() * 4
+    held4 = p4.numel() + s4.numel() * 4
+    model8, model4 = (compressed_bytes(tuple(t.shape), 8),
+                      compressed_bytes(tuple(t.shape), 4))
+    if n % 128 == 0:
+        if (held8, held4) != (model8, model4):
+            raise AssertionError(f"{name}: bytes held {held8}/{held4}, "
+                                 f"compressed_bytes {model8}/{model4}")
+        note = "= compressed_bytes"
+    else:
+        if (held8, held4) != (rows * (n + 4 * nb), rows * (nb * 64 + 4 * nb)):
+            raise AssertionError(f"{name}: bytes held {held8}/{held4}")
+        note = (f"!= compressed_bytes {model8} / {model4}: the padded last "
+                f"block of each row keeps its scale (and its int4 nibbles), "
+                f"while compressed_bytes counts n_elems * bits / 8 + "
+                f"(n_elems // 128) * 4")
+    log(f"  {name} {tuple(t.shape)} {str(t.dtype)[6:]} "
+        f"({t.numel() * t.element_size() / 1e6:.1f} MB): error int8 {e8:.5f}, "
+        f"int4 {e4:.5f}; held int8 {held8} B, int4 {held4} B {note}")
+    return q8, s8
+
+
+def phase_engine(torch, smi):
+    """The engine's entry points on the card at full width: compress the
+    tensors of two real prefills, swap the int8 SSM state through pinned
+    host memory, run the host-side planners; count every kernel's
+    launches on this path.  Returns ``{kernel name: launches}``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine import (Swapper, choose_policy, fuse_graph,
+                                    fusion_memory_saving, greedy_no_reuse,
+                                    plan_memory, plan_parallelism,
+                                    sub_batch_split)
+    from repro_torch.engine.swap import HOST_LINK_BW
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.offload import (DEVICE_POOLS, build_model_graph,
+                                     place_dp, pre_partition)
+    rng = np.random.default_rng(11)
+    zero_counts()
+    tensors, layers = {}, {}
+    for name in ("mamba2-370m", "paper-backbone"):
+        cfg = get_config(name)
+        layers[name] = cfg.num_layers
+        params = init_params(cfg, seed=0, device="cuda")
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (8, 2048)).astype(np.int32)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, tokens,
+                                init_cache(cfg, 8, 2048, device="cuda"))
+        torch.cuda.synchronize()
+        log(f"{name}: prefill of 8 x 2048 tokens in "
+            f"{time.perf_counter() - t0:.3f} s")
+        if name == "mamba2-370m":
+            tensors["mamba2 SSM state"] = cache["ssm"]
+            tensors["mamba2 last logits"] = logits[:, -1, :cfg.vocab_size]
+        else:
+            kvw = cfg.num_kv_heads * cfg.resolved_head_dim
+            tensors["paper-backbone K rows"] = cache["k"].reshape(-1, kvw)
+            tensors["paper-backbone V rows"] = cache["v"].reshape(-1, kvw)
+        del params, logits, cache
+
+    # (a) compress the real tensors at 8 and 4 bits
+    log("engine (a): act_compress on the prefills' tensors")
+    coded = {name: compress_checked(torch, name, t)
+             for name, t in tensors.items()}
+
+    # (b) the int8 SSM state out to pinned host memory and back
+    q8, s8 = coded["mamba2 SSM state"]
+    nbytes = q8.numel() + s8.numel() * 4
+    for rnd in (1, 2):
+        sw = Swapper(use_memory_kinds=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hq, hs = sw.offload("ssm.q", q8), sw.offload("ssm.s", s8)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if not (hq.is_pinned() and hs.is_pinned()):
+            raise AssertionError("the offloaded state is not in pinned "
+                                 "host memory")
+        del hq, hs
+        bq, bs = sw.fetch("ssm.q"), sw.fetch("ssm.s")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not (bq.device == q8.device and bs.device == s8.device
+                and torch.equal(bq, q8) and torch.equal(bs, s8)):
+            raise AssertionError("the swapped SSM state came back changed "
+                                 "or elsewhere")
+        del bq, bs
+        log(f"engine (b) swap round {rnd}: {nbytes / 1e6:.1f} MB int8 SSM "
+            f"state out {nbytes / (t1 - t0) / 1e9:.2f} GB/s, in "
+            f"{nbytes / (t2 - t1) / 1e9:.2f} GB/s (host clock, allocation "
+            f"included), bit-exact; the swap model transfer_seconds() "
+            f"{sw.transfer_seconds():.5f} s for both at HOST_LINK_BW "
+            f"{HOST_LINK_BW / 1e9:.0f} GB/s (data sheet) against "
+            f"{t2 - t0:.5f} s measured, on {smi}")
+    d2h, h2d = pinned_rates(torch)
+    log(f"pinned copy rates on {smi}: device->host {d2h:.2f} GB/s, "
+        f"host->device {h2d:.2f} GB/s ({PINNED_BYTES >> 20} MiB, CUDA "
+        f"events)")
+    del tensors, coded, q8, s8
+
+    # (c) the host-side planners on the same two configurations
+    free, _ = torch.cuda.mem_get_info()
+    for name in ("mamba2-370m", "paper-backbone"):
+        cfg = get_config(name)
+        g = build_model_graph(cfg, 8, 2048)
+        fused, reports = fuse_graph(g)
+        plan = plan_memory(g)
+        par = plan_parallelism(g, streams=2)
+        pp = pre_partition(g)
+        places = {pool: place_dp(pp, devs)
+                  for pool, devs in DEVICE_POOLS.items()}
+        remat = choose_policy(cfg, 8, 2048, free)
+        saved = sum(r.bytes_saved for r in reports)
+        cuts = {k: (v.cuts, v.latency_s) for k, v in places.items()}
+        log(f"engine (c) {name} (8 x 2048): graph {len(g.nodes)} ops -> "
+            f"fused {len(fused.nodes)}, saved {saved} B (each strategy "
+            f"alone: {fusion_memory_saving(g)}); memory plan peak "
+            f"{plan.peak_bytes} B vs no reuse {greedy_no_reuse(g)} B; "
+            f"parallelism x{par.speedup:.4f} on 2 streams; partition units "
+            f"{[len(pp.units(lv)) for lv in range(4)]}; place_dp (cuts, "
+            f"latency s) {cuts}; remat {remat.policy} ({remat.act_bytes} B) "
+            f"and {sub_batch_split(cfg, 8, 2048, free)} sub-batch(es) under "
+            f"{free} B free")
+
+    # (d) the launches of this path
+    counts = {name: fn.launches for name, fn in _kernel_fns().items()}
+    tensors_n = 4
+    expect = dict.fromkeys(counts, 0)
+    expect.update(ssd_scan=layers["mamba2-370m"],
+                  flash_attention=layers["paper-backbone"],
+                  fused_ffn=layers["paper-backbone"],
+                  act_quant=2 * tensors_n, act_dequant=2 * tensors_n,
+                  act_quant4=2 * tensors_n, act_dequant4=2 * tensors_n)
+    if counts != expect:
+        raise AssertionError(f"engine phase: launches {counts}, expected "
+                             f"{expect}")
+    log(f"engine phase: launches {counts} (one prefill each: K6 once a "
+        f"mamba2 layer, K2 and K3 once a paper-backbone layer; each of "
+        f"{tensors_n} tensors through each codec entry twice: once "
+        f"directly, once in compression_error)")
+    return {k: counts[k] for k in ACT_REPLACES}
+
+
+# ---------------------------------------------------------------- phase 5
 def top2_margin(torch, params, cfg, tokens):
     """Top-2 logit margin of the next token after ``tokens``, by the
     port's dense prefill on the CPU (for a report when streams differ)."""
@@ -977,9 +1339,10 @@ def main() -> int:
     smi = phase_device(torch)
     name = torch.cuda.get_device_name(0)
     kernels = [phase_paged(torch), phase_flash(torch), phase_ffn(torch),
-               phase_ssd(torch)]
+               phase_ssd(torch)] + phase_act_quant(torch)
     launches = phase_serving(torch, smi)
     launches.update(phase_batched(torch, smi))
+    launches.update(phase_engine(torch, smi))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     phase_card_vs_cpu(torch)

@@ -11,12 +11,32 @@ from typing import Optional
 
 import torch
 
+from .act_quant import act_dequant, act_quant
 from .flash_attn import flash_attention
 from .fused_ffn import fused_ffn
 from .paged_decode_attn import paged_decode_attention
 from .ssd_scan import ssd_scan
 
-__all__ = ["gated_ffn", "attention", "paged_attention", "ssd", "ssd_scan"]
+__all__ = ["quantize_activations", "dequantize_activations", "gated_ffn",
+           "attention", "paged_attention", "ssd", "ssd_scan"]
+
+
+def quantize_activations(x: torch.Tensor):
+    """Blockwise int8: x (M, N) f32/bf16 with ``N % 128 == 0`` -> (codes
+    int8 (M, N), scales f32 (M, N/128)).  The JAX package's
+    ``use_pallas``/``interpret`` flags have no counterpart: the device of
+    ``x`` picks the kernel or its plain version."""
+    assert x.dim() == 2 and x.shape[1] % 128 == 0, tuple(x.shape)
+    return act_quant(x)
+
+
+def dequantize_activations(q: torch.Tensor, scales: torch.Tensor,
+                           out_dtype: torch.dtype = torch.bfloat16
+                           ) -> torch.Tensor:
+    """Inverse of :func:`quantize_activations`: codes int8 (M, N), scales
+    f32 (M, N/128) -> (M, N) in ``out_dtype``."""
+    assert q.dim() == 2 and q.shape[1] % 128 == 0, tuple(q.shape)
+    return act_dequant(q, scales, out_dtype)
 
 
 def gated_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

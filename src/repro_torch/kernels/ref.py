@@ -12,6 +12,85 @@ from typing import Optional
 import torch
 
 
+# ---------------------------------------------------------- act_quant ------
+QBLOCK = 128
+
+
+def _pad_cols(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Zero-pad the last axis to a multiple of ``block`` (the JAX codec's
+    ``_pad_to_block``)."""
+    pad = (-x.shape[-1]) % block
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def _scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """``amax / qmax + 1e-12`` in f32 with an IEEE division on every
+    device: on the card, PyTorch divides by a Python number as a product
+    with its reciprocal, which can land one ulp away."""
+    return amax / amax.new_full((), qmax) + 1e-12
+
+
+def act_quant_ref(x: torch.Tensor, block: int = QBLOCK):
+    """Blockwise symmetric int8 quantization along the last dim.
+
+    x: (M, n) f32/bf16 -> (codes int8 (M, n), scales f32 (M, ceil(n /
+    block))): ``scale = amax/127 + 1e-12``, ``code = clip(round(x /
+    scale), -127, 127)`` with round half to even.  A short last block is
+    zero-padded, which changes no absmax."""
+    m, n = x.shape
+    xb = _pad_cols(x.float(), block).reshape(m, -1, block)
+    scale = _scale(xb.abs().amax(dim=-1, keepdim=True), 127.0)
+    q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
+    return q.reshape(m, -1)[:, :n], scale[..., 0]
+
+
+def act_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16,
+                    block: int = QBLOCK) -> torch.Tensor:
+    """codes int8 (M, n), scales f32 (M, ceil(n / block)) -> (M, n) in
+    ``dtype``: code * scale in f32, rounded once."""
+    m, n = q.shape
+    qb = _pad_cols(q, block).reshape(m, -1, block).float()
+    return (qb * scale[..., None]).reshape(m, -1)[:, :n].to(dtype)
+
+
+def act_quant4_ref(x: torch.Tensor, block: int = QBLOCK):
+    """Blockwise symmetric int4 quantization, two codes packed per byte.
+
+    The code range is the symmetric [-7, 7] (the -8 point is unused, so
+    negation round-trips inside the code space and the scale is amax/7 on
+    both sides); codes are stored biased by +8 into [1, 15] and packed
+    little-nibble-first: byte j holds column 2j in its low nibble and
+    column 2j+1 in its high nibble.  The zero-padded row is packed, so a
+    short last block's padded bytes are 0x88.
+
+    x: (M, n) -> (packed uint8 (M, ceil(n / block) * block / 2), scales
+    f32 (M, ceil(n / block)))."""
+    m, _ = x.shape
+    xb = _pad_cols(x.float(), block).reshape(m, -1, block)
+    scale = _scale(xb.abs().amax(dim=-1, keepdim=True), 7.0)
+    q = torch.clamp(torch.round(xb / scale), -7, 7) + 8.0
+    q = q.reshape(m, -1).to(torch.uint8)
+    lo, hi = q[:, 0::2], q[:, 1::2]
+    return lo | (hi << 4), scale[..., 0]
+
+
+def act_dequant4_ref(packed: torch.Tensor, scale: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16,
+                     n: Optional[int] = None,
+                     block: int = QBLOCK) -> torch.Tensor:
+    """Inverse of :func:`act_quant4_ref`: unpack the nibbles (low nibble =
+    even column), un-bias to [-7, 7] and rescale per block.  packed:
+    (M, W) uint8; scale: (M, 2W / block) -> (M, n) in ``dtype``, n = 2W
+    unless given."""
+    m, half = packed.shape
+    lo = (packed & 0xF).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    q = torch.stack([lo, hi], dim=-1).reshape(m, -1, block).float()
+    x = (q * scale[..., None]).reshape(m, 2 * half)
+    return x[:, :2 * half if n is None else n].to(dtype)
+
+
 def paged_decode_attn_ref(q: torch.Tensor, k_blocks: torch.Tensor,
                           v_blocks: torch.Tensor, tables: torch.Tensor,
                           pos: torch.Tensor, k_new: torch.Tensor,

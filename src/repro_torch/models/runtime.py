@@ -18,7 +18,11 @@ class RuntimeOptions:
     k_chunk: int = 1024
     decode_window: int = 0         # 0 = attend to the full KV cache
     remat: str = "none"            # none | dots | full
-    use_pallas: bool = False       # TPU hot-path kernels (interpret on CPU)
+    # The JAX package's switch for its Pallas kernels.  In the port the
+    # tensor's device picks the kernel (the hand-written CUDA kernel on
+    # the card, its plain version on the CPU); the field is kept only so
+    # that EngineConfig.to_runtime_options gives the JAX options.
+    use_pallas: bool = False
     kv_cache_dtype: str = "bfloat16"
     moe_capacity_factor: float = 1.0
     logit_chunk: int = 0           # chunk the LM loss over sequence (0 = off)

@@ -13,14 +13,22 @@ F); bf16 outputs may round one bf16 ulp apart (2**-8 relative).  The
 FFN's f32 sums run over up to D + F = 5120 terms, so its f32 tolerance
 is a little wider.  The SSD scan's outputs reach |y| ~ 20 after sums of
 up to 256 x 128 terms, so its f32 atol is 1e-3 (about 5e-5 of the
-largest output).
+largest output).  The activation-quantization kernels (K4 int8, K5
+int4) compute the plain version's f32 arithmetic element by element, so
+their codes, packed bytes, scales and dequantized values must be
+bit-equal to it, on the card and against the CPU: no tolerance.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.engine import act_compress
+from repro_torch.engine.swap import Swapper
+from repro_torch.kernels import (act_dequant, act_dequant4, act_quant,
+                                 act_quant4)
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.act_quant import kv_quant_rows
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.fused_ffn import fused_ffn
@@ -403,3 +411,184 @@ def test_batched_engine_on_card_matches_cpu(cuda, name):
             assert [fn.launches - b for fn, b in zip(kernels, before)] \
                 == want
     assert streams["cuda"] == streams["cpu"]
+
+
+# -------------------------------------------- activation quantization --
+def _act_x(m, n, dtype, seed, scale=3.0):
+    x = torch.randn(m, n, generator=torch.Generator().manual_seed(seed))
+    x = x * scale
+    x[0, :min(n, 128)] = 0.0                    # an all-zero block
+    return x.to(dtype)
+
+
+def _assert_codec_bit_equal(x):
+    """K4 and K5 on the card against the plain version on the card and on
+    the CPU: codes, packed bytes, scales and both dequantized dtypes."""
+    n = x.shape[1]
+    xc = x.cuda()
+    for quant, dequant, pq, pdq, kw in (
+            (act_quant, act_dequant, kref.act_quant_ref,
+             kref.act_dequant_ref, {}),
+            (act_quant4, act_dequant4, kref.act_quant4_ref,
+             kref.act_dequant4_ref, {"n": n})):
+        before = (quant.launches, dequant.launches)
+        q, s = quant(xc)
+        qr, sr = pq(xc)
+        qc, sc = pq(x)
+        torch.cuda.synchronize()
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+        assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+        for od in (torch.bfloat16, torch.float32):
+            d = dequant(q, s, od, **kw)
+            assert d.dtype == od and d.shape == x.shape
+            assert torch.equal(d, pdq(qr, sr, od, **kw))
+            assert torch.equal(d.cpu(), pdq(qc, sc, od, **kw))
+        assert (quant.launches, dequant.launches) == (before[0] + 1,
+                                                      before[1] + 2)
+        if quant is act_quant4 and n % 128:
+            assert bool((q[:, (n + 1) // 2:] == 0x88).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [128, 256, 2048, 50280])
+@pytest.mark.parametrize("m", [1, 7, 256])
+def test_act_quant_kernels_bit_equal(cuda, m, n, dtype):
+    _assert_codec_bit_equal(_act_x(m, n, dtype, m * 7 + n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 130, 201, 50281])
+def test_act_quant_kernels_odd_rows(cuda, n):
+    """n % 4 != 0: the masked scalar path of loads and stores."""
+    _assert_codec_bit_equal(_act_x(5, n, torch.float32, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_kernels_misaligned_input(cuda, dtype):
+    """A contiguous view that starts one element into its buffer: the
+    vector loads are off, the results the same."""
+    buf = _act_x(1, 1 + 6 * 256, dtype, 5).cuda()
+    x = buf[0, 1:].view(6, 256)
+    q, s = act_quant(x)
+    p, s4 = act_quant4(x)
+    q2, s2 = kref.act_quant_ref(x)
+    p2, s42 = kref.act_quant4_ref(x)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    assert torch.equal(p, p2) and torch.equal(s4, s42)
+
+
+@pytest.mark.gpu
+def test_act_quant_kernels_ties_and_range(cuda):
+    """Values on exact half-steps round half to even like torch.round;
+    int4 nibbles stay in [1, 15]; large and tiny magnitudes."""
+    base = torch.arange(-127, 128, dtype=torch.float32) + 0.5
+    x = torch.cat([base[:128], base[127:255], torch.full((128,), 1e-30),
+                   torch.full((128,), 3e30)]).reshape(4, 128)
+    x[0, 0] = 127.0                             # amax 127: scale ~1
+    _assert_codec_bit_equal(x)
+    p, _ = act_quant4(x.cuda())
+    assert int((p & 0xF).min()) >= 1 and int((p >> 4).min()) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_compress_on_card_matches_cpu(cuda, dtype):
+    """The codec through ``act_compress`` with leading dimensions and a
+    ragged last axis: card == CPU bit for bit; ``compression_error``
+    within 1e-5 relative (sums in another order)."""
+    x = torch.randn(2, 3, 50280, generator=torch.Generator().manual_seed(9))
+    x = x.to(dtype)
+    xc = x.cuda()
+    before = [f.launches for f in (act_quant, act_dequant,
+                                   act_quant4, act_dequant4)]
+    q, s = act_compress.quantize_int8(xc)
+    p, s4 = act_compress.quantize_int4(xc)
+    assert q.shape == x.shape and s.shape == (2, 3, 393)
+    assert p.shape == (2, 3, 393 * 64)
+    q0, s0 = act_compress.quantize_int8(x)
+    p0, s40 = act_compress.quantize_int4(x)
+    assert torch.equal(q.cpu(), q0) and torch.equal(s.cpu(), s0)
+    assert torch.equal(p.cpu(), p0) and torch.equal(s4.cpu(), s40)
+    assert torch.equal(act_compress.dequantize_int8(q, s).cpu(),
+                       act_compress.dequantize_int8(q0, s0))
+    assert torch.equal(act_compress.dequantize_int4(p, s4, 50280).cpu(),
+                       act_compress.dequantize_int4(p0, s40, 50280))
+    for bits in (8, 4):
+        a = act_compress.compression_error(xc, bits)
+        b = act_compress.compression_error(x, bits)
+        assert abs(a - b) <= 1e-5 * b
+    assert [f.launches - b for f, b in zip(
+        (act_quant, act_dequant, act_quant4, act_dequant4),
+        before)] == [2, 2, 2, 2]
+
+
+@pytest.mark.gpu
+def test_act_quant_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.randn(4, 256, device="cuda")
+    q, s = act_quant(x)
+    p, s4 = act_quant4(x)
+    with pytest.raises(ValueError):                 # f16 input
+        act_quant(x.half())
+    with pytest.raises(ValueError):                 # 3-D input
+        act_quant4(x[None])
+    with pytest.raises(ValueError):                 # scales of another shape
+        act_dequant(q, s[:, :1])
+    with pytest.raises(ValueError):                 # scales on the CPU
+        act_dequant(q, s.cpu())
+    with pytest.raises(ValueError):                 # f16 output
+        act_dequant4(p, s4, torch.float16)
+    with pytest.raises(ValueError):                 # packed too narrow for n
+        act_dequant4(p, s4, n=300)
+    with pytest.raises(ValueError):                 # codes not int8
+        act_dequant(q.to(torch.int16), s)
+
+
+# --------------------------------------------------------------- swap --
+@pytest.mark.gpu
+def test_swapper_round_trip_through_pinned_memory(cuda):
+    """A real move: the host copy lies in pinned memory and holds the
+    bits; ``fetch`` brings them back to the card bit for bit; the books
+    count both directions."""
+    x = torch.randn(1000, 256, device="cuda")
+    q, s = act_compress.quantize_int8(x)
+    sw = Swapper(use_memory_kinds=True)
+    hq = sw.offload("q", q)
+    hs = sw.offload("s", s)
+    assert hq.device.type == "cpu" and hq.is_pinned() and hs.is_pinned()
+    torch.cuda.synchronize()
+    assert torch.equal(hq, q.cpu()) and torch.equal(hs, s.cpu())
+    bq, bs = sw.fetch("q"), sw.fetch("s")
+    assert bq.device == q.device and bs.device == s.device
+    assert torch.equal(bq, q) and torch.equal(bs, s)
+    nbytes = q.numel() + s.numel() * 4
+    assert sw.total_bytes() == 2 * nbytes
+    assert [r.direction for r in sw.records] == ["out", "out", "in", "in"]
+    assert sw.resident_host == {}
+
+
+@pytest.mark.gpu
+def test_swapper_orders_copies_against_the_callers_stream(cuda):
+    """The offload copy waits for the work that writes its source, and
+    the caller's later work waits for the fetch."""
+    sw = Swapper(use_memory_kinds=True)
+    x = torch.zeros(1 << 22, device="cuda")
+    x.add_(1.0)                                 # queued before the offload
+    sw.offload("x", x)
+    del x                                       # its memory outlives the copy
+    y = torch.full((1 << 22,), 5.0, device="cuda")
+    back = sw.fetch("x")
+    back.mul_(3.0)                              # after the fetch
+    torch.cuda.synchronize()
+    assert bool((back == 3.0).all()) and bool((y == 5.0).all())
+
+
+@pytest.mark.gpu
+def test_swapper_failed_move_raises(cuda):
+    sw = Swapper(use_memory_kinds=True)
+    with pytest.raises(ValueError):             # not on a card
+        sw.offload("x", torch.zeros(8))
+    with pytest.raises(KeyError):               # never offloaded
+        sw.fetch("y")
+    assert Swapper().offload("z", torch.zeros(8, device="cuda")).is_cuda

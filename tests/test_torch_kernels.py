@@ -14,9 +14,22 @@
   interpret mode, over the masks of the JAX flash and window suites.
 * The fused FFN's plain version (``fused_ffn_ref``, through
   ``ops.gated_ffn``) against the JAX oracle and the Pallas kernel.
+* The activation-quantization kernels' plain versions (``act_quant_ref``,
+  ``act_dequant_ref``, ``act_quant4_ref``, ``act_dequant4_ref``, through
+  the wrappers and ``ops.quantize_activations``) against the JAX oracles
+  run op by op: codes, packed bytes, scales and dequantized values
+  bit-equal.  Against the Pallas kernels in interpret mode (and the
+  jitted JAX ``ops``), bit-equality does not hold: XLA compiles the
+  kernel body as one program and divides by the constant 127 (7) as a
+  product with its reciprocal, so a scale can be one ulp away and a code
+  on a tie one level away.  There the JAX suite's own floor holds
+  (``test_kernels.py``): int8 codes within one level on fewer than 1e-3
+  of the elements, int4 nibbles within one level, scales within 1e-6
+  relative; dequantizing the same codes and scales is bit-equal.
 * The CUDA kernels themselves are held against these plain versions on
   the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import importlib
 import numpy as np
 import pytest
 import torch
@@ -30,7 +43,9 @@ from repro.kernels import paged_decode_attention as pallas_paged
 from repro.kernels import ref as jref
 from repro.kernels.act_quant import kv_dequant_rows as j_dequant
 from repro.kernels.act_quant import kv_quant_rows as j_quant
+from repro.kernels import ops as jops
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels.act_quant import kv_dequant_rows, kv_quant_rows
 from repro_torch.kernels.paged_decode_attn import paged_decode_attention
 
@@ -326,3 +341,158 @@ def test_cpu_calls_of_attention_and_gated_ffn_never_launch():
     ops.gated_ffn(x, torch.ones(16, 32), torch.ones(16, 32),
                   torch.ones(32, 16), "gelu")
     assert (flash_attention.launches, fused_ffn.launches) == before
+
+
+# ------------------------------------------- activation quantization ----
+J_ACT = importlib.import_module("repro.kernels.act_quant")
+T_ACT = importlib.import_module("repro_torch.kernels.act_quant")
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _act_input(m, n, dtype, seed):
+    x = (np.random.default_rng(seed).standard_normal((m, n)) * 3).astype(
+        np.float32)
+    x[0, :128] = 0.0                            # an all-zero block
+    return jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(TDT[dtype])
+
+
+def _f32(a):
+    return np.asarray(a.astype(jnp.float32)) if isinstance(a, jax.Array) \
+        else a.float().numpy()
+
+
+@pytest.mark.parametrize("m,n", [(128, 256), (256, 512), (64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_act_quant_plain_matches_jax(m, n, dtype):
+    xj, xt = _act_input(m, n, dtype, m + n)
+    q, s = T_ACT.act_quant(xt)
+    qr, sr = jref.act_quant_ref(xj)                  # op by op: IEEE division
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+    # the Pallas kernel in interpret mode: the JAX suite's floor
+    qp, sp = J_ACT.act_quant(xj, interpret=True, block_m=64, block_n=128)
+    diff = np.abs(q.numpy().astype(np.int32) - np.asarray(qp, np.int32))
+    assert diff.max() <= 1 and (diff != 0).mean() < 1e-3
+    np.testing.assert_allclose(s.numpy(), np.asarray(sp), rtol=1e-6)
+    for od in ("float32", "bfloat16"):
+        np.testing.assert_array_equal(
+            _f32(T_ACT.act_dequant(q, s, TDT[od])),
+            _f32(jref.act_dequant_ref(qr, sr, getattr(jnp, od))))
+        # the same codes and scales dequantize to the same bits
+        np.testing.assert_array_equal(
+            _f32(T_ACT.act_dequant(torch.from_numpy(np.array(qp)),
+                                   torch.from_numpy(np.array(sp)),
+                                   TDT[od])),
+            _f32(J_ACT.act_dequant(qp, sp, out_dtype=getattr(jnp, od),
+                                   interpret=True, block_m=64,
+                                   block_n=128)))
+    # roundtrip error bounded by scale/2 per element
+    err = (T_ACT.act_dequant(q, s, torch.float32) - xt.float()).abs()
+    assert bool((err <= s.repeat_interleave(128, -1) * 0.51 + 1e-6).all())
+
+
+@pytest.mark.parametrize("m,n", [(64, 256), (128, 512)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_act_quant4_plain_matches_jax(m, n, dtype):
+    xj, xt = _act_input(m, n, dtype, m * n)
+    packed, s = T_ACT.act_quant4(xt)
+    assert packed.shape == (m, n // 2) and packed.dtype == torch.uint8
+    pr, sr = jref.act_quant4_ref(xj)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(pr))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+    pp, sp = J_ACT.act_quant4(xj, interpret=True, block_m=64, block_n=128)
+    for shift in (0, 4):                        # each nibble within a level
+        d = np.abs(((packed.numpy() >> shift) & 0xF).astype(np.int32)
+                   - ((np.asarray(pp) >> shift) & 0xF).astype(np.int32))
+        assert d.max() <= 1 and (d != 0).mean() < 5e-3
+    np.testing.assert_allclose(s.numpy(), np.asarray(sp), rtol=1e-6)
+    for od in ("float32", "bfloat16"):
+        np.testing.assert_array_equal(
+            _f32(T_ACT.act_dequant4(packed, s, TDT[od])),
+            _f32(jref.act_dequant4_ref(pr, sr, getattr(jnp, od))))
+        np.testing.assert_array_equal(
+            _f32(T_ACT.act_dequant4(torch.from_numpy(np.array(pp)),
+                                    torch.from_numpy(np.array(sp)),
+                                    TDT[od])),
+            _f32(J_ACT.act_dequant4(pp, sp, out_dtype=getattr(jnp, od),
+                                    interpret=True, block_m=64,
+                                    block_n=128)))
+
+
+def test_act_quant4_roundtrip_is_exact_on_codes():
+    """pack -> unpack -> repack is the identity on the packed bytes and
+    the scales (twin of the JAX suite's test)."""
+    x = torch.from_numpy((np.random.default_rng(11).standard_normal(
+        (64, 256)) * 3).astype(np.float32))
+    p1, s1 = tref.act_quant4_ref(x)
+    d1 = tref.act_dequant4_ref(p1, s1, torch.float32)
+    p2, s2 = tref.act_quant4_ref(d1)
+    assert torch.equal(p1, p2)
+    np.testing.assert_allclose(s1.numpy(), s2.numpy(), rtol=1e-6)
+
+
+def test_act_quant4_range_is_symmetric():
+    """Biased nibbles live in [1, 15] (code -8 unused), so negating the
+    input negates the codes exactly (twin of the JAX suite's test)."""
+    x = torch.from_numpy((np.random.default_rng(12).standard_normal(
+        (32, 256)) * 4).astype(np.float32))
+    packed, _ = tref.act_quant4_ref(x)
+    lo, hi = (packed & 0xF).int(), (packed >> 4).int()
+    assert lo.min() >= 1 and hi.min() >= 1
+    neg, _ = tref.act_quant4_ref(-x)
+    assert torch.equal((neg & 0xF).int() - 8, -(lo - 8))
+    assert torch.equal((neg >> 4).int() - 8, -(hi - 8))
+
+
+@pytest.mark.parametrize("n", [1, 100, 129, 200, 50280])
+def test_act_quant_ragged_rows_are_zero_padded(n):
+    """A short last block is the zero-padded block: the codes are the
+    padded row's, cut to n; int4 packs the padded row (bytes 0x88)."""
+    x = torch.from_numpy((np.random.default_rng(n).standard_normal(
+        (3, n)) * 2).astype(np.float32))
+    pad = (-n) % 128
+    xp = torch.nn.functional.pad(x, (0, pad))
+    q, s = T_ACT.act_quant(x)
+    qp, sp = T_ACT.act_quant(xp)
+    assert torch.equal(q, qp[:, :n]) and torch.equal(s, sp)
+    p4, s4 = T_ACT.act_quant4(x)
+    pp4, sp4 = T_ACT.act_quant4(xp)
+    assert torch.equal(p4, pp4) and torch.equal(s4, sp4)
+    assert bool((p4[:, (n + 1) // 2:] == 0x88).all())
+    assert torch.equal(T_ACT.act_dequant4(p4, s4, torch.float32, n=n),
+                       T_ACT.act_dequant4(pp4, sp4, torch.float32)[:, :n])
+
+
+def test_ops_quantize_activations_dispatch():
+    """The JAX ``ops`` signature without ``use_pallas``/``interpret``;
+    N % 128 == 0 is asserted, the default output is bf16.  The jitted JAX
+    entry multiplies by the reciprocal: its codes stay within a level."""
+    xj, xt = _act_input(64, 256, "float32", 0)
+    q, s = ops.quantize_activations(xt)
+    q1, s1 = jops.quantize_activations(xj, use_pallas=False)
+    assert int(np.abs(q.numpy().astype(np.int32)
+                      - np.asarray(q1, np.int32)).max()) <= 1
+    np.testing.assert_allclose(s.numpy(), np.asarray(s1), rtol=1e-6)
+    d = ops.dequantize_activations(q, s)
+    assert d.dtype == torch.bfloat16 and d.shape == (64, 256)
+    np.testing.assert_array_equal(
+        _f32(d), _f32(jops.dequantize_activations(jnp.asarray(q.numpy()),
+                                                  jnp.asarray(s.numpy()))))
+    with pytest.raises(AssertionError):
+        ops.quantize_activations(xt[:, :200])
+    with pytest.raises(AssertionError):
+        ops.dequantize_activations(q[:, :200], s[:, :2])
+
+
+def test_act_quant_wrappers_on_cpu_never_launch():
+    fns = (T_ACT.act_quant, T_ACT.act_dequant, T_ACT.act_quant4,
+           T_ACT.act_dequant4)
+    before = [f.launches for f in fns]
+    x = torch.randn(4, 256)
+    q, s = T_ACT.act_quant(x)
+    T_ACT.act_dequant(q, s)
+    p, s4 = T_ACT.act_quant4(x)
+    T_ACT.act_dequant4(p, s4)
+    assert [f.launches for f in fns] == before
+    with pytest.raises(ValueError, match="no act_quant kernel"):
+        T_ACT.act_quant(x.to("meta"))

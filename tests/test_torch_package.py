@@ -76,8 +76,9 @@ def test_entry_points_default_to_cuda():
 
 def test_kernel_build_names_follow_the_sources():
     sources = sorted(_build.CSRC.glob("*.cu"))
-    assert [s.stem for s in sources] == ["flash_attn", "fused_ffn",
-                                         "paged_decode_attn", "ssd_scan"]
+    assert [s.stem for s in sources] == ["act_quant", "flash_attn",
+                                         "fused_ffn", "paged_decode_attn",
+                                         "ssd_scan"]
     for src in sources:
         lib = _build.library_path(src)
         assert lib.parent == _build.BUILD_DIR
