@@ -12,9 +12,11 @@ Phases (any failure exits non-zero):
    ``nvcc`` (one process per source, all at once) into ``build/``.
 2. kernels — each kernel against its plain PyTorch version on the card
    (tolerances below): K1 paged decode attention at max_seq 512 and 2048
-   tables, K2 flash attention over its masks, dtypes, head dims, head
-   groupings and lengths up to 2048, K3 fused gated FFN over both
-   activations, dtypes, ragged and large M and two widths, K6 SSD scan
+   tables, K2 flash attention (bf16 on the tensor cores, f32 on the CUDA
+   cores) over its masks, dtypes, head dims 16..256, head groupings and
+   lengths up to 2048, K3 fused gated FFN (bf16 small-M and tile routes,
+   f32) over both activations, dtypes, ragged and large M, ragged F and
+   widths up to 1024, each repeating bit for bit, K6 SSD scan
    over ragged and multi-chunk lengths, groups, head/state widths,
    dtypes and both layouts, K4/K5 activation quantization (int8 and
    packed int4, quant and dequant) over M 1..16384, n 128..50280 (ragged),
@@ -33,23 +35,27 @@ Phases (any failure exits non-zero):
    budgets, the launches of each kernel against each path's decode
    steps and prefill calls, and no new program when a wave repeats;
    prints TTFT per bucket, the decode-step time and device profiles of
-   a decode step and of a long prefill call.
+   a decode step and of a long prefill call (with K1's, K2's and K3's
+   device time in each).
 4. engine — the model-adaptive engine's entry points on the card at full
    width: one ``model.prefill`` of 8 x 2048 tokens each of
    ``mamba2-370m`` (K6) and ``paper-backbone`` (dense bf16 KV, K2/K3);
    their SSM state, last logits and K/V rows go through
    ``act_compress`` at 8 and 4 bits (K4/K5), held bit-equal to the plain
    versions, with the codec's error bounds and byte counts asserted; the
-   int8 SSM state swaps out to pinned host memory and back bit-exactly
-   (measured GB/s beside the swap model's); the host-side planners
-   (graph, fusion, memory plan, parallelism, partition, placement on
-   every pool, remat policy and sub-batches under the card's free
-   memory) run on both configs.  Launches of every kernel are counted.
+   int8 SSM state swaps out to pinned host memory and back bit-exactly,
+   twice through one Swapper (the second round reuses the pinned buffers
+   of the first; measured GB/s beside the swap model's); the host-side
+   planners (graph, fusion, memory plan, parallelism, partition,
+   placement on every pool, remat policy and sub-batches under the
+   card's free memory) run on both configs.  Launches of every kernel
+   are counted.
 5. card against CPU — f32-activation variants serve greedy requests on
    the card and through the port's plain versions on the CPU: 5 of
-   ``paper-backbone`` paged (one at bucket 1024) and 4 of
-   ``mamba2-370m`` batched with f32 caches; the token streams must be
-   equal.
+   ``paper-backbone`` paged (one at bucket 1024), 4 of the reduced
+   ``gemma3-12b`` paged (window 64; three prompts select ``banded``) and
+   4 of ``mamba2-370m`` batched with f32 caches; the token streams must
+   be equal.
 
 The line before the last is a JSON object listing every kernel with its
 launches on its main path and its times (K4 and K5 as their four entry
@@ -173,6 +179,33 @@ def cuda_ms(torch, fn, iters=200, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters=50, part="", tries=3):
+    """Device time of one call of ``fn`` in ms: the profiler's device time
+    over ``iters`` calls of the kernels whose name holds ``part`` (all of
+    them by default), divided by ``iters``.  Unlike a CUDA-event loop it
+    leaves out the host's time to issue each call.  A profile that
+    recorded no such kernel is taken again, up to ``tries`` times; then
+    the time is ``None`` (not measured), never 0."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and part in e.key)
+        if us > 0:
+            return us / 1e3 / iters
+    return None
+
+
+def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def paged_bound_ms(args, scales):
@@ -349,9 +382,18 @@ def flash_pairs(s, causal, window, kv_len):
     return int(valid.sum())
 
 
+def max_sm_clock_hz():
+    """The card's top SM clock as ``nvidia-smi`` reports it, in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
 def phase_flash(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn import attention_route, flash_attention
     gen = torch.Generator().manual_seed(4321)
     max_err = 0.0
     n_cases = 0
@@ -365,51 +407,73 @@ def phase_flash(torch):
                  dict(causal=False)]
         for mask in masks:
             for dtype in ("bfloat16", "float32"):
-                for hd in (32, 64, 128):
+                for hd in (16, 32, 64, 128, 256):
                     for h, kvh in ((8, 8), (8, 2)):
                         q, k, v = flash_case(torch, gen, b, h, kvh, s, hd,
                                              dtype)
                         out = flash_attention(q, k, v, **mask)
                         ref = flash_plain(q, k, v, **mask)
                         torch.cuda.synchronize()
-                        err = check_close(
-                            "flash_attention", out, ref, TOL[dtype],
-                            f"S={s} hd={hd} H={h} kvh={kvh} {dtype} "
-                            f"{mask}")
+                        what = (f"S={s} hd={hd} H={h} kvh={kvh} {dtype} "
+                                f"({attention_route(q.dtype)}) {mask}")
+                        err = check_close("flash_attention", out, ref,
+                                          TOL[dtype], what)
                         if mask.get("kv_len") == 0 \
                                 and not bool((out == 0).all()):
                             raise AssertionError("kv_len 0 must give 0")
+                        if not torch.equal(out, flash_attention(q, k, v,
+                                                                **mask)):
+                            raise AssertionError("flash_attention does not "
+                                                 "repeat: " + what)
                         max_err = max(max_err, err)
                         n_cases += 1
-    log(f"flash_attention == plain version on {n_cases} cases, "
-        f"max_abs_err {max_err:.3g}")
+    log(f"flash_attention == plain version on {n_cases} cases (bf16 on the "
+        f"tensor cores, f32 on the CUDA cores, hd 16..256), each repeating "
+        f"bit for bit, max_abs_err {max_err:.3g}")
 
     # timing at the long wave's prefill bursts: 8 prompts x 8 heads x hd
     # 32, bf16, causal (the engine passes no kv_len)
+    clock = max_sm_clock_hz()
     timed = {}
     for b, s in ((8, 2048), (8, 1024)):
         q, k, v = flash_case(torch, gen, b, 8, 8, s, 32, "bfloat16")
-        ms = cuda_ms(torch, lambda: flash_attention(q, k, v), iters=20)
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v), iters=50)
         plain_ms = cuda_ms(torch, lambda: flash_plain(q, k, v), iters=5,
                            warmup=2)
         library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), iters=20)
+            q, k, v, is_causal=True), iters=50)
+        dev_ms = device_ms(torch, lambda: flash_attention(q, k, v),
+                           part="flash_attn")
+        library_dev_ms = device_ms(torch, lambda: (
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)))
         nbytes = 4 * q.numel() * q.element_size()
-        flops = 4 * 32 * flash_pairs(s, True, 0, None) * b * 8
-        bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS)
-        timed[s] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+        pairs = flash_pairs(s, True, 0, None) * b * 8
+        bound_ms, bound_by = bound(nbytes, 4 * 32 * pairs, H100_BF16_FLOPS)
+        # one ex2 per valid pair at 16 a clock per SM on 132 SMs
+        exp_ms = 1e3 * pairs / (16 * 132 * clock)
+        timed[s] = (ms, plain_ms, library_ms, bound_ms, bound_by, exp_ms,
+                    dev_ms, library_dev_ms)
         log(f"flash_attention ({b} x {s} tokens, 8 heads, hd 32, bf16, "
             f"causal): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
             f"library_ms {library_ms:.4f} bound_ms {bound_ms:.5f} "
-            f"({bound_by})")
-    ms, plain_ms, library_ms, bound_ms, bound_by = timed[2048]
+            f"({bound_by}); device time kernel {fmt(dev_ms)}, SDPA "
+            f"{fmt(library_dev_ms)}; exponential floor {exp_ms:.5f} ms "
+            f"({pairs} pairs at {clock / 1e9:.3f} GHz)")
+    (ms, plain_ms, library_ms, bound_ms, bound_by, exp_ms, dev_ms,
+     library_dev_ms) = timed[2048]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn.py:96",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "shape": "8 x 2048 tokens, 8 heads, hd 32, bf16, causal"}
+            "exp_floor_ms": exp_ms, "device_ms": dev_ms,
+            "library_device_ms": library_dev_ms,
+            "ms_8x1024": timed[1024][0], "library_ms_8x1024": timed[1024][2],
+            "device_ms_8x1024": timed[1024][6],
+            "library_device_ms_8x1024": timed[1024][7],
+            "shape": "8 x 2048 tokens, 8 heads, hd 32, bf16, causal "
+                     "(tensor cores)"}
 
 
 def ffn_case(torch, gen, m, d, f, dtype):
@@ -422,55 +486,88 @@ def ffn_case(torch, gen, m, d, f, dtype):
 
 def phase_ffn(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.fused_ffn import ffn_plan, fused_ffn
     from repro_torch.kernels.ref import fused_ffn_ref
     gen = torch.Generator().manual_seed(2468)
     max_err = 0.0
     n_cases = 0
-    for d, f in ((256, 1024), (1024, 4096)):
-        for m in (8, 100, 8192):
-            for dtype in ("bfloat16", "float32"):
-                for act in ("silu", "gelu"):
-                    args = ffn_case(torch, gen, m, d, f, dtype)
-                    out = fused_ffn(*args, act)
-                    ref = fused_ffn_ref(*args, act)
-                    torch.cuda.synchronize()
-                    err = check_close("fused_ffn", out, ref, FFN_TOL[dtype],
-                                      f"M={m} D={d} F={f} {dtype} {act}")
-                    if not torch.equal(out, fused_ffn(*args, act)):
-                        raise AssertionError("fused_ffn does not repeat")
-                    max_err = max(max_err, err)
-                    n_cases += 1
-    log(f"fused_ffn == plain version on {n_cases} cases, max_abs_err "
-        f"{max_err:.3g}")
+    cases = [(m, d, f, dtype) for d, f in ((256, 1024), (1024, 4096))
+             for m in (8, 100, 8192) for dtype in ("bfloat16", "float32")]
+    # the bf16 routes at their edges: ragged M and F, D over several
+    # output tiles, x resident or streamed, small M at D 1024
+    cases += [(m, d, f, "bfloat16") for m, d, f in (
+        (1, 256, 1024), (64, 256, 1000), (65, 256, 1024), (8195, 256, 1024),
+        (127, 264, 200), (300, 512, 1032), (16, 1024, 4096))]
+    routes = {}
+    for m, d, f, dtype in cases:
+        for act in ("silu", "gelu"):
+            args = ffn_case(torch, gen, m, d, f, dtype)
+            out = fused_ffn(*args, act)
+            ref = fused_ffn_ref(*args, act)
+            torch.cuda.synchronize()
+            route = ffn_plan(args[0].dtype, m, d, f).route
+            err = check_close("fused_ffn", out, ref, FFN_TOL[dtype],
+                              f"M={m} D={d} F={f} {dtype} {act} ({route})")
+            if not torch.equal(out, fused_ffn(*args, act)):
+                raise AssertionError(f"fused_ffn does not repeat: M={m} "
+                                     f"D={d} F={f} {dtype} ({route})")
+            routes[route] = routes.get(route, 0) + 1
+            max_err = max(max_err, err)
+            n_cases += 1
+    log(f"fused_ffn == plain version on {n_cases} cases (by route "
+        f"{routes}), each repeating bit for bit, max_abs_err {max_err:.3g}")
 
     # timing at paper-backbone's widths (D 256, F 1024, bf16, silu): a
     # decode step (M 8) and a prefill burst of 8 x 2048 tokens
     timed = {}
     for m in (8, 8 * 2048):
         x, wg, wu, wd = ffn_case(torch, gen, m, 256, 1024, "bfloat16")
-        iters = 200 if m == 8 else 20
+        iters = 200 if m == 8 else 50
         ms = cuda_ms(torch, lambda: fused_ffn(x, wg, wu, wd), iters=iters)
         plain_ms = cuda_ms(torch, lambda: fused_ffn_ref(x, wg, wu, wd),
                            iters=iters)
         chain_ms = cuda_ms(torch, lambda: (F.silu(x @ wg) * (x @ wu)) @ wd,
                            iters=iters)
+        dev_ms = device_ms(torch, lambda: fused_ffn(x, wg, wu, wd),
+                           part="fused_ffn")
+        chain_dev_ms = device_ms(
+            torch, lambda: (F.silu(x @ wg) * (x @ wu)) @ wd)
         nbytes = (2 * x.numel() + wg.numel() + wu.numel()
                   + wd.numel()) * x.element_size()
         bound_ms, bound_by = bound(nbytes, 6 * m * 256 * 1024,
                                    H100_BF16_FLOPS)
-        timed[m] = (ms, plain_ms, bound_ms, bound_by)
-        log(f"fused_ffn (M {m}, D 256, F 1024, bf16): kernel_ms {ms:.4f} "
+        timed[m] = (ms, plain_ms, bound_ms, bound_by, chain_ms, dev_ms,
+                    chain_dev_ms)
+        log(f"fused_ffn (M {m}, D 256, F 1024, bf16, "
+            f"{ffn_plan(x.dtype, m, 256, 1024).route}): kernel_ms {ms:.4f} "
             f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}); "
-            f"unfused bf16 cuBLAS chain {chain_ms:.4f} ms")
-    ms, plain_ms, bound_ms, bound_by = timed[8]
+            f"unfused bf16 cuBLAS chain {chain_ms:.4f} ms; device time "
+            f"kernel {fmt(dev_ms)}, chain {fmt(chain_dev_ms)}")
+    # gelu (the gemma configs') on the tile route, beside silu above
+    x, wg, wu, wd = ffn_case(torch, gen, 8 * 2048, 256, 1024, "bfloat16")
+    gelu_ms = cuda_ms(torch, lambda: fused_ffn(x, wg, wu, wd, "gelu"),
+                      iters=50)
+    gelu_dev_ms = device_ms(torch, lambda: fused_ffn(x, wg, wu, wd, "gelu"),
+                            part="fused_ffn")
+    log(f"fused_ffn (M {8 * 2048}, D 256, F 1024, bf16, gelu): kernel_ms "
+        f"{gelu_ms:.4f}; device time {fmt(gelu_dev_ms)}")
+    ms, plain_ms, bound_ms, bound_by, chain_ms, dev_ms, chain_dev_ms = \
+        timed[8]
+    big = timed[8 * 2048]
     return {"name": "fused_ffn", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_ffn.cu",
             "replaces": "src/repro/kernels/fused_ffn.py:54",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "shape": "M 8 (a decode step), D 256, F 1024, bf16, silu"}
+            "bound_by": bound_by, "library_ms": None, "chain_ms": chain_ms,
+            "device_ms": dev_ms, "chain_device_ms": chain_dev_ms,
+            "ms_m16384": big[0], "plain_ms_m16384": big[1],
+            "bound_ms_m16384": big[2], "bound_by_m16384": big[3],
+            "chain_ms_m16384": big[4], "device_ms_m16384": big[5],
+            "chain_device_ms_m16384": big[6],
+            "ms_m16384_gelu": gelu_ms, "device_ms_m16384_gelu": gelu_dev_ms,
+            "shape": "M 8 (a decode step; small-M route), D 256, F 1024, "
+                     "bf16, silu; *_m16384: M 8 x 2048 (tile route)"}
 
 
 def ssd_case(torch, gen, b, s, h, g, p, n, dtype):
@@ -989,9 +1086,15 @@ def phase_batched(torch, name):
     return counts
 
 
+# the port's kernels by a part of their CUDA function names
+PROFILED_KERNELS = {"K1": "paged_decode_kernel", "K2": "flash_attn",
+                    "K3": "fused_ffn", "K6": "ssd_scan_kernel"}
+
+
 def device_profile(torch, fn, reps, wall_ms, what):
     """``torch.profiler`` over ``reps`` calls of ``fn``: device time per
-    call by kernel and, against the unprofiled wall time ``wall_ms`` of
+    call by kernel, each of the port's kernels (K1, K2, K3, K6) summed
+    over its routes and, against the unprofiled wall time ``wall_ms`` of
     one call, the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1017,6 +1120,17 @@ def device_profile(torch, fn, reps, wall_ms, what):
     for e in sorted(kernels, key=device_us, reverse=True)[:8]:
         log(f"  {device_us(e) / 1e3 / reps:.4f} ms  {e.count / reps:5.0f}x  "
             f"{e.key[:70]}")
+    ours = {}
+    for k, part in PROFILED_KERNELS.items():
+        hits = [e for e in kernels if part in e.key]
+        if hits:
+            ours[k] = (sum(device_us(e) for e in hits) / 1e3 / reps,
+                       sum(e.count for e in hits) / reps)
+    log("  port kernels: " + "; ".join(
+        f"{k} {ms_:.4f} ms over {n:.0f} launches"
+        for k, (ms_, n) in ours.items())
+        + (f"; K2 + K3 {sum(ours.get(k, (0, 0))[0] for k in ('K2', 'K3')):.4f}"
+           f" ms" if "K2" in ours else ""))
 
 
 def profile_decode_steps(torch, eng, step_ms, steps=8):
@@ -1184,11 +1298,13 @@ def phase_engine(torch, smi):
     coded = {name: compress_checked(torch, name, t)
              for name, t in tensors.items()}
 
-    # (b) the int8 SSM state out to pinned host memory and back
+    # (b) the int8 SSM state out to pinned host memory and back, twice
+    # through one Swapper: the second round reuses the first's buffers
     q8, s8 = coded["mamba2 SSM state"]
     nbytes = q8.numel() + s8.numel() * 4
+    sw = Swapper(use_memory_kinds=True)
     for rnd in (1, 2):
-        sw = Swapper(use_memory_kinds=True)
+        allocs = sw.pinned_allocations
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hq, hs = sw.offload("ssm.q", q8), sw.offload("ssm.s", s8)
@@ -1206,13 +1322,20 @@ def phase_engine(torch, smi):
             raise AssertionError("the swapped SSM state came back changed "
                                  "or elsewhere")
         del bq, bs
+        new_pinned = sw.pinned_allocations - allocs
+        if rnd == 2 and new_pinned:
+            raise AssertionError(f"the second swap round page-locked "
+                                 f"{new_pinned} new buffers")
         log(f"engine (b) swap round {rnd}: {nbytes / 1e6:.1f} MB int8 SSM "
-            f"state out {nbytes / (t1 - t0) / 1e9:.2f} GB/s, in "
-            f"{nbytes / (t2 - t1) / 1e9:.2f} GB/s (host clock, allocation "
-            f"included), bit-exact; the swap model transfer_seconds() "
-            f"{sw.transfer_seconds():.5f} s for both at HOST_LINK_BW "
+            f"state out {nbytes / (t1 - t0) / 1e9:.2f} GB/s "
+            f"({1e3 * (t1 - t0):.3f} ms), in "
+            f"{nbytes / (t2 - t1) / 1e9:.2f} GB/s ({1e3 * (t2 - t1):.3f} ms) "
+            f"on the host clock, {new_pinned} pinned buffers page-locked "
+            f"this round, bit-exact; the swap model charges "
+            f"{2 * nbytes / HOST_LINK_BW:.5f} s for both at HOST_LINK_BW "
             f"{HOST_LINK_BW / 1e9:.0f} GB/s (data sheet) against "
             f"{t2 - t0:.5f} s measured, on {smi}")
+    sw.release()
     d2h, h2d = pinned_rates(torch)
     log(f"pinned copy rates on {smi}: device->host {d2h:.2f} GB/s, "
         f"host->device {h2d:.2f} GB/s ({PINNED_BYTES >> 20} MiB, CUDA "
@@ -1322,6 +1445,14 @@ def phase_card_vs_cpu(torch):
         activation_dtype="float32"), (8, 37, 120, 200, 700), 32, 3,
         "paper-backbone paged int8 (buckets 16..1024)", max_seq=2048,
         block_size=16, decode_mode="paged",
+        opts=RuntimeOptions(paged_kernel=True, kv_dtype="int8"))
+    # window 64 over prompts of 150..300 tokens: buckets 256 and 512 pick
+    # ``banded``, which the card runs through K2 (f32 route) with the
+    # causal and window masks, and the paged decode through K1's window
+    card_vs_cpu(torch, get_config("gemma3-12b").reduced().with_updates(
+        activation_dtype="float32"), (20, 150, 200, 300), 16, 5,
+        "gemma3-12b reduced paged int8 (window 64, banded prefill)",
+        max_seq=1024, block_size=16, decode_mode="paged",
         opts=RuntimeOptions(paged_kernel=True, kv_dtype="int8"))
     # the caches in f32 too: a bf16 conv cache rounds every layer's conv
     # tail at every step, so the f32 summation-order differences of card

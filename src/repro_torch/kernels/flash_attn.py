@@ -5,9 +5,12 @@ Replaces the Pallas TPU kernel ``flash_attention`` of the JAX package
 (its header notes the design and the bound on the H100); its plain
 version is :func:`repro_torch.kernels.ref.flash_attn_ref`.
 
-A tensor on the CPU takes the plain version.  A tensor on the card
-launches the kernel or raises — there is no fallback.  Each launch adds
-one to ``flash_attention.launches``.
+:func:`attention_route` picks the route from q's dtype: bf16 runs on
+the tensor cores (``mma.sync``), f32 on the CUDA cores, since the
+tensor cores would round f32 to TF32.  A tensor on the CPU takes the
+plain version.  A tensor on the card launches its route's kernel or
+raises — there is no fallback.  Each launch adds one to
+``flash_attention.launches``.
 """
 from __future__ import annotations
 
@@ -21,7 +24,16 @@ from . import _build
 from .ref import flash_attn_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+
+
+def attention_route(dtype: torch.dtype) -> str:
+    """The kernel route for q's dtype: ``"tensor_cores"`` (bf16) or
+    ``"cuda_cores"`` (f32)."""
+    if dtype not in _ROUTES:
+        raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
+    return _ROUTES[dtype]
 
 
 def _kernel_fn():
@@ -56,6 +68,13 @@ def _check(q, k, v, window, kv_len) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be dense in its last dim")
+    if attention_route(q.dtype) == "tensor_cores":
+        # the tensor-core route copies 16-byte row segments
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)
+                                        if t.shape[i] > 1):
+                raise ValueError(f"bf16 needs {name}'s rows 16-byte "
+                                 f"aligned (base and strides)")
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if kv_len is not None and kv_len < 0:
@@ -65,7 +84,7 @@ def _check(q, k, v, window, kv_len) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """Masked attention, f32 inside, out in q's dtype.
+    """Masked attention, f32 sums inside, out in q's dtype.
 
     q: (B, H, S, hd); k, v: (B, K, S, hd) with K dividing H (query head h
     reads kv head ``h // (H // K)``; K == H is the JAX package's

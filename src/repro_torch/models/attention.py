@@ -1,13 +1,15 @@
-"""Attention for the prefill path: GQA projection, full and chunked
-attention.
+"""Attention for the prefill path: GQA projection, full, chunked and
+banded attention.
 
-The JAX package picks ``full`` for prompt buckets up to 1024 tokens and
-``chunked`` above (``transformer._select_impl``).  On the card both go
-through the flash kernel (:func:`repro_torch.kernels.ops.attention`),
-which computes the same function with bounded memory; on the CPU they
-run as the plain ``full_attention`` and ``chunked_attention`` below, as
-the JAX package runs them.  ``banded`` is not ported yet.  Decode
-attention reads the paged pool through
+The JAX package picks ``full`` for prompt buckets up to 1024 tokens,
+``chunked`` above, and ``banded`` for a sliding window over a prompt
+longer than twice the window (``transformer._select_impl``).  On the
+card all three go through the flash kernel
+(:func:`repro_torch.kernels.ops.attention`), which computes the same
+function with bounded memory and skips the key tiles outside the
+window; on the CPU they run as the plain ``full_attention``,
+``chunked_attention`` and ``banded_attention`` below, as the JAX package
+runs them.  Decode attention reads the paged pool through
 :func:`repro_torch.kernels.ops.paged_attention`, or a dense cache through
 the plain :func:`decode_attention` (plain ``jnp`` in the JAX package
 too).
@@ -117,6 +119,42 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(chunks, dim=1).to(q.dtype)
 
 
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int, q_chunk: int = 512) -> torch.Tensor:
+    """Sliding-window causal attention with static KV slices.
+
+    Each query chunk ``[r0, r0 + cq)`` attends to the ``window + cq``
+    columns ending at its last row (K/V zero-padded in front, the pad
+    masked), so the cost is O(S * (window + cq)) instead of O(S^2).
+    q: (B,Sq,H,hd); k,v: (B,Sq,K,hd)."""
+    b, sq, h, hd = q.shape
+    kheads = k.shape[2]
+    q_chunk = min(q_chunk, sq)
+    if sq % q_chunk:
+        raise ValueError(f"q_chunk {q_chunk} does not divide {sq}")
+    span = window + q_chunk
+    scale = 1.0 / math.sqrt(hd)
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, span, 0)).float()
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, span, 0)).float()
+    qg = _group(q, kheads).float()
+    chunks = []
+    for r0 in range(0, sq, q_chunk):
+        row = torch.arange(r0, r0 + q_chunk, device=q.device)
+        # padded columns [r0 + cq, r0 + cq + span) are absolute
+        # columns [r0 + cq - span, r0 + cq)
+        start = r0 + q_chunk
+        col = torch.arange(start - span, start, device=q.device)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg[:, r0:r0 + q_chunk],
+                         kp[:, start:start + span]) * scale
+        mask = (col[None, :] >= 0) & (row[:, None] >= col[None, :]) \
+            & (col[None, :] > row[:, None] - window)
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqs,bskh->bqkgh", p, vp[:, start:start + span])
+        chunks.append(out.reshape(b, q_chunk, h, hd))
+    return torch.cat(chunks, dim=1).to(q.dtype)
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             impl: str, causal: bool, window: int, q_chunk: int,
             k_chunk: int) -> torch.Tensor:
@@ -124,17 +162,18 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B,S,K,hd) after rotary -> (B,S,H,hd), picked as the JAX
     ``attention_block`` picks it."""
     s = q.shape[1]
-    if impl == "banded" and window:
-        raise NotImplementedError("attention impl 'banded' is not ported "
-                                  "yet")
+    banded = impl == "banded" and bool(window)
     if q.device.type != "cpu":
-        # full and chunked alike: the flash kernel reads the tensors in
-        # place through (B,H,S,hd) views; its output's transpose is
-        # contiguous
+        # full, chunked and banded (causal with the window) alike: the
+        # flash kernel reads the tensors in place through (B,H,S,hd)
+        # views; its output's transpose is contiguous
         out = kernel_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), causal=causal,
+                                   v.transpose(1, 2), causal=causal or banded,
                                    window=window)
         return out.transpose(1, 2)
+    if banded:
+        return banded_attention(q, k, v, window=window,
+                                q_chunk=min(q_chunk, s))
     if impl == "chunked" and s > q_chunk:
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_chunk=q_chunk, k_chunk=min(k_chunk, s))

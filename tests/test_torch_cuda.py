@@ -30,8 +30,8 @@ from repro_torch.kernels import (act_dequant, act_dequant4, act_quant,
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.act_quant import kv_quant_rows
-from repro_torch.kernels.flash_attn import flash_attention
-from repro_torch.kernels.fused_ffn import fused_ffn
+from repro_torch.kernels.flash_attn import attention_route, flash_attention
+from repro_torch.kernels.fused_ffn import ffn_plan, fused_ffn
 from repro_torch.kernels.paged_decode_attn import paged_decode_attention
 from repro_torch.kernels.ref import (flash_attn_ref, fused_ffn_ref,
                                      paged_decode_attn_ref,
@@ -244,6 +244,56 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q.half(), k.half(), v.half())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", [dict(causal=True), dict(causal=True,
+                                                          window=100),
+                                  dict(causal=True, kv_len=150),
+                                  dict(causal=False, kv_len=0)],
+                         ids=["causal", "window100", "kv_len150", "kv_len0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_head_dim_256(cuda, mask, dtype):
+    """hd 256 (gemma-7b, gemma3-12b) on both routes, GQA 4 over 2."""
+    q, k, v = _qkv(256, 2, 4, 2, 333, 256, dtype)
+    out = flash_attention(q, k, v, **mask)
+    ref = flash_attn_ref(q, k.repeat_interleave(2, 1),
+                         v.repeat_interleave(2, 1), **mask)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+    if mask.get("kv_len") == 0:
+        assert bool((out == 0).all())
+
+
+TC_FLASH_MASKS = [dict(causal=True), dict(causal=True, window=1),
+                  dict(causal=True, kv_len=0), dict(causal=True, kv_len=37),
+                  dict(causal=False, window=70)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", TC_FLASH_MASKS,
+                         ids=["-".join(f"{k}{v}" for k, v in m.items())
+                              for m in TC_FLASH_MASKS])
+@pytest.mark.parametrize("s,hd", [(1, 32), (63, 16), (130, 64),
+                                  (1000, 32), (257, 128)])
+def test_flash_tensor_core_route(cuda, mask, s, hd):
+    """The bf16 route: S not a multiple of the 64-row tile, 8 heads over
+    2 KV heads, the masks at the edges, and a repeat bit for bit."""
+    assert attention_route(torch.bfloat16) == "tensor_cores"
+    q, k, v = _qkv(s * hd, 2, 8, 2, s, hd, torch.bfloat16)
+    out = flash_attention(q, k, v, **mask)
+    ref = flash_attn_ref(q, k.repeat_interleave(4, 1),
+                         v.repeat_interleave(4, 1), **mask)
+    torch.testing.assert_close(out, ref, **TOL[torch.bfloat16])
+    if mask.get("kv_len") == 0:
+        assert bool((out == 0).all())
+    assert torch.equal(out, flash_attention(q, k, v, **mask))
+
+
+@pytest.mark.gpu
+def test_flash_tensor_core_route_rejects_misaligned_rows(cuda):
+    q, k, v = _qkv(3, 1, 4, 4, 64, 32, torch.bfloat16)
+    with pytest.raises(ValueError):                 # rows 2 bytes off
+        flash_attention(q[..., 1:17], k[..., 1:17], v[..., 1:17])
+
+
 # ------------------------------------------------------------- ffn (K3) --
 def _ffn(seed, m, d, f, dtype):
     rng = np.random.default_rng(seed)
@@ -287,6 +337,37 @@ def test_ffn_kernel_rejects_what_it_does_not_take(cuda):
         fused_ffn(x, wg, wu, wd, "relu")
     with pytest.raises(ValueError):                 # wrong F
         fused_ffn(x, wg, wu, wd[:64])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,f", [(1, 256, 1024), (64, 256, 1000),
+                                   (65, 256, 1024), (127, 264, 200),
+                                   (8195, 256, 1024), (300, 512, 1032),
+                                   (200, 1024, 4096), (16, 1024, 4096)])
+def test_ffn_bf16_routes_ragged_and_wide(cuda, m, d, f):
+    """The bf16 routes (small M and tiles, x resident or streamed): ragged
+    M and F, D above 256 over several output tiles, and a repeat bit for
+    bit (no atomics; the small-M counters reset themselves)."""
+    x, wg, wu, wd = _ffn(m + f, m, d, f, torch.bfloat16)
+    plan = ffn_plan(torch.bfloat16, m, d, f)
+    assert plan.route == ("small_m" if m <= 64 else "tiles")
+    out = fused_ffn(x, wg, wu, wd, "gelu")
+    ref = fused_ffn_ref(x, wg, wu, wd, "gelu")
+    torch.testing.assert_close(out, ref, **FFN_TOL[torch.bfloat16])
+    for _ in range(2):
+        assert torch.equal(out, fused_ffn(x, wg, wu, wd, "gelu"))
+
+
+@pytest.mark.gpu
+def test_ffn_bf16_rejects_what_it_does_not_take(cuda):
+    x, wg, wu, wd = _ffn(3, 16, 64, 128, torch.bfloat16)
+    with pytest.raises(ValueError):                 # F not a multiple of 8
+        fused_ffn(x, wg[:, :100].contiguous(), wu[:, :100].contiguous(),
+                  wd[:100])
+    with pytest.raises(ValueError):                 # x 2 bytes off
+        fused_ffn(torch.empty(17 * 64, dtype=torch.bfloat16,
+                              device="cuda")[1:1025].view(16, 64), wg, wu,
+                  wd)
 
 
 # -------------------------------------------------------- ssd scan (K6) --
@@ -592,3 +673,27 @@ def test_swapper_failed_move_raises(cuda):
     with pytest.raises(KeyError):               # never offloaded
         sw.fetch("y")
     assert Swapper().offload("z", torch.zeros(8, device="cuda")).is_cuda
+
+
+@pytest.mark.gpu
+def test_swapper_reuses_pinned_buffers(cuda):
+    """A second offload of the same size page-locks nothing new, even
+    right after the fetch (its copy waits on the side stream for the
+    copy out of the buffer); another size gets a buffer of its own;
+    ``release`` unpins the pool."""
+    sw = Swapper(use_memory_kinds=True)
+    x = torch.randn(1 << 20, device="cuda")
+    first = sw.offload("x", x)
+    ptr = first.data_ptr()
+    back = sw.fetch("x")
+    y = x * 2
+    again = sw.offload("y", y)          # no synchronize in between
+    assert sw.pinned_allocations == 1 and again.data_ptr() == ptr
+    assert torch.equal(back, x) and torch.equal(sw.fetch("y"), y)
+    z = torch.zeros(7, device="cuda")
+    sw.offload("z", z)
+    assert sw.pinned_allocations == 2
+    sw.release()
+    assert torch.equal(sw.fetch("z"), z)
+    sw.offload("x", x)
+    assert sw.pinned_allocations == 3

@@ -235,6 +235,7 @@ FLASH_CASES = [
     dict(s=64, hd=32, causal=True, window=1),
     dict(s=64, hd=32, causal=True, window=1000),
     dict(s=64, hd=32, causal=False, window=8),
+    dict(s=64, hd=256, causal=True, window=16, kv_len=40),   # gemma's hd
 ]
 
 
@@ -341,6 +342,92 @@ def test_cpu_calls_of_attention_and_gated_ffn_never_launch():
     ops.gated_ffn(x, torch.ones(16, 32), torch.ones(16, 32),
                   torch.ones(32, 16), "gelu")
     assert (flash_attention.launches, fused_ffn.launches) == before
+
+
+# ----------------------------------------------- K2/K3 route dispatch ----
+def test_flash_route_is_chosen_by_dtype():
+    from repro_torch.kernels.flash_attn import attention_route
+    assert attention_route(torch.bfloat16) == "tensor_cores"
+    assert attention_route(torch.float32) == "cuda_cores"
+    with pytest.raises(ValueError):
+        attention_route(torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_checks_accept_head_dim_256_and_reject_48(dtype):
+    """The wrapper's checks (run before any launch on the card) take hd
+    16..256 on both routes and refuse hd 48; the bf16 route also refuses
+    rows that are not 16-byte aligned."""
+    from repro_torch.kernels import flash_attn
+
+    def qkv(hd, s=8):
+        return (torch.zeros(1, s, 4, hd, dtype=dtype).transpose(1, 2),
+                torch.zeros(1, s, 2, hd, dtype=dtype).transpose(1, 2),
+                torch.zeros(1, s, 2, hd, dtype=dtype).transpose(1, 2))
+
+    for hd in (16, 32, 64, 128, 256):
+        flash_attn._check(*qkv(hd), 0, None)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attn._check(*qkv(48), 0, None)
+    q, k, v = qkv(40)
+    q, k, v = q[..., 1:33], k[..., 1:33], v[..., 1:33]   # 2 bytes in
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attn._check(q, k, v, 0, None)
+    else:
+        flash_attn._check(q, k, v, 0, None)
+
+
+@pytest.mark.parametrize("m,d,f,route,grid", [
+    (8, 256, 1024, "small_m", (64, 4, 1)),        # a decode step
+    (1, 256, 1000, "small_m", (63, 4, 1)),        # ragged F
+    (64, 256, 1024, "small_m", (64, 4, 1)),
+    (65, 256, 1024, "tiles", (2, 1, 1)),
+    (16384, 256, 1024, "tiles", (256, 1, 1)),     # the prefill burst
+    (100, 1024, 4096, "tiles", (2, 4, 1)),        # D > 256: column tiles
+    (64, 1024, 4096, "tiles", (1, 4, 1)),         # x too wide for small M
+    (16, 1024, 4096, "small_m", (256, 16, 1)),
+])
+def test_ffn_plan_bf16(m, d, f, route, grid):
+    """bf16: small M splits F into 16-column slices and D into 64-column
+    chunks (at least 132 blocks at the served shapes), with an f32
+    workspace of one (M, D) partial a slice, one counter a chunk and the
+    shared memory the kernel lays out (it takes M up to 64 while that
+    fits in 200 KiB); large M takes 64-row tiles, x resident in shared
+    memory up to D 512."""
+    from repro_torch.kernels.fused_ffn import SMALL_SMEM, ffn_plan
+    plan = ffn_plan(torch.bfloat16, m, d, f)
+    assert (plan.route, plan.grid) == (route, grid)
+    if route == "small_m":
+        assert plan.nsplit == grid[0] and plan.counters == grid[1]
+        assert plan.ws_floats == grid[0] * m * d
+        assert 0 < plan.smem <= SMALL_SMEM
+        if (m, d, f) == (8, 256, 1024):
+            assert grid[0] * grid[1] >= 132
+            # bf16 x (M padded to 16, D to 16, +8), two D x 16 slices in
+            # rows of 24, a 16 x 64 Wd block; f32 partials of 8 warps, H
+            assert plan.smem == 2 * (16 * 264 + 2 * 256 * 24 + 16 * 64) \
+                + 4 * (8 * 16 * 16 * 2 + 16 * 16)
+    else:
+        assert plan.ws_floats == plan.counters == plan.smem == 0
+        assert plan.x_resident == (d <= 512)
+
+
+def test_ffn_plan_f32_keeps_the_cuda_core_split():
+    """f32 keeps the CUDA-core kernel and its F split (small M only)."""
+    from repro_torch.kernels.fused_ffn import ffn_plan, split_plan
+    for m, d, f in ((8, 256, 1024), (100, 256, 1024), (16384, 256, 1024),
+                    (33, 96, 200)):
+        plan = ffn_plan(torch.float32, m, d, f)
+        nsplit, per = split_plan(m, d, f)
+        assert plan.route == "cuda_cores"
+        assert (plan.nsplit, plan.per) == (nsplit, per)
+        assert plan.grid == (-(-m // 64), -(-d // 256), nsplit)
+        assert plan.ws_floats == (nsplit * m * d if nsplit > 1 else 0)
+    assert ffn_plan(torch.float32, 8, 256, 1024).nsplit == 16
+    assert ffn_plan(torch.float32, 16384, 256, 1024).nsplit == 1
+    with pytest.raises(ValueError):
+        ffn_plan(torch.float16, 8, 256, 1024)
 
 
 # ------------------------------------------- activation quantization ----

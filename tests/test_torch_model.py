@@ -321,15 +321,3 @@ def test_long_prefill_matches_reference(bucket):
     for name in ("k", "v"):
         np.testing.assert_allclose(t_cache[name].numpy(),
                                    np.asarray(j_cache[name]), atol=1e-4)
-
-
-def test_banded_attention_is_not_ported_and_raises():
-    """``banded`` (the JAX choice for a sliding window over a long
-    prompt) is not ported: selecting it raises rather than computing
-    another function."""
-    tcfg = _cfgs(**F32)[1]
-    assert tt._select_impl(tcfg, RuntimeOptions(), 64, 8) == "banded"
-    x = torch.zeros((1, 64, 64))
-    with pytest.raises(NotImplementedError):
-        tt.attn_block(tl.layer_slice(T_PARAMS["layers"], 0), x, tcfg,
-                      RuntimeOptions(), window=8)
