@@ -12,13 +12,17 @@ Phases (any failure exits non-zero):
    ``nvcc`` (one process per source, all at once) into ``build/``.
 2. kernels — each kernel against its plain PyTorch version on the card
    (tolerances below): K1 paged decode attention at max_seq 512 and 2048
-   tables, K2 flash attention (bf16 on the tensor cores, f32 on the CUDA
-   cores) over its masks, dtypes, head dims 16..256, head groupings and
-   lengths up to 2048, K3 fused gated FFN (bf16 small-M and tile routes,
-   f32) over both activations, dtypes, ragged and large M, ragged F and
-   widths up to 1024, each repeating bit for bit, K6 SSD scan
-   over ragged and multi-chunk lengths, groups, head/state widths,
-   dtypes and both layouts, K4/K5 activation quantization (int8 and
+   tables and at its table split's edges (positions on and beside a
+   128-column split boundary, windows crossing one, full tables, mb 1),
+   each repeating bit for bit, K2 flash attention (bf16 on the tensor
+   cores, f32 on the CUDA cores) over its masks, dtypes, head dims
+   16..256, head groupings and lengths up to 2048, K3 fused gated FFN
+   (bf16 small-M and tile routes, f32) over both activations, dtypes,
+   ragged and large M, ragged F and widths up to 1024, each repeating
+   bit for bit, K6 SSD scan over ragged and multi-chunk lengths, groups,
+   head/state widths, dtypes and both layouts, and its chunk split's
+   edges (S 255, 256, 257, 4096, with and without an initial state),
+   each repeating bit for bit, K4/K5 activation quantization (int8 and
    packed int4, quant and dequant) over M 1..16384, n 128..50280 (ragged),
    f32/bf16 in and out and leading dimensions through ``act_compress``,
    bit-equal.  Each is then timed at its path's shapes beside its plain
@@ -239,8 +243,8 @@ def bound(nbytes, flops, peak_flops):
 def sdpa_yardstick(torch, args, scales):
     """One library call computing the same attention: SDPA over the
     slot's KV gathered dense beforehand (dequantized, new token appended,
-    invalid columns masked).  Only the SDPA call is timed; the port never
-    calls it."""
+    invalid columns masked).  Only the SDPA call is timed, by CUDA events
+    and by the profiler's device time; the port never calls it."""
     import torch.nn.functional as F
     q, kb, vb, tables, pos, kn, vn = args
     slots, heads, hd = q.shape
@@ -261,8 +265,11 @@ def sdpa_yardstick(torch, args, scales):
     valid = (cols[None] < pos[:, None]) | (cols[None] == mb * bs)
     mask = valid[:, None, None, :]
     q4 = q[:, :, None, :]
-    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask))
+
+    def call():
+        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)
+
+    return cuda_ms(torch, call), device_ms(torch, call)
 
 
 def check_close(name, out, ref, tol, what):
@@ -299,8 +306,7 @@ def phase_paged(torch):
                                 torch, gen, slots=8, hd=32, bs=16, mb=mb,
                                 heads=heads, kvh=kvh, pool_dtype=pool_dtype,
                                 q_dtype=q_dtype, pos_kind=pos_kind)
-                            out = paged_decode_attention(
-                                *args, window=window, **sc)
+                            out = k1_repeated(torch, args, sc, window)
                             ref = paged_decode_attn_ref(
                                 *args, window=window, **sc)
                             torch.cuda.synchronize()
@@ -318,37 +324,93 @@ def phase_paged(torch):
                                         "pos == 0 must give out == v_new")
                             max_err = max(max_err, err)
                             n_cases += 1
+    # the table split's edges (128 pool columns a split): positions on
+    # and beside a boundary, windows crossing one, tables full to their
+    # last row (mb 128), and one-block tables (mb 1)
+    for pool_dtype in ("int8", "bfloat16"):
+        for heads, kvh in ((8, 8), (8, 2)):
+            for mb, pos, window in K1_EDGES:
+                args, sc = make_case(
+                    torch, gen, slots=8, hd=32, bs=16, mb=mb, heads=heads,
+                    kvh=kvh, pool_dtype=pool_dtype, q_dtype="bfloat16",
+                    pos_kind="zero")
+                args[4].copy_(torch.tensor(pos, dtype=torch.int32))
+                out = k1_repeated(torch, args, sc, window)
+                ref = paged_decode_attn_ref(*args, window=window, **sc)
+                torch.cuda.synchronize()
+                err = check_close(
+                    "paged_decode_attention", out, ref, TOL["bfloat16"],
+                    f"edge mb={mb} pos={pos} window={window} H={heads} "
+                    f"kvh={kvh} pool={pool_dtype}")
+                max_err = max(max_err, err)
+                n_cases += 1
     log(f"paged_decode_attention == plain version on {n_cases} cases "
-        f"(mb 32 and 128), max_abs_err {max_err:.3g}")
+        f"(mb 1, 32 and 128, split edges), each repeating bit for bit; "
+        f"max_abs_err {max_err:.3g}")
+
+    def timed(args, sc, what):
+        """CUDA-event and device time of K1 beside its plain version, its
+        bound and SDPA."""
+        ms = cuda_ms(torch, lambda: paged_decode_attention(*args, **sc))
+        dev = device_ms(torch, lambda: paged_decode_attention(*args, **sc),
+                        part="paged_decode")
+        plain = cuda_ms(torch, lambda: paged_decode_attn_ref(*args, **sc))
+        lib_ms, lib_dev = sdpa_yardstick(torch, args, sc)
+        bound_ms, bound_by = paged_bound_ms(args, sc)
+        log(f"paged_decode_attention ({what}): kernel_ms {ms:.4f} device "
+            f"{fmt(dev)}; plain_ms {plain:.4f}; SDPA {lib_ms:.4f} ms, "
+            f"device {fmt(lib_dev)}; bound_ms {bound_ms:.5f} ({bound_by})")
+        return ms, dev, plain, lib_ms, bound_ms, bound_by
 
     # timing at the short waves' shapes: 8 slots, 8 kv heads, int8 pool
     # interleaving 8 layers, bf16 activations, decode positions 16..288
     args, sc = make_case(torch, gen, heads=8, kvh=8, pool_dtype="int8",
                          q_dtype="bfloat16", pos_kind="serving", layers=8,
                          layer=3, slots=8, hd=32, bs=16, mb=32)
-    ms = cuda_ms(torch, lambda: paged_decode_attention(*args, **sc))
-    plain_ms = cuda_ms(torch, lambda: paged_decode_attn_ref(*args, **sc))
-    library_ms = sdpa_yardstick(torch, args, sc)
-    bound_ms, bound_by = paged_bound_ms(args, sc)
-    log(f"paged_decode_attention (8 slots, mb 32): kernel_ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-        f"bound_ms {bound_ms:.5f} ({bound_by})")
-    # the long wave's tables (mb 128), slots holding 600..1056 tokens
+    ms, dev, plain_ms, library_ms, bound_ms, bound_by = timed(
+        args, sc, "8 slots, mb 32, positions 16..288")
+    # the long wave's tables (mb 128), slots holding 600..1056 tokens,
+    # then full 2048-token tables
     args2, sc2 = make_case(torch, gen, heads=8, kvh=8, pool_dtype="int8",
                            q_dtype="bfloat16", pos_kind="long", layers=8,
                            layer=3, slots=8, hd=32, bs=16, mb=128)
-    ms2 = cuda_ms(torch, lambda: paged_decode_attention(*args2, **sc2))
-    b2, _ = paged_bound_ms(args2, sc2)
-    log(f"paged_decode_attention (8 slots, mb 128, 600..1056 tokens): "
-        f"kernel_ms {ms2:.4f} bound_ms {b2:.5f}")
+    timed(args2, sc2, "8 slots, mb 128, 600..1056 tokens")
+    args2[4].fill_(2048)
+    ms_full, dev_full, plain_full, lib_full, bound_full, _ = timed(
+        args2, sc2, "8 slots, mb 128, full 2048-token tables")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
             "replaces": "src/repro/kernels/paged_decode_attn.py:175",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
+            "device_ms": dev, "ms_2048": ms_full,
+            "device_ms_2048": dev_full, "plain_ms_2048": plain_full,
+            "library_ms_2048": lib_full, "bound_ms_2048": bound_full,
             "shape": "8 slots x 8 kv heads x hd 32, int8 pool, mb 32, "
-                     "positions 16..288"}
+                     "positions 16..288; *_2048: mb 128, pos 2048"}
+
+
+# (mb, positions of the 8 slots, window): K1's split edges
+K1_EDGES = [
+    (128, [128, 256, 127, 129, 384, 1, 2047, 2048], 0),
+    (128, [140, 130, 260, 2048, 300, 129, 1000, 16], 20),
+    (128, [2048] * 8, 0),
+    (128, [2048] * 8, 300),
+    (1, [0, 1, 2, 5, 8, 15, 16, 16], 0),
+    (1, [0, 1, 2, 5, 8, 15, 16, 16], 4),
+]
+
+
+def k1_repeated(torch, args, sc, window):
+    """K1 twice on the same inputs: the two outputs must be bit for bit
+    equal (the splits merge in a fixed order, no atomics on values)."""
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
+    out = paged_decode_attention(*args, window=window, **sc)
+    again = paged_decode_attention(*args, window=window, **sc)
+    if not torch.equal(out, again):
+        raise AssertionError("paged_decode_attention does not repeat")
+    return out
 
 
 def flash_case(torch, gen, b, h, kvh, s, hd, dtype):
@@ -645,49 +707,108 @@ def phase_ssd(torch):
                 check_close("ssd_scan", st, str_, STATE_TOL, "state " + what)
                 max_err = max(max_err, err)
                 n_cases += 1
-    log(f"ssd_scan == plain version on {n_cases} cases, max_abs_err "
-        f"{max_err:.3g}")
+    # the chunk split's edges (chunk 256): S one short of a chunk, a
+    # chunk, one past it, 16 chunks; without and with an initial state,
+    # which the state pass carries
+    edge_err = {}
+    for dtype in ("bfloat16", "float32"):
+        for s in (255, 256, 257, 4096):
+            x, dt, a, bm, cm = ssd_case(torch, gen, 2, s, 8, 1, 64, 128,
+                                        dtype)
+            init = torch.randn(2, 8, 64, 128, generator=gen).cuda()
+            for initial in (None, init):
+                y, st = ssd_scan(x, dt, a, bm, cm, chunk=256,
+                                 initial_state=initial)
+                y2, st2 = ssd_scan(x, dt, a, bm, cm, chunk=256,
+                                   initial_state=initial)
+                yr, str_ = ssd_scan_ref(x, dt, a, bm, cm, chunk=256,
+                                        initial_state=initial)
+                torch.cuda.synchronize()
+                if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                    raise AssertionError("ssd_scan does not repeat")
+                what = (f"edge S={s} {dtype} initial_state="
+                        f"{initial is not None}")
+                err = check_close("ssd_scan", y, yr, SSD_TOL[dtype],
+                                  "y " + what)
+                check_close("ssd_scan", st, str_, STATE_TOL,
+                            "state " + what)
+                edge_err[dtype] = max(edge_err.get(dtype, 0.0), err)
+                max_err = max(max_err, err)
+                n_cases += 1
+    log(f"ssd_scan == plain version on {n_cases} cases (with the chunk "
+        f"split's edges), max_abs_err {max_err:.3g}; edges by dtype "
+        + ", ".join(f"{k} {v:.3g}" for k, v in edge_err.items()))
 
     # the mamba2 prefill burst, the main path's shape: 8 prompts x 2048
     # tokens, 32 heads of 64, state 128, one group, chunk 256, x/b/c as
-    # views of a 2304-wide conv row; checked in f32 and in bf16, then
-    # timed in bf16 in and out
+    # views of a 2304-wide conv row; checked in f32 and in bf16, each
+    # repeating bit for bit, then timed in both
     b, s, h, g, p, n = 8, 2048, 32, 1, 64, 128
+    burst = {}
     for dtype in ("float32", "bfloat16"):
         x, dt, a, bm, cm = ssd_case(torch, gen, b, s, h, g, p, n, dtype)
+        burst[dtype] = (x, dt, a, bm, cm)
         y, st = ssd_scan(x, dt, a, bm, cm, chunk=256)
         yr, str_ = ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
         torch.cuda.synchronize()
         what = f"burst {b} x {s} H={h} G={g} {dtype}"
         err = check_close("ssd_scan", y, yr, SSD_TOL[dtype], "y " + what)
         check_close("ssd_scan", st, str_, STATE_TOL, "state " + what)
+        y2, st2 = ssd_scan(x, dt, a, bm, cm, chunk=256)
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise AssertionError("ssd_scan does not repeat at the burst")
+        log(f"ssd_scan {what}: max_abs_err {err:.3g}")
         max_err = max(max_err, err)
         n_cases += 1
-        del y, st, yr, str_
+        del y, st, yr, str_, y2, st2
     log(f"ssd_scan == plain version at the burst shape in f32 and bf16; "
         f"{n_cases} cases in all, max_abs_err {max_err:.3g}")
-    ms = cuda_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=256),
-                 iters=10, warmup=2)
+    times = {}
+    for dtype, args in burst.items():
+        for rows in (b, 1):
+            part = [t[:rows] if t.dim() > 1 else t for t in args]
+
+            def call():
+                return ssd_scan(*part, chunk=256)
+
+            times[dtype, rows] = (cuda_ms(torch, call, iters=10, warmup=2),
+                                  device_ms(torch, call, iters=10,
+                                            part="ssd_scan"))
+            log(f"ssd_scan ({rows} x {s} tokens, H {h}, P {p}, N {n}, "
+                f"{dtype}, chunk 256): kernel_ms "
+                f"{times[dtype, rows][0]:.4f} device "
+                f"{fmt(times[dtype, rows][1])}")
+    x, dt, a, bm, cm = burst["bfloat16"]
+    # K6's three launches, by device time
+    parts = {part: device_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm,
+                                                     chunk=256),
+                             iters=10, part=part)
+             for part in ("chunk_state", "chunk_y")}
+    log("ssd_scan bf16 burst by launch (device): " + ", ".join(
+        f"{k} {fmt(v)}" for k, v in parts.items()))
     plain_ms = cuda_ms(torch, lambda: ssd_scan_ref(x, dt, a, bm, cm,
                                                    chunk=256),
                        iters=3, warmup=1)
     nbytes, flops = ssd_work(b, s, h, g, p, n, 256, 2, 2)
     bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    ms = times["bfloat16", b][0]
     log(f"ssd_scan ({b} x {s} tokens, H {h}, P {p}, N {n}, bf16, chunk "
         f"256): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
         f"{bound_ms:.5f} ({bound_by}; {flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB); no library call computes it")
-    one_ms = cuda_ms(torch, lambda: ssd_scan(x[:1], dt[:1], a, bm[:1],
-                                             cm[:1], chunk=256),
-                     iters=10, warmup=2)
-    log(f"ssd_scan (1 x {s} tokens, 32 blocks): kernel_ms {one_ms:.4f}")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:82",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "shape": "8 x 2048 tokens, H 32, P 64, N 128, bf16, chunk 256"}
+            "device_ms": times["bfloat16", b][1],
+            "f32_ms": times["float32", b][0],
+            "f32_device_ms": times["float32", b][1],
+            "one_prompt_ms": times["bfloat16", 1][0],
+            "one_prompt_device_ms": times["bfloat16", 1][1],
+            "shape": "8 x 2048 tokens, H 32, P 64, N 128, bf16, chunk 256; "
+                     "one_prompt_*: 1 x 2048"}
 
 
 # K4/K5: the SSM state of mamba2-370m after an (8, 2048) prefill, as rows
@@ -1087,8 +1208,8 @@ def phase_batched(torch, name):
 
 
 # the port's kernels by a part of their CUDA function names
-PROFILED_KERNELS = {"K1": "paged_decode_kernel", "K2": "flash_attn",
-                    "K3": "fused_ffn", "K6": "ssd_scan_kernel"}
+PROFILED_KERNELS = {"K1": "paged_decode", "K2": "flash_attn",
+                    "K3": "fused_ffn", "K6": "ssd_scan"}
 
 
 def device_profile(torch, fn, reps, wall_ms, what):

@@ -5,7 +5,8 @@ compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
 the checkout (git-ignored) on first use.  The library name carries a hash
 of its source and flags, so an edited source is rebuilt and a built one
 is loaded as it is.  One ``nvcc`` process per source, all started
-together.  Nothing here runs at import time.
+together.  Nothing here runs at import time.  The arrival counters that
+some kernels' last blocks use are kept here too, one set per stream.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -80,3 +83,22 @@ def load(stem: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all()[stem]))
         _LOADED[stem] = lib
     return lib
+
+
+# arrival counters of the kernels whose last block merges the others'
+# partials, by (device, stream).  That block resets its counters, so
+# every launch leaves them at zero and the launches of one stream, which
+# run in order, share them; another stream gets its own.
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, stream: int,
+                     n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device``, zero between
+    launches, for the launches of ``stream``."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf

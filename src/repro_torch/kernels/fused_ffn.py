@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -112,21 +112,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fused_ffn": [_P] * 6 + [_I] * 7 + [_P],
              "fused_ffn_bf16_tiles": [_P] * 5 + [_I] * 7 + [_P],
              "fused_ffn_bf16_small": [_P] * 7 + [_I] * 7 + [_P]}
-# arrival counters of the small-M kernel, by (device, stream): the last
-# block of a launch resets its counters, so launches on one stream reuse
-# them; another stream gets its own
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
-    return buf
-
-
 def _check(x, w_gate, w_up, w_down, activation) -> None:
     for name, t in (("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)):
         if t.device != x.device:
@@ -194,7 +179,8 @@ def fused_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             *ptrs, m, d, f, act, int(plan.x_resident), plan.grid[0],
             plan.grid[1], stream)
     else:
-        counters = _counters(x.device, stream, plan.counters)
+        counters = _build.arrival_counters(x.device, stream,
+                                            plan.counters)
         err = _fn("fused_ffn_bf16_small", _ARGTYPES["fused_ffn_bf16_small"])(
             *ptrs, ws.data_ptr(), counters.data_ptr(), m, d, f, act,
             plan.nsplit, plan.grid[1], plan.smem, stream)

@@ -6,6 +6,12 @@ package (``kernels/paged_decode_attn.py``).  The kernel itself is
 on the H100: bytes); its plain version is
 :func:`repro_torch.kernels.ref.paged_decode_attn_ref`.
 
+:func:`decode_plan` sizes a launch from host-known shapes alone: the
+table is split across blocks in runs of ``SPLIT_COLS`` pool columns, so
+the split count follows the table's width, never the positions (device
+data).  The plan also gives the f32 workspace of the splits' partials,
+the arrival counters, the ring depth and the shared memory.
+
 A tensor on the CPU takes the plain version.  A tensor on the card
 launches the kernel or raises — there is no fallback.  Each launch adds
 one to ``paged_decode_attention.launches``.
@@ -13,7 +19,9 @@ one to ``paged_decode_attention.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -22,14 +30,67 @@ from . import _build
 from .ref import paged_decode_attn_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+# csrc/paged_decode_attn.cu: pool columns a block (kSplitCols), columns
+# a warp scores at once (kTile), warps a block (kWarps)
+SPLIT_COLS, TILE_COLS, WARPS = 128, 16, 4
+# dynamic shared memory a block may ask for on the H100 (227 KB, less the
+# kernel's own static word); a two-slot ring is kept while it fits here
+MAX_SMEM, RING_SMEM = 232448 - 1024, 200 * 1024
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How one call runs: its splits (the grid is ``(slots * kvh,
+    splits)``), the ring depth of each warp (``stages``), the dynamic
+    shared memory, the f32 workspace (``ws_floats``: each split's
+    ``group * hd`` partial sums, then its ``(m, l)`` per query head) and
+    the int32 arrival counters, one a (slot, kv head), zero between
+    launches."""
+    splits: int
+    stages: int
+    smem: int
+    ws_floats: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(slots: int, heads: int, kv_heads: int, head_dim: int,
+                block_size: int, max_blocks: int,
+                kv_dtype: torch.dtype) -> DecodePlan:
+    """The launch geometry of a decode step over ``(slots, max_blocks)``
+    tables of ``block_size``-row pool blocks: a pure function of its
+    arguments (kept, since every decode step asks again)."""
+    if kv_dtype not in _DTYPE_CODES:
+        raise ValueError(f"pool dtype {kv_dtype} not supported")
+    esize = _ESIZE[kv_dtype]
+    if (head_dim * esize) % 16:
+        raise ValueError(f"a pool row of one head ({head_dim} x {esize} "
+                         "bytes) must be a whole number of 16-byte chunks")
+    group = heads // kv_heads
+    splits = -(-(max_blocks * block_size) // SPLIT_COLS)
+
+    def smem(stages):
+        slot = 2 * TILE_COLS * head_dim * esize + 2 * TILE_COLS * 4
+        warp = stages * slot + 4 * (2 * -(-group // 4) * 4
+                                    + group * head_dim)
+        return 4 * group * head_dim + WARPS * warp
+
+    stages = 2 if smem(2) <= RING_SMEM else 1
+    if smem(stages) > MAX_SMEM:
+        raise ValueError(f"group {group} x head dim {head_dim} needs "
+                         f"{smem(stages)} bytes of shared memory")
+    n_rec = slots * kv_heads * splits
+    return DecodePlan(splits, stages, smem(stages),
+                      n_rec * group * (head_dim + 2), slots * kv_heads)
 
 
 def _kernel_fn():
     fn = _build.load("paged_decode_attn").paged_decode_attn
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 10 + [i] * 6 + [ll, ll, i, ctypes.c_float,
-                                              i, i, p])
+        fn.argtypes = ([p] * 12 + [i] * 6 + [ll, ll, i, ctypes.c_float,
+                                              i, i, ll, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -91,6 +152,10 @@ def _check(q, k_blocks, v_blocks, tables, pos, k_new, v_new, k_scale,
                                  "dense rows")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    # rows are copied 16 bytes at a time
+    if k_blocks.data_ptr() % 16 or v_blocks.data_ptr() % 16 \
+            or (k_blocks.stride(0) * k_blocks.element_size()) % 16:
+        raise ValueError("pool blocks must start on 16-byte boundaries")
 
 
 def paged_decode_attention(q: torch.Tensor, k_blocks: torch.Tensor,
@@ -120,18 +185,22 @@ def paged_decode_attention(q: torch.Tensor, k_blocks: torch.Tensor,
            v_scale, window)
     slots, h, hd = q.shape
     _, bs, kvh, _ = k_blocks.shape
+    mb = tables.shape[1]
+    plan = decode_plan(slots, h, kvh, hd, bs, mb, k_blocks.dtype)
     out = torch.empty_like(q)
+    ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _build.arrival_counters(q.device, stream, plan.counters)
     err = _kernel_fn()(
         q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), out.data_ptr(),
-        slots, h, kvh, hd, bs, tables.shape[1],
+        v_new.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), slots, h, kvh, hd, bs, mb,
         k_blocks.stride(0), 0 if k_scale is None else k_scale.stride(0),
-        window, 1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k_blocks.dtype], stream)
+        window, 1.0 / math.sqrt(hd), plan.splits, plan.stages, plan.smem,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_blocks.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attn launch failed: CUDA error "
                            f"{err}")

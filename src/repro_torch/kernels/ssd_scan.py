@@ -2,17 +2,26 @@
 
 Replaces the Pallas TPU kernel ``ssd_scan`` of the JAX package
 (``kernels/ssd_scan.py``), which computes what the model's jnp
-``ssm.ssd_scan_ref`` computes.  The kernel itself is
+``ssm.ssd_scan_ref`` computes.  The kernels themselves are in
 ``csrc/ssd_scan.cu`` (its header notes the design and the bound on the
-H100); its plain version is :func:`repro_torch.kernels.ref.ssd_scan_ref`.
+H100); their plain version is :func:`repro_torch.kernels.ref.ssd_scan_ref`.
+
+:func:`ssd_plan` sizes a call from its shapes alone: the route (bf16 on
+the tensor cores, f32 on the CUDA cores), the chunk and the chunk
+count, which size the two launches (chunk state, whose last block of
+each head carries the state across the chunks; chunk scan), the two f32
+workspaces, which the wrapper allocates on the caller's stream, and the
+arrival counters.
 
 A tensor on the CPU takes the plain version.  A tensor on the card
-launches the kernel or raises — there is no fallback.  Each launch adds
+launches the kernels or raises — there is no fallback.  Each call adds
 one to ``ssd_scan.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -24,13 +33,56 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
 STATE_DIMS = (32, 64, 128)
 MAX_CHUNK = 1024
+# rows of a query tile of the chunk scan (csrc/ssd_scan.cu: kT)
+TILE_ROWS = 64
+_ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
+
+
+@dataclass(frozen=True)
+class SsdPlan:
+    """How one call runs: its route, chunk, chunk count and query tiles
+    (the chunk-state launch has a block a (batch x head, chunk), the
+    chunk scan a block a (batch x head, chunk, query tile)), its f32
+    workspaces (``cs_floats``: the cumulative decay of every row;
+    ``state_floats``: one (P, N) state a chunk) and its int32 arrival
+    counters (one a head, zero between launches)."""
+    route: str                   # "tensor_cores" | "cuda_cores"
+    chunk: int
+    chunks: int
+    q_tiles: int                 # 64-row query tiles a chunk
+    cs_floats: int
+    state_floats: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_plan(dtype: torch.dtype, batch: int, seq: int, heads: int,
+             head_dim: int, state_dim: int, chunk: int) -> SsdPlan:
+    """The route and launch geometry of a scan of ``batch`` sequences of
+    ``seq`` rows in ``dtype``: a pure function of its arguments (kept,
+    since every layer of a prefill asks again).  The chunk is
+    ``min(chunk, seq)``."""
+    if dtype not in _ROUTES:
+        raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
+    if seq < 1:
+        raise ValueError("empty sequence")
+    chunk = min(chunk, seq)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} not in [1, {MAX_CHUNK}]")
+    chunks = -(-seq // chunk)
+    q_tiles = -(-chunk // TILE_ROWS)
+    bh = batch * heads
+    return SsdPlan(_ROUTES[dtype], chunk, chunks, q_tiles,
+                   cs_floats=bh * seq,
+                   state_floats=bh * chunks * head_dim * state_dim,
+                   counters=bh)
 
 
 def _kernel_fn():
     fn = _build.load("ssd_scan").ssd_scan
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 8 + [i] * 7 + [ll] * 15 + [i, i, p]
+        fn.argtypes = [p] * 11 + [i] * 9 + [ll] * 15 + [i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -70,6 +122,12 @@ def _check(x, dt, a, b, c, initial_state, out_dtype) -> None:
             or initial_state.device != x.device):
         raise ValueError(f"initial_state must be (B,H,P,N) = "
                          f"{(bsz, h, p, n)} on {x.device}")
+    if x.dtype == torch.bfloat16:
+        # the tensor-core route copies rows of x, b and c 16 bytes at a time
+        for name, t in (("x", x), ("b", b), ("c", c)):
+            if t.data_ptr() % 16 or any(
+                    t.stride(i) % 8 and t.shape[i] > 1 for i in range(3)):
+                raise ValueError(f"bf16 {name} needs 16-byte aligned rows")
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -98,22 +156,26 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _check(x, dt, a, b, c, initial_state, out_dtype)
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    chunk = min(chunk, s)
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} not in [1, {MAX_CHUNK}]")
+    plan = ssd_plan(x.dtype, bsz, s, h, p, n, chunk)
     dt = dt.float()
     a = a.float().contiguous()
     init = (initial_state.float().contiguous()
             if initial_state is not None else None)
-    y = torch.empty((bsz, s, h, p), dtype=out_dtype, device=x.device)
-    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev = x.device
+    y = torch.empty((bsz, s, h, p), dtype=out_dtype, device=dev)
+    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    cs_ws = torch.empty(plan.cs_floats, dtype=torch.float32, device=dev)
+    st_ws = torch.empty(plan.state_floats, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters = _build.arrival_counters(dev, stream, plan.counters)
     strides = [t.stride(i) for t in (x, dt, b, c, y) for i in range(3)]
     err = _kernel_fn()(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), None if init is None else init.data_ptr(),
-        y.data_ptr(), state.data_ptr(), bsz, s, h, g, p, n, chunk,
-        *strides, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], stream)
+        y.data_ptr(), state.data_ptr(), cs_ws.data_ptr(), st_ws.data_ptr(),
+        counters.data_ptr(), bsz, s, h, g, p, n, plan.chunk, plan.chunks,
+        plan.q_tiles, *strides, _DTYPE_CODES[x.dtype],
+        _DTYPE_CODES[out_dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan.launches += 1

@@ -185,6 +185,46 @@ def test_kernel_at_max_seq_2048_tables(cuda, pool, kvh, group):
     torch.testing.assert_close(out, ref, **TOL[torch.bfloat16])
 
 
+def _k1_repeats(args, sc, window=0):
+    """K1 once and again: the two outputs must be bit for bit equal (the
+    splits merge in a fixed order, with no atomics on values)."""
+    out = paged_decode_attention(*args, **sc, window=window)
+    again = paged_decode_attention(*args, **sc, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("pos,window", [
+    (128, 0), (256, 0), (129, 0), (140, 20), (260, 8), (2048, 0),
+    (2048, 300)])
+def test_kernel_split_edges(cuda, pool, pos, window):
+    """Positions on and beside a 128-column split boundary, windows that
+    cross one, and tables full to their last row (mb 128)."""
+    args, sc = _case(pos + window, slots=4, kvh=2, group=4, hd=32, bs=16,
+                     mb=128, pool=pool, q_dtype=torch.bfloat16)
+    args[4].fill_(pos)
+    out = _k1_repeats(args, sc, window)
+    ref = paged_decode_attn_ref(*args, **sc, window=window)
+    torch.testing.assert_close(out, ref, **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_one_block_tables(cuda, q_dtype):
+    """mb 1: one split, positions 0..16, pos 0 giving v_new exactly."""
+    args, sc = _case(17, slots=8, kvh=2, group=2, hd=32, bs=16, mb=1,
+                     pool=torch.int8, q_dtype=q_dtype)
+    args[4].copy_(torch.tensor([0, 1, 2, 5, 8, 15, 16, 16],
+                               dtype=torch.int32))
+    out = _k1_repeats(args, sc)
+    ref = paged_decode_attn_ref(*args, **sc)
+    torch.testing.assert_close(out, ref, **TOL[q_dtype])
+    assert torch.equal(out[0], args[6][0].repeat_interleave(2, dim=0))
+
+
 # ------------------------------------------------------------ flash (K2) --
 def _qkv(seed, b, h, kvh, s, hd, dtype):
     """q (B,S,H,hd) and k/v (B,S,K,hd) as the model holds them, passed as
@@ -430,6 +470,25 @@ def test_ssd_kernel_layout_of_ops_ssd(cuda, dtype):
     assert y.dtype == torch.float32 and y.shape == kx.shape
     torch.testing.assert_close(y, yr, **SSD_TOL[torch.float32])
     torch.testing.assert_close(st, str_, **STATE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [255, 256, 257, 4096])
+def test_ssd_kernel_chunk_split_edges(cuda, dtype, s):
+    """S one short of a chunk, a chunk, one past it, and 16 chunks, with
+    an initial state carried through the state pass; each repeats bit
+    for bit."""
+    args = _ssd(s, 2, s, 4, 1, 64, 128, dtype)
+    init = torch.randn(2, 4, 64, 128, device="cuda")
+    for initial in (None, init):
+        y, st = ssd_scan(*args, chunk=256, initial_state=initial)
+        y2, st2 = ssd_scan(*args, chunk=256, initial_state=initial)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+        yr, str_ = ssd_scan_ref(*args, chunk=256, initial_state=initial)
+        torch.testing.assert_close(y, yr, **SSD_TOL[dtype])
+        torch.testing.assert_close(st, str_, **STATE_TOL)
 
 
 @pytest.mark.gpu

@@ -430,6 +430,89 @@ def test_ffn_plan_f32_keeps_the_cuda_core_split():
         ffn_plan(torch.float16, 8, 256, 1024)
 
 
+@pytest.mark.parametrize("mb,bs,splits", [
+    (32, 16, 4),          # the short waves' tables (max_seq 512)
+    (128, 16, 16),        # max_seq 2048
+    (1, 16, 1), (2, 8, 1), (9, 16, 2), (128, 4, 4), (8, 32, 2)])
+def test_decode_plan_splits_follow_the_table_width(mb, bs, splits):
+    """K1 splits the table into runs of 128 pool columns: the split count
+    is a function of the table's width alone (host data), never of the
+    positions, so a step's launch geometry does not change as slots
+    fill.  One workspace record a (slot, kv head, split): group x hd
+    partial sums and (m, l) per query head; one counter a (slot, kv
+    head)."""
+    from repro_torch.kernels.paged_decode_attn import SPLIT_COLS, decode_plan
+    plan = decode_plan(8, 8, 2, 32, bs, mb, torch.int8)
+    assert SPLIT_COLS == 128
+    assert plan.splits == splits and plan.counters == 16
+    assert plan.ws_floats == 16 * splits * 4 * (32 + 2)
+    assert plan.stages == 2
+
+
+def test_decode_plan_shared_memory_and_ring_depth():
+    """The served shape's shared memory as the kernel lays it out (the
+    pre-scaled query; for each of 4 warps two ring slots of 16 K and V
+    rows with their scales, then m and l padded to 4 floats and the
+    accumulator); a ring too large for 200 KiB drops to one slot; what
+    does not fit at all, or is not whole 16-byte row chunks, raises."""
+    from repro_torch.kernels.paged_decode_attn import (MAX_SMEM, RING_SMEM,
+                                                       decode_plan)
+    plan = decode_plan(8, 8, 8, 32, 16, 32, torch.int8)
+    slot = 2 * 16 * 32 + 2 * 16 * 4
+    assert plan.smem == 4 * 32 + 4 * (2 * slot + 4 * (2 * 4 + 32))
+    big = decode_plan(8, 16, 1, 256, 16, 128, torch.float32)
+    assert big.stages == 1 and RING_SMEM < 4 * 2 * 2 * 16 * 256 * 4
+    assert big.smem <= MAX_SMEM
+    assert decode_plan(8, 2, 1, 256, 16, 128, torch.bfloat16).stages == 2
+    for bad in (dict(hd=8, dtype=torch.int8), dict(hd=2, dtype=torch.float32),
+                dict(hd=32, dtype=torch.float16),
+                dict(hd=512, dtype=torch.float32, heads=32)):
+        with pytest.raises(ValueError):
+            decode_plan(8, bad.get("heads", 8), 1, bad["hd"], 16, 32,
+                        bad["dtype"])
+
+
+@pytest.mark.parametrize("seq,asked,chunk,chunks,q_tiles", [
+    (2048, 256, 256, 8, 4),        # one mamba2 prompt of bucket 2048
+    (255, 256, 255, 1, 4), (256, 256, 256, 1, 4), (257, 256, 256, 2, 4),
+    (4096, 256, 256, 16, 4), (16, 256, 16, 1, 1), (300, 100, 100, 3, 2),
+    (4096, 1000, 1000, 5, 16)])
+def test_ssd_plan_splits_the_sequence_into_chunks(seq, asked, chunk, chunks,
+                                                  q_tiles):
+    """K6: the chunk is min(chunk, S), cut into 64-row query tiles.  The
+    workspaces: the cumulative decay of every row, and one (P, N) f32
+    state a chunk; one arrival counter a (batch x head), whose last
+    chunk-state block carries the state."""
+    from repro_torch.kernels.ssd_scan import ssd_plan
+    plan = ssd_plan(torch.bfloat16, 8, seq, 32, 64, 128, asked)
+    assert plan.route == "tensor_cores"
+    assert (plan.chunk, plan.chunks, plan.q_tiles) == (chunk, chunks,
+                                                       q_tiles)
+    assert plan.cs_floats == 256 * seq
+    assert plan.state_floats == 256 * chunks * 64 * 128
+    assert plan.counters == 256
+
+
+def test_ssd_plan_routes_and_limits():
+    """bf16 runs on the tensor cores, f32 on the CUDA cores; the burst's
+    chunk states are 67 MB of f32 workspace; chunks above 1024, empty
+    sequences and other dtypes raise."""
+    from repro_torch.kernels.ssd_scan import MAX_CHUNK, ssd_plan
+    burst = ssd_plan(torch.bfloat16, 8, 2048, 32, 64, 128, 256)
+    assert (burst.chunks, burst.q_tiles, burst.counters) == (8, 4, 256)
+    assert 4 * burst.state_floats == 67108864
+    f32 = ssd_plan(torch.float32, 2, 200, 8, 32, 32, 256)
+    assert f32.route == "cuda_cores" and f32.state_floats == 16 * 1024
+    assert ssd_plan(torch.float32, 1, 4096, 4, 64, 64,
+                    MAX_CHUNK).chunks == 4
+    for args in ((torch.float16, 1, 64, 4, 64, 64, 64),
+                 (torch.float32, 1, 0, 4, 64, 64, 64),
+                 (torch.float32, 1, 4096, 4, 64, 64, MAX_CHUNK + 1),
+                 (torch.float32, 1, 64, 4, 64, 64, 0)):
+        with pytest.raises(ValueError):
+            ssd_plan(*args)
+
+
 # ------------------------------------------- activation quantization ----
 J_ACT = importlib.import_module("repro.kernels.act_quant")
 T_ACT = importlib.import_module("repro_torch.kernels.act_quant")

@@ -227,3 +227,43 @@ def test_long_prompts_at_max_seq_2048_match_reference():
     assert [len(s) for s in streams[1]] == [5, 2, 3]
     for name in COUNTERS:
         assert getattr(t_eng.stats, name) == getattr(j_eng.stats, name), name
+
+
+# fault R2 of the JAX package: at block size 4 this mix is served in 3
+# prefill calls by the paged engine and in 2 by the dense batched one,
+# with equal streams.  The port keeps both counts.
+R2_MIX = [(1, 1, 0, 0.0), (33, 1, 0, 0.0), (33, 1, 0, 0.0)]
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_r2_mix_prefill_calls_pinned_to_reference(kv_dtype):
+    """The R2 mix through the port's paged and batched engines: streams
+    equal the JAX engines', and so do the prefill-call counts (paged 3,
+    dense 2)."""
+    f32 = dict(activation_dtype="float32")
+    cfg = J_CFG.with_updates(**f32)
+    opts = dataclasses.replace(DEFAULT_OPTIONS, paged_kernel=True,
+                               kv_dtype=kv_dtype)
+    runs = {}
+    for mode in ("paged", "batched"):
+        kw = dict(block_size=4) if mode == "paged" else {}
+        j_eng = JEngine(cfg, J_PARAMS, slots=2, max_seq=MAX_SEQ,
+                        opts=opts if mode == "paged" else DEFAULT_OPTIONS,
+                        decode_mode=mode, compile_cache=J_CC, **kw)
+        j_reqs = [JRequest(rid=i, prompt=_prompt(n, i), max_new_tokens=b,
+                           sampling=JSampling(temperature=t, seed=5))
+                  for i, (n, b, _, t) in enumerate(R2_MIX)]
+        t_eng = (_engine(kv_dtype, f32, block_size=4) if mode == "paged"
+                 else ServingEngine(
+                     get_config("paper-backbone").with_updates(**TINY, **f32),
+                     T_PARAMS, slots=2, max_seq=MAX_SEQ,
+                     compile_cache=CompileCache(), device="cpu"))
+        assert t_eng.decode_mode == mode
+        j_streams = _drive(j_eng, j_reqs, R2_MIX)
+        t_streams, _ = _run_port(R2_MIX, kv_dtype, f32, eng=t_eng)
+        assert t_streams == j_streams, mode
+        runs[mode] = (t_streams, t_eng.stats.prefill_calls,
+                      j_eng.stats.prefill_calls)
+    assert runs["paged"][1:] == (3, 3)
+    assert runs["batched"][1:] == (2, 2)
+    assert runs["paged"][0] == runs["batched"][0]
