@@ -37,10 +37,23 @@ Phases (any failure exits non-zero):
    batched mode, two waves of 16 requests of 8-2000 tokens at max_seq
    4096; and one short batched wave of ``paper-backbone``.  Asserts
    budgets, the launches of each kernel against each path's decode
-   steps and prefill calls, and no new program when a wave repeats;
-   prints TTFT per bucket, the decode-step time and device profiles of
-   a decode step and of a long prefill call (with K1's, K2's and K3's
-   device time in each).
+   steps and prefill calls (a step replayed as a CUDA graph counts the
+   launches captured in it; the paged waves' totals are those of the
+   eager steps, K1 1504, K2 192, K3 1696, and mamba2's K6 768), and no
+   new program when a wave repeats; prints TTFT per bucket, the
+   decode-step time and device profiles of a decode step and of a long
+   prefill call (with K1's, K2's and K3's device time in each), and the
+   graph-replayed paged int8 and mamba2 decode steps beside the same
+   steps run eagerly on clones of the same state (host clock, device
+   time, idle share; the tokens must be equal).  Then the engine's other
+   paths at full width: a wave of 16 requests of 100-250 tokens x 128 new
+   tokens through a roomy pool and through a pool of 97 blocks
+   (preemption: at least one freeze, as many thaws, budgets met, tables
+   released, exact launches), ``swap_model`` in the middle of a wave to
+   the same binding (no re-prefill, every requeued request thawed) and
+   to other weights (every requeued request re-prefilled), and short
+   waves through ``per_slot`` and the gather-to-dense paged step (int8
+   and bf16 pools).
 4. engine — the model-adaptive engine's entry points on the card at full
    width: one ``model.prefill`` of 8 x 2048 tokens each of
    ``mamba2-370m`` (K6) and ``paper-backbone`` (dense bf16 KV, K2/K3);
@@ -57,9 +70,13 @@ Phases (any failure exits non-zero):
 5. card against CPU — f32-activation variants serve greedy requests on
    the card and through the port's plain versions on the CPU: 5 of
    ``paper-backbone`` paged (one at bucket 1024), 4 of the reduced
-   ``gemma3-12b`` paged (window 64; three prompts select ``banded``) and
-   4 of ``mamba2-370m`` batched with f32 caches; the token streams must
-   be equal.
+   ``gemma3-12b`` paged (window 64; three prompts select ``banded``), 4
+   of ``mamba2-370m`` batched with f32 caches, 6 of ``paper-backbone``
+   paged int8 in a roomy pool and in a pool of 65 blocks that preempts
+   (the streams may not drift), 4 through ``per_slot`` and 4 through
+   the gather step, and 6 with ``swap_model`` after 4 steps (to the same
+   and to other weights); the token streams and the engines' prefill
+   calls, freezes, thaws and requeues must be equal.
 
 The line before the last is a JSON object listing every kernel with its
 launches on its main path and its times (K4 and K5 as their four entry
@@ -990,43 +1007,22 @@ def _long_prompts(seed, vocab):
 
 
 def serve_wave(torch, eng, prompts, rid_base, new_tokens):
-    from repro_torch.serving import Request, SamplingOpts
-    reqs = [Request(rid=rid_base + i, prompt=p, max_new_tokens=new_tokens,
-                    sampling=SamplingOpts(temperature=0.8 if i % 2 else 0.0,
-                                          seed=7))
-            for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps0, tokens0 = eng.stats.steps, eng.stats.tokens_out
-    for r in reqs:
-        eng.submit(r)
+    reqs = submit_all(eng, prompts, rid_base, new_tokens)
     eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for r in reqs:
-        # a prompt whose bucket is max_seq decodes once and stops (R1)
-        budget = (2 if eng._bucket(len(r.prompt)) == eng.max_seq
-                  else new_tokens)
-        if not r.done or len(r.generated) != budget:
-            raise AssertionError(f"request {r.rid} ended with "
-                                 f"{len(r.generated)} of {budget} tokens")
-        if not all(0 <= t < eng.cfg.vocab_size for t in r.generated):
-            raise AssertionError(f"request {r.rid} emitted an id out of "
-                                 "the vocabulary")
+    check_budgets(eng, reqs, new_tokens)
     steps = eng.stats.steps - steps0
     step_ms = 1e3 * sum(list(eng.step_times)[-steps:]) / steps
     return (eng.stats.tokens_out - tokens0) / wall, step_ms, reqs
 
 
 def _kernel_fns():
-    from repro_torch.kernels import (act_dequant, act_dequant4, act_quant,
-                                     act_quant4, flash_attention, fused_ffn,
-                                     paged_decode_attention, ssd_scan)
-    return {"paged_decode_attention": paged_decode_attention,
-            "flash_attention": flash_attention, "fused_ffn": fused_ffn,
-            "ssd_scan": ssd_scan, "act_quant": act_quant,
-            "act_dequant": act_dequant, "act_quant4": act_quant4,
-            "act_dequant4": act_dequant4}
+    from repro_torch.kernels import COUNTED_KERNELS
+    return {fn.__name__: fn for fn in COUNTED_KERNELS}
 
 
 def zero_counts():
@@ -1036,11 +1032,12 @@ def zero_counts():
 
 def check_counts(engines, what):
     """Read the launch counts of one path's run and hold them to the
-    counters of the engines that served it: the paged step runs K1 and
-    K3 per layer, the dense batched step K3; a dense prefill call runs
-    K2 and K3 per layer, an SSM prefill call K6.  Every kernel of the
-    path must have launched, and no other.  Returns ``{kernel name:
-    launches}``."""
+    counters of the engines that served it: the paged block-table step
+    runs K1 and K3 per layer, the dense batched, per-slot and gather
+    steps K3; a dense prefill call runs K2 and K3 per layer, an SSM
+    prefill call K6.  A step replayed as a CUDA graph counts the launches
+    captured in its graph.  Every kernel of the path must have launched,
+    and no other.  Returns ``{kernel name: launches}``."""
     eng = engines[0]
     layers = eng.cfg.num_layers
     decode = sum(e.stats.decode_calls for e in engines)
@@ -1052,7 +1049,7 @@ def check_counts(engines, what):
     else:
         expect["flash_attention"] = prefill * layers
         expect["fused_ffn"] = (prefill + decode) * layers
-        if eng.decode_mode == "paged":
+        if eng.decode_mode == "paged" and eng.opts.paged_kernel:
             expect["paged_decode_attention"] = decode * layers
     if counts != expect:
         raise AssertionError(f"{what}: launches {counts}, expected {expect} "
@@ -1106,8 +1103,14 @@ def phase_serving(torch, name):
         f"tok/s, {ms1:.3f} ms/decode step; wave 2 {tps2:.1f} tok/s, "
         f"{ms2:.3f} ms/decode step; decode steps {eng.stats.decode_calls}, "
         f"prefill calls {eng.stats.prefill_calls}, recompiles "
-        f"{eng.stats.recompiles}")
+        f"{eng.stats.recompiles}, graph captures {captures(eng)}")
+    if captures(eng) != 1:
+        raise AssertionError("the paged step was not captured once")
     profile_decode_steps(torch, eng, ms2)
+    graph_vs_eager(torch, ServingEngine(
+        cfg, params, slots=8, max_seq=512, block_size=16, opts=opts,
+        decode_mode="paged", compile_cache=eng.compile_cache,
+        device="cuda"), "paper-backbone paged int8 step", name)
 
     # --- path 2: the long wave at max_seq 2048, then its repeat on a
     # second engine that shares the program cache.  (On one engine the
@@ -1141,7 +1144,252 @@ def phase_serving(torch, name):
     profile_long_prefill(torch, lambda: ServingEngine(
         cfg, params, slots=8, max_seq=2048, block_size=16, opts=opts,
         decode_mode="paged", compile_cache=cache, device="cuda"))
+    # the same workloads as before the decode steps were graph-replayed,
+    # so the same totals: each replay counts its captured launches
+    if totals != PAGED_TOTALS:
+        raise AssertionError(f"paged path launches {totals}, expected "
+                             f"{PAGED_TOTALS}")
     return totals
+
+
+# the paged waves' launches (short and long waves), unchanged since the
+# steps were eager: K1 = decode steps x 8, K2 = prefill calls x 8, K3 =
+# both x 8
+PAGED_TOTALS = {"paged_decode_attention": 1504, "flash_attention": 192,
+                "fused_ffn": 1696}
+
+
+def captures(eng):
+    """Decode steps this engine captured as CUDA graphs."""
+    return eng.metrics.counter("engine.graph_captures").value
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def graph_vs_eager(torch, eng, what, smi, steps=16):
+    """The steady decode step replayed as a CUDA graph beside the same
+    step run eagerly.  ``eng`` is a fresh engine: its slots fill with
+    greedy requests, then one step of the model's step function on
+    clones of the engine's state must give the graph-replayed step's
+    tokens.  Then ``steps`` engine steps (graph replays) and ``steps``
+    eager steps on the clones (each ending in the same device->host copy
+    of the tokens) are timed on the host clock, and each is profiled for
+    its device time and idle share; one graph replay is also timed alone
+    by CUDA events.  The engine is not used afterwards (the lone replays
+    advance its state past its bookkeeping)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(21)
+    for i in range(eng.slots):
+        eng.submit(Request(rid=5000 + i, prompt=rng.integers(
+            0, eng.cfg.vocab_size, 24 + 16 * i).astype(np.int32),
+            max_new_tokens=4 * steps + 16))
+    for _ in range(3):              # admission and warm-up, capture, replay
+        eng.step()
+    paged = eng.decode_mode == "paged"
+    if paged:
+        eng._ensure_tail_blocks()   # the next step's tables, grown already
+        fn = eng._paged_decode_fn()
+        cache, pool = clone_tree(eng._cache), clone_tree(eng._pool)
+        tables = torch.from_numpy(eng.block_pool.tables.copy()).cuda()
+    else:
+        fn = eng._programs.decode_greedy
+        cache = clone_tree(eng._cache)
+    tokens = torch.tensor([r.generated[-1] for r in eng._active],
+                          dtype=torch.int32, device="cuda")
+
+    def eager_step():
+        out = (fn(eng.params, cache, pool, tokens, tables) if paged
+               else fn(eng.params, cache, tokens))
+        host = torch.stack([out[0].to(torch.int32),
+                            out[1].to(torch.int32)]).cpu()
+        tokens.copy_(out[0].to(torch.int32))
+        return host
+
+    first = eager_step()[0].tolist()
+    eng.step()
+    replayed = [r.generated[-1] for r in eng._active]
+    if first != replayed:
+        raise AssertionError(f"{what}: the graph-replayed step gave "
+                             f"{replayed}, the eager step {first}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    graph_ms = 1e3 * (time.perf_counter() - t0) / steps
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eager_step()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / steps
+    g_busy, g_ops = device_profile(torch, eng.step, steps, graph_ms,
+                                   f"{what}, replayed as a CUDA graph, "
+                                   "per step")
+    e_busy, e_ops = device_profile(torch, eager_step, steps, eager_ms,
+                                   f"{what}, eager on clones, per step")
+    graph = next(iter(eng._graphs.values()))._graph
+    replay_ms = cuda_ms(torch, graph.replay, iters=50, warmup=5)
+    log(f"{what} on {smi}, 8 busy slots: graph-replayed {graph_ms:.3f} "
+        f"ms/step on the host clock (device {g_busy:.3f} ms, idle share "
+        f"{1 - g_busy / graph_ms:.3f}; one replay alone {replay_ms:.3f} ms "
+        f"by CUDA events) against eager {eager_ms:.3f} ms/step (device "
+        f"{e_busy:.3f} ms over {e_ops:.0f} device ops, idle share "
+        f"{1 - e_busy / eager_ms:.3f}); graph captures {captures(eng)}; the "
+        f"replayed step's tokens equal the eager step's")
+
+
+
+def _tight_prompts(seed, vocab, n=16, lo=100, hi=250):
+    """``n`` prompts of ``lo``..``hi`` tokens (fixed lengths, buckets 128
+    and 256); ``seed`` draws the tokens."""
+    import numpy as np
+    lens = np.random.default_rng(0).integers(lo, hi + 1, n)
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(n_)).astype(np.int32) for n_ in lens]
+
+
+def phase_modes(torch, name):
+    """The engine's other paths at full width on the card: a wave through
+    a pool too small for its 8 slots (preemption: freeze and thaw), a
+    ``swap_model`` in the middle of a wave (same binding, then other
+    weights), and short waves through the ``per_slot`` mode and the
+    gather-to-dense paged step (int8 and bf16 pools).  Returns
+    ``{kernel name: launches}`` over these paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.runtime import RuntimeOptions
+    from repro_torch.serving import CompileCache, ServingEngine
+    from repro_torch.serving.paging import TRASH_BLOCK
+    cfg = get_config("paper-backbone")
+    params = init_params(cfg, seed=0, device="cuda")
+    opts = RuntimeOptions(paged_kernel=True, kv_dtype="int8")
+    totals = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    # --- preemption: 16 requests of 100..250 tokens, 128 new tokens each,
+    # 8 slots needing up to 24 blocks apiece, first in a roomy pool, then
+    # in 3 x 32 + 1 = 97 blocks
+    cache = CompileCache()
+    streams = {}
+    for label, pool in (("roomy", None), ("tight", 3 * 32 + 1)):
+        eng = ServingEngine(cfg, params, slots=8, max_seq=512, block_size=16,
+                            opts=opts, decode_mode="paged", pool_blocks=pool,
+                            compile_cache=cache, device="cuda")
+        zero_counts()
+        tps, ms, reqs = serve_wave(torch, eng,
+                                   _tight_prompts(6, cfg.vocab_size),
+                                   6000, 128)
+        counts = check_counts([eng], f"preemption wave, {label} pool "
+                              f"({eng.pool_blocks} blocks)")
+        st = eng.stats
+        if label == "tight":
+            add(counts)
+            if st.freezes < 1 or st.thaws != st.freezes:
+                raise AssertionError(f"tight pool: {st.freezes} freezes, "
+                                     f"{st.thaws} thaws")
+        if not (eng.block_pool.tables == TRASH_BLOCK).all():
+            raise AssertionError(f"{label} pool: tables not released")
+        streams[label] = [tuple(r.generated) for r in reqs]
+        ttft = ttft_by_bucket(eng, reqs)
+        log(f"preemption wave, {label} pool ({eng.pool_blocks} blocks) on "
+            f"{name}: {tps:.1f} tok/s, {ms:.3f} ms/decode step, "
+            f"{st.decode_calls} decode steps, {st.prefill_calls} prefill "
+            f"calls, freezes {st.freezes}, thaws {st.thaws}, requeues "
+            f"{st.requeues}, graph captures {captures(eng)}; TTFT by bucket "
+            + "; ".join(f"{b}: mean {mean:.1f} ms, max {mx:.1f} ms over {n}"
+                        for b, (mean, mx, n) in ttft.items()))
+    same = sum(a == b for a, b in zip(streams["roomy"], streams["tight"]))
+    log(f"preemption wave: {same} of 16 streams (greedy and sampled, bf16) "
+        "equal the roomy pool's")
+
+    # --- swap_model in the middle of a wave
+    prompts = _prompts(16, 8, cfg.vocab_size)
+    for label in ("same binding", "other weights"):
+        eng = ServingEngine(cfg, params, slots=8, max_seq=512, block_size=16,
+                            opts=opts, decode_mode="paged",
+                            compile_cache=cache, device="cuda")
+        zero_counts()
+        reqs = submit_all(eng, prompts, 7000, 32)
+        for _ in range(6):
+            eng.step()
+        active = sum(r is not None for r in eng._active)
+        calls = eng.stats.prefill_calls
+        if label == "same binding":
+            eng.swap_model(cfg, params, opts)
+        else:
+            eng.swap_model(cfg, init_params(cfg, seed=1, device="cuda"),
+                           opts, params_version=1)
+        eng.drain()
+        counts = check_counts([eng], f"swap_model mid-wave ({label})")
+        add(counts)
+        st = eng.stats
+        check_budgets(eng, reqs, 32)
+        if label == "same binding" and not (
+                st.requeues == st.thaws == active and st.prefills == 16):
+            raise AssertionError(f"same-binding swap: {active} requeued, "
+                                 f"{st.thaws} thaws, {st.prefills} prefills")
+        if label == "other weights" and not (
+                st.requeues == active and st.thaws == 0
+                and st.prefills == 16 + active):
+            raise AssertionError(f"swap to other weights: {active} "
+                                 f"requeued, {st.thaws} thaws, "
+                                 f"{st.prefills} prefills")
+        log(f"swap_model mid-wave ({label}) on {name}: {active} requeued, "
+            f"thaws {st.thaws}, prefills {st.prefills}, prefill calls "
+            f"{calls} before the swap and {st.prefill_calls} in all, "
+            f"generation {eng.generation}, graph captures {captures(eng)}")
+
+    # --- the per-slot mode and the gather-to-dense paged step
+    for label, kw in (
+            ("per_slot", dict(decode_mode="per_slot")),
+            ("gather step, int8 pool", dict(
+                decode_mode="paged", block_size=16,
+                opts=RuntimeOptions(kv_dtype="int8"))),
+            ("gather step, bf16 pool", dict(
+                decode_mode="paged", block_size=16,
+                opts=RuntimeOptions()))):
+        eng = ServingEngine(cfg, params, slots=8, max_seq=512,
+                            compile_cache=CompileCache(), device="cuda",
+                            **kw)
+        zero_counts()
+        tps, ms, _ = serve_wave(torch, eng, _prompts(8, 9, cfg.vocab_size),
+                                8000, 16)
+        add(check_counts([eng], f"{label}, one wave"))
+        if captures(eng):
+            raise AssertionError(f"{label}: an eager path captured a graph")
+        log(f"serving paper-backbone {label} on {name}: {tps:.1f} tok/s, "
+            f"{ms:.3f} ms/decode step, {eng.stats.decode_calls} decode "
+            "calls")
+    return totals
+
+
+def submit_all(eng, prompts, rid_base, new_tokens):
+    from repro_torch.serving import Request, SamplingOpts
+    reqs = [Request(rid=rid_base + i, prompt=p, max_new_tokens=new_tokens,
+                    sampling=SamplingOpts(temperature=0.8 if i % 2 else 0.0,
+                                          seed=7))
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    return reqs
+
+
+def check_budgets(eng, reqs, new_tokens):
+    for r in reqs:
+        # a prompt whose bucket is max_seq decodes once and stops (R1)
+        budget = (2 if eng._bucket(len(r.prompt)) == eng.max_seq
+                  else new_tokens)
+        if not r.done or len(r.generated) != budget:
+            raise AssertionError(f"request {r.rid} ended with "
+                                 f"{len(r.generated)} of {budget} tokens")
+        if not all(0 <= t < eng.cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"request {r.rid} emitted an id out of "
+                                 "the vocabulary")
 
 
 def _mamba_prompts(seed, vocab):
@@ -1185,12 +1433,18 @@ def phase_batched(torch, name):
     log(f"serving mamba2-370m batched on {name}: wave 1 {tps1:.1f} tok/s, "
         f"{ms1:.3f} ms/decode step; wave 2 {tps2:.1f} tok/s, {ms2:.3f} "
         f"ms/decode step; decode steps {eng.stats.decode_calls}, prefill "
-        f"calls {eng.stats.prefill_calls}, programs built {warm}")
+        f"calls {eng.stats.prefill_calls}, programs built {warm}, graph "
+        f"captures {captures(eng)}")
+    if counts != {"ssd_scan": 768} or not 1 <= captures(eng) <= 2:
+        raise AssertionError(f"mamba2 waves: launches {counts} (expected "
+                             f"K6 768), {captures(eng)} graph captures "
+                             "(expected at most decode and decode_greedy)")
     for wave, (e, reqs) in enumerate(((eng, reqs1), (eng, reqs2))):
         log(f"  mamba2 wave {wave + 1} TTFT by bucket: " + "; ".join(
             f"{b}: mean {mean:.1f} ms, max {mx:.1f} ms over {n}"
             for b, (mean, mx, n) in ttft_by_bucket(e, reqs).items()))
     profile_decode_steps(torch, eng, ms2)
+    graph_vs_eager(torch, engine(), "mamba2-370m batched step", name)
     profile_long_prefill(torch, engine)
 
     # --- paper-backbone, dense KV in the batched mode: one short wave
@@ -1252,6 +1506,7 @@ def device_profile(torch, fn, reps, wall_ms, what):
         for k, (ms_, n) in ours.items())
         + (f"; K2 + K3 {sum(ours.get(k, (0, 0))[0] for k in ('K2', 'K3')):.4f}"
            f" ms" if "K2" in ours else ""))
+    return busy_ms, ops
 
 
 def profile_decode_steps(torch, eng, step_ms, steps=8):
@@ -1270,16 +1525,29 @@ def profile_decode_steps(torch, eng, step_ms, steps=8):
 
 
 def profile_long_prefill(torch, make_engine):
-    """Where a long prefill's time goes: the first step of a fresh
-    engine that admits 8 prompts of bucket 2048 in one burst (one
-    prefill call, then one decode step).  One engine is timed on the
-    host clock, a second one profiled."""
+    """Where a long prefill's time goes: a step of a fresh engine that
+    admits 8 prompts of bucket 2048 in one burst (one prefill call, then
+    one decode step, replayed).  A short request first captures the
+    engine's decode graph, whose capture is logged on its own.  One
+    engine is timed on the host clock, a second one profiled."""
     import numpy as np
     from repro_torch.serving import Request
     rng = np.random.default_rng(5)
     walls = []
     for run in range(2):
         eng = make_engine()
+        eng.submit(Request(rid=1999, prompt=rng.integers(
+            0, eng.cfg.vocab_size, 8).astype(np.int32), max_new_tokens=4))
+        eng.drain()
+        if eng.decode_mode == "paged":
+            # its cached prefix would hold a block the burst needs
+            eng._prefix.clear(eng._blocks)
+        if run == 0:
+            capture_s = eng.metrics.gauge("engine.graph_capture_s").value
+            log(f"{eng.cfg.name}: first decode step of a fresh engine "
+                f"(eager warm-up and graph capture) {1e3 * capture_s:.1f} "
+                "ms on the host clock")
+        calls = eng.stats.prefill_calls
         for i in range(8):
             eng.submit(Request(rid=2000 + i, prompt=rng.integers(
                 0, eng.cfg.vocab_size, 1500).astype(np.int32),
@@ -1294,9 +1562,10 @@ def profile_long_prefill(torch, make_engine):
             device_profile(torch, eng.step, 1, walls[0],
                            "long prefill profile (one step: a prefill call "
                            "of 8 x 2048 tokens, then one decode step)")
-        if eng.stats.prefill_calls != 1:
+        if eng.stats.prefill_calls - calls != 1:
             raise AssertionError("8 bucket-2048 prompts took "
-                                 f"{eng.stats.prefill_calls} prefill calls")
+                                 f"{eng.stats.prefill_calls - calls} "
+                                 "prefill calls")
         eng.drain()
 
 
@@ -1518,10 +1787,15 @@ def top2_margin(torch, params, cfg, tokens):
     return float(top[0] - top[1])
 
 
-def card_vs_cpu(torch, cfg, lens, new_tokens, seed, what, **engine_kw):
+def card_vs_cpu(torch, cfg, lens, new_tokens, seed, what, swap=None,
+                slots=4, **engine_kw):
     """Greedy streams of ``cfg`` (f32 activations) from the same seeded
-    weights on the card and on the CPU must be equal; on a mismatch the
-    CPU's top-2 logit margin at the first differing token is printed."""
+    weights on the card and on the CPU must be equal, and so must the
+    engines' prefill calls, freezes, thaws and requeues; on a stream
+    mismatch the CPU's top-2 logit margin at the first differing token is
+    printed.  With ``swap``, the engine swaps its model after 4 steps: to
+    the same weights (``"same"``) or to weights of another seed
+    (``"other"``).  Returns the card's streams and counters."""
     import numpy as np
     from repro_torch.models import init_params
     from repro_torch.serving import (CompileCache, Request, SamplingOpts,
@@ -1529,11 +1803,11 @@ def card_vs_cpu(torch, cfg, lens, new_tokens, seed, what, **engine_kw):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
-    streams = {}
+    streams, stats = {}, {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
         params = init_params(cfg, seed=0, device=device)
-        eng = ServingEngine(cfg, params, slots=4,
+        eng = ServingEngine(cfg, params, slots=slots,
                             compile_cache=CompileCache(), device=device,
                             **engine_kw)
         reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens,
@@ -1541,8 +1815,20 @@ def card_vs_cpu(torch, cfg, lens, new_tokens, seed, what, **engine_kw):
                 for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
+        if swap is not None:
+            for _ in range(4):
+                eng.step()
+            if swap == "same":
+                eng.swap_model(cfg, params, eng.opts)
+            else:
+                eng.swap_model(cfg, init_params(cfg, seed=1, device=device),
+                               eng.opts, params_version=1)
         eng.drain()
         streams[device] = [tuple(r.generated) for r in reqs]
+        st = eng.stats
+        stats[device] = dict(prefill_calls=st.prefill_calls,
+                             freezes=st.freezes, thaws=st.thaws,
+                             requeues=st.requeues)
         log(f"{what} on {device}: {time.perf_counter() - t0:.1f} s")
     if streams["cuda"] != streams["cpu"]:
         for p, a, b in zip(prompts, streams["cuda"], streams["cpu"]):
@@ -1555,26 +1841,31 @@ def card_vs_cpu(torch, cfg, lens, new_tokens, seed, what, **engine_kw):
                     f"margin there {margin:.3g}")
         raise AssertionError(f"{what}: card and CPU greedy streams differ:\n"
                              f"cuda {streams['cuda']}\ncpu  {streams['cpu']}")
+    if stats["cuda"] != stats["cpu"]:
+        raise AssertionError(f"{what}: card counters {stats['cuda']}, CPU "
+                             f"{stats['cpu']}")
     log(f"{what}: card == CPU greedy streams on {len(prompts)} requests x "
-        f"{new_tokens} tokens (prompts {min(lens)}..{max(lens)})")
+        f"{new_tokens} tokens (prompts {min(lens)}..{max(lens)}), counters "
+        f"{stats['cuda']}")
+    return streams["cuda"], stats["cuda"]
 
 
 def phase_card_vs_cpu(torch):
     from repro_torch.configs import get_config
     from repro_torch.models.runtime import RuntimeOptions
-    card_vs_cpu(torch, get_config("paper-backbone").with_updates(
-        activation_dtype="float32"), (8, 37, 120, 200, 700), 32, 3,
-        "paper-backbone paged int8 (buckets 16..1024)", max_seq=2048,
-        block_size=16, decode_mode="paged",
-        opts=RuntimeOptions(paged_kernel=True, kv_dtype="int8"))
+    pb32 = get_config("paper-backbone").with_updates(
+        activation_dtype="float32")
+    int8 = RuntimeOptions(paged_kernel=True, kv_dtype="int8")
+    card_vs_cpu(torch, pb32, (8, 37, 120, 200, 700), 32, 3,
+                "paper-backbone paged int8 (buckets 16..1024)", max_seq=2048,
+                block_size=16, decode_mode="paged", opts=int8)
     # window 64 over prompts of 150..300 tokens: buckets 256 and 512 pick
     # ``banded``, which the card runs through K2 (f32 route) with the
     # causal and window masks, and the paged decode through K1's window
     card_vs_cpu(torch, get_config("gemma3-12b").reduced().with_updates(
         activation_dtype="float32"), (20, 150, 200, 300), 16, 5,
         "gemma3-12b reduced paged int8 (window 64, banded prefill)",
-        max_seq=1024, block_size=16, decode_mode="paged",
-        opts=RuntimeOptions(paged_kernel=True, kv_dtype="int8"))
+        max_seq=1024, block_size=16, decode_mode="paged", opts=int8)
     # the caches in f32 too: a bf16 conv cache rounds every layer's conv
     # tail at every step, so the f32 summation-order differences of card
     # and CPU (~1e-6) flip bf16 ulps that compound into other tokens
@@ -1584,6 +1875,40 @@ def phase_card_vs_cpu(torch):
         "mamba2-370m batched, f32 caches (buckets 16..256)", max_seq=512,
         decode_mode="batched",
         opts=RuntimeOptions(kv_cache_dtype="float32"))
+    # preemption: 4 slots of prompts 100..250 tokens in 2 x 32 + 1 blocks;
+    # the streams must not drift from a roomy pool's
+    tight = dict(max_seq=512, block_size=16, decode_mode="paged", opts=int8)
+    lens = (130, 250, 180, 240, 110, 200)
+    roomy, _ = card_vs_cpu(torch, pb32, lens, 48, 6,
+                           "paper-backbone paged int8, roomy pool", **tight)
+    preempted, st = card_vs_cpu(torch, pb32, lens, 48, 6,
+                                "paper-backbone paged int8, pool of 65 "
+                                "blocks (preemption)", pool_blocks=65,
+                                **tight)
+    if st["freezes"] < 1 or st["thaws"] != st["freezes"]:
+        raise AssertionError(f"the tight pool did not preempt: {st}")
+    if preempted != roomy:
+        raise AssertionError("preemption changed the paged int8 streams")
+    log("preemption: the tight pool's streams equal the roomy pool's")
+    # the eager paths: per-slot and the gather-to-dense step (dense views
+    # in f32), and swap_model in the middle of a wave
+    f32 = RuntimeOptions(kv_cache_dtype="float32")
+    lens = (8, 37, 120, 200)
+    card_vs_cpu(torch, pb32, lens, 24, 7, "paper-backbone per_slot",
+                max_seq=512, decode_mode="per_slot", opts=f32)
+    card_vs_cpu(torch, pb32, lens, 24, 7,
+                "paper-backbone paged int8, gather step", max_seq=512,
+                block_size=16, decode_mode="paged",
+                opts=f32.replace(kv_dtype="int8"))
+    lens = (8, 37, 120, 200, 60, 90)
+    for swap in ("same", "other"):
+        _, st = card_vs_cpu(torch, pb32, lens, 24, 8,
+                            f"paper-backbone paged int8, swap_model to "
+                            f"the {swap} weights after 4 steps",
+                            swap=swap, **tight)
+        if st["requeues"] != 4 or st["thaws"] != (4 if swap == "same"
+                                                  else 0):
+            raise AssertionError(f"swap ({swap}): {st}")
 
 
 def main() -> int:
@@ -1593,6 +1918,8 @@ def main() -> int:
     kernels = [phase_paged(torch), phase_flash(torch), phase_ffn(torch),
                phase_ssd(torch)] + phase_act_quant(torch)
     launches = phase_serving(torch, smi)
+    for k, n in phase_modes(torch, smi).items():
+        launches[k] = launches.get(k, 0) + n
     launches.update(phase_batched(torch, smi))
     launches.update(phase_engine(torch, smi))
     for k in kernels:

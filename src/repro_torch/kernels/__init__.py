@@ -10,7 +10,13 @@ from .ops import (attention, dequantize_activations, gated_ffn,
 from .paged_decode_attn import paged_decode_attention
 from .ssd_scan import ssd_scan
 
-__all__ = ["ops", "ref", "act_dequant", "act_dequant4", "act_quant",
+# every wrapper that counts its kernel's launches (``fn.launches``): a
+# decode step replayed as a CUDA graph adds the launches it captured
+COUNTED_KERNELS = (paged_decode_attention, flash_attention, fused_ffn,
+                   ssd_scan, act_quant, act_dequant, act_quant4,
+                   act_dequant4)
+
+__all__ = ["COUNTED_KERNELS", "ops", "ref", "act_dequant", "act_dequant4", "act_quant",
            "act_quant4", "attention", "dequantize_activations",
            "flash_attention", "fused_ffn", "gated_ffn", "kv_dequant_rows",
            "kv_quant_rows", "paged_decode_attention",

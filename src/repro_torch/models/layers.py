@@ -47,8 +47,10 @@ def rotary_embedding(positions: torch.Tensor, head_dim: int,
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    # ``full`` rather than ``tensor``: no host-to-device copy, so a decode
+    # step that computes its rotary phases can be captured as a CUDA graph
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                       device=positions.device), exps)
     angles = positions.float()[..., None] * freqs
     return torch.sin(angles), torch.cos(angles)
 

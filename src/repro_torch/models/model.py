@@ -7,9 +7,11 @@ the JAX package returns a new cache, pool or slot cache (and the serving
 engine donates the old buffers), these functions update the tensors they
 are given in place and return the same dicts: the pool, the dense KV and
 the SSM state are the largest objects on the card and are never copied
-by a step.  The layer walk is a Python loop where the JAX package scans,
-and the slot axis of the batched steps is a batch dimension where the
-JAX package ``vmap``s a batch=1 step.
+by a step.  Every leaf a decode step writes, ``pos`` included, is
+written in place, so the serving engine can capture a step as a CUDA
+graph and replay it over the same buffers.  The layer walk is a Python
+loop where the JAX package scans, and the slot axis of the batched steps
+is a batch dimension where the JAX package ``vmap``s a batch=1 step.
 
 Sampling keys are ``int64`` tensors holding the two uint32 words of a
 threefry key (see :mod:`repro_torch.models.prng`).
@@ -25,7 +27,7 @@ from . import attention as attn_mod
 from . import prng
 from . import ssm as ssm_mod
 from ..kernels import ops as kernel_ops
-from ..kernels.act_quant import kv_quant_rows
+from ..kernels.act_quant import kv_dequant_rows, kv_quant_rows
 from .configs import LOCAL, ModelConfig
 from .layers import (Params, apply_rotary, cast_params, dtype_of,
                      embed_lookup, layer_slice, mask_padded_logits_raw,
@@ -41,8 +43,8 @@ __all__ = ["init_cache", "prefill", "decode_step", "Cache",
            "sample_logits", "sample_step", "sample_batched_step",
            "greedy_batched_step", "batched_prefill_admit",
            "init_paged_pool", "init_paged_slot_cache",
-           "paged_kernel_sample_batched_step", "paged_prefill_admit",
-           "paged_copy_block"]
+           "paged_sample_batched_step", "paged_kernel_sample_batched_step",
+           "paged_prefill_admit", "paged_thaw_write", "paged_copy_block"]
 
 
 def _n_attn_layers(cfg: ModelConfig) -> int:
@@ -313,7 +315,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     token: (B,) int32; the cache's leaves are ``(layers, B, ...)`` and
     ``pos`` is a scalar or one position per row.  The KV rows and the
     SSM/conv state are written in place.  Returns ``(logits (B,
-    padded vocab), cache)`` with ``pos`` advanced by one.
+    padded vocab), cache)`` with ``pos`` advanced by one, in place.
 
     The KV write row and the attention length are clamped to ``max_seq -
     1``, as the JAX package's ``dynamic_update_slice`` clamps them: a
@@ -344,7 +346,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = mask_padded_logits_raw(unembed(params["embed"], x),
                                     cfg.vocab_size)
-    cache["pos"] = pos + 1
+    pos.add_(1)
     return logits, cache
 
 
@@ -373,12 +375,11 @@ def sample_batched_step(params: Params, cfg: ModelConfig, cache: Cache,
     exactly the argmax.  Free slots are decoded too and their outputs
     ignored.  The cache is updated in place.  Returns ``(next tokens
     (slots,), positions (slots,), cache)``."""
-    logits, view = decode_step(params, cfg, _slot_view(cache), tokens, opts)
+    logits, _ = decode_step(params, cfg, _slot_view(cache), tokens, opts)
     s = cache["sample"]
     nxt, keys = sample_logits(logits, s["key"], s["temp"], s["top_k"],
                               cfg.vocab_size)
     s["key"].copy_(keys)
-    cache["pos"] = view["pos"]
     return nxt, cache["pos"], cache
 
 
@@ -388,9 +389,8 @@ def greedy_batched_step(params: Params, cfg: ModelConfig, cache: Cache,
     """One greedy decode step over a slot-stacked cache: the argmax of
     every slot, with no sampling work (keys are left as they are).
     Returns ``(next tokens (slots,), positions (slots,), cache)``."""
-    logits, view = decode_step(params, cfg, _slot_view(cache), tokens, opts)
+    logits, _ = decode_step(params, cfg, _slot_view(cache), tokens, opts)
     nxt = torch.argmax(logits[:, :cfg.vocab_size], dim=-1).to(torch.int32)
-    cache["pos"] = view["pos"]
     return nxt, cache["pos"], cache
 
 
@@ -496,6 +496,52 @@ def _scatter_kv_rows(pool: Cache, rk: torch.Tensor, rv: torch.Tensor,
     return pool
 
 
+def paged_sample_batched_step(params: Params, cfg: ModelConfig,
+                              slot_cache: Cache, pool: Cache,
+                              tokens: torch.Tensor, tables: torch.Tensor,
+                              opts: RuntimeOptions = DEFAULT_OPTIONS):
+    """One sampling decode step over paged KV, gathering to dense first.
+
+    ``tables`` is ``(slots, max_seq // block_size)`` int32.  Every slot's
+    blocks are gathered into a dense ``(n_attn, slots, max_seq, kvh, hd)``
+    view in ``kv_cache_dtype`` (int8 pools dequantize per row while
+    gathering), the dense step — :func:`decode_step` and
+    :func:`sample_logits` — runs over it, and the row it wrote is sliced
+    back out and scattered into each slot's tail block (int8 pools
+    re-quantize it).  The JAX package ``vmap``s the same per-slot gather
+    and ``sample_step``; here the slot axis is the batch.  The write row
+    is clamped to ``max_seq - 1`` as the dense step clamps it, so masked
+    slots (whose tables point at the trash block) stay in range.
+    ``slot_cache`` and ``pool`` are updated in place.  Returns
+    ``(next_tokens, positions, slot_cache, pool)``."""
+    _, n_attn, bs, kvh, hd = pool["k"].shape
+    slots, mb = tables.shape
+    kv_dt = dtype_of(opts.kv_cache_dtype)
+    idx = tables.long()
+
+    def dense_view(name):
+        g = pool[name][idx]                 # (slots, mb, n_attn, bs, kvh, hd)
+        if name + "_scale" in pool:
+            g = kv_dequant_rows(g, pool[name + "_scale"][idx], kv_dt)
+        return g.to(kv_dt).permute(2, 0, 1, 3, 4, 5).reshape(
+            n_attn, slots, mb * bs, kvh, hd)
+
+    pos = slot_cache["pos"]
+    att_pos = torch.clamp(pos, max=mb * bs - 1).long()
+    dense = {"pos": pos, "k": dense_view("k"), "v": dense_view("v")}
+    logits, _ = decode_step(params, cfg, dense, tokens, opts)
+    s = slot_cache["sample"]
+    nxt, new_keys = sample_logits(logits, s["key"], s["temp"], s["top_k"],
+                                  cfg.vocab_size)
+    s["key"].copy_(new_keys)
+    rows = torch.arange(slots, device=pos.device)
+    rk = dense["k"][:, rows, att_pos].transpose(0, 1)   # (slots, n_attn, ..)
+    rv = dense["v"][:, rows, att_pos].transpose(0, 1)
+    blks = tables.gather(1, (att_pos // bs)[:, None])[:, 0]
+    _scatter_kv_rows(pool, rk, rv, blks, att_pos % bs)
+    return nxt, pos, slot_cache, pool
+
+
 def _attn_decode_paged(layer: Params, x: torch.Tensor, kb, vb, ks, vs,
                        tables, pos, sin, cos, cfg: ModelConfig,
                        opts: RuntimeOptions, *, window: int):
@@ -566,7 +612,7 @@ def paged_kernel_sample_batched_step(params: Params, cfg: ModelConfig,
     nxt, new_keys = sample_logits(logits, s["key"], s["temp"], s["top_k"],
                                   cfg.vocab_size)
     s["key"].copy_(new_keys)
-    slot_cache["pos"] = pos + 1
+    pos.add_(1)
 
     blks = tables.gather(1, (att_pos // bs).long()[:, None])[:, 0]
     _scatter_kv_rows(pool, torch.stack(rows_k, 1), torch.stack(rows_v, 1),
@@ -614,6 +660,24 @@ def paged_prefill_admit(params: Params, cfg: ModelConfig, slot_cache: Cache,
         admit_slot(slot_cache, row, slot_ids[i], new_keys[i],
                    temps[i], top_ks[i])
     return first, last, slot_cache, pool
+
+
+def paged_thaw_write(pool: Cache, rows_k: torch.Tensor, rows_v: torch.Tensor,
+                     ids: torch.Tensor) -> Cache:
+    """Scatter a thawed request's densified KV back into pool blocks, in
+    place.  ``rows_k``/``rows_v``: ``(nblk, n_attn, block_size, kvh,
+    hd)``; ``ids``: ``(nblk,)`` freshly allocated (private) block ids,
+    trailing ones aimed at the trash block.  Blobs hold KV in
+    ``kv_cache_dtype``, so an int8 pool re-quantizes on thaw."""
+    ids = ids.long()
+    if "k_scale" in pool:
+        rows_k, sk = kv_quant_rows(rows_k)
+        rows_v, sv = kv_quant_rows(rows_v)
+        pool["k_scale"][ids] = sk
+        pool["v_scale"][ids] = sv
+    pool["k"][ids] = rows_k.to(pool["k"].dtype)
+    pool["v"][ids] = rows_v.to(pool["v"].dtype)
+    return pool
 
 
 def paged_copy_block(pool: Cache, src, dst) -> Cache:

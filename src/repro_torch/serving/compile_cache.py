@@ -16,6 +16,8 @@ The batched mode's programs, as in the JAX package:
   in place where the JAX package donates it)
 * ``decode_greedy`` — the pure-argmax step, which the engine takes on
   ticks where no active slot samples
+* ``decode_ref`` / ``sample_ref`` — the batch=1 ``decode_step`` and
+  ``sample_step`` of the ``per_slot`` reference loop
 * ``sample_first`` — draws a first token from a prefill's logits row
 * ``admit_slot`` — writes a batch=1 prefill and its sampling state into
   one slot
@@ -29,12 +31,15 @@ call); the lazy ones count one each.  Paged-mode programs are lazy dicts
 keyed on the pool geometry ``(num_blocks, block_size)`` (and the prompt
 bucket and burst k-bucket for admission), as in the JAX package:
 
-* ``paged_decode(nb, bs)`` — one batched sampling step through the paged
-  decode kernel (slot cache and pool updated in place)
+* ``paged_decode(nb, bs)`` — one batched sampling step, through the
+  paged decode kernel (``paged_kernel=True``) or by gathering each slot's
+  blocks to a dense view first (slot cache and pool updated in place)
 * ``paged_prefill_batch(bucket, k, nb, bs)`` — burst admission that
   writes prefilled KV into destination blocks
 * ``paged_admit`` — writes ``pos`` + sampling state into one slot
   (prefix-cache re-admission)
+* ``thaw_scatter(nblk, nb, bs)`` — writes a thawed request's densified
+  KV into ``nblk`` blocks (keyed on the bucketed block count)
 * ``copy_block(nb, bs)`` — copy-on-write block duplication
 * ``sample_first`` — draws a first token from a cached logits row
 """
@@ -44,11 +49,12 @@ import functools
 from typing import Callable, Dict, Tuple
 
 from ..models.configs import ModelConfig
-from ..models.model import (admit_slot, batched_prefill_admit,
+from ..models.model import (admit_slot, batched_prefill_admit, decode_step,
                             greedy_batched_step, paged_copy_block,
                             paged_kernel_sample_batched_step,
-                            paged_prefill_admit, prefill,
-                            sample_batched_step, sample_logits)
+                            paged_prefill_admit, paged_sample_batched_step,
+                            paged_thaw_write, prefill, sample_batched_step,
+                            sample_logits, sample_step)
 from ..models.runtime import RuntimeOptions
 
 Key = Tuple[ModelConfig, RuntimeOptions, int, int, str]
@@ -64,6 +70,10 @@ class ServePrograms:
             _decode, step=sample_batched_step, cfg=cfg, opts=opts)
         self.decode_greedy: Callable = functools.partial(
             _decode, step=greedy_batched_step, cfg=cfg, opts=opts)
+        self.decode_ref: Callable = functools.partial(
+            _decode, step=decode_step, cfg=cfg, opts=opts)
+        self.sample_ref: Callable = functools.partial(
+            _decode, step=sample_step, cfg=cfg, opts=opts)
         self.sample_first: Callable = functools.partial(
             _sample_first, vocab=cfg.vocab_size)
         self.admit_slot: Callable = admit_slot
@@ -73,6 +83,7 @@ class ServePrograms:
         self._paged_prefill_batches: Dict[Tuple[int, int, int, int],
                                           Callable] = {}
         self._paged_admit: Dict[str, Callable] = {}
+        self._thaw_scatters: Dict[Tuple[int, int, int], Callable] = {}
         self._copy_blocks: Dict[Tuple[int, int], Callable] = {}
 
     def prefill(self, bucket: int) -> Tuple[Callable, bool]:
@@ -98,17 +109,17 @@ class ServePrograms:
     def paged_decode(self, num_blocks: int,
                      block_size: int) -> Tuple[Callable, bool]:
         """The batched paged sampling step for one pool geometry, plus
-        whether this call built it.  Block tables ride in as runtime
-        data, so every occupancy shares this one program."""
+        whether this call built it: through the block tables with the
+        paged decode kernel when ``opts.paged_kernel``, else gathered to
+        a dense view.  Block tables ride in as runtime data, so every
+        occupancy shares this one program."""
         key = (num_blocks, block_size)
         fresh = key not in self._paged_decodes
         if fresh:
-            if not self._opts.paged_kernel:
-                raise NotImplementedError(
-                    "the gather-to-dense paged step is not ported; "
-                    "serve with RuntimeOptions(paged_kernel=True)")
+            step = (paged_kernel_sample_batched_step
+                    if self._opts.paged_kernel else paged_sample_batched_step)
             self._paged_decodes[key] = functools.partial(
-                _paged_decode, cfg=self._cfg, opts=self._opts)
+                _paged_decode, step=step, cfg=self._cfg, opts=self._opts)
         return self._paged_decodes[key], fresh
 
     def paged_prefill_batch(self, bucket: int, k: int, num_blocks: int,
@@ -129,6 +140,17 @@ class ServePrograms:
         if fresh:
             self._paged_admit["admit"] = admit_slot
         return self._paged_admit["admit"], fresh
+
+    def thaw_scatter(self, nblk: int, num_blocks: int,
+                     block_size: int) -> Tuple[Callable, bool]:
+        """Writes ``nblk`` densified thawed KV blocks into the pool;
+        keyed on the block count, which callers bucket through the
+        prompt buckets so thaws of similar depth share programs."""
+        key = (nblk, num_blocks, block_size)
+        fresh = key not in self._thaw_scatters
+        if fresh:
+            self._thaw_scatters[key] = paged_thaw_write
+        return self._thaw_scatters[key], fresh
 
     def copy_block(self, num_blocks: int,
                    block_size: int) -> Tuple[Callable, bool]:
@@ -158,9 +180,9 @@ def _prefill_batch(params, stacked, tokens, slot_ids, keys, temps, top_ks,
                                  keys, temps, top_ks, opts, max_seq)
 
 
-def _paged_decode(params, slot_cache, pool, tokens, tables, *, cfg, opts):
-    return paged_kernel_sample_batched_step(params, cfg, slot_cache, pool,
-                                            tokens, tables, opts)
+def _paged_decode(params, slot_cache, pool, tokens, tables, *, step, cfg,
+                  opts):
+    return step(params, cfg, slot_cache, pool, tokens, tables, opts)
 
 
 def _paged_prefill(params, slot_cache, pool, tokens, slot_ids, keys, temps,

@@ -3,7 +3,7 @@
 Port of the JAX package's ``ServingEngine``.  Requests queue, are
 admitted into fixed decode slots by burst prefill, and every tick one
 slot-batched decode step advances every slot and samples on the device.
-Two decode modes:
+Three decode modes:
 
 * ``decode_mode="batched"`` (the default, as in the JAX package) — ONE
   slot-stacked cache of shape ``(slots, ...)`` (dense KV for attention
@@ -13,9 +13,14 @@ Two decode modes:
   ``prefill_mode="per_request"`` admits one request per prefill call
   instead of a burst.
 * ``decode_mode="paged"`` — self-attention KV lives in a
-  :class:`~repro_torch.serving.paging.BlockPool` and the step reads it
-  straight through the block tables with the paged decode kernel
-  (``paged_kernel=True``; ``kv_dtype="int8"`` stores the pool int8).
+  :class:`~repro_torch.serving.paging.BlockPool`.  With
+  ``paged_kernel=True`` the step reads it straight through the block
+  tables with the paged decode kernel; otherwise it gathers each slot's
+  blocks to a dense view and runs the dense step.  ``kv_dtype="int8"``
+  stores the pool int8.
+* ``decode_mode="per_slot"`` — the reference loop: one batch=1 cache and
+  one step call per active slot, admission always per request.  Token
+  streams are the same in every mode.
 
 * Admission drains every waiting request that shares the head-of-line
   request's prompt bucket and prefills the burst in ONE call (burst
@@ -32,11 +37,23 @@ Two decode modes:
   ``ServeStats.recompiles`` counts the programs this engine's requests
   caused to be built (see :mod:`repro_torch.serving.compile_cache`).
 * Where the JAX package donates the slot cache and the pool to each
-  step, this engine's steps update them in place.
+  step, this engine's steps update them in place.  On the card the
+  batched ``decode``/``decode_greedy`` steps and the paged block-table
+  step are replayed as CUDA graphs (:mod:`repro_torch.serving.graphs`),
+  one launch a tick where the JAX package dispatches one compiled
+  program; tokens and block tables reach them through static input
+  buffers.  Prefill, admission, copy-on-write, thaw, the gather step
+  and ``per_slot`` stay eager.
 
-Not ported yet: the ``per_slot`` decode mode, freeze/thaw (and with it
-preemption under pool pressure and ``swap_model``), and the
-injected-OOM admission hold-off.
+An in-flight request can be **frozen** into a host-side
+:class:`~repro_torch.serving.paging.FrozenRequest` (KV densified and
+trimmed to ``pos``, sampling state, consumed count) and **thawed** on
+any engine whose ``(cfg, opts, params_version)`` fingerprint matches,
+with zero token loss and zero re-prefill.  Preemption under pool
+pressure, ``requeue_active`` and ``swap_model`` go through freeze/thaw;
+a fingerprint mismatch falls back to re-prefilling prompt + generated.
+``inject_oom`` fails admissions on purpose, and admission then backs off
+exponentially.
 """
 from __future__ import annotations
 
@@ -44,11 +61,12 @@ import itertools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Deque, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..kernels.act_quant import kv_dequant_rows
 from ..models.configs import ModelConfig
 from ..models.layers import Params, cast_params, dtype_of
 from ..models.model import (init_cache, init_paged_pool,
@@ -57,13 +75,18 @@ from ..models.runtime import DEFAULT_OPTIONS, RuntimeOptions
 from ..obs.metrics import MetricsRegistry
 from ..obs.recorder import NULL_RECORDER
 from .compile_cache import GLOBAL_COMPILE_CACHE, CompileCache, ServePrograms
+from .graphs import StepGraph
 from .paging import (DEFAULT_BLOCK_SIZE, TRASH_BLOCK, BlockPool,
-                     PrefixCache, PrefixEntry, block_hash_chain)
+                     FrozenRequest, PrefixCache, PrefixEntry,
+                     block_hash_chain, blocks_needed)
 from .sampling import DEFAULT_SAMPLING, SamplingOpts, request_key
 
-DECODE_MODES = ("batched", "paged")
-_LATER_MODES = ("per_slot",)
+DECODE_MODES = ("batched", "per_slot", "paged")
 PREFILL_MODES = ("batched", "per_request")
+
+# cache leaves whose sequence axis (axis 2 in batch=1 layout) is trimmed
+# to ``pos`` when freezing — everything past pos is zero by construction
+_SEQ_TRIM_LEAVES = ("k", "v")
 
 # default observability pids: distinct per engine so two untagged
 # engines sharing one TraceRecorder never interleave on one track
@@ -91,6 +114,10 @@ class Request:
     done: bool = False
     first_token_s: Optional[float] = None
     finished_s: Optional[float] = None
+    # set when the request carries serialized in-flight state (a requeue,
+    # preemption or migration); a compatible engine thaws it with zero
+    # re-prefill, an incompatible one re-prefills prompt + generated
+    frozen: Optional[FrozenRequest] = None
 
 
 class ServeStats:
@@ -100,8 +127,11 @@ class ServeStats:
     launch the decode kernels), ``tokens_out`` emitted (prefill +
     decode), ``prefills`` (requests prefilled), ``prefill_calls``
     (prefill invocations — a burst of k is k prefills but 1 call),
-    ``sampled_tokens`` (tokens drawn at temperature > 0) and
-    ``recompiles`` (programs this engine caused to be built)."""
+    ``sampled_tokens`` (tokens drawn at temperature > 0),
+    ``recompiles`` (programs this engine caused to be built),
+    ``oom_events`` (failed admissions), ``requeues`` (requests put back
+    at the queue head), ``freezes`` and ``thaws``.  A ``per_slot`` step
+    makes one decode call per active slot."""
 
     _COUNTERS = {"steps": "engine.steps",
                  "decode_calls": "engine.decode_calls",
@@ -109,7 +139,11 @@ class ServeStats:
                  "prefills": "engine.prefills",
                  "prefill_calls": "engine.prefill_calls",
                  "sampled_tokens": "engine.sampled_tokens",
-                 "recompiles": "engine.recompiles"}
+                 "recompiles": "engine.recompiles",
+                 "oom_events": "engine.oom_events",
+                 "requeues": "engine.requeues",
+                 "freezes": "engine.freezes",
+                 "thaws": "engine.thaws"}
 
     def __init__(self, metrics: Optional[MetricsRegistry] = None):
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -136,6 +170,18 @@ class ServeStats:
                               lambda s, v: s._set("sampled_tokens", v))
     recompiles = property(lambda s: s._get("recompiles"),
                           lambda s, v: s._set("recompiles", v))
+    oom_events = property(lambda s: s._get("oom_events"),
+                          lambda s, v: s._set("oom_events", v))
+    requeues = property(lambda s: s._get("requeues"),
+                        lambda s, v: s._set("requeues", v))
+    freezes = property(lambda s: s._get("freezes"),
+                       lambda s, v: s._set("freezes", v))
+    thaws = property(lambda s: s._get("thaws"),
+                     lambda s, v: s._set("thaws", v))
+
+    @property
+    def tokens_per_step(self) -> float:
+        return self.tokens_out / max(self.steps, 1)
 
     def __repr__(self) -> str:
         fields = ", ".join(f"{a}={self._get(a)}" for a in self._COUNTERS)
@@ -147,13 +193,14 @@ class ServingEngine:
 
     ``slots`` fixes the decode batch width (requests beyond it queue);
     ``max_seq`` bounds prompt+generation length per slot.  In the paged
-    mode ``opts`` must select the block-table step (``paged_kernel=
-    True``); ``kv_dtype="int8"`` stores the pool int8 with per-row
-    scales.  The batched mode keeps its dense cache in
-    ``kv_cache_dtype`` and refuses both paged options; its
-    ``prefill_mode`` is ``"batched"`` (bursts) or ``"per_request"``.
-    ``sampling`` is
-    the default :class:`SamplingOpts` for requests that carry none.
+    mode ``opts.paged_kernel`` selects the block-table step (else the
+    gather-to-dense step) and ``kv_dtype="int8"`` stores the pool int8
+    with per-row scales.  The batched and per-slot modes keep their dense
+    caches in ``kv_cache_dtype`` and refuse both paged options; the
+    batched mode's ``prefill_mode`` is ``"batched"`` (bursts) or
+    ``"per_request"``, the per-slot mode always admits per request.
+    ``sampling`` is the default :class:`SamplingOpts` for requests that
+    carry none.
     ``compile_cache`` / ``compile_domain`` share programs across engines,
     keyed on ``(cfg, opts, slots, max_seq, domain)``.  ``device`` is
     where the pool, the caches and the steps live (``"cuda"`` unless the
@@ -174,10 +221,6 @@ class ServingEngine:
                  prefix_entries: int = 32,
                  params_version: Optional[int] = None,
                  device: str = "cuda"):
-        if decode_mode in _LATER_MODES:
-            raise NotImplementedError(
-                f"decode_mode={decode_mode!r} is not ported yet; "
-                f"the port serves {DECODE_MODES}")
         if decode_mode not in DECODE_MODES:
             raise ValueError(f"unknown decode_mode {decode_mode!r}; "
                              f"expected one of {DECODE_MODES}")
@@ -217,14 +260,22 @@ class ServingEngine:
         self.max_seq = max_seq
         self.opts = opts
         self.decode_mode = decode_mode
+        # the per-slot loop has no stacked cache to scatter a burst into;
         # the paged path only has burst admission (its per-request path
         # is the k=1 burst)
-        self.prefill_mode = "batched" if decode_mode == "paged" \
-            else prefill_mode
+        if decode_mode == "per_slot":
+            self.prefill_mode = "per_request"
+        elif decode_mode == "paged":
+            self.prefill_mode = "batched"
+        else:
+            self.prefill_mode = prefill_mode
         self.block_size = block_size
         self.pool_blocks = pool_blocks
         self.prefix_entries = prefix_entries
-        # salts the prefix hashes: KV content is a function of the weights
+        # the freeze/thaw fingerprint's weights part, which also salts the
+        # prefix hashes (KV content is a function of the weights).  Engines
+        # sharing a params dict share its id; callers juggling transient
+        # params should pass one explicitly.
         self.params_version = (params_version if params_version is not None
                                else id(params))
         self.sampling = sampling
@@ -235,13 +286,33 @@ class ServingEngine:
         self.pid = pid if pid is not None else f"engine{next(_ENGINE_SEQ)}"
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.stats = ServeStats(self.metrics)
+        self._ewma = self.metrics.ewma("engine.step_time_s", alpha=0.2)
+        self._step_hist = self.metrics.histogram("engine.step_time_hist_s")
+        # decode steps captured as CUDA graphs (on the card only), and
+        # the wall time of the last capture's first call (the eager
+        # warm-up step plus the capture)
+        self._captures = self.metrics.counter("engine.graph_captures")
+        self._capture_s = self.metrics.gauge("engine.graph_capture_s")
         self._queue: Deque[Request] = deque()
         self._active: List[Optional[Request]] = [None] * slots
+        self.generation = 0
         self._programs: ServePrograms = self._bind_programs()
         self._reset_caches()
         # wall time of recent decode sweeps (bounded: engines are
-        # long-lived)
+        # long-lived); optional sink called with (step_seconds,
+        # tokens_emitted, generation) after every step
         self.step_times: Deque[float] = deque(maxlen=2048)
+        self.on_step: Optional[Callable[[float, int, int], None]] = None
+        # SLO feed: when a tracker is installed, TTFT is reported at each
+        # request's true first token and the per-token decode time per
+        # step; None (the default) costs one attribute load a step
+        self.slo = None
+        # fault plane: injected OOM failures pending at admission and the
+        # exponential admission hold-off (in steps) they trigger
+        self._oom_pending = 0
+        self._admit_holdoff = 0
+        self._oom_backoff = 0
+        self.oom_backoff_cap = 8
 
     # ------------------------------------------------------------ programs --
     def _note_compile(self, what: str, **detail) -> None:
@@ -256,7 +327,7 @@ class ServingEngine:
             self.cfg, self.opts, self.slots, self.max_seq,
             self.compile_domain)
         if fresh:
-            self._note_compile("programs")
+            self._note_compile("programs", generation=self.generation)
         return entry
 
     def _prefill_fn(self, bucket: int) -> Callable:
@@ -292,6 +363,13 @@ class ServingEngine:
             self._note_compile("paged_admit")
         return fn
 
+    def _thaw_scatter_fn(self, nblk: int) -> Callable:
+        fn, fresh = self._programs.thaw_scatter(nblk, self.pool_blocks,
+                                                self.block_size)
+        if fresh:
+            self._note_compile("thaw_scatter", nblk=nblk)
+        return fn
+
     def _copy_block_fn(self) -> Callable:
         fn, fresh = self._programs.copy_block(self.pool_blocks,
                                               self.block_size)
@@ -300,6 +378,16 @@ class ServingEngine:
         return fn
 
     def _reset_caches(self) -> None:
+        # graphs bind the buffers made here: new buffers, new graphs
+        self._graphs: Dict[str, StepGraph] = {}
+        # the decode steps' static inputs, filled before every step
+        self._tokens_in = torch.zeros(self.slots, dtype=torch.int32,
+                                      device=self.device)
+        if self.decode_mode == "per_slot":
+            self._caches = [init_cache(self.cfg, 1, self.max_seq, self.opts,
+                                       self.device)
+                            for _ in range(self.slots)]
+            return
         if self.decode_mode == "batched":
             self._cache = init_slot_cache(self.cfg, self.slots, self.max_seq,
                                           self.opts, self.device)
@@ -311,10 +399,16 @@ class ServingEngine:
                                      self.block_size, self.opts, self.device)
         self._blocks = BlockPool(self.slots, self.pool_blocks,
                                  self.block_size, self.max_seq)
+        self._tables_in = torch.zeros(tuple(self._blocks.tables.shape),
+                                      dtype=torch.int32, device=self.device)
         self._prefix = PrefixCache(self.prefix_entries)
         # host-authoritative next-write position per slot (mirrors the
-        # device ``pos`` leaf; drives tail-block growth)
+        # device ``pos`` leaf; drives tail-block growth and freezing)
         self._slot_pos = [0] * self.slots
+        # admission sequence per slot: preemption under pool pressure
+        # evicts the youngest admission first
+        self._slot_seq = [0] * self.slots
+        self._admit_seq = itertools.count(1)
         self._update_block_gauges()
 
     def _update_block_gauges(self) -> None:
@@ -331,6 +425,23 @@ class ServingEngine:
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _run_step(self, name: Optional[str], step: Callable[[], torch.Tensor]
+                  ) -> torch.Tensor:
+        """Run one decode step: on the card, the engine's CUDA graph
+        ``name`` (warmed up and captured on its first call, replayed
+        after); eagerly when ``name`` is None or on the CPU."""
+        if name is None or self.device.type != "cuda":
+            return step()
+        graph = self._graphs.get(name)
+        if graph is not None:
+            return graph()
+        t0 = time.perf_counter()
+        graph = self._graphs[name] = StepGraph(step, self.device)
+        out = graph()
+        self._captures.inc()
+        self._capture_s.set(time.perf_counter() - t0)
+        return out
 
     # ------------------------------------------------------------- intake --
     def submit(self, req: Request) -> None:
@@ -382,6 +493,12 @@ class ServingEngine:
                 if len(r.generated) >= r.max_new_tokens:
                     r.done = True
                     continue
+                if r.frozen is not None:
+                    # frozen state thaws (or falls back) only at the queue
+                    # head — bursting it through prefill here would drop
+                    # its generated suffix from the bucket computation
+                    kept.append(r)
+                    continue
                 if self._bucket(len(r.prompt)) == bucket:
                     batch.append(r)
                 else:
@@ -397,7 +514,11 @@ class ServingEngine:
         prefill, slot returned to the free pool)."""
         req.generated.append(token)
         if req.first_token_s is None:
+            # keep the original stamp across swap re-admissions: TTFT is
+            # submit→first token, not submit→latest re-prefill
             req.first_token_s = stamp
+            if self.slo is not None:
+                self.slo.observe("ttft", stamp - req.arrived_s)
         self.stats.prefills += 1
         self.stats.tokens_out += 1
         if self._sampling_of(req).temperature > 0:
@@ -424,7 +545,8 @@ class ServingEngine:
 
     def _truncate(self, req: Request, bucket: int) -> None:
         if len(req.prompt) > bucket:
-            # prompt exceeds max_seq: keep the newest context
+            # prompt exceeds max_seq (e.g. a swap re-queue whose prompt
+            # grew by the generated prefix): keep the newest context
             req.prompt = req.prompt[-bucket:]
 
     def _admit_burst(self, batch: List[Request], bucket: int,
@@ -500,6 +622,7 @@ class ServingEngine:
                 slot, block_hash_chain(padded, self.block_size,
                                        salt=self.params_version))
             self._slot_pos[slot] = bucket
+            self._slot_seq[slot] = next(self._admit_seq)
             if self.prefix_entries > 0:
                 self._prefix.insert(
                     self._prefix.key_of(padded, self.params_version),
@@ -542,6 +665,7 @@ class ServingEngine:
         self._cache = self._paged_admit_fn()(self._cache, row, slot, key,
                                              temp, top_k)
         self._slot_pos[slot] = entry.pos
+        self._slot_seq[slot] = next(self._admit_seq)
         stamp = time.perf_counter()
         if self.recorder.enabled:
             self.recorder.instant("engine.prefix_hit", pid=self.pid,
@@ -586,19 +710,63 @@ class ServingEngine:
                               cat="engine", wall_s=stamp)
         if not self._emit_first(req, nxt, stamp, free, slot):
             return
-        self._cache = self._programs.admit_slot(self._cache, cache, slot,
-                                                key, temp, top_k)
+        if self.decode_mode == "batched":
+            self._cache = self._programs.admit_slot(self._cache, cache, slot,
+                                                    key, temp, top_k)
+        else:
+            cache["sample"] = {"key": key, "temp": temp, "top_k": top_k}
+            self._caches[slot] = cache
+
+    def inject_oom(self, n: int = 1) -> None:
+        """Fault injection: the next ``n`` admission attempts fail as if
+        cache allocation ran out of memory.  The request stays queued
+        (zero token loss) and admission backs off exponentially (the
+        hold-off in steps doubles, capped at ``oom_backoff_cap``) before
+        it tries again; a successful admission heals the back-off."""
+        self._oom_pending += max(int(n), 0)
 
     def _admit(self) -> None:
+        if self._admit_holdoff > 0:
+            self._admit_holdoff -= 1
+            return
         free = [s for s in range(self.slots) if self._active[s] is None]
+        if self._oom_pending > 0 and free and self._queue:
+            # injected OOM: this admission attempt fails, the head stays
+            # queued untouched, and admission backs off
+            self._oom_pending -= 1
+            self.stats.oom_events += 1
+            self._oom_backoff = min(max(2 * self._oom_backoff, 1),
+                                    self.oom_backoff_cap)
+            self._admit_holdoff = self._oom_backoff
+            if self.recorder.enabled:
+                self.recorder.instant(
+                    "engine.oom", pid=self.pid, tid="engine", cat="engine",
+                    args={"backoff_steps": self._admit_holdoff,
+                          "queued": len(self._queue)})
+            return
+        admitted = False
         while free and self._queue:
             head = self._queue[0]
             if len(head.generated) >= head.max_new_tokens:
-                # submitted with its budget already spent: emitting a
-                # prefill token would overshoot it
+                # re-queued with its budget already spent (or submitted
+                # with max_new_tokens=0): a prefill token would overshoot
                 self._queue.popleft()
                 head.done = True
                 continue
+            if head.frozen is not None:
+                if self.can_thaw(head.frozen):
+                    if not self._thaw_capacity_ok(head.frozen):
+                        # pool backpressure: decode frees blocks.  A thaw
+                        # never preempts to fit — a preempted victim at
+                        # the head would thaw by preempting right back
+                        break
+                    self._queue.popleft()
+                    self._thaw_into_slot(head, free.pop(0))
+                    admitted = True
+                    continue
+                # fingerprint mismatch: drop the blob and re-prefill
+                # prompt + generated
+                self._discard_frozen(head)
             if self.decode_mode == "paged":
                 if not self._admit_paged_head(head, free):
                     break           # pool exhausted: wait for decode frees
@@ -608,6 +776,9 @@ class ServingEngine:
             else:
                 self._queue.popleft()
                 self._admit_one(head, free)
+            admitted = True
+        if admitted:
+            self._oom_backoff = 0     # a successful admission heals
 
     def _admit_paged_head(self, head: Request, free: List[int]) -> bool:
         """Admit the head request (plus any same-bucket burst).  Returns
@@ -641,11 +812,12 @@ class ServingEngine:
         row[bucket - len(prompt):] = prompt
         return row
 
-    def _bookkeep_decode(self, nxt: torch.Tensor, pos: torch.Tensor) -> int:
-        """Post-step bookkeeping: one bulk device→host transfer, per-slot
-        token append, finish detection and trace emission."""
-        nxt, pos = torch.stack([nxt.to(torch.int32),
-                                pos.to(torch.int32)]).cpu().numpy()
+    def _bookkeep_decode(self, out: torch.Tensor) -> int:
+        """Post-step bookkeeping for the batched and paged steps: one bulk
+        device→host transfer of ``out`` (next tokens and positions,
+        ``(2, slots)`` int32), per-slot token append, finish detection
+        and trace emission."""
+        nxt, pos = out.cpu().numpy()
         paged = self.decode_mode == "paged"
         emitted = 0
         freed_blocks = False
@@ -680,9 +852,10 @@ class ServingEngine:
             self._update_block_gauges()
         return emitted
 
-    def _decode_batched(self) -> int:
-        if not any(r is not None for r in self._active):
-            return 0
+    def _fill_tokens(self) -> bool:
+        """Write every active slot's last token into the static token
+        buffer (free slots decode token 0); returns whether any active
+        slot samples."""
         tokens = np.zeros(self.slots, np.int32)
         sampling = False
         for slot, req in enumerate(self._active):
@@ -690,28 +863,80 @@ class ServingEngine:
                 tokens[slot] = req.generated[-1]
                 sampling = sampling or \
                     self._sampling_of(req).temperature > 0
+        self._tokens_in.copy_(torch.from_numpy(tokens))
+        return sampling
+
+    def _decode_batched(self) -> int:
+        if not any(r is not None for r in self._active):
+            return 0
+        sampling = self._fill_tokens()
         # all-greedy ticks take the pure-argmax step; tokens are the same
         # either way, so mixed workloads can alternate
-        step_fn = (self._programs.decode if sampling
-                   else self._programs.decode_greedy)
-        nxt, pos, self._cache = step_fn(self.params, self._cache,
-                                        self._to_device(tokens))
+        name = "decode" if sampling else "decode_greedy"
+        step_fn = getattr(self._programs, name)
+        params, cache, tokens = self.params, self._cache, self._tokens_in
+
+        def step():
+            nxt, pos, _ = step_fn(params, cache, tokens)
+            return torch.stack([nxt.to(torch.int32), pos.to(torch.int32)])
+
+        out = self._run_step(name, step)
         self.stats.decode_calls += 1
-        return self._bookkeep_decode(nxt, pos)
+        return self._bookkeep_decode(out)
+
+    def _decode_per_slot(self) -> int:
+        emitted = 0
+        rec = self.recorder
+        for slot, req in enumerate(self._active):
+            if req is None:
+                continue
+            tok = torch.tensor(req.generated[-1], dtype=torch.int32,
+                               device=self.device)
+            nxt, cache = self._programs.sample_ref(
+                self.params, self._caches[slot], tok)
+            self._caches[slot] = cache
+            self.stats.decode_calls += 1
+            nxt, pos = (int(v) for v in torch.stack(
+                [nxt.to(torch.int32), cache["pos"].to(torch.int32)]).cpu())
+            req.generated.append(nxt)
+            emitted += 1
+            if self._sampling_of(req).temperature > 0:
+                self.stats.sampled_tokens += 1
+            if rec.enabled:
+                rec.instant("req.decode", pid=self.pid, tid=f"slot{slot}",
+                            cat="request",
+                            args={"rid": req.rid, "token": nxt})
+            if len(req.generated) >= req.max_new_tokens \
+                    or pos >= self.max_seq - 1:
+                req.done = True
+                self._active[slot] = None
+                if rec.enabled:
+                    rec.end("req.slot", pid=self.pid, tid=f"slot{slot}",
+                            cat="request",
+                            args={"rid": req.rid, "reason": "finished",
+                                  "tokens": len(req.generated)})
+        return emitted
 
     # ------------------------------------------------------ paged decode --
-    def _alloc_blocks_reclaiming(self, n: int) -> Optional[List[int]]:
-        """Allocate ``n`` blocks, evicting cached prefix entries (LRU)
-        under pressure.  Preempting an active request would need
-        freeze/thaw, which is not ported: a pool too small for its
-        active requests raises instead."""
+    def _alloc_blocks_reclaiming(self, n: int,
+                                 keep_slot: Optional[int] = None
+                                 ) -> Optional[List[int]]:
+        """Allocate ``n`` blocks, reclaiming under pressure: first evict
+        cached prefix entries (LRU), then preempt the youngest-admitted
+        active slot (freeze → requeue at the head, zero token loss) —
+        never ``keep_slot``, the slot the allocation is for."""
         ids = self._blocks.alloc(n)
         while ids is None:
             if self._prefix.evict_for_blocks(n, self._blocks) == 0:
-                raise NotImplementedError(
-                    "the pool is exhausted by active requests; preemption "
-                    "needs freeze/thaw, which is not ported yet — size "
-                    "pool_blocks for slots * max_seq / block_size + 1")
+                victims = [s for s, r in enumerate(self._active)
+                           if r is not None and s != keep_slot]
+                if not victims:
+                    return None
+                victim = max(victims, key=lambda s: self._slot_seq[s])
+                req = self._active[victim]
+                req.frozen = self._freeze_slot(victim, reason="preempt")
+                self._queue.appendleft(req)
+                self.stats.requeues += 1
             ids = self._blocks.alloc(n)
         return ids
 
@@ -731,7 +956,10 @@ class ServingEngine:
             bid = int(self._blocks.tables[slot, idx])
             if bid != TRASH_BLOCK and self._blocks.refs[bid] <= 1:
                 continue             # private tail already in place
-            ids = self._alloc_blocks_reclaiming(1)
+            ids = self._alloc_blocks_reclaiming(1, keep_slot=slot)
+            if ids is None:          # only this slot is active and the
+                continue             # pool is drained; write lands in
+                                     # trash and the request requeues
             if bid != TRASH_BLOCK:   # copy-on-write off a shared block
                 self._pool = self._copy_block_fn()(self._pool, bid, ids[0])
                 self._blocks.decref(bid)
@@ -742,17 +970,24 @@ class ServingEngine:
         if not any(r is not None for r in self._active):
             return 0
         self._ensure_tail_blocks()
-        tokens = np.zeros(self.slots, np.int32)
-        for slot, req in enumerate(self._active):
-            if req is not None:
-                tokens[slot] = req.generated[-1]
+        self._fill_tokens()
         # block tables are runtime data: constant (slots, max_seq/bs)
         # shape, so occupancy/sharing churn reuses one program
-        nxt, pos, self._cache, self._pool = self._paged_decode_fn()(
-            self.params, self._cache, self._pool, self._to_device(tokens),
-            self._to_device(self._blocks.tables))
+        self._tables_in.copy_(torch.from_numpy(self._blocks.tables))
+        step_fn = self._paged_decode_fn()
+        params, cache, pool = self.params, self._cache, self._pool
+        tokens, tables = self._tokens_in, self._tables_in
+
+        def step():
+            nxt, pos, _, _ = step_fn(params, cache, pool, tokens, tables)
+            return torch.stack([nxt.to(torch.int32), pos.to(torch.int32)])
+
+        # the block-table step is replayed as a graph; the gather step,
+        # whose dense view is as large as a dense cache, stays eager
+        out = self._run_step("paged" if self.opts.paged_kernel else None,
+                             step)
         self.stats.decode_calls += 1
-        return self._bookkeep_decode(nxt, pos)
+        return self._bookkeep_decode(out)
 
     def step(self) -> int:
         """One engine tick: admit waiting requests, decode one token for
@@ -766,19 +1001,322 @@ class ServingEngine:
         t0 = time.perf_counter()
         if rec.enabled:
             rec.begin("engine.step", pid=self.pid, tid="engine",
-                      cat="engine", wall_s=t0)
-        emitted = (self._decode_batched() if self.decode_mode == "batched"
-                   else self._decode_paged())
+                      cat="engine", wall_s=t0,
+                      args={"generation": self.generation})
+        if self.decode_mode == "batched":
+            emitted = self._decode_batched()
+        elif self.decode_mode == "paged":
+            emitted = self._decode_paged()
+        else:
+            emitted = self._decode_per_slot()
         self.stats.steps += 1
         self.stats.tokens_out += emitted
         t1 = time.perf_counter()
-        self.step_times.append(t1 - t0)
+        dt = t1 - t0
+        self.step_times.append(dt)
+        self._ewma.update(dt)
+        self._step_hist.observe(dt)
         if rec.enabled:
             rec.end("engine.step", pid=self.pid, tid="engine",
                     cat="engine", wall_s=t1, args={"emitted": emitted})
+        if self.slo is not None and emitted:
+            # every active slot advanced one token this step, so the
+            # step wall time is each of those tokens' inter-token time
+            self.slo.observe("tpot", dt, n=emitted)
+        if self.on_step is not None:
+            self.on_step(dt, emitted, self.generation)
         return emitted
+
+    @property
+    def step_time_ewma_s(self) -> Optional[float]:
+        """Smoothed recent decode-step wall time (seconds), or ``None``
+        before the first step: a view over the registry's
+        ``engine.step_time_s`` EWMA gauge (``alpha=0.2``, i.e.
+        ``0.8·prev + 0.2·dt``)."""
+        return self._ewma.value
 
     def drain(self, max_steps: int = 10_000) -> None:
         while self.has_work and max_steps:
             self.step()
             max_steps -= 1
+
+    # ---------------------------------------------------------- freeze/thaw --
+    @property
+    def fingerprint(self) -> tuple:
+        """The freeze/thaw compatibility fingerprint: a
+        :class:`FrozenRequest` thaws here iff its fingerprint equals this
+        (same config, same runtime options, same weights).  Pool-storage
+        options are normalized out: blobs hold KV in ``kv_cache_dtype``
+        however the pool stores it, so an int8-pool blob thaws on a
+        bf16-pool engine and the other way round (thaw re-quantizes), and
+        ``paged_kernel`` never touches the blob.  Across ``kv_dtype`` the
+        continuation decodes with the destination's numerics."""
+        opts = self.opts.replace(kv_dtype="auto", paged_kernel=False)
+        return (self.cfg, opts, self.params_version)
+
+    def can_thaw(self, frozen: Optional[FrozenRequest]) -> bool:
+        """Whether a frozen blob can resume here without re-prefill.  A
+        blob frozen at the sequence bound has nowhere left to write, so
+        it falls back to the requeue path (which truncates to the newest
+        context)."""
+        return (frozen is not None
+                and frozen.fingerprint == self.fingerprint
+                and frozen.pos < self.max_seq - 1)
+
+    def _freeze_slot(self, slot: int, reason: str = "freeze"
+                     ) -> FrozenRequest:
+        """Serialize ``slot``'s in-flight state into a host-side
+        :class:`FrozenRequest` and vacate the slot.  KV is densified
+        (paged blocks gathered, rows trimmed to ``pos``) so the blob is
+        portable across block sizes and into dense or per-slot engines;
+        int8 pools dequantize into ``kv_cache_dtype``.  The sampling
+        state carries the slot's advanced key, so a thawed stream
+        continues as if never interrupted."""
+        req = self._active[slot]
+        if self.decode_mode == "per_slot":
+            cache = self._caches[slot]
+            pos = int(cache["pos"])
+            leaves = {name: _host(leaf) for name, leaf in cache.items()
+                      if name != "sample"}
+            sample = {name: _host(v) for name, v in cache["sample"].items()}
+        else:
+            pos = (self._slot_pos[slot] if self.decode_mode == "paged"
+                   else int(self._cache["pos"][slot]))
+            leaves = {name: _host(leaf[slot])
+                      for name, leaf in self._cache.items()
+                      if name != "sample"}
+            sample = {name: _host(arr[slot])
+                      for name, arr in self._cache["sample"].items()}
+        for name in _SEQ_TRIM_LEAVES:
+            if name in leaves:
+                leaves[name] = leaves[name][:, :, :pos]
+        if self.decode_mode == "paged":
+            # gather this slot's blocks into dense (n_attn, 1, pos, ...) KV
+            bs = self.block_size
+            nblk = blocks_needed(pos, bs)
+            ids = self._to_device(self._blocks.tables[slot, :nblk]).long()
+            for name in ("k", "v"):
+                blocks = self._pool[name][ids]
+                if name + "_scale" in self._pool:
+                    blocks = kv_dequant_rows(
+                        blocks, self._pool[name + "_scale"][ids],
+                        dtype_of(self.opts.kv_cache_dtype))
+                g = _host(blocks)          # (nblk, n_attn, bs, kvh, hd)
+                n_attn, kvh, hd = g.shape[1], g.shape[3], g.shape[4]
+                dense = g.transpose(0, 1).reshape(
+                    n_attn, nblk * bs, kvh, hd)[:, :pos]
+                leaves[name] = dense[:, None]
+        frozen = FrozenRequest(rid=req.rid, pos=pos,
+                               consumed=len(req.generated), leaves=leaves,
+                               sample=sample, fingerprint=self.fingerprint,
+                               reason=reason)
+        self.stats.freezes += 1
+        rec = self.recorder
+        if rec.enabled:
+            stamp = time.perf_counter()
+            rec.instant("req.freeze", pid=self.pid, tid=f"slot{slot}",
+                        cat="request", wall_s=stamp,
+                        args={"rid": req.rid, "reason": reason, "pos": pos})
+            rec.end("req.slot", pid=self.pid, tid=f"slot{slot}",
+                    cat="request", wall_s=stamp,
+                    args={"rid": req.rid, "reason": reason,
+                          "tokens": len(req.generated)})
+        self._active[slot] = None
+        if self.decode_mode == "paged":
+            self._blocks.release_slot(slot)
+            self._update_block_gauges()
+        return frozen
+
+    def freeze(self, rid: int) -> Optional[Request]:
+        """Freeze the active request with id ``rid`` and hand it back
+        (blob attached as ``req.frozen``); the caller owns it and may
+        :meth:`thaw` it on a compatible engine.  Returns ``None`` when
+        ``rid`` is not decoding here."""
+        for slot, r in enumerate(self._active):
+            if r is not None and r.rid == rid:
+                r.frozen = self._freeze_slot(slot, reason="freeze")
+                return r
+        return None
+
+    def freeze_all(self, reason: str = "freeze") -> List[Request]:
+        """Freeze every in-flight request (slot order) and hand the
+        detached requests back — the migration primitive."""
+        out: List[Request] = []
+        for slot, r in enumerate(self._active):
+            if r is not None:
+                r.frozen = self._freeze_slot(slot, reason=reason)
+                out.append(r)
+        return out
+
+    def thaw(self, req: Request) -> bool:
+        """Accept a frozen request at the *head* of the queue: it resumes
+        with zero re-prefill at the next admission if its blob matches
+        this engine's fingerprint.  Returns False when the blob is
+        incompatible — it is dropped and the request re-admits by
+        re-prefilling prompt + generated (still zero token loss)."""
+        ok = self.can_thaw(req.frozen)
+        if not ok and req.frozen is not None:
+            self._discard_frozen(req)
+        self._queue.appendleft(req)
+        return ok
+
+    def _discard_frozen(self, req: Request) -> None:
+        """Fingerprint-mismatch fallback: fold the generated suffix into
+        the prompt and drop the blob.  The request re-admits through an
+        ordinary prefill, its key folded with its consumed count so the
+        stream advances instead of replaying."""
+        req.prompt = np.concatenate([np.asarray(req.prompt, np.int32),
+                                     np.asarray(req.generated, np.int32)])
+        req.frozen = None
+
+    def _padded_to(self, src: torch.Tensor, shape, dtype) -> torch.Tensor:
+        """A trimmed blob leaf zero-padded back to a full cache leaf, as a
+        new tensor on the engine's device."""
+        if tuple(src.shape) == tuple(shape):
+            return src.to(self.device, dtype, copy=True)
+        buf = torch.zeros(tuple(shape), dtype=dtype)
+        buf[tuple(slice(0, d) for d in src.shape)] = src
+        return buf.to(self.device)
+
+    def _thaw_capacity_ok(self, frozen: FrozenRequest) -> bool:
+        """Paged-mode admission guard: can the pool cover this blob's
+        blocks now (after evicting cached prefixes if needed)?  Off the
+        paged path there is nothing to allocate."""
+        if self.decode_mode != "paged":
+            return True
+        need = blocks_needed(frozen.pos, self.block_size)
+        if self._blocks.free_blocks < need:
+            self._prefix.evict_for_blocks(need, self._blocks)
+        return self._blocks.free_blocks >= need
+
+    def _thaw_into_slot(self, req: Request, slot: int) -> None:
+        """Re-materialize a frozen request in ``slot`` with zero
+        re-prefill: blob leaves are zero-padded back to full cache shape
+        (padding beyond ``pos`` is never read unmasked) and the slot
+        resumes from the blob's advanced sampling key."""
+        fz = req.frozen
+        key = fz.sample["key"].to(self.device)
+        temp = fz.sample["temp"].to(self.device, torch.float32)
+        top_k = fz.sample["top_k"].to(self.device, torch.int32)
+        if self.decode_mode == "per_slot":
+            cache = init_cache(self.cfg, 1, self.max_seq, self.opts,
+                               self.device)
+            cache = {name: self._padded_to(fz.leaves[name], leaf.shape,
+                                           leaf.dtype)
+                     for name, leaf in cache.items()}
+            cache["sample"] = {"key": key, "temp": temp, "top_k": top_k}
+            self._caches[slot] = cache
+        elif self.decode_mode == "batched":
+            row = {name: self._padded_to(fz.leaves[name], leaf.shape[1:],
+                                         leaf.dtype)
+                   for name, leaf in self._cache.items() if name != "sample"}
+            self._cache = self._programs.admit_slot(self._cache, row, slot,
+                                                    key, temp, top_k)
+        else:
+            bs = self.block_size
+            nblk = blocks_needed(fz.pos, bs)
+            # program count stays bounded: the scatter is keyed on the
+            # *bucketed* block count, trailing ids aimed at trash
+            nblk_prog = self._bucket(fz.pos) // bs
+            ids = self._alloc_blocks_reclaiming(nblk, keep_slot=slot)
+            if ids is None:
+                raise RuntimeError("paged pool cannot hold one thawed "
+                                   "request — pool_blocks misconfigured")
+            for j, b in enumerate(ids):
+                self._blocks.assign(slot, j, b)
+            rows = {}
+            for name in ("k", "v"):
+                src = fz.leaves[name][:, 0]          # (n_attn, pos, kvh, hd)
+                n_attn, _, kvh, hd = src.shape
+                buf = torch.zeros((n_attn, nblk_prog * bs, kvh, hd),
+                                  dtype=src.dtype)
+                buf[:, :fz.pos] = src
+                rows[name] = buf.reshape(n_attn, nblk_prog, bs, kvh, hd) \
+                    .transpose(0, 1).to(self.device)
+            ids_arr = np.full(nblk_prog, TRASH_BLOCK, np.int64)
+            ids_arr[:nblk] = ids
+            self._pool = self._thaw_scatter_fn(nblk_prog)(
+                self._pool, rows["k"], rows["v"], self._to_device(ids_arr))
+            row = {name: self._padded_to(fz.leaves[name], leaf.shape[1:],
+                                         leaf.dtype)
+                   for name, leaf in self._cache.items() if name != "sample"}
+            self._cache = self._paged_admit_fn()(self._cache, row, slot, key,
+                                                 temp, top_k)
+            self._slot_pos[slot] = fz.pos
+            self._slot_seq[slot] = next(self._admit_seq)
+            self._update_block_gauges()
+        req.frozen = None
+        self._active[slot] = req
+        self.stats.thaws += 1
+        if self.recorder.enabled:
+            stamp = time.perf_counter()
+            self.recorder.instant("req.thaw", pid=self.pid,
+                                  tid=f"slot{slot}", cat="request",
+                                  wall_s=stamp,
+                                  args={"rid": req.rid, "pos": fz.pos,
+                                        "consumed": fz.consumed})
+            self.recorder.begin("req.slot", pid=self.pid, tid=f"slot{slot}",
+                                cat="request", wall_s=stamp,
+                                args={"rid": req.rid})
+
+    def drain_waiting(self) -> List[Request]:
+        """Detach every *waiting* (queued, not yet admitted) request in
+        FIFO order — a migration re-submits them on the destination
+        engine beside the frozen in-flight ones."""
+        out = list(self._queue)
+        self._queue.clear()
+        return out
+
+    # ----------------------------------------------------------- adaptation --
+    def requeue_active(self, reason: str = "requeue") -> int:
+        """Re-queue every in-flight request at the head of the queue with
+        zero token loss and zero re-prefill: each is frozen and thaws
+        straight back when its blob matches the engine's fingerprint.
+        Incompatible blobs (after a variant swap) fall back to
+        re-prefilling prompt + generated.  Returns the number
+        re-queued."""
+        pending: List[Request] = []
+        for slot, r in enumerate(self._active):
+            if r is not None:
+                r.frozen = self._freeze_slot(slot, reason=reason)
+                pending.append(r)
+        for r in reversed(pending):
+            self._queue.appendleft(r)
+        self.stats.requeues += len(pending)
+        return len(pending)
+
+    def swap_model(self, cfg: ModelConfig, params: Params,
+                   opts: RuntimeOptions,
+                   params_version: Optional[int] = None) -> None:
+        """Switch the serving variant (the middleware's hook).  Active
+        requests are frozen and re-queued; after the caches are rebuilt
+        they thaw with zero re-prefill when the new binding matches their
+        blob (same cfg, opts and weights), and re-prefill their generated
+        prefix when the variant really changed.  Programs come from the
+        compile cache, so swapping back to a served variant builds
+        nothing; the CUDA graphs bind the old buffers and go with them.
+        ``params`` must already be on the engine's device."""
+        requeued = self.requeue_active(reason="swap_requeue")
+        if self.recorder.enabled:
+            self.recorder.instant(
+                "engine.swap", pid=self.pid, tid="engine", cat="engine",
+                args={"generation": self.generation + 1,
+                      "requeued": requeued})
+        self.cfg, self.opts = cfg, opts
+        self.params = cast_params(params, dtype_of(cfg.activation_dtype))
+        self.params_version = (params_version if params_version is not None
+                               else id(params))
+        self.generation += 1
+        self._programs = self._bind_programs()
+        self._reset_caches()
+        # blobs that cannot thaw against the new binding re-admit by
+        # prefill; dropping them up front lets the whole requeue merge
+        # into one admission burst instead of k head-of-line fragments
+        for r in self._queue:
+            if r.frozen is not None and not self.can_thaw(r.frozen):
+                self._discard_frozen(r)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` that no later step writes into."""
+    return t.detach().to("cpu", copy=True)

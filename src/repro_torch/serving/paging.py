@@ -301,7 +301,7 @@ class FrozenRequest:
     """A request's serialized in-flight state: everything needed to
     resume decoding on a compatible engine with zero re-prefill.
 
-    ``leaves`` is the batch=1 cache pytree as host numpy, with the dense
+    ``leaves`` is the batch=1 cache as host (CPU) tensors, with the dense
     ``k``/``v`` trimmed to ``pos`` rows — densified so the blob is
     portable across block sizes, into dense-batched engines and into the
     per-slot reference loop.  ``sample`` carries the *advanced* PRNG key
@@ -313,8 +313,8 @@ class FrozenRequest:
     rid: int
     pos: int
     consumed: int                          # len(generated) at freeze time
-    leaves: Dict[str, np.ndarray]
-    sample: Dict[str, np.ndarray]
+    leaves: Dict[str, Any]
+    sample: Dict[str, Any]
     fingerprint: Tuple[Any, Any, Any]
     reason: str = "freeze"
 

@@ -173,6 +173,69 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
     assert streams["cuda"] == streams["cpu"]
 
 
+class _EagerStep:
+    """Stands in for ``StepGraph``: runs the step eagerly every time."""
+
+    def __init__(self, step, device):
+        self._step = step
+
+    def __call__(self):
+        return self._step()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,mode", [("paper-backbone", "paged"),
+                                       ("paper-backbone", "batched"),
+                                       ("mamba2-370m", "batched")])
+def test_graph_replayed_engine_matches_eager_steps(cuda, monkeypatch, name,
+                                                   mode):
+    """On the card the paged block-table step and the batched decode and
+    decode_greedy steps are replayed as CUDA graphs.  Over a short wave
+    of greedy and sampled requests (slots recycled, so the graphs replay
+    after admissions write into their buffers) the graph-replayed
+    engine's streams equal those of an engine whose steps run eagerly,
+    and the kernels' launch counts, replays included, are equal too."""
+    from repro_torch.serving import engine as engine_mod
+    if name == "mamba2-370m":
+        cfg = get_config(name).reduced(d_model=64).with_updates(
+            vocab_size=300, ssm_chunk=16, activation_dtype="float32")
+    else:
+        cfg = get_config(name).with_updates(
+            num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+            head_dim=16, d_ff=128, vocab_size=300,
+            activation_dtype="float32")
+    params = init_params(cfg, seed=1, device=cuda)
+    kw = dict(decode_mode=mode)
+    if mode == "paged":
+        kw["opts"] = RuntimeOptions(paged_kernel=True, kv_dtype="int8")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 300, n).astype(np.int32)
+               for n in (5, 20, 33, 9, 14)]
+    fns = (paged_decode_attention, flash_attention, fused_ffn, ssd_scan)
+    runs = {}
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(engine_mod, "StepGraph", _EagerStep)
+        eng = ServingEngine(cfg, params, slots=2, max_seq=64,
+                            compile_cache=CompileCache(), device=cuda, **kw)
+        before = [fn.launches for fn in fns]
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=7,
+                        sampling=SamplingOpts(temperature=0.8 * (i % 2),
+                                              seed=3))
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.drain()
+        torch.cuda.synchronize()
+        runs[eager] = ([tuple(r.generated) for r in reqs],
+                       [fn.launches - b for fn, b in zip(fns, before)],
+                       eng.stats.decode_calls)
+        if not eager:
+            assert eng.metrics.counter("engine.graph_captures").value >= 1
+            assert all(g._graph is not None for g in eng._graphs.values())
+    assert runs[False] == runs[True]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pool", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("kvh,group", [(8, 1), (2, 4)])

@@ -170,17 +170,23 @@ def test_shared_prompts_share_blocks_and_hit_prefix_cache():
 
 @pytest.mark.parametrize("mode", ["batched", "per_slot"])
 def test_not_ported_modes_raise(mode):
-    """``per_slot`` is not ported.  ``batched`` is (for the dense and SSM
-    stacks, ``tests/test_torch_serving_batched.py``), but not for the
-    hybrid stack, which it still refuses."""
+    """The hybrid stack is not ported, so ``batched`` still refuses it.
+    ``per_slot`` is ported now: it constructs, admits per request and
+    serves a request to its budget."""
     if mode == "batched":
         cfg = get_config("zamba2-1.2b").reduced(d_model=64)
-        params = {}
-    else:
-        cfg, params = get_config("paper-backbone").with_updates(**TINY), \
-            T_PARAMS
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, params, decode_mode=mode, device="cpu")
+        with pytest.raises(NotImplementedError):
+            ServingEngine(cfg, {}, decode_mode=mode, device="cpu")
+        return
+    cfg = get_config("paper-backbone").with_updates(**TINY)
+    eng = ServingEngine(cfg, T_PARAMS, decode_mode=mode, device="cpu",
+                        compile_cache=CompileCache())
+    assert eng.prefill_mode == "per_request"
+    req = Request(rid=0, prompt=_prompt(9, 0), max_new_tokens=4)
+    eng.submit(req)
+    eng.drain()
+    assert req.done and len(req.generated) == 4
+    assert eng.stats.decode_calls == 3
 
 
 def test_option_validation():
@@ -194,11 +200,15 @@ def test_option_validation():
         ServingEngine(cfg, T_PARAMS, device="cpu", block_size=12,
                       decode_mode="paged",
                       opts=RuntimeOptions(paged_kernel=True))
+    # the gather-to-dense step (paged_kernel=False) serves
     eng = ServingEngine(cfg, T_PARAMS, device="cpu", decode_mode="paged",
-                        opts=RuntimeOptions(kv_dtype="int8"))
-    eng.submit(Request(rid=0, prompt=_prompt(5, 0), max_new_tokens=3))
-    with pytest.raises(NotImplementedError):     # gather step not ported
-        eng.drain()
+                        opts=RuntimeOptions(kv_dtype="int8"),
+                        compile_cache=CompileCache())
+    req = Request(rid=0, prompt=_prompt(5, 0), max_new_tokens=3)
+    eng.submit(req)
+    eng.drain()
+    assert req.done and len(req.generated) == 3
+    assert (eng.block_pool.tables == TRASH_BLOCK).all()
 
 
 def test_long_prompts_at_max_seq_2048_match_reference():

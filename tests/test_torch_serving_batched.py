@@ -244,8 +244,8 @@ def test_mode_and_option_validation():
                       opts=RuntimeOptions(paged_kernel=True))
     with pytest.raises(ValueError):
         ServingEngine(tcfg, tp, device="cpu", prefill_mode="eager")
-    with pytest.raises(NotImplementedError):      # per_slot: not ported
-        ServingEngine(tcfg, tp, device="cpu", decode_mode="per_slot")
+    eng = ServingEngine(tcfg, tp, device="cpu", decode_mode="per_slot")
+    assert eng.prefill_mode == "per_request"      # per_slot: ported
     mcfg, mp = MODELS["mamba2-370m"][3:]
     with pytest.raises(ValueError):               # no KV for a pool
         ServingEngine(mcfg, mp, device="cpu", decode_mode="paged",
