@@ -77,6 +77,21 @@ Phases (any failure exits non-zero):
    the gather step, and 6 with ``swap_model`` after 4 steps (to the same
    and to other weights); the token streams and the engines' prefill
    calls, freezes, thaws and requeues must be equal.
+6. adaptation loop — ``Middleware`` on full-width ``paper-backbone``
+   (bf16 weights from seed 0, shape ("app", 256, 4, "prefill"), budgets
+   50 ms / 2 GB) adapts over the quickstart's three contexts,
+   ``budget_sweep_trace()`` and ``case_study_trace(24)``, inferring a
+   (4, 256) batch at each tick: each ``infer`` must launch K2 once per
+   layer of the tick's variant and K3 once per layer when its FFN is
+   dense and gated (else never); host ms per ``infer`` beside its device
+   profile and idle share.  Two TTA steps (``adapt_weights``, sharpened
+   embedding): the entropy falls and only norm scales and ``logit_bias``
+   change.  In f32, card == CPU for every variant of the action space
+   (logits), for the TTA gradients of every leaf (the K2/K3 backwards)
+   and for the early-exit depths (exits at layers 2, 4, 6); the
+   ``H100_SXM`` estimates are ranked against the card's forward times.
+   Phase 1 reads the idle card's power draw, which ``H100_SXM.idle_w``
+   takes.
 
 The line before the last is a JSON object listing every kernel with its
 launches on its main path and its times (K4 and K5 as their four entry
@@ -128,6 +143,15 @@ def phase_device(torch):
         capture_output=True, text=True, check=True).stdout.strip()
     smi = smi.splitlines()[0]
     log(smi)
+    # the idle card (no context yet, nothing running): what feeds
+    # H100_SXM.idle_w in repro_torch/core/profiler.py
+    idle = subprocess.run(
+        ["nvidia-smi", "--query-gpu=power.draw,clocks.sm,temperature.gpu",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    idle_w = float(idle.split(",")[0])
+    log(f"idle card: power.draw {idle_w} W, clocks.sm and temperature "
+        f"{idle.split(',')[1:]}")
     # f32 matmuls in full f32, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -141,7 +165,7 @@ def phase_device(torch):
             for line in log_path.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log("  ptxas: " + line.strip())
-    return smi
+    return smi, idle_w
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1911,9 +1935,353 @@ def phase_card_vs_cpu(torch):
             raise AssertionError(f"swap ({swap}): {st}")
 
 
+# ---------------------------------------------------------------- phase 6
+# f32-activation logits, card against the port's plain path on the CPU:
+# the f32 tolerance of the port's model twins (both in f32, the same sums
+# in another order; logits of magnitude ~1)
+LOGITS_TOL = dict(atol=1e-4, rtol=1e-4)
+# bf16 logits of an infer, card against the port's plain path on the CPU
+# with the same bf16 weights: each rounds every layer's activations to
+# bf16 in its own order.  Phase 6 logs how far the CPU's bf16 logits
+# (|logit| <= ~1.6) lie from the f32 result on the same bf16 weights
+# (a few hundredths); two bf16 runs lie within about twice that of each
+# other, and atol 0.1 leaves room above it
+INFER_BF16_TOL = dict(atol=1e-1, rtol=2e-2)
+# f32 gradients of the TTA objective, card against CPU, leaf by leaf: the
+# same sums in another order (~1e-6 relative), so within 1e-3 of each
+# leaf's largest gradient
+GRAD_REL_TOL = 1e-3
+# the quickstart's three contexts
+QUICKSTART_CONTEXTS = (("plugged-in", dict(battery_frac=0.95)),
+                       ("battery-low", dict(battery_frac=0.15)),
+                       ("mem-pressure", dict(battery_frac=0.5,
+                                             mem_free_frac=0.2)))
+
+
+def to_cpu(tree, dtype=None):
+    """A CPU copy of a parameter tree; floating leaves cast to ``dtype``
+    when it is given."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v, dtype) for k, v in tree.items()}
+    if not hasattr(tree, "cpu"):
+        return tree
+    if dtype is not None and tree.is_floating_point():
+        return tree.cpu().to(dtype)
+    return tree.cpu()
+
+
+def dense_gated(vcfg, vparams):
+    """Whether a variant's FFN runs through K3: dense, gated, not
+    factored (η1) and not ghost (η4)."""
+    ffn = vparams["layers"]["ffn"]
+    return vcfg.gated_ffn and "ghost_src" not in ffn and not any(
+        isinstance(ffn[k], dict) for k in ("w_gate", "w_up", "w_down"))
+
+
+def spec_name(spec):
+    import dataclasses
+    from repro_torch.elastic import FULL_SPEC
+    return ",".join(f"{k}={v}" for k, v in dataclasses.asdict(spec).items()
+                    if v != getattr(FULL_SPEC, k)) or "full"
+
+
+def expected_launches(vcfg, vparams):
+    """The launches of one forward of a variant: K2 once per layer, K3
+    once per layer when its FFN is dense and gated, no other kernel."""
+    expect = dict.fromkeys(_kernel_fns(), 0)
+    expect["flash_attention"] = vcfg.num_layers
+    if dense_gated(vcfg, vparams):
+        expect["fused_ffn"] = vcfg.num_layers
+    return expect
+
+
+def drive_middleware(torch, mw, tokens, contexts):
+    """The main path: one ``adapt`` and one ``infer`` per context.  Each
+    ``infer`` must launch exactly ``expected_launches`` of the tick's
+    variant.  Returns ``{spec: [host ms of each infer]}``, the order of
+    the variants visited, ``{spec: (logits, variant cfg, variant params,
+    options)}`` of each variant's first infer, and the launches expected
+    over all ticks."""
+    fns = _kernel_fns()
+    times, order, first = {}, [], {}
+    total = dict.fromkeys(fns, 0)
+    for name, ctx in contexts:
+        d = mw.adapt(ctx)
+        vcfg, vparams, opts = mw.current_runtime()  # derives on first use
+        before = {k: fn.launches for k, fn in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = mw.infer(tokens)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        delta = {k: fn.launches - before[k] for k, fn in fns.items()}
+        expect = expected_launches(vcfg, vparams)
+        if delta != expect:
+            raise AssertionError(f"infer at {name} "
+                                 f"({spec_name(d.action.variant)}): "
+                                 f"launches {delta}, expected {expect}")
+        if logits.shape != (*tokens.shape, vcfg.padded_vocab) or not bool(
+                torch.isfinite(logits[..., :vcfg.vocab_size]).all()):
+            raise AssertionError(f"infer at {name}: logits {logits.shape} "
+                                 "not finite or of the wrong shape")
+        spec = d.action.variant
+        if spec not in times:
+            order.append(spec)
+            first[spec] = (logits, vcfg, vparams, opts)
+        times.setdefault(spec, []).append(ms)
+        total = {k: n + expect[k] for k, n in total.items()}
+        log(f"  [{name:12s}] {d.reason:18s} {d.action.describe()}: infer "
+            f"{ms:.3f} ms, K2 {delta['flash_attention']}, K3 "
+            f"{delta['fused_ffn']}")
+    return times, order, first, total
+
+
+def pick_threshold(torch, outs):
+    """A threshold in the widest gap of the exits' confidences (middle
+    half), so no token sits on it; returns (threshold, half the gap)."""
+    conf = torch.cat([torch.softmax(o.float(), -1).amax(-1).flatten()
+                      for o in outs[:-1]]).sort().values
+    gaps = conf[1:] - conf[:-1]
+    lo, hi = len(gaps) // 4, 3 * len(gaps) // 4
+    i = lo + int(gaps[lo:hi].argmax())
+    return float(conf[i] + conf[i + 1]) / 2, float(gaps[i]) / 2
+
+
+def phase_adapt(torch, smi, idle_w):
+    """The cross-level adaptation loop on the card at full width:
+    ``Middleware`` on paper-backbone (bf16 weights from seed 0) adapts
+    over the quickstart's contexts, ``budget_sweep_trace()`` and
+    ``case_study_trace(24)``, inferring a (4, 256) batch at each tick,
+    then takes two TTA steps; every variant of the action space is held
+    card == CPU in f32, so are the TTA gradients and the early-exit
+    depths; the H100 profile's estimates are ranked against the card.
+    Returns ``{kernel name: launches}`` of the loop and TTA."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import (H100_SXM, Budgets, Middleware,
+                                  ResourceContext, budget_sweep_trace,
+                                  case_study_trace, estimate_latency,
+                                  layer_costs, rank_consistency)
+    from repro_torch.elastic import (NORM_KEYS, ElasticSupernet,
+                                     attach_exits, early_exit_predict,
+                                     forward_with_exits, tta_grads)
+    from repro_torch.elastic.tta import _paths
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.configs import InputShape
+    from repro_torch.models.layers import cast_params
+    t_phase = time.perf_counter()
+    cfg = get_config("paper-backbone")
+    shape = InputShape("app", 256, 4, "prefill")
+    budgets = Budgets(latency_s=0.05, memory_bytes=2e9)
+    params = cast_params(init_params(cfg, seed=0, device="cuda"),
+                         torch.bfloat16)
+    rng = np.random.default_rng(19)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 256)).astype(np.int32)).cuda()
+    contexts = ([(n, ResourceContext(**kw)) for n, kw in QUICKSTART_CONTEXTS]
+                + [(f"budget {c.mem_free_frac}", c)
+                   for c in budget_sweep_trace()]
+                + [(f"case {i}", c)
+                   for i, c in enumerate(case_study_trace(24))])
+
+    # (a) the main path: the loop's ticks and two TTA steps
+    mw = Middleware(cfg=cfg, params=params, shape=shape, budgets=budgets)
+    log(f"adaptation loop: paper-backbone bf16 on the card, hw "
+        f"{mw.hw.name}, offline Pareto front of {len(mw.loop.front)} "
+        f"configurations, {len(contexts)} ticks")
+    sharp = dict(params, embed=params["embed"] * 8.0)
+    mw_tta = Middleware(cfg=cfg, params=sharp, shape=shape, budgets=budgets)
+    # a TTA step runs the full backbone's forward under autograd: its
+    # launches are one forward's (the backward launches nothing)
+    tta_expect = expected_launches(cfg, sharp)
+    zero_counts()
+    times, visited, first, expect = drive_middleware(torch, mw, tokens,
+                                                     contexts)
+    ents, tta_ms = [], []
+    for step in range(2):
+        before = {k: fn.launches for k, fn in _kernel_fns().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ents.append(mw_tta.adapt_weights(tokens, lr=5e-2))
+        torch.cuda.synchronize()
+        tta_ms.append(1e3 * (time.perf_counter() - t0))
+        delta = {k: fn.launches - before[k]
+                 for k, fn in _kernel_fns().items()}
+        if delta != tta_expect:
+            raise AssertionError(f"TTA step {step}: launches {delta}, "
+                                 f"expected {tta_expect}")
+        expect = {k: n + tta_expect[k] for k, n in expect.items()}
+    counts = {name: fn.launches for name, fn in _kernel_fns().items()}
+    n_infer = len(contexts)
+    if counts != expect:
+        raise AssertionError(f"adaptation loop: launches {counts}, "
+                             f"expected {expect}")
+    if not ents[1] < ents[0]:
+        raise AssertionError(f"TTA: the entropy did not fall: {ents}")
+    old = dict(_paths(sharp))
+    changed = [p for p, a in _paths(mw_tta.supernet.backbone_params)
+               if p not in old or not torch.equal(a, old[p])]
+    bad = [p for p in changed if not any(n in NORM_KEYS for n in p)]
+    if bad or ("logit_bias",) not in changed:
+        raise AssertionError(f"TTA changed {changed}")
+    log(f"adaptation loop: {n_infer} ticks, variants visited "
+        f"{[spec_name(s) for s in visited]}; launches {counts} (K2 once a "
+        f"layer of each tick's variant, K3 once a layer where its FFN is "
+        f"dense and gated, both once a layer per TTA step; all exact)")
+    log(f"TTA on the card: entropy {ents[0]:.5f} -> {ents[1]:.5f}; steps "
+        f"{tta_ms[0]:.2f} / {tta_ms[1]:.2f} ms (host clock); changed "
+        f"{sorted('/'.join(p) for p in changed)}")
+
+    # where an infer's time goes, per variant visited
+    for spec in visited:
+        vcfg, vparams = mw.supernet.variant(spec)
+        wall = sorted(times[spec])[len(times[spec]) // 2]
+        log(f"infer of {spec_name(spec)} ({vcfg.num_layers} layers, d_ff "
+            f"{vcfg.d_ff}): host {wall:.3f} ms (median of "
+            f"{len(times[spec])} ticks)")
+        device_profile(torch, lambda: forward(vparams, vcfg, tokens)[0], 10,
+                       wall, f"  infer profile ({spec_name(spec)})")
+
+    # each variant's first bf16 infer against the port's plain path on the
+    # CPU with the same bf16 weights
+    for spec in visited:
+        logits, vcfg, vparams, opts = first[spec]
+        with torch.no_grad():
+            cpu = forward(to_cpu(vparams), vcfg, tokens.cpu(), opts)[0]
+            f32 = forward(to_cpu(vparams, torch.float32),
+                          vcfg.with_updates(activation_dtype="float32"),
+                          tokens.cpu(), opts)[0]
+        v = vcfg.vocab_size
+        err = check_close("bf16 infer", logits[..., :v].cpu(), cpu[..., :v],
+                          INFER_BF16_TOL, f"{spec_name(spec)} card vs CPU")
+        log(f"bf16 infer of {spec_name(spec)} card == CPU plain path: "
+            f"max_abs_err {err:.4g} (atol {INFER_BF16_TOL['atol']}, rtol "
+            f"{INFER_BF16_TOL['rtol']}); the CPU's bf16 logits lie within "
+            f"{float((cpu[..., :v].float() - f32[..., :v]).abs().max()):.4g}"
+            f" of f32 on the same weights (|logit| <= "
+            f"{float(f32[..., :v].abs().max()):.4g})")
+
+    # K2 and K3 alone at the shapes an infer gives them (bf16, 4 x 256
+    # tokens, 8 heads of 32 as (B,H,S,hd) views, causal; M 1024, D 256,
+    # F 1024, silu), each held against its plain version on the same
+    # inputs and repeating bit for bit, then timed beside its bound, its
+    # plain version and one library call (SDPA; for K3, which no one call
+    # computes, the unfused cuBLAS chain)
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.kernels.ref import fused_ffn_ref
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = flash_case(torch, gen, 4, 8, 8, 256, 32, "bfloat16")
+    x, wg, wu, wd = ffn_case(torch, gen, 1024, 256, 1024, "bfloat16")
+    for name, fn, plain, library, part, nbytes, flops, tol in (
+            ("K2", lambda: flash_attention(q, k, v),
+             lambda: flash_plain(q, k, v),
+             lambda: F.scaled_dot_product_attention(q, k, v,
+                                                    is_causal=True),
+             "flash_attn", 4 * q.numel() * 2,
+             4 * 32 * flash_pairs(256, True, 0, None) * 4 * 8,
+             TOL["bfloat16"]),
+            ("K3", lambda: fused_ffn(x, wg, wu, wd),
+             lambda: fused_ffn_ref(x, wg, wu, wd),
+             lambda: (F.silu(x @ wg) * (x @ wu)) @ wd,
+             "fused_ffn", 2 * (2 * x.numel() + 3 * wg.numel()),
+             6 * 1024 * 256 * 1024, FFN_TOL["bfloat16"])):
+        out = fn()
+        err = check_close(part, out, plain(), tol,
+                          f"{name} at the infer's shape")
+        if not torch.equal(out, fn()):
+            raise AssertionError(f"{name} does not repeat at the infer's "
+                                 "shape")
+        ms, dev = cuda_ms(torch, fn, iters=100), device_ms(torch, fn,
+                                                          part=part)
+        plain_ms = cuda_ms(torch, plain, iters=20)
+        lib_ms, lib_dev = cuda_ms(torch, library, iters=100), device_ms(
+            torch, library)
+        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+        log(f"{name} at the infer's shape: == plain version, max_abs_err "
+            f"{err:.3g} (atol {tol['atol']}, rtol {tol['rtol']}), repeats "
+            f"bit for bit; {ms:.4f} ms (CUDA events), "
+            f"device {fmt(dev)}, bound {b_ms:.5f} ms ({b_by}), plain "
+            f"{plain_ms:.4f} ms, {'SDPA' if name == 'K2' else 'chain'} "
+            f"{lib_ms:.4f} ms (device {fmt(lib_dev)})")
+
+    # (b) every variant of the action space: card == CPU in f32
+    cfg32 = cfg.with_updates(activation_dtype="float32")
+    params32 = init_params(cfg, seed=0, device="cuda")
+    tok2 = tokens[:2]
+    sn32 = ElasticSupernet(cfg32, params32, max_cached=32)
+    space = sn32.action_space()
+    max_err = 0.0
+    for spec in space:
+        vcfg, vparams = sn32.variant(spec)
+        card = forward(vparams, vcfg, tok2)[0]
+        cpu = forward(to_cpu(vparams), vcfg, tok2.cpu())[0]
+        max_err = max(max_err, check_close(
+            "variant forward", card.cpu(), cpu, LOGITS_TOL,
+            f"{spec_name(spec)} card vs CPU"))
+    log(f"every variant card == CPU in f32: {len(space)} specs "
+        f"{[spec_name(s) for s in space]}, max_abs_err {max_err:.3g} "
+        f"(atol {LOGITS_TOL['atol']}, rtol {LOGITS_TOL['rtol']})")
+
+    # (c) TTA gradients card == CPU in f32 (the K2/K3 backwards)
+    sharp32 = dict(params32, embed=params32["embed"] * 8.0)
+    _, g_card, _ = tta_grads(sharp32, cfg32, tok2)
+    _, g_cpu, _ = tta_grads(to_cpu(sharp32), cfg32, tok2.cpu())
+    worst = 0.0
+    for path, g in g_cpu.items():
+        scale = float(g.abs().max())
+        err = float((g_card[path].cpu() - g).abs().max())
+        if err > GRAD_REL_TOL * scale + 1e-12:
+            raise AssertionError(f"TTA gradient of {'/'.join(path)}: card "
+                                 f"vs CPU max err {err} of max {scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"TTA gradients card == CPU in f32 on {len(g_cpu)} leaves (norm "
+        f"scales, logit_bias and every weight): worst error {worst:.3g} of "
+        f"the leaf's largest gradient (tolerance {GRAD_REL_TOL})")
+
+    # (d) early exit at layers 2, 4 and 6: the same depths, f32
+    p_ex = attach_exits(cfg32, sharp32, positions=(2, 4, 6))
+    p_ex_cpu = to_cpu(p_ex)
+    thr, margin = pick_threshold(torch, forward_with_exits(
+        p_ex_cpu, cfg32, tok2.cpu()))
+    _, depth = early_exit_predict(p_ex, cfg32, tok2, threshold=thr)
+    _, depth_cpu = early_exit_predict(p_ex_cpu, cfg32, tok2.cpu(),
+                                      threshold=thr)
+    if not torch.equal(depth.cpu(), depth_cpu):
+        raise AssertionError("early exit: depths differ card vs CPU")
+    hist = torch.bincount(depth_cpu.flatten().long(), minlength=4).tolist()
+    if sum(1 for n in hist if n) < 2:
+        raise AssertionError(f"early exit: no split at {thr}: {hist}")
+    log(f"early exit (exits at 2, 4, 6; threshold {thr:.5f}, {margin:.2g} "
+        f"from the nearest confidence): depths card == CPU, tokens per "
+        f"exit {hist}")
+
+    # (e) the H100 profile's estimates against the card's forward times
+    sn = ElasticSupernet(cfg, params, max_cached=32)
+    est, meas = [], []
+    for spec in space:
+        vcfg, vparams = sn.variant(spec)
+        est.append(estimate_latency(layer_costs(vcfg, 4, 256), 0.70,
+                                    H100_SXM))
+        with torch.no_grad():
+            meas.append(cuda_ms(torch, lambda: forward(vparams, vcfg,
+                                                       tokens), 10, 3))
+    rho = rank_consistency(est, meas)
+    log(f"profiler vs card: rank_consistency {rho:.4f} of H100_SXM "
+        f"estimates (eps 0.70) against CUDA-event forward times over "
+        f"{len(space)} variants")
+    for spec, e, m in zip(space, est, meas):
+        log(f"  {spec_name(spec):40s} est {1e3 * e:.4f} ms, card "
+            f"{m:.4f} ms")
+    log(f"H100_SXM.idle_w {H100_SXM.idle_w} W; idle power.draw read in "
+        f"phase 1: {idle_w} W ({smi})")
+    log(f"adaptation phase: {time.perf_counter() - t_phase:.1f} s")
+    return {k: n for k, n in counts.items() if n}
+
+
 def main() -> int:
     import torch
-    smi = phase_device(torch)
+    smi, idle_w = phase_device(torch)
     name = torch.cuda.get_device_name(0)
     kernels = [phase_paged(torch), phase_flash(torch), phase_ffn(torch),
                phase_ssd(torch)] + phase_act_quant(torch)
@@ -1922,9 +2290,11 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     launches.update(phase_batched(torch, smi))
     launches.update(phase_engine(torch, smi))
+    phase_card_vs_cpu(torch)
+    for k, n in phase_adapt(torch, smi, idle_w).items():
+        launches[k] = launches.get(k, 0) + n
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    phase_card_vs_cpu(torch)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,6 +11,13 @@ tensor cores would round f32 to TF32.  A tensor on the CPU takes the
 plain version.  A tensor on the card launches its route's kernel or
 raises — there is no fallback.  Each launch adds one to
 ``flash_attention.launches``.
+
+Gradients: when autograd records (grad mode on and q, k or v requiring
+grad), the launch runs inside a ``torch.autograd.Function`` that saves
+q, k, v and the output, and whose backward is
+:func:`flash_attention_backward`, the analytic gradient in PyTorch ops.
+The JAX package has no backward kernel either (its gradients are XLA's
+products outside the Pallas call).
 """
 from __future__ import annotations
 
@@ -104,6 +111,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     _check(q, k, v, window, kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, kv_len)
+    return _launch(q, k, v, causal, window, kv_len)
+
+
+def _launch(q, k, v, causal, window, kv_len) -> torch.Tensor:
     b, h, s, hd = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -120,3 +134,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's launch, differentiable: the forward launches it, the
+    backward is :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len):
+        out = _launch(q, k, v, causal, window, kv_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.masks = dict(causal=causal, window=window, kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout,
+                                              **ctx.masks)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, kv_len: Optional[int] = None):
+    """The gradient of :func:`flash_attention`: ``(dq, dk, dv)`` in the
+    dtypes of q, k and v, f32 inside (f64 for f64 inputs).
+
+    P is recomputed under the forward's masks (causal, window,
+    ``kv_len``; a row with no valid key has P = 0), then ``dV = P^T dO``,
+    ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO * O))``, ``dQ = dS K``
+    and ``dK = dS^T Q`` (both scaled by 1/sqrt(hd)); dK and dV are summed
+    over each GQA group of query heads.  ``out`` is the forward's output.
+    Any strides; memory is O(B H S^2)."""
+    b, h, s, hd = q.shape
+    group = h // k.shape[1]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(hd)
+    qf, of, dof = q.to(acc), out.to(acc), dout.to(acc)
+    kf = k.to(acc).repeat_interleave(group, dim=1)
+    vf = v.to(acc).repeat_interleave(group, dim=1)
+    rows = torch.arange(s, device=q.device)[:, None]
+    cols = torch.arange(s, device=q.device)[None, :]
+    valid = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= cols <= rows
+    if window:
+        valid &= cols > rows - window
+    if kv_len is not None:
+        valid &= cols < kv_len
+    scores = (qf @ kf.transpose(-1, -2)) * scale
+    p = torch.softmax(scores.masked_fill(~valid, float("-inf")), dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)          # rows with no valid key
+    dv = p.transpose(-1, -2) @ dof
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    kvh = k.shape[1]
+    dk = dk.reshape(b, kvh, group, s, hd).sum(dim=2)
+    dv = dv.reshape(b, kvh, group, s, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

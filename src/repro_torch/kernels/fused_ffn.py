@@ -15,10 +15,17 @@ TF32.  The plan is the one place that sizes a bf16 launch: the kernels
 launch its grid and shared memory as given.  A tensor on the CPU takes the plain version.  A tensor on the card
 launches its route's kernel or raises — there is no fallback.  Each
 launch adds one to ``fused_ffn.launches``.
+
+Gradients: when autograd records (grad mode on and any input requiring
+grad), the launch runs inside a ``torch.autograd.Function`` that saves
+its inputs, and whose backward is :func:`fused_ffn_backward`, the
+analytic gradient in PyTorch ops (the JAX package has no backward
+kernel either).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -160,6 +167,13 @@ def fused_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no fused FFN kernel for device {x.device}")
     _check(x, w_gate, w_up, w_down, activation)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_gate, w_up, w_down)):
+        return _FusedFfn.apply(x, w_gate, w_up, w_down, activation)
+    return _launch(x, w_gate, w_up, w_down, activation)
+
+
+def _launch(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
     m, d = x.shape
     f = w_up.shape[1]
     plan = ffn_plan(x.dtype, m, d, f)
@@ -192,3 +206,54 @@ def fused_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 
 fused_ffn.launches = 0
+
+
+class _FusedFfn(torch.autograd.Function):
+    """The kernel's launch, differentiable: the forward launches it, the
+    backward is :func:`fused_ffn_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, activation):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        ctx.activation = activation
+        return _launch(x, w_gate, w_up, w_down, activation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = fused_ffn_backward(*ctx.saved_tensors, dy, ctx.activation)
+        return (*grads, None)
+
+
+def _act_and_slope(name: str, g: torch.Tensor):
+    """``(act(g), act'(g))`` for silu and tanh-gelu."""
+    if name == "silu":
+        sig = torch.sigmoid(g)
+        return g * sig, sig * (1.0 + g * (1.0 - sig))
+    c = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(c * (g + 0.044715 * g ** 3))
+    return (0.5 * g * (1.0 + t),
+            0.5 * (1.0 + t)
+            + 0.5 * g * (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * g * g))
+
+
+def fused_ffn_backward(x: torch.Tensor, w_gate: torch.Tensor,
+                       w_up: torch.Tensor, w_down: torch.Tensor,
+                       dy: torch.Tensor, activation: str = "silu"):
+    """The gradient of :func:`fused_ffn`: ``(dx, dw_gate, dw_up,
+    dw_down)`` in the inputs' dtypes, f32 inside (f64 for f64 inputs).
+
+    G = x Wg and U = x Wu are recomputed, H = act(G) U; then
+    ``dWd = H^T dy``, ``dH = dy Wd^T``, ``dU = dH act(G)``,
+    ``dG = dH U act'(G)``, ``dx = dG Wg^T + dU Wu^T``, ``dWg = x^T dG``
+    and ``dWu = x^T dU``."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, wg, wu, wd = (t.to(acc) for t in (x, w_gate, w_up, w_down))
+    dyf = dy.to(acc)
+    a, slope = _act_and_slope(activation, xf @ wg)
+    u = xf @ wu
+    dh = dyf @ wd.T
+    du = dh * a
+    dg = dh * u * slope
+    dx = dg @ wg.T + du @ wu.T
+    return (dx.to(x.dtype), (xf.T @ dg).to(w_gate.dtype),
+            (xf.T @ du).to(w_up.dtype), ((a * u).T @ dyf).to(w_down.dtype))

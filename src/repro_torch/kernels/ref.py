@@ -149,11 +149,13 @@ def fused_ffn_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                   ) -> torch.Tensor:
     """Gated FFN ``(act(x @ w_gate) * (x @ w_up)) @ w_down``.
 
-    x: (M, D); w_gate/w_up: (D, F); w_down: (F, D).  Computed in f32 and
-    rounded once to x's dtype; ``activation`` is silu or tanh-gelu."""
-    xf = x.float()
-    h = _act(activation)(xf @ w_gate.float()) * (xf @ w_up.float())
-    return (h @ w_down.float()).to(x.dtype)
+    x: (M, D); w_gate/w_up: (D, F); w_down: (F, D).  Computed in f32 (f64
+    for f64 inputs) and rounded once to x's dtype; ``activation`` is silu
+    or tanh-gelu."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
+    h = _act(activation)(xf @ w_gate.to(acc)) * (xf @ w_up.to(acc))
+    return (h @ w_down.to(acc)).to(x.dtype)
 
 
 def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -164,10 +166,12 @@ def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v: (B, H, S, hd), KV heads already broadcast to the query
     heads.  Keys are masked by ``causal`` (col <= row), ``window``
     (col > row - window) and ``kv_len`` (col < kv_len).  A query row with
-    no valid key outputs exactly zero.  f32 inside, out in q's dtype."""
+    no valid key outputs exactly zero.  f32 inside (f64 for f64 inputs),
+    out in q's dtype."""
     s, hd = q.shape[-2:]
     scale = 1.0 / math.sqrt(hd)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
     rows = torch.arange(s, device=q.device)[:, None]
     cols = torch.arange(s, device=q.device)[None, :]
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
@@ -179,7 +183,7 @@ def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= cols < kv_len
     scores = scores.masked_fill(~mask, -1e30)
     p = torch.softmax(scores, dim=-1) * mask.any(dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc))
     return out.to(q.dtype)
 
 

@@ -174,6 +174,13 @@ def cast_params(params: Params, act_dtype: torch.dtype) -> Params:
     return walk(params, "")
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of same-structure nested dicts."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def layer_slice(stack: Params, j: int) -> Params:
     """Layer ``j`` of a stacked per-layer parameter dict."""
     return {k: layer_slice(v, j) if isinstance(v, dict) else v[j]

@@ -1,5 +1,6 @@
 """Model API of the serving path: prefill, the dense and paged decode
-steps, and burst admission.
+steps, and burst admission (``forward`` and ``lm_loss``, the
+full-sequence entry points, are re-exported from ``transformer``).
 
 Ported from the JAX package for dense attention stacks and the SSM
 stack.  Caches are dicts of tensors in the JAX package's layouts.  Where
@@ -34,11 +35,12 @@ from .layers import (Params, apply_rotary, cast_params, dtype_of,
                      matmul_w, ffn_apply, rms_norm, rotary_embedding,
                      unembed)
 from .runtime import DEFAULT_OPTIONS, RuntimeOptions
-from .transformer import _pattern_period, _select_impl, ffn_or_moe_block
+from .transformer import (_pattern_period, _select_impl, ffn_or_moe_block,
+                          forward, lm_loss)
 
 Cache = Dict[str, Any]
 
-__all__ = ["init_cache", "prefill", "decode_step", "Cache",
+__all__ = ["forward", "lm_loss", "init_cache", "prefill", "decode_step", "Cache",
            "init_slot_cache", "write_cache_slot", "admit_slot",
            "sample_logits", "sample_step", "sample_batched_step",
            "greedy_batched_step", "batched_prefill_admit",

@@ -4,23 +4,27 @@ Layer stacks keep the JAX package's *stacked* parameter layout (every
 per-layer leaf has a leading layer axis), and the layer walk is a Python
 loop where the JAX package scans.  Ported so far: the dense attention
 family (``ATTN`` / ``LOCAL`` blocks, dense FFN) and the attention-free
-SSM stack (``MAMBA`` blocks).  On the card every prefill block runs the
-flash attention kernel and the fused FFN kernel (through
-``attention._attend`` and ``layers.ffn_apply``), and every Mamba block
-the SSD scan kernel (through ``ssm.mamba_forward``).
+SSM stack (``MAMBA`` blocks), with the full-sequence ``forward`` (train /
+prefill, no cache) that the elastic variants, TTA and the middleware
+run.  On the card every prefill block runs the flash attention kernel
+and the fused FFN kernel (through ``attention._attend`` and
+``layers.ffn_apply``), and every Mamba block the SSD scan kernel
+(through ``ssm.mamba_forward``).
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .configs import ATTN, LOCAL, MAMBA, ModelConfig
-from .layers import Params, dtype_of, ffn_apply, rms_norm
-from .runtime import RuntimeOptions
+from .layers import (Params, cast_params, dtype_of, embed_lookup,
+                     ffn_apply, layer_slice, mask_padded_logits_raw,
+                     rms_norm, unembed)
+from .runtime import DEFAULT_OPTIONS, RuntimeOptions
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -170,3 +174,88 @@ def _pattern_period(cfg: ModelConfig) -> Tuple[Tuple[str, ...], bool]:
         r = cfg.local_global_ratio
         return tuple([LOCAL] * r + [ATTN]), False
     return (ATTN,), False
+
+
+# -------------------------------------------------------------- the stack --
+def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
+                opts: RuntimeOptions, *, causal: bool = True,
+                num_layers: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run a stacked layer dict over x.  Returns (x, aux_loss_sum).
+
+    ``num_layers`` < full depth realizes the elastic depth-scaling
+    operator η5: only the first n layers' stacked weights are used.  The
+    layers run as a Python loop over ``layer_slice``, in pattern order
+    (a period's kinds, then the leftover layers of a partial period);
+    the JAX package's ``scan_layers`` and ``remat`` options have no
+    counterpart here (no trace to keep small, and autograd keeps what a
+    backward needs)."""
+    _check_dense(cfg)
+    kinds, _ = _pattern_period(cfg)
+    total = _stack_depth(stack)
+    n = total if num_layers is None else min(num_layers, total)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(n):
+        layer = layer_slice(stack, j)
+        kind = kinds[j % len(kinds)]
+        if kind == MAMBA:
+            x = mamba_block(layer, x, cfg)
+            continue
+        window = cfg.sliding_window if kind == LOCAL else 0
+        x, a = transformer_block(layer, x, cfg, opts, window=window,
+                                 causal=causal)
+        aux = aux + a
+    return x, aux
+
+
+def _stack_depth(stack: Params) -> int:
+    leaf = stack
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+# ------------------------------------------------------------- forward -----
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            opts: RuntimeOptions = DEFAULT_OPTIONS, *,
+            num_layers: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (train / prefill).  Returns (logits, aux_loss).
+
+    tokens: (B, S) integer ids on the params' device.  Weights are cast
+    to the activation dtype (``cast_params``); an optional
+    ``logit_bias`` (TTA's output prior) is added to the logits, and the
+    vocab padding is masked.  Differentiable: on the card the flash
+    attention and fused FFN launches carry their analytic gradients."""
+    _check_dense(cfg)
+    act_dt = dtype_of(cfg.activation_dtype)
+    params = cast_params(params, act_dt)
+    x = embed_lookup(params["embed"], tokens).to(act_dt)
+    x, aux = apply_stack(params["layers"], x, cfg, opts,
+                         num_layers=num_layers)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params["embed"], x)
+    if "logit_bias" in params:
+        # TTA prior recalibration (paper §III-A2): a label-free-adaptable
+        # output bias absorbing live unigram drift
+        logits = logits + params["logit_bias"].to(logits.dtype)
+    return mask_padded_logits(logits, cfg), aux
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy.  logits: (B,S,V); labels: (B,S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def mask_padded_logits(logits: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """Vocab rows beyond cfg.vocab_size are sharding padding — mask them."""
+    return mask_padded_logits_raw(logits, cfg.vocab_size)

@@ -819,3 +819,67 @@ def test_swapper_reuses_pinned_buffers(cuda):
     assert torch.equal(sw.fetch("z"), z)
     sw.offload("x", x)
     assert sw.pinned_allocations == 3
+
+
+# ------------------------------------------------ K2/K3 under autograd ----
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,mask", [(8, 8, dict(causal=True)),
+                                        (8, 2, dict(causal=True, window=9)),
+                                        (4, 1, dict(causal=False,
+                                                    kv_len=20))])
+def test_flash_attention_gradients_on_card(cuda, dtype, h, kvh, mask):
+    """With inputs that require grad the wrapper still launches the kernel
+    (once), and its backward gives the CPU autograd gradients of the plain
+    version: f32 within the f32 kernel tolerance times 10 (a backward
+    sums over S more terms than the forward), bf16 within 3e-2."""
+    rng = np.random.default_rng(h + kvh)
+    b, s, hd = 2, 40, 32
+
+    def leaf(n):
+        t = torch.from_numpy(rng.standard_normal((b, s, n, hd)).astype(
+            np.float32)).to(dtype).cuda().transpose(1, 2)
+        return t.detach().requires_grad_()
+    q, k, v = leaf(h), leaf(kvh), leaf(kvh)
+    dout = torch.from_numpy(rng.standard_normal((b, h, s, hd)).astype(
+        np.float32))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **mask)
+    assert flash_attention.launches == before + 1 and out.requires_grad
+    got = torch.autograd.grad(out, (q, k, v), dout.to(dtype).cuda())
+    assert flash_attention.launches == before + 1   # backward: no launch
+    cq, ck, cv = (t.detach().cpu().float().requires_grad_()
+                  for t in (q, k, v))
+    g = h // kvh
+    ref = flash_attn_ref(cq, ck.repeat_interleave(g, 1),
+                         cv.repeat_interleave(g, 1), **mask)
+    want = torch.autograd.grad(ref, (cq, ck, cv), dout)
+    tol = (dict(atol=2e-4, rtol=1e-3) if dtype == torch.float32
+           else dict(atol=3e-2, rtol=3e-2))
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        torch.testing.assert_close(a.cpu().float(), w, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+def test_fused_ffn_gradients_on_card(cuda, dtype, activation):
+    """The fused FFN's launch under autograd: one launch, and the CPU
+    autograd gradients of the plain version (f32 within 1e-4 relative to
+    each gradient's scale, bf16 within 3e-2)."""
+    x, wg, wu, wd = (t.detach().requires_grad_()
+                     for t in _ffn(9, 64, 256, 1024, dtype))
+    dy = torch.randn(64, 256, generator=torch.Generator().manual_seed(1))
+    before = fused_ffn.launches
+    y = ops.gated_ffn(x, wg, wu, wd, activation)
+    assert fused_ffn.launches == before + 1 and y.requires_grad
+    got = torch.autograd.grad(y, (x, wg, wu, wd), dy.to(dtype).cuda())
+    cpu = [t.detach().cpu().float().requires_grad_()
+           for t in (x, wg, wu, wd)]
+    want = torch.autograd.grad(fused_ffn_ref(*cpu, activation), cpu, dy)
+    for a, w in zip(got, want):
+        scale = float(w.abs().max())
+        rel = 1e-4 if dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(a.cpu().float(), w, atol=rel * scale,
+                                   rtol=rel)

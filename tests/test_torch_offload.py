@@ -9,7 +9,8 @@ against the JAX package's ``repro.offload``.
   JAX package's; ``execute``'s outputs are compared exactly.
 * The twin of ``tests/test_offload_execution.py``: the port's
   ``paper-backbone`` (JAX weights brought across by the bridge) run as
-  two stages cut where the port's placer cuts, with a copy between them,
+  two ``apply_stack`` stages cut where the port's placer cuts, with a
+  copy between them,
   against the JAX package's ``forward`` (within the JAX test's 2 %).
 """
 import dataclasses
@@ -28,8 +29,8 @@ from repro.models import forward as j_forward
 from repro.models import init_params as j_init_params
 import repro_torch.offload as T
 from repro_torch.configs import get_config
+from repro_torch.models import apply_stack
 from repro_torch.models import layers as tl
-from repro_torch.models import model as tm
 from repro_torch.models.runtime import DEFAULT_OPTIONS
 from repro_torch.weights import params_from_numpy
 
@@ -288,8 +289,9 @@ def test_execute_takes_cpu_tensors():
 # ------------------------------- twin of tests/test_offload_execution ----
 def test_offloaded_stages_execute_equivalently():
     """The placer's cut, applied to the port's model: layers before the
-    cut run as one stage, their output is copied (the offload transfer),
-    and the rest runs as a second stage.  The logits must agree with the
+    cut run as one stage through ``apply_stack`` on their slice of the
+    stacked weights, their output is copied (the offload transfer), and
+    the rest runs as a second stage.  The logits must agree with the
     JAX ``forward`` within the JAX test's 2 %, and the cut with the JAX
     placer's."""
     kw = dict(num_layers=4, d_model=64, num_heads=4, num_kv_heads=4,
@@ -323,11 +325,10 @@ def test_offloaded_stages_execute_equivalently():
         jax.tree_util.tree_map(np.asarray, jparams), "cpu"), torch.bfloat16)
     x = tl.embed_lookup(params["embed"], torch.from_numpy(tokens)).to(
         torch.bfloat16)
-    for stage in (range(cut), range(cut, cfg.num_layers)):
+    for lo, hi in ((0, cut), (cut, cfg.num_layers)):
         x = x.clone()                           # the offload transfer
-        for j in stage:
-            x, _, _ = tm._attn_prefill_kv(
-                tl.layer_slice(params["layers"], j), x, cfg, DEFAULT_OPTIONS)
+        stage = tl.tree_map(lambda a: a[lo:hi], params["layers"])
+        x, _ = apply_stack(stage, x, cfg, DEFAULT_OPTIONS)
     x = tl.rms_norm(x, params["final_norm"], cfg.norm_eps)
     out = tl.mask_padded_logits_raw(tl.unembed(params["embed"], x),
                                     cfg.vocab_size).float().numpy()

@@ -56,7 +56,11 @@ def test_import_never_loads_jax():
                          text=True, check=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=src))
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(_submodules()) >= 25
+    assert len(_submodules()) >= 40
+    # the adaptation loop's packages are among those imported
+    assert {"repro_torch.core", "repro_torch.core.middleware",
+            "repro_torch.elastic", "repro_torch.elastic.tta",
+            "repro_torch.optim"} <= set(_submodules())
 
 
 def test_no_file_of_the_port_names_the_jax_package():
