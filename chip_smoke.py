@@ -92,6 +92,30 @@ Phases (any failure exits non-zero):
    ``H100_SXM`` estimates are ranked against the card's forward times.
    Phase 1 reads the idle card's power draw, which ``H100_SXM.idle_w``
    takes.
+7. crowd — the fleet (``repro_torch.fleet``, ``faults``, ``obs``) with
+   engine-backed members on the card, full-width ``paper-backbone``.
+   K1, K2 and K3 first against their plain versions at this phase's
+   shapes.  7a, in f32: the chaos suite's fleet (a loaded phone, two
+   same-site helpers, a WAN server; placement and failure detection
+   on); helper 1 serves 8 requests of 100-250 tokens x 64 new tokens
+   through a paged engine (4 slots, f32 pool, block 16) and crashes
+   after two steps; the detector evicts it and its in-flight requests
+   freeze and thaw on helper 2's batched engine, its waiting ones move.
+   Asserts one eviction, migrations = frozen + waiting, thaws = frozen,
+   no re-prefill, every budget, the greedy streams equal to an unfaulted
+   batched engine on the card and to the port's plain path on the CPU
+   (the CPU's top-2 logit margins along the streams are logged), and a
+   trace that passes ``tools/check_trace.py``.  7b, in bf16: a
+   five-device crowd (``build_fleet(5)``, placement, a flight recorder,
+   an SLO tracker) whose light member serves through a paged int8 engine
+   and a heavy member through a batched one, 16 requests each, for 16 s
+   of fleet time: wakes per device, engine steps per wake, the ENGINE-
+   and SIMULATED-channel tier calibrations, the report's MAPE, each
+   engine's median host-clock step, a wake's host time split into engine
+   steps, prefill and the loop (from the trace), the attribution's
+   dominant layer per device and the flight recorder's dumps.  Both fleet
+   runs hold K1, K2 and K3 exactly to the engines' decode steps and
+   prefill calls.
 
 The line before the last is a JSON object listing every kernel with its
 launches on its main path and its times (K4 and K5 as their four entry
@@ -1061,20 +1085,23 @@ def check_counts(engines, what):
     steps K3; a dense prefill call runs K2 and K3 per layer, an SSM
     prefill call K6.  A step replayed as a CUDA graph counts the launches
     captured in its graph.  Every kernel of the path must have launched,
-    and no other.  Returns ``{kernel name: launches}``."""
-    eng = engines[0]
-    layers = eng.cfg.num_layers
+    and no other; engines of other modes add their own.  Returns
+    ``{kernel name: launches}``."""
+    layers = engines[0].cfg.num_layers
     decode = sum(e.stats.decode_calls for e in engines)
     prefill = sum(e.stats.prefill_calls for e in engines)
     counts = {name: fn.launches for name, fn in _kernel_fns().items()}
     expect = dict.fromkeys(counts, 0)
-    if eng.cfg.arch_type == "ssm":
-        expect["ssd_scan"] = prefill * layers
-    else:
-        expect["flash_attention"] = prefill * layers
-        expect["fused_ffn"] = (prefill + decode) * layers
-        if eng.decode_mode == "paged" and eng.opts.paged_kernel:
-            expect["paged_decode_attention"] = decode * layers
+    for e in engines:
+        n = e.cfg.num_layers
+        d, p = e.stats.decode_calls, e.stats.prefill_calls
+        if e.cfg.arch_type == "ssm":
+            expect["ssd_scan"] += p * n
+        else:
+            expect["flash_attention"] += p * n
+            expect["fused_ffn"] += (p + d) * n
+            if e.decode_mode == "paged" and e.opts.paged_kernel:
+                expect["paged_decode_attention"] += d * n
     if counts != expect:
         raise AssertionError(f"{what}: launches {counts}, expected {expect} "
                              f"({decode} decode steps, {prefill} prefill "
@@ -2279,6 +2306,345 @@ def phase_adapt(torch, smi, idle_w):
     return {k: n for k, n in counts.items() if n}
 
 
+
+# ---------------------------------------------------------------- phase 7
+def check_crowd_counts(engines, what):
+    """``check_counts`` over a fleet run's engines (K1 from the paged
+    block-table engines' decode steps, K2/K3 from every engine's), where
+    K1, K2 and K3 must each have launched."""
+    counts = check_counts(engines, what)
+    ran = ("paged_decode_attention", "flash_attention", "fused_ffn")
+    if not all(counts.get(k) for k in ran):
+        raise AssertionError(f"{what}: K1, K2 or K3 did not run: {counts}")
+    steps = {e.pid: (e.decode_mode, e.stats.decode_calls,
+                     e.stats.prefill_calls) for e in engines}
+    log(f"{what}: (mode, decode steps, prefill calls) by member {steps}")
+    return counts
+
+
+def check_trace_file(path, layers):
+    """``tools/check_trace.py`` (a tool of the repo that imports nothing
+    of either package) over an exported trace."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", ROOT / "tools" / "check_trace.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    if tool.check(Path(path), require_layers=layers) != 0:
+        raise AssertionError(f"{path} fails tools/check_trace.py")
+
+
+def crowd_kernels_alone(torch):
+    """K1, K2 and K3 against their plain versions at the shapes phase 7
+    gives them, before its counted runs: f32 (7a: 4 slots of 512-token
+    tables over an f32 pool, a prefill burst of 4 x 256, the FFN at M 4
+    and 1024) and bf16 (7b: 8 slots over an int8 pool, a burst of 8 x 256,
+    the FFN at M 8 and 2048)."""
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.kernels.ref import fused_ffn_ref, paged_decode_attn_ref
+    gen = torch.Generator().manual_seed(77)
+    worst = {}
+    for dtype, slots, pool, burst in (("float32", 4, "float32", 4),
+                                      ("bfloat16", 8, "int8", 8)):
+        args, sc = make_case(torch, gen, slots=slots, heads=8, kvh=8, hd=32,
+                             bs=16, mb=32, pool_dtype=pool, q_dtype=dtype,
+                             pos_kind="short")
+        errs = [check_close("paged_decode_attention", k1_repeated(
+            torch, args, sc, 0), paged_decode_attn_ref(*args, **sc),
+            TOL[dtype], f"phase 7, {slots} slots, {pool} pool")]
+        q, k, v = flash_case(torch, gen, burst, 8, 8, 256, 32, dtype)
+        errs.append(check_close("flash_attention", flash_attention(q, k, v),
+                                flash_plain(q, k, v), TOL[dtype],
+                                f"phase 7, {burst} x 256"))
+        for m in (slots, burst * 256):
+            x, wg, wu, wd = ffn_case(torch, gen, m, 256, 1024, dtype)
+            errs.append(check_close("fused_ffn", fused_ffn(x, wg, wu, wd),
+                                    fused_ffn_ref(x, wg, wu, wd),
+                                    FFN_TOL[dtype], f"phase 7, M {m}"))
+        worst[dtype] = max(errs)
+    log("phase 7 shapes: K1, K2, K3 == plain versions, max_abs_err "
+        + ", ".join(f"{d} {e:.3g}" for d, e in worst.items()))
+
+
+def crowd_prompts(n, seed, vocab, lo, hi):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).astype(
+        np.int32) for _ in range(n)]
+
+
+def greedy_requests(prompts, new_tokens, rid_base=0):
+    from repro_torch.serving import Request, SamplingOpts
+    return [Request(rid=rid_base + i, prompt=p, max_new_tokens=new_tokens,
+                    sampling=SamplingOpts(temperature=0.0))
+            for i, p in enumerate(prompts)]
+
+
+def stream_margins(torch, params, cfg, prompts, streams):
+    """The smallest top-2 logit margin along each greedy stream, from one
+    dense prefill of prompt + stream on the CPU: a near-tie would show
+    here before it flips a token."""
+    import numpy as np
+    from repro_torch.models.model import init_cache, prefill
+    out = []
+    for p, s in zip(prompts, streams):
+        toks = np.concatenate([p, np.asarray(s[:-1], np.int32)])
+        t = torch.as_tensor(toks, dtype=torch.int32)[None]
+        logits, _ = prefill(params, cfg, t,
+                            init_cache(cfg, 1, t.shape[1], device="cpu"))
+        top = torch.topk(logits[0, len(p) - 1:, :cfg.vocab_size].float(),
+                         2).values
+        out.append(float((top[:, 0] - top[:, 1]).min()))
+    return out
+
+
+def phase_crowd(torch, smi):
+    """The crowd on the card: 7a, a crash on an engine-backed helper whose
+    in-flight requests migrate to a peer (f32, streams exact against an
+    unfaulted card run and the CPU); 7b, a five-device crowd with two
+    engine-backed members (bf16), its telemetry, calibrations, report,
+    attribution and flight recorder.  Returns ``{kernel name:
+    launches}`` over both fleet runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.monitor import ResourceContext, constant_trace
+    from repro_torch.faults import (CRASH, DetectorConfig, FaultInjector,
+                                    FaultSpec, summarize_faults)
+    from repro_torch.models import init_params
+    from repro_torch.models.configs import InputShape
+    from repro_torch.models.runtime import RuntimeOptions
+    from repro_torch.obs import LAYERS, TraceRecorder, write_trace
+    from repro_torch.fleet import FleetController, make_device
+    from repro_torch.serving import CompileCache, ServingEngine
+    t_phase = time.perf_counter()
+    crowd_kernels_alone(torch)
+    traces = ROOT / "build" / "traces"
+    traces.mkdir(parents=True, exist_ok=True)
+    cfg = get_config("paper-backbone")
+    totals = {}
+
+    # --- 7a: migration under a crash, f32 ------------------------------
+    cfg32 = cfg.with_updates(activation_dtype="float32")
+    params32 = init_params(cfg32, seed=0, device="cuda")
+    f32 = RuntimeOptions(kv_cache_dtype="float32")
+    prompts = crowd_prompts(8, 70, cfg.vocab_size, 100, 250)
+    new_tokens = 64
+    # the chaos suite's fleet: a loaded phone, two same-site helpers, a
+    # WAN server
+    fleet = [make_device("pixel_6_cpu", 0, site="home"),
+             make_device("jetson_agx_orin", 0, site="home"),
+             make_device("jetson_agx_orin", 1, site="home"),
+             make_device("edge_server_a100", 0, site="dc")]
+    phone, src_id, dst_id = (d.device_id for d in fleet[:3])
+    loaded = ResourceContext(cpu_temp_derate=0.45, competing_procs=4)
+
+    def trace_factory(spec, n):
+        return constant_trace(loaded if spec.device_id == phone
+                              else ResourceContext(), n)
+
+    rec = TraceRecorder()
+    ctl = FleetController(fleet, cfg, InputShape("chaos_t", 256, 4,
+                                                 "prefill"),
+                          trace_ticks=4000, trace_factory=trace_factory,
+                          placement=True, allow_offload=False,
+                          detector_config=DetectorConfig(
+                              suspect_after=2.5, dead_after=5.0),
+                          warmup_ticks=4, recalibrate_every=2,
+                          recorder=rec)
+    ctl.set_sla(phone, 0.5)
+    zero_counts()
+    t0 = time.perf_counter()
+    src = ctl.build_engine(src_id, params32, cfg=cfg32, slots=4,
+                           max_seq=512, decode_mode="paged", block_size=16,
+                           opts=f32.replace(paged_kernel=True),
+                           steps_per_tick=1, device="cuda")
+    dst = ctl.build_engine(dst_id, params32, cfg=cfg32, slots=4,
+                           max_seq=512, opts=f32, steps_per_tick=4,
+                           device="cuda")
+    reqs = greedy_requests(prompts, new_tokens)
+    for r in reqs:
+        src.submit(r)
+    src.step()
+    src.step()
+    waiting = len(src._queue)
+    FaultInjector(ctl, [FaultSpec(CRASH, src_id,
+                                  at_s=ctl.now_s + 0.5)]).arm()
+    ctl.run_for(20.0)
+    dst.drain()
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    totals.update(check_crowd_counts([src, dst], "7a fleet run (crash, "
+                               "migration)"))
+    evicts = [e for e in rec.events if e.name == "fleet.evict"
+              and e.args["device"] == src_id]
+    frozen = src.stats.freezes
+    summ = summarize_faults(rec.events)
+    check_budgets(dst, reqs, new_tokens)
+    if len(evicts) != 1:
+        raise AssertionError(f"7a: {len(evicts)} evictions of {src_id}")
+    if ctl.migrations != frozen + waiting or not frozen:
+        raise AssertionError(f"7a: {ctl.migrations} migrations, {frozen} "
+                             f"frozen + {waiting} waiting")
+    if dst.stats.thaws != frozen:
+        raise AssertionError(f"7a: {dst.stats.thaws} thaws of {frozen} "
+                             "frozen")
+    if summ["migrated_reprefills"] != 0:
+        raise AssertionError(f"7a: re-prefills {summ}")
+    path = traces / "crowd_migration.json"
+    write_trace(rec, str(path))
+    check_trace_file(path, LAYERS)
+    streams = [tuple(r.generated) for r in reqs]
+    # the same requests, unfaulted: a batched engine on the card, and the
+    # port's plain path on the CPU
+    want = {}
+    params_cpu = init_params(cfg32, seed=0, device="cpu")
+    for device, p in (("cuda", params32), ("cpu", params_cpu)):
+        eng = ServingEngine(cfg32, p, slots=4, max_seq=512, opts=f32,
+                            compile_cache=CompileCache(), device=device)
+        base = greedy_requests(prompts, new_tokens)
+        for r in base:
+            eng.submit(r)
+        eng.drain()
+        want[device] = [tuple(r.generated) for r in base]
+    margins = stream_margins(torch, params_cpu, cfg32, prompts,
+                             want["cpu"])
+    log(f"7a: CPU top-2 logit margins along the 8 streams: min "
+        f"{min(margins):.4g}, per stream "
+        + ", ".join(f"{m:.3g}" for m in margins))
+    for label, other in (("unfaulted card run", want["cuda"]),
+                         ("CPU plain path", want["cpu"])):
+        if streams != other:
+            diff = [i for i, (a, b) in enumerate(zip(streams, other))
+                    if a != b]
+            raise AssertionError(f"7a: migrated streams differ from the "
+                                 f"{label} on requests {diff}")
+    [mig] = [e.args for e in rec.events if e.name == "fleet.migrate"]
+    log(f"7a on {smi}: {src_id} crashed at fleet time "
+        f"{evicts[0].sim_s:.2f} s (evicted), {frozen} frozen + {waiting} "
+        f"waiting = {ctl.migrations} migrations to {dst_id} "
+        f"(zero-reprefill {sorted(mig['zero_reprefill'])}, fallback "
+        f"{mig['fallback']}, {mig['recovered_tokens']} tokens carried), "
+        f"thaws {dst.stats.thaws}, prefills {dst.stats.prefills}, "
+        f"re-prefills {summ['migrated_reprefills']}; 8 x {new_tokens} "
+        f"greedy tokens == the unfaulted card run == the CPU; "
+        f"{wall_a:.2f} s host, {ctl.wakes} wakes; trace "
+        f"{len(rec.events)} events, passes tools/check_trace.py")
+
+    # --- 7b: a crowd run, bf16 -----------------------------------------
+    from repro_torch.fleet import (CHANNELS, ENGINE, SIMULATED, TIERS,
+                                   build_fleet, fleet_report)
+    from repro_torch.obs import (FlightRecorder, SLOClass, SLOTracker,
+                                 attribute_fleet, spans)
+    params = init_params(cfg, seed=0, device="cuda")
+    fleet = build_fleet(5, seed=0)
+    tiers = {d.device_id: d.tier for d in fleet}
+    light = next(d.device_id for d in fleet if d.tier == "light")
+    heavy = next(d.device_id for d in fleet if d.tier == "heavy")
+    flight = FlightRecorder(capacity=1 << 18)
+    slo = SLOTracker(SLOClass(name="interactive", ttft_p95_s=1.0,
+                              tpot_p95_s=0.05), window_s=2.0)
+    ctl = FleetController(fleet, cfg, InputShape("crowd", 128, 2, "decode"),
+                          trace_ticks=80, warmup_ticks=4, placement=True,
+                          recorder=flight, slo=slo)
+    zero_counts()
+    t0 = time.perf_counter()
+    engines = {
+        light: ctl.build_engine(light, params, cfg=cfg, slots=8,
+                                max_seq=512, decode_mode="paged",
+                                block_size=16, steps_per_tick=3,
+                                opts=RuntimeOptions(paged_kernel=True,
+                                                    kv_dtype="int8"),
+                                device="cuda"),
+        heavy: ctl.build_engine(heavy, params, cfg=cfg, slots=8,
+                                max_seq=512, steps_per_tick=3,
+                                device="cuda")}
+    served = {}
+    for i, (did, eng) in enumerate(engines.items()):
+        served[did] = greedy_requests(
+            crowd_prompts(16, 80 + i, cfg.vocab_size, 8, 250), 48,
+            rid_base=100 * i)
+        for r in served[did]:
+            eng.submit(r)
+    for eng in engines.values():
+        eng.step()                      # warm: the first step captures
+    for did in engines:
+        ctl.set_sla(did, 5e-3)          # 5 ms a step, externally given
+    ctl.run_for(16.0)
+    wall_b = time.perf_counter() - t0
+    wakes = dict(ctl.tick_counts)
+    steps = {did: eng.stats.steps for did, eng in engines.items()}
+    for eng in engines.values():
+        eng.drain()
+    torch.cuda.synchronize()
+    totals_b = check_crowd_counts(list(engines.values()), "7b crowd run")
+    for k, n in totals_b.items():
+        totals[k] = totals.get(k, 0) + n
+    for did, eng in engines.items():
+        check_budgets(eng, served[did], 48)
+    log(f"7b on {smi}: {wall_b:.2f} s host for {ctl.now_s:.1f} s of fleet "
+        f"time, {ctl.wakes} wakes")
+    for did in sorted(wakes, key=lambda d: -wakes[d]):
+        extra = ""
+        if did in engines:
+            extra = (f", {steps[did]} engine steps in the run = "
+                     f"{steps[did] / max(wakes[did], 1):.2f} a wake")
+        log(f"  {did:24s} {tiers[did]:6s} {wakes[did]:3d} wakes{extra}")
+    log("7b tier calibrations (latency_scale, latency_bias_s, samples):")
+    for tier in TIERS:
+        for chan in CHANNELS:
+            c = ctl.telemetry.calibration_for_tier(tier, chan)
+            if c.samples:
+                log(f"  {tier:6s} {chan:9s} x{c.latency_scale:.6g} "
+                    f"{c.latency_bias_s:+.6g} s  energy "
+                    f"x{c.energy_scale:.6g}  ({c.samples} samples)")
+    if not any(ctl.telemetry.calibration_for_tier(tiers[d], ENGINE).samples
+               for d in engines):
+        raise AssertionError("7b: no ENGINE-channel calibration")
+    if not ctl.telemetry.calibration_for_tier("medium", SIMULATED).samples:
+        raise AssertionError("7b: no SIMULATED calibration")
+    log("7b report:\n" + fleet_report(ctl).render())
+    for did, eng in engines.items():
+        st = sorted(eng.step_times)
+        log(f"  engine {did} ({eng.decode_mode}): median host-clock step "
+            f"{1e3 * st[len(st) // 2]:.3f} ms over {len(st)} steps, ewma "
+            f"{1e3 * eng.step_time_ewma_s:.3f} ms, graph captures "
+            f"{captures(eng)}")
+    # where a wake's host time goes, from the trace
+    for did in engines:
+        ws = spans(flight, name="fleet.wake", pid=did)
+        inner = {name: spans(flight, name=name, pid=did)
+                 for name in ("engine.step", "engine.prefill")}
+        wake_ms = 1e3 * sum(s.wall_dur_s for s in ws)
+        parts = {name: 1e3 * sum(s.wall_dur_s for s in v
+                                 if any(w.wall_begin_s <= s.wall_begin_s
+                                        <= w.wall_end_s for w in ws))
+                 for name, v in inner.items()}
+        n = max(len(ws), 1)
+        loop_ms = wake_ms - sum(parts.values())
+        log(f"  {did}: {len(ws)} wakes, host ms a wake {wake_ms / n:.3f} = "
+            f"engine steps {parts['engine.step'] / n:.3f} + prefill "
+            f"{parts['engine.prefill'] / n:.3f} + loop decision, "
+            f"telemetry and placement {loop_ms / n:.3f}")
+    fa = attribute_fleet(flight, tiers=tiers)
+    for pid, a in fa.per_device.items():
+        log(f"  attribution {pid}: {a.requests} requests, dominant layer "
+            f"{a.dominant_layer} ({a.dominant}), tail {a.tail_dominant_layer} "
+            f"({a.tail_dominant})")
+    dumps = flight.flush()
+    pages = [e for e in flight.events if e.name == "slo.page"]
+    log(f"7b SLO: {len(pages)} pages, pressure {slo.pressure:.3g}, "
+        f"{len(dumps)} flight dumps")
+    paths = flight.write_dumps(str(traces / "crowd_flight"))
+    for d, path in zip(dumps, paths):
+        check_trace_file(path, ())
+        log(f"  dump {d['anomaly']} on {d['pid']} at {d['ts_s']:.2f} s: "
+            f"{d['events']} events, passes tools/check_trace.py")
+    if pages and not dumps:
+        raise AssertionError("7b: the SLO paged and the flight recorder "
+                             "dumped nothing")
+    log(f"crowd phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> int:
     import torch
     smi, idle_w = phase_device(torch)
@@ -2292,6 +2658,8 @@ def main() -> int:
     launches.update(phase_engine(torch, smi))
     phase_card_vs_cpu(torch)
     for k, n in phase_adapt(torch, smi, idle_w).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in phase_crowd(torch, smi).items():
         launches[k] = launches.get(k, 0) + n
     for k in kernels:
         k["launches"] = launches[k["name"]]

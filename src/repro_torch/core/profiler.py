@@ -70,11 +70,10 @@ class Calibration:
     """Back-end→front-end feedback: an affine correction mapping the
     analytical Eq.(1)/(2) estimates onto *observed* step measurements.
 
-    Produced by the fleet's telemetry (``fleet/telemetry.py``, not ported
-    yet) from runtime measurements and installed into the
-    profiler/optimizer (the loop the paper centers on:
-    "feeding back runtime performance from the back-end level to the
-    front-end level optimization decision")."""
+    Produced by :class:`repro_torch.fleet.telemetry.TelemetryStore` from
+    runtime measurements and installed into the profiler/optimizer (the
+    loop the paper centers on: "feeding back runtime performance from the
+    back-end level to the front-end level optimization decision")."""
     latency_scale: float = 1.0
     latency_bias_s: float = 0.0
     energy_scale: float = 1.0

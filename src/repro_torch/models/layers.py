@@ -181,6 +181,15 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def tree_leaves(tree):
+    """The leaves of a nested dict, depth first in key order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
 def layer_slice(stack: Params, j: int) -> Params:
     """Layer ``j`` of a stacked per-layer parameter dict."""
     return {k: layer_slice(v, j) if isinstance(v, dict) else v[j]

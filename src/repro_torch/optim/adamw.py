@@ -9,7 +9,7 @@ from typing import Any, NamedTuple, Tuple, Union
 
 import torch
 
-from ..models.layers import tree_map
+from ..models.layers import tree_leaves, tree_map
 
 Params = Any
 
@@ -30,26 +30,18 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def init(params: Params) -> AdamWState:
     def zeros(p):
         return torch.zeros_like(p, dtype=torch.float32) \
             if p.is_floating_point() else torch.zeros_like(p)
     step = torch.zeros((), dtype=torch.int32,
-                       device=next(_leaves(params)).device)
+                       device=next(tree_leaves(params)).device)
     return AdamWState(step=step, m=tree_map(zeros, params),
                       v=tree_map(zeros, params))
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    sq = [g.float().square().sum() for g in _leaves(tree)
+    sq = [g.float().square().sum() for g in tree_leaves(tree)
           if g.is_floating_point()]
     return torch.sqrt(sum(sq))
 

@@ -883,3 +883,77 @@ def test_fused_ffn_gradients_on_card(cuda, dtype, activation):
         rel = 1e-4 if dtype == torch.float32 else 3e-2
         torch.testing.assert_close(a.cpu().float(), w, atol=rel * scale,
                                    rtol=rel)
+
+
+@pytest.mark.gpu
+def test_crowd_migration_on_card(cuda):
+    """The chaos suite's crash migration on the card, tiny paper-backbone
+    in f32: a paged engine-backed helper crashes, the detector evicts it,
+    its decoding requests freeze and thaw on a batched peer and its
+    waiting ones move.  Streams equal an unfaulted engine's on the card;
+    thaws equal freezes; no re-prefill; K1 ran on the paged helper."""
+    from repro_torch.core.monitor import ResourceContext, constant_trace
+    from repro_torch.faults import (CRASH, DetectorConfig, FaultInjector,
+                                    FaultSpec, summarize_faults)
+    from repro_torch.fleet import FleetController, make_device
+    from repro_torch.models.configs import InputShape
+    from repro_torch.obs import TraceRecorder
+    cfg = get_config("paper-backbone").with_updates(
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=300, activation_dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    f32 = RuntimeOptions(kv_cache_dtype="float32")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 300, 5 + i).astype(np.int32)
+               for i in range(4)]
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=30,
+                        sampling=SamplingOpts(temperature=0.0))
+                for i, p in enumerate(prompts)]
+
+    base = ServingEngine(cfg, params, slots=2, max_seq=64, opts=f32,
+                         compile_cache=CompileCache(), device="cuda")
+    want = requests()
+    for r in want:
+        base.submit(r)
+    base.drain()
+    fleet = [make_device("pixel_6_cpu", 0, site="home"),
+             make_device("jetson_agx_orin", 0, site="home"),
+             make_device("jetson_agx_orin", 1, site="home"),
+             make_device("edge_server_a100", 0, site="dc")]
+    loaded = ResourceContext(cpu_temp_derate=0.45, competing_procs=4)
+    rec = TraceRecorder()
+    ctl = FleetController(
+        fleet, get_config("paper-backbone"),
+        InputShape("chaos_t", 256, 4, "prefill"), trace_ticks=4000,
+        trace_factory=lambda spec, n: constant_trace(
+            loaded if spec.device_id == "pixel_6_cpu#0"
+            else ResourceContext(), n),
+        placement=True, allow_offload=False, warmup_ticks=4,
+        detector_config=DetectorConfig(suspect_after=2.5, dead_after=5.0),
+        recorder=rec)
+    ctl.set_sla("pixel_6_cpu#0", 0.5)
+    src = ctl.build_engine("jetson_agx_orin#0", params, cfg=cfg, slots=2,
+                           max_seq=64, decode_mode="paged",
+                           opts=f32.replace(paged_kernel=True),
+                           steps_per_tick=1)
+    dst = ctl.build_engine("jetson_agx_orin#1", params, cfg=cfg, slots=2,
+                           max_seq=64, opts=f32, steps_per_tick=4)
+    reqs = requests()
+    for r in reqs:
+        src.submit(r)
+    k1 = paged_decode_attention.launches
+    src.step()
+    src.step()
+    FaultInjector(ctl, [FaultSpec(CRASH, "jetson_agx_orin#0",
+                                  at_s=ctl.now_s + 0.5)]).arm()
+    ctl.run_for(20.0)
+    dst.drain()
+    assert [tuple(r.generated) for r in reqs] == \
+        [tuple(r.generated) for r in want]
+    assert src.stats.freezes == 2 and dst.stats.thaws == 2
+    assert ctl.migrations == 4
+    assert summarize_faults(rec.events)["migrated_reprefills"] == 0
+    assert paged_decode_attention.launches - k1 == \
+        src.stats.decode_calls * cfg.num_layers > 0

@@ -24,6 +24,7 @@ from repro.serving.paging import BlockPool as JBlockPool
 from repro.serving.paging import PrefixCache as JPrefixCache
 from repro.serving.paging import block_hash_chain as j_hash_chain
 from repro.serving.sampling import request_key as j_request_key
+from repro_torch.fleet import FleetController
 from repro_torch.kernels import _build
 from repro_torch.models.model import init_paged_pool
 from repro_torch.models.transformer import init_params
@@ -56,11 +57,19 @@ def test_import_never_loads_jax():
                          text=True, check=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=src))
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(_submodules()) >= 40
-    # the adaptation loop's packages are among those imported
+    assert len(_submodules()) >= 89
+    # the adaptation loop's and the crowd's packages are among those
+    # imported
     assert {"repro_torch.core", "repro_torch.core.middleware",
             "repro_torch.elastic", "repro_torch.elastic.tta",
-            "repro_torch.optim"} <= set(_submodules())
+            "repro_torch.optim",
+            "repro_torch.fleet", "repro_torch.fleet.controller",
+            "repro_torch.fleet.registry", "repro_torch.fleet.telemetry",
+            "repro_torch.fleet.report", "repro_torch.fleet.placement",
+            "repro_torch.fleet.placement.placer", "repro_torch.faults",
+            "repro_torch.faults.injector", "repro_torch.obs.analysis",
+            "repro_torch.obs.flight", "repro_torch.obs.slo"} \
+        <= set(_submodules())
 
 
 def test_no_file_of_the_port_names_the_jax_package():
@@ -74,7 +83,8 @@ def test_no_file_of_the_port_names_the_jax_package():
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (ServingEngine.__init__, init_params, init_paged_pool):
+    for fn in (ServingEngine.__init__, init_params, init_paged_pool,
+               FleetController.build_engine):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
