@@ -117,6 +117,30 @@ Phases (any failure exits non-zero):
    runs hold K1, K2 and K3 exactly to the engines' decode steps and
    prefill calls.
 
+8. experts — the MoE family (``repro_torch.models.moe``).  8.0: K1 at
+   olmoe-1b-7b's decode shape (8 slots, 16 heads of 128, int8 pool,
+   block 16, mb 64; ragged positions and full tails) and at group 4, K2
+   at its prefill shape (bf16, hd 128, causal, 8 x 1024) and the reduced
+   configs' f32 shapes of 8b, K3 at llama4's shared expert, each against
+   its plain version and repeating bit for bit; K1 and K2 at hd 128
+   timed beside their bounds and SDPA.  8a, bf16: full-width olmoe-1b-7b
+   (6.8 B parameters, 64 experts top-8; weights from seed 0, the init
+   timed) served paged int8 (8 slots, max_seq 1024, block 16) in two
+   waves of 16 requests of 8-250 tokens x 64 new tokens: budgets, K1 16
+   per decode step and K2 16 per prefill call exactly, no K3 (no dense
+   FFN), no new program on the second wave, TTFT per bucket; the MoE
+   prefill block, the dense-dispatch decode block and a whole decode step
+   each repeat bit for bit (the combine has no atomics); the
+   graph-replayed step beside the eager step on clones (tokens equal,
+   host clock, device time, idle share), the eager step's device time
+   split into the expert products, K1 and the rest, beside the step's
+   byte bound (every weight read once).  8b, f32, card == CPU greedy
+   streams and prefill calls: reduced olmoe (16 experts top-8, drops at
+   capacity factor 1.0) paged int8, reduced llama4-scout (top-1, shared
+   expert through K3) paged over an f32 pool, reduced mixtral-8x7b
+   (d_model 2048: top-2 of 4, GQA 16/8) batched; exact K1/K2/K3 launches
+   and the CPU's smallest top-2 margins along each stream.
+
 The line before the last is a JSON object listing every kernel with its
 launches on its main path and its times (K4 and K5 as their four entry
 points: act_quant, act_dequant, act_quant4, act_dequant4); the last
@@ -1099,7 +1123,9 @@ def check_counts(engines, what):
             expect["ssd_scan"] += p * n
         else:
             expect["flash_attention"] += p * n
-            expect["fused_ffn"] += (p + d) * n
+            # an MoE block runs K3 only for a shared expert
+            if e.cfg.arch_type != "moe" or e.cfg.moe_shared_expert:
+                expect["fused_ffn"] += (p + d) * n
             if e.decode_mode == "paged" and e.opts.paged_kernel:
                 expect["paged_decode_attention"] += d * n
     if counts != expect:
@@ -1220,6 +1246,51 @@ def clone_tree(tree):
             for k, v in tree.items()}
 
 
+def fill_slots(eng, new_tokens):
+    """Fill every slot of a fresh engine with a greedy request, then take
+    three steps (admission and warm-up, capture, replay)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(21)
+    for i in range(eng.slots):
+        eng.submit(Request(rid=5000 + i, prompt=rng.integers(
+            0, eng.cfg.vocab_size, 24 + 16 * i).astype(np.int32),
+            max_new_tokens=new_tokens))
+    for _ in range(3):
+        eng.step()
+
+
+def eager_on_clones(torch, eng):
+    """The engine's next decode step, run eagerly by its step function
+    on clones of the engine's state (the next step's tables grown
+    already).  Returns the step (each call ends in a device->host copy of
+    the tokens and positions, which it returns, and feeds its tokens to
+    the next call) and the cloned state."""
+    paged = eng.decode_mode == "paged"
+    if paged:
+        eng._ensure_tail_blocks()
+        fn = eng._paged_decode_fn()
+        state = {"cache": clone_tree(eng._cache),
+                 "pool": clone_tree(eng._pool)}
+        tables = torch.from_numpy(eng.block_pool.tables.copy()).to(
+            eng.device)
+    else:
+        fn = eng._programs.decode_greedy
+        state = {"cache": clone_tree(eng._cache)}
+    tokens = torch.tensor([r.generated[-1] for r in eng._active],
+                          dtype=torch.int32, device=eng.device)
+
+    def eager_step():
+        out = (fn(eng.params, state["cache"], state["pool"], tokens, tables)
+               if paged else fn(eng.params, state["cache"], tokens))
+        host = torch.stack([out[0].to(torch.int32),
+                            out[1].to(torch.int32)]).cpu()
+        tokens.copy_(out[0].to(torch.int32))
+        return host
+
+    return eager_step, state
+
+
 def graph_vs_eager(torch, eng, what, smi, steps=16):
     """The steady decode step replayed as a CUDA graph beside the same
     step run eagerly.  ``eng`` is a fresh engine: its slots fill with
@@ -1230,36 +1301,10 @@ def graph_vs_eager(torch, eng, what, smi, steps=16):
     of the tokens) are timed on the host clock, and each is profiled for
     its device time and idle share; one graph replay is also timed alone
     by CUDA events.  The engine is not used afterwards (the lone replays
-    advance its state past its bookkeeping)."""
-    import numpy as np
-    from repro_torch.serving import Request
-    rng = np.random.default_rng(21)
-    for i in range(eng.slots):
-        eng.submit(Request(rid=5000 + i, prompt=rng.integers(
-            0, eng.cfg.vocab_size, 24 + 16 * i).astype(np.int32),
-            max_new_tokens=4 * steps + 16))
-    for _ in range(3):              # admission and warm-up, capture, replay
-        eng.step()
-    paged = eng.decode_mode == "paged"
-    if paged:
-        eng._ensure_tail_blocks()   # the next step's tables, grown already
-        fn = eng._paged_decode_fn()
-        cache, pool = clone_tree(eng._cache), clone_tree(eng._pool)
-        tables = torch.from_numpy(eng.block_pool.tables.copy()).cuda()
-    else:
-        fn = eng._programs.decode_greedy
-        cache = clone_tree(eng._cache)
-    tokens = torch.tensor([r.generated[-1] for r in eng._active],
-                          dtype=torch.int32, device="cuda")
-
-    def eager_step():
-        out = (fn(eng.params, cache, pool, tokens, tables) if paged
-               else fn(eng.params, cache, tokens))
-        host = torch.stack([out[0].to(torch.int32),
-                            out[1].to(torch.int32)]).cpu()
-        tokens.copy_(out[0].to(torch.int32))
-        return host
-
+    advance its state past its bookkeeping).  Returns the graph-replayed
+    and eager host ms a step and their device ms."""
+    fill_slots(eng, 4 * steps + 16)
+    eager_step, _ = eager_on_clones(torch, eng)
     first = eager_step()[0].tolist()
     eng.step()
     replayed = [r.generated[-1] for r in eng._active]
@@ -1289,6 +1334,7 @@ def graph_vs_eager(torch, eng, what, smi, steps=16):
         f"{e_busy:.3f} ms over {e_ops:.0f} device ops, idle share "
         f"{1 - e_busy / eager_ms:.3f}); graph captures {captures(eng)}; the "
         f"replayed step's tokens equal the eager step's")
+    return graph_ms, eager_ms, g_busy, e_busy
 
 
 
@@ -1838,44 +1884,58 @@ def top2_margin(torch, params, cfg, tokens):
     return float(top[0] - top[1])
 
 
+def greedy_prompts(seed, vocab, lens):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def serve_greedy(torch, cfg, prompts, new_tokens, device, swap=None,
+                 slots=4, **engine_kw):
+    """Serve greedy requests on ``device`` from the weights of seed 0.
+    With ``swap``, the engine swaps its model after 4 steps: to the same
+    weights (``"same"``) or to weights of another seed (``"other"``).
+    Returns the streams, the engine and its weights."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import CompileCache, ServingEngine
+    params = init_params(cfg, seed=0, device=device)
+    eng = ServingEngine(cfg, params, slots=slots,
+                        compile_cache=CompileCache(), device=device,
+                        **engine_kw)
+    reqs = greedy_requests(prompts, new_tokens)
+    for r in reqs:
+        eng.submit(r)
+    if swap is not None:
+        for _ in range(4):
+            eng.step()
+        if swap == "same":
+            eng.swap_model(cfg, params, eng.opts)
+        else:
+            eng.swap_model(cfg, init_params(cfg, seed=1, device=device),
+                           eng.opts, params_version=1)
+    eng.drain()
+    return [tuple(r.generated) for r in reqs], eng, params
+
+
 def card_vs_cpu(torch, cfg, lens, new_tokens, seed, what, swap=None,
-                slots=4, **engine_kw):
+                slots=4, keep=None, **engine_kw):
     """Greedy streams of ``cfg`` (f32 activations) from the same seeded
     weights on the card and on the CPU must be equal, and so must the
     engines' prefill calls, freezes, thaws and requeues; on a stream
     mismatch the CPU's top-2 logit margin at the first differing token is
-    printed.  With ``swap``, the engine swaps its model after 4 steps: to
-    the same weights (``"same"``) or to weights of another seed
-    (``"other"``).  Returns the card's streams and counters."""
+    printed.  ``swap`` as in :func:`serve_greedy`.  The card's engine is
+    appended to ``keep`` when one is given.  Returns the card's streams
+    and counters."""
     import numpy as np
-    from repro_torch.models import init_params
-    from repro_torch.serving import (CompileCache, Request, SamplingOpts,
-                                     ServingEngine)
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+    prompts = greedy_prompts(seed, cfg.vocab_size, lens)
     streams, stats = {}, {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        params = init_params(cfg, seed=0, device=device)
-        eng = ServingEngine(cfg, params, slots=slots,
-                            compile_cache=CompileCache(), device=device,
-                            **engine_kw)
-        reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens,
-                        sampling=SamplingOpts(temperature=0.0))
-                for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
-        if swap is not None:
-            for _ in range(4):
-                eng.step()
-            if swap == "same":
-                eng.swap_model(cfg, params, eng.opts)
-            else:
-                eng.swap_model(cfg, init_params(cfg, seed=1, device=device),
-                               eng.opts, params_version=1)
-        eng.drain()
-        streams[device] = [tuple(r.generated) for r in reqs]
+        streams[device], eng, params = serve_greedy(
+            torch, cfg, prompts, new_tokens, device, swap, slots,
+            **engine_kw)
+        if device == "cuda" and keep is not None:
+            keep.append(eng)
         st = eng.stats
         stats[device] = dict(prefill_calls=st.prefill_calls,
                              freezes=st.freezes, thaws=st.thaws,
@@ -2380,18 +2440,21 @@ def greedy_requests(prompts, new_tokens, rid_base=0):
             for i, p in enumerate(prompts)]
 
 
-def stream_margins(torch, params, cfg, prompts, streams):
+def stream_margins(torch, params, cfg, prompts, streams, opts=None):
     """The smallest top-2 logit margin along each greedy stream, from one
     dense prefill of prompt + stream on the CPU: a near-tie would show
     here before it flips a token."""
     import numpy as np
     from repro_torch.models.model import init_cache, prefill
+    from repro_torch.models.runtime import DEFAULT_OPTIONS
+    opts = opts or DEFAULT_OPTIONS
     out = []
     for p, s in zip(prompts, streams):
         toks = np.concatenate([p, np.asarray(s[:-1], np.int32)])
         t = torch.as_tensor(toks, dtype=torch.int32)[None]
         logits, _ = prefill(params, cfg, t,
-                            init_cache(cfg, 1, t.shape[1], device="cpu"))
+                            init_cache(cfg, 1, t.shape[1], opts,
+                                       device="cpu"), opts)
         top = torch.topk(logits[0, len(p) - 1:, :cfg.vocab_size].float(),
                          2).values
         out.append(float((top[:, 0] - top[:, 1]).min()))
@@ -2644,6 +2707,435 @@ def phase_crowd(torch, smi):
     log(f"crowd phase: {time.perf_counter() - t_phase:.1f} s")
     return totals
 
+# ---------------------------------------------------------------- phase 8
+# (slots, heads, kv heads, pool, q dtype, mb): K1 at olmoe-1b-7b's decode
+# shape (16 heads of 128, group 1) and at group 4, bf16; the f32 shapes of
+# 8b (the reduced olmoe and llama4: 2 heads of 128, int8 and f32 pools)
+K1_EXPERT_CASES = [(8, 16, 16, "int8", "bfloat16", 64),
+                   (8, 16, 16, "bfloat16", "bfloat16", 64),
+                   (8, 16, 4, "int8", "bfloat16", 64),
+                   (8, 16, 4, "bfloat16", "bfloat16", 64),
+                   (4, 2, 2, "int8", "float32", 32),
+                   (4, 2, 2, "float32", "float32", 32)]
+# (batch, S, heads, kv heads, dtype): K2 at olmoe's prefill (bucket
+# 1024), the reduced olmoe/llama4 burst and reduced mixtral's (GQA 16/8)
+K2_EXPERT_CASES = [(8, 1024, 16, 16, "bfloat16"), (4, 256, 2, 2, "float32"),
+                   (4, 256, 16, 8, "float32")]
+
+
+def experts_kernels_alone(torch):
+    """8.0: K1, K2 and K3 against their plain versions at the shapes
+    phase 8 gives them, each repeating bit for bit; then K1 and K2 at
+    hd 128 timed beside their bounds and SDPA.  Returns the timing
+    fields for the kernels line, by kernel name."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
+    from repro_torch.kernels.ref import fused_ffn_ref, paged_decode_attn_ref
+    gen = torch.Generator().manual_seed(88)
+    worst = {}
+    n_cases = 0
+    for slots, heads, kvh, pool, q_dtype, mb in K1_EXPERT_CASES:
+        for pos_kind in ("ragged", "full_tail"):
+            args, sc = make_case(torch, gen, slots=slots, heads=heads,
+                                 kvh=kvh, hd=128, bs=16, mb=mb,
+                                 pool_dtype=pool, q_dtype=q_dtype,
+                                 pos_kind=pos_kind)
+            err = check_close(
+                "paged_decode_attention", k1_repeated(torch, args, sc, 0),
+                paged_decode_attn_ref(*args, **sc), TOL[q_dtype],
+                f"hd 128, H={heads} kvh={kvh} pool={pool} q={q_dtype} "
+                f"mb={mb} pos={pos_kind}")
+            worst["K1"] = max(worst.get("K1", 0.0), err)
+            n_cases += 1
+    for b, s_len, h, kvh, dtype in K2_EXPERT_CASES:
+        q, k, v = flash_case(torch, gen, b, h, kvh, s_len, 128, dtype)
+        out = flash_attention(q, k, v)
+        err = check_close("flash_attention", out, flash_plain(q, k, v),
+                          TOL[dtype], f"{b} x {s_len}, H={h} kvh={kvh}, "
+                          f"hd 128, {dtype}")
+        if not torch.equal(out, flash_attention(q, k, v)):
+            raise AssertionError(f"flash_attention does not repeat at "
+                                 f"{b} x {s_len}, hd 128")
+        worst["K2"] = max(worst.get("K2", 0.0), err)
+        n_cases += 1
+    # llama4's shared expert (reduced: D 256, F 384) at a decode step of
+    # 4 slots and a prefill burst of 4 x 256, f32
+    for m in (4, 1024):
+        x, wg, wu, wd = ffn_case(torch, gen, m, 256, 384, "float32")
+        out = fused_ffn(x, wg, wu, wd)
+        err = check_close("fused_ffn", out, fused_ffn_ref(x, wg, wu, wd),
+                          FFN_TOL["float32"], f"phase 8, M {m}, F 384")
+        if not torch.equal(out, fused_ffn(x, wg, wu, wd)):
+            raise AssertionError(f"fused_ffn does not repeat at M {m}")
+        worst["K3"] = max(worst.get("K3", 0.0), err)
+        n_cases += 1
+    log(f"phase 8 shapes: K1 (hd 128, groups 1 and 4), K2 (hd 128) and K3 "
+        f"== plain versions on {n_cases} cases, each repeating bit for "
+        "bit; max_abs_err " + ", ".join(f"{k} {e:.3g}"
+                                        for k, e in worst.items()))
+
+    # K1 at olmoe's serving shape: 8 slots x 16 heads of 128 over an int8
+    # pool of 16 layers, positions of the waves' decode steps (8..314)
+    args, sc = make_case(torch, gen, slots=8, heads=16, kvh=16, hd=128,
+                         bs=16, mb=64, pool_dtype="int8",
+                         q_dtype="bfloat16", pos_kind="zero", layers=16,
+                         layer=5)
+    args[4].copy_(torch.randint(8, 315, (8,), generator=gen,
+                                dtype=torch.int32))
+    k1 = dict(
+        ms=cuda_ms(torch, lambda: paged_decode_attention(*args, **sc)),
+        device_ms=device_ms(torch, lambda: paged_decode_attention(
+            *args, **sc), part="paged_decode"),
+        plain_ms=cuda_ms(torch, lambda: paged_decode_attn_ref(*args, **sc)))
+    k1["library_ms"], k1["library_device_ms"] = sdpa_yardstick(torch, args,
+                                                               sc)
+    k1["bound_ms"], k1["bound_by"] = paged_bound_ms(args, sc)
+    # K2 at olmoe's prefill bucket 1024: 8 prompts x 16 heads of 128
+    q, k, v = flash_case(torch, gen, 8, 16, 16, 1024, 128, "bfloat16")
+    pairs = flash_pairs(1024, True, 0, None) * 8 * 16
+    k2 = dict(
+        ms=cuda_ms(torch, lambda: flash_attention(q, k, v), iters=50),
+        device_ms=device_ms(torch, lambda: flash_attention(q, k, v),
+                            part="flash_attn"),
+        plain_ms=cuda_ms(torch, lambda: flash_plain(q, k, v), iters=5,
+                         warmup=2),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=50),
+        library_device_ms=device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)))
+    k2["bound_ms"], k2["bound_by"] = bound(4 * q.numel() * q.element_size(),
+                                           4 * 128 * pairs, H100_BF16_FLOPS)
+    for name, t, shape in (
+            ("paged_decode_attention", k1, "8 slots x 16 heads of 128, "
+             "group 1, int8 pool, mb 64, positions 8..314"),
+            ("flash_attention", k2, "8 x 1024 tokens, 16 heads of 128, "
+             "bf16, causal")):
+        log(f"{name} at olmoe-1b-7b's shape ({shape}): kernel_ms "
+            f"{t['ms']:.4f} device {fmt(t['device_ms'])}; plain_ms "
+            f"{t['plain_ms']:.4f}; SDPA {t['library_ms']:.4f} ms, device "
+            f"{fmt(t['library_device_ms'])}; bound_ms {t['bound_ms']:.5f} "
+            f"({t['bound_by']})")
+    return {"paged_decode_attention": {f"{k}_hd128": v for k, v in
+                                       k1.items()},
+            "flash_attention": {f"{k}_hd128": v for k, v in k2.items()}}
+
+
+def moe_repeats(torch, eng, params, cfg):
+    """The MoE blocks and a whole decode step repeat bit for bit on the
+    card: ``moe_apply`` over a prefill burst of 8 x 256 tokens and the
+    dense-dispatch ``moe_apply_decode`` over 8 slots, each with layer 0's
+    weights, and the paged step run eagerly on two clones of one engine
+    state (tokens and every pool and cache leaf equal).  Returns the
+    eager step on the first clone."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import layer_slice, tree_leaves
+    gen = torch.Generator().manual_seed(8)
+    layer = layer_slice(params["layers"], 0)["moe"]
+    x = (torch.randn(8, 256, cfg.d_model, generator=gen) * 0.5).to(
+        torch.bfloat16).cuda()
+    for what, fn in (
+            ("moe_apply (8 x 256 tokens)",
+             lambda: moe.moe_apply(layer, x, cfg)[0]),
+            ("moe_apply_decode (8 tokens)",
+             lambda: moe.moe_apply_decode(layer, x[:, 0], cfg))):
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{what} does not repeat bit for bit")
+    fill_slots(eng, 32)
+    step_a, state_a = eager_on_clones(torch, eng)
+    step_b, state_b = eager_on_clones(torch, eng)
+    toks_a, toks_b = step_a(), step_b()
+    same = torch.equal(toks_a, toks_b) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(state_a),
+                                          tree_leaves(state_b)))
+    if not same:
+        raise AssertionError("the olmoe decode step does not repeat bit for "
+                             "bit on two clones of one state")
+    log("the MoE prefill block, the dense-dispatch decode block and a whole "
+        "olmoe decode step (tokens, pool, slot cache) repeat bit for bit")
+    return step_a
+
+
+def expert_split(torch, step, cfg, reps=8):
+    """Device time of an eager decode step split into the expert products
+    (the ``matmul``s over stacked expert weights: (T, D) x (E, D, F) and
+    (T, E*F) x (E*F, D)), K1 and the rest, from one profile with shapes
+    recorded.  Returns ``(busy, experts, K1)`` in ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+    e, f = cfg.num_experts, cfg.d_ff
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+
+    def expert_product(ev):
+        shapes = ev.input_shapes or []
+        return ev.name == "aten::matmul" and len(shapes) >= 2 and (
+            (len(shapes[1]) == 3 and shapes[1][0] == e)
+            or (shapes[0] and shapes[0][-1] == e * f))
+
+    experts = sum(ev.device_time_total for ev in prof.events()
+                  if expert_product(ev)) / 1e3 / reps
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ev.self_device_time_total for ev in kernels) / 1e3 / reps
+    k1 = sum(ev.self_device_time_total for ev in kernels
+             if "paged_decode" in ev.key) / 1e3 / reps
+    if experts <= 0 or k1 <= 0:
+        raise RuntimeError(f"the profile split found experts {experts} ms, "
+                           f"K1 {k1} ms")
+    return busy, experts, k1
+
+
+def step_bytes(params, eng):
+    """Bytes a decode step must read at least: every weight once (dense
+    dispatch reads every expert; the tied unembedding reads the whole
+    table) and each active slot's KV rows with their int8 scales."""
+    from repro_torch.models.layers import tree_leaves
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    pool = eng._pool
+    _, n_attn, _, kvh, hd = pool["k"].shape
+    row = 2 * n_attn * (kvh * hd * pool["k"].element_size()
+                        + (4 if "k_scale" in pool else 0))
+    rows = sum(min(int(p), eng.max_seq) for p, r in zip(
+        eng._cache["pos"].tolist(), eng._active) if r is not None)
+    return weights, rows * row
+
+
+def moe_counts(engines, what, kw, cfg):
+    """``check_counts`` over an MoE run, which must launch K2, K1 when
+    paged and K3 only for a shared expert."""
+    counts = check_counts(engines, what)
+    want = {"flash_attention"}
+    if kw["decode_mode"] == "paged":
+        want.add("paged_decode_attention")
+    if cfg.moe_shared_expert:
+        want.add("fused_ffn")
+    if set(counts) != want:
+        raise AssertionError(f"{what}: kernels {sorted(counts)}, expected "
+                             f"{sorted(want)}")
+    return counts
+
+
+def moe_drops_card_vs_cpu(torch, cfgs):
+    """The capacity-drop path of ``moe_apply`` card == CPU on inputs with
+    no exact ties (a prefill burst of 4 x 256 random f32 rows, layer 0's
+    weights of seed 0, capacity factor 1.0): each expert keeps the same
+    set of tokens, the outputs agree within the f32 tolerance of phase
+    6's logits (the same sums in another order), the aux loss within
+    1e-6.  The order of an expert's kept tokens may differ where two of
+    their gates lie within rounding of each other; it does not enter the
+    output, and the number of such experts is logged."""
+    from repro_torch.models import init_params, moe
+    from repro_torch.models.layers import layer_slice, tree_map
+    gen = torch.Generator().manual_seed(81)
+    for cfg in cfgs:
+        layer = layer_slice(init_params(cfg, seed=0, device="cpu")["layers"],
+                            0)["moe"]
+        x = torch.randn(4, 256, cfg.d_model, generator=gen) * 0.5
+        xf = x.reshape(-1, cfg.d_model)
+        cap = moe._capacity(xf.shape[0], cfg, 1.0)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            lw = tree_map(lambda t: t.to(dev), layer)
+            _, gates, _ = moe._route(lw["router"], xf.to(dev),
+                                     cfg.experts_per_token)
+            sel, valid = moe._select(gates, cap)
+            y, aux = moe.moe_apply(lw, x.to(dev), cfg)
+            out[dev] = (sel.cpu(), valid.cpu(), y.cpu(), float(aux),
+                        int((gates > 0).sum()) - int(valid.sum()))
+        (sg, vg, yg, ag, dropped), (sc, vc, yc, ac, _) = out["cuda"], \
+            out["cpu"]
+
+        def kept(sel, valid):
+            return [sorted(row[ok].tolist()) for row, ok in zip(sel, valid)]
+
+        if kept(sg, vg) != kept(sc, vc):
+            raise AssertionError(f"{cfg.name}: moe_apply keeps other tokens "
+                                 "on the card than on the CPU")
+        reordered = int((sg != sc).any(-1).sum())
+        err = check_close("moe_apply", yg, yc, LOGITS_TOL,
+                          f"{cfg.name}, capacity factor 1.0")
+        if abs(ag - ac) > 1e-6:
+            raise AssertionError(f"{cfg.name}: aux {ag} on the card, {ac} "
+                                 "on the CPU")
+        log(f"{cfg.name}: moe_apply at capacity factor 1.0 (4 x 256 tokens, "
+            f"cap {cap}, {dropped} token choices dropped) card == CPU: the "
+            f"same kept tokens in every expert ({reordered} of "
+            f"{cfg.num_experts} lists in another order), max_abs_err "
+            f"{err:.3g}")
+
+
+def drops_measured(torch, cfg, lens, seed, what, kw):
+    """The same requests at capacity factor 1.0, where the prefill drops
+    tokens, card and CPU, measured: a padding token is the same token at
+    each padded position, so the padded positions' gates tie up to
+    rounding, and where such ties meet an expert's capacity the card and
+    the CPU may keep different ones.  Holds the prefill calls and the
+    launches; logs how many streams stay equal and where the others
+    part.  Returns the card's launches."""
+    prompts = greedy_prompts(seed, cfg.vocab_size, lens)
+    opts = kw["opts"].replace(moe_capacity_factor=1.0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        zero_counts()
+        streams, eng, _ = serve_greedy(torch, cfg, prompts, 24, dev,
+                                       **{**kw, "opts": opts})
+        out[dev] = (streams, eng.stats.prefill_calls)
+        if dev == "cuda":
+            counts = moe_counts([eng], f"{what}, capacity factor 1.0", kw,
+                                cfg)
+    (sg, pg), (sc, pc) = out["cuda"], out["cpu"]
+    if pg != pc:
+        raise AssertionError(f"{what}, capacity factor 1.0: {pg} prefill "
+                             f"calls on the card, {pc} on the CPU")
+    parts = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(sg, sc)]
+    log(f"  {what}, capacity factor 1.0 (drops; measured, not held): "
+        f"{parts.count(None)} of {len(parts)} streams equal card and CPU; "
+        "first differing step per stream "
+        + ", ".join("-" if p is None else str(p) for p in parts))
+    return counts
+
+
+def phase_experts(torch, smi):
+    """The MoE family on the card: 8.0 the kernels at its shapes; 8a
+    full-width olmoe-1b-7b served paged int8 in bf16; 8b card == CPU on
+    three reduced MoE configs in f32.  Returns ``({kernel name:
+    launches}, {kernel name: timing fields})``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import cast_params, tree_leaves
+    from repro_torch.models.runtime import RuntimeOptions
+    from repro_torch.serving import CompileCache, ServingEngine
+    t_phase = time.perf_counter()
+    extra = experts_kernels_alone(torch)
+    totals = {}
+
+    # --- 8a: full-width olmoe-1b-7b, bf16, paged int8 ------------------
+    cfg = get_config("olmoe-1b-7b")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # drawn in f32 (the config's param dtype), cast once on the card to
+    # the bf16 the engines serve (the router stays f32), so that every
+    # engine below shares one 13.6 GB copy
+    params = cast_params(init_params(cfg, seed=0, device="cuda"),
+                         torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"olmoe-1b-7b: {n_params / 1e9:.3f} B parameters drawn from seed 0 "
+        f"on the host, moved to the card and cast to bf16 in {init_s:.1f} "
+        "s")
+    opts = RuntimeOptions(paged_kernel=True, kv_dtype="int8")
+    cache = CompileCache()
+
+    def engine():
+        return ServingEngine(cfg, params, slots=8, max_seq=1024,
+                             block_size=16, opts=opts, decode_mode="paged",
+                             compile_cache=cache, device="cuda")
+
+    eng = engine()
+    zero_counts()
+    waves = []
+    for wave in range(2):
+        tps, ms, reqs = serve_wave(
+            torch, eng, _tight_prompts(30 + wave, cfg.vocab_size, lo=8,
+                                       hi=250), 9000 + 100 * wave, 64)
+        if wave == 0:
+            warm = eng.stats.recompiles
+        waves.append((tps, ms, reqs))
+    counts = check_counts([eng], "olmoe-1b-7b paged int8, two waves")
+    if "fused_ffn" in counts:
+        raise AssertionError("olmoe has no dense FFN, yet K3 launched")
+    if eng.stats.recompiles != warm:
+        raise AssertionError(f"the second olmoe wave built "
+                             f"{eng.stats.recompiles - warm} new programs")
+    if captures(eng) != 1:
+        raise AssertionError("the olmoe paged step was not captured once")
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+    for wave, (tps, ms, reqs) in enumerate(waves):
+        log(f"olmoe-1b-7b paged int8 on {smi}, wave {wave + 1}: {tps:.1f} "
+            f"tok/s, {ms:.3f} ms/decode step; TTFT by bucket " + "; ".join(
+                f"{b}: mean {mean:.1f} ms, max {mx:.1f} ms over {n}"
+                for b, (mean, mx, n) in ttft_by_bucket(eng, reqs).items()))
+    log(f"  decode steps {eng.stats.decode_calls}, prefill calls "
+        f"{eng.stats.prefill_calls}, programs built {warm}, graph captures "
+        f"{captures(eng)}")
+    busy_eng = engine()
+    step = moe_repeats(torch, busy_eng, params, cfg)
+    weights, kv = step_bytes(params, busy_eng)
+    graph_ms, eager_ms, g_busy, e_busy = graph_vs_eager(
+        torch, engine(), "olmoe-1b-7b paged int8 step", smi)
+    busy, experts, k1 = expert_split(torch, step, cfg)
+    bound_ms = 1e3 * (weights + kv) / H100_BYTES_PER_S
+    log(f"olmoe-1b-7b decode step on {smi}: eager device {busy:.3f} ms = "
+        f"expert products {experts:.3f} + K1 {k1:.4f} + the rest "
+        f"{busy - experts - k1:.3f}; graph-replayed {graph_ms:.3f} ms host "
+        f"(device {g_busy:.3f} ms, idle share {1 - g_busy / graph_ms:.3f}); "
+        f"byte bound {bound_ms:.3f} ms ({weights / 1e9:.2f} GB of weights, "
+        f"{kv / 1e6:.1f} MB of KV at 8 busy slots, at "
+        f"{H100_BYTES_PER_S / 1e12:.2f} TB/s): graph step at "
+        f"{bound_ms / graph_ms:.3f} of the bound")
+    del params, eng, busy_eng, step
+    torch.cuda.empty_cache()
+
+    # --- 8b: card == CPU, f32, three reduced MoE configs ----------------
+    f32 = dict(activation_dtype="float32")
+    runs = [
+        (get_config("olmoe-1b-7b").reduced(max_experts=16).with_updates(**f32),
+         "reduced olmoe-1b-7b (16 experts top-8) paged int8",
+         dict(max_seq=512, block_size=16, decode_mode="paged",
+              opts=RuntimeOptions(paged_kernel=True, kv_dtype="int8"))),
+        (get_config("llama4-scout-17b-a16e").reduced().with_updates(**f32),
+         "reduced llama4-scout (top-1, shared expert) paged, f32 pool",
+         dict(max_seq=512, block_size=16, decode_mode="paged",
+              opts=RuntimeOptions(paged_kernel=True,
+                                  kv_cache_dtype="float32"))),
+        (get_config("mixtral-8x7b").reduced(d_model=2048).with_updates(**f32),
+         "reduced mixtral-8x7b (d 2048, top-2 of 4, GQA 16/8) batched",
+         dict(max_seq=512, decode_mode="batched",
+              opts=RuntimeOptions(kv_cache_dtype="float32")))]
+    moe_drops_card_vs_cpu(torch, [rcfg for rcfg, _, _ in runs])
+    lens = (8, 37, 120, 200, 60, 250)
+    for seed, (rcfg, what, kw) in enumerate(runs, start=40):
+        no_drop = float(rcfg.num_experts / rcfg.experts_per_token)
+        # exact at a capacity that drops nothing; llama4's top-1 gates are
+        # all exactly 1.0, so its drops at factor 1.0 are exact too
+        factors = [no_drop] + ([1.0] if rcfg.experts_per_token == 1 else [])
+        for cf in factors:
+            keep = []
+            zero_counts()
+            label = f"{what}, capacity factor {cf:g}"
+            got, _ = card_vs_cpu(
+                torch, rcfg, lens, 24, seed, label, keep=keep,
+                **{**kw, "opts": kw["opts"].replace(moe_capacity_factor=cf)})
+            streams = streams if cf != no_drop else got
+            for k, n in moe_counts(keep, label, kw, rcfg).items():
+                totals[k] = totals.get(k, 0) + n
+        # no drops in the margin prefill: its logits are then the decode
+        # steps' (dense dispatch drops nothing)
+        margins = stream_margins(
+            torch, init_params(rcfg, seed=0, device="cpu"), rcfg,
+            greedy_prompts(seed, rcfg.vocab_size, lens), streams,
+            RuntimeOptions(moe_capacity_factor=no_drop))
+        log(f"  {what}: CPU top-2 logit margins along the streams: min "
+            f"{min(margins):.4g}, per stream "
+            + ", ".join(f"{m:.3g}" for m in margins))
+        if rcfg.experts_per_token > 1:
+            for k, n in drops_measured(torch, rcfg, lens, seed, what,
+                                       kw).items():
+                totals[k] = totals.get(k, 0) + n
+    log(f"experts phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals, extra
+
 
 def main() -> int:
     import torch
@@ -2661,8 +3153,12 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     for k, n in phase_crowd(torch, smi).items():
         launches[k] = launches.get(k, 0) + n
+    counts, extra = phase_experts(torch, smi)
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k.update(extra.get(k["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

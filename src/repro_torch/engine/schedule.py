@@ -8,9 +8,11 @@ the achievable speedup with n concurrent streams — the number the
 profiler charges.
 
 Backprop operator reordering: gradients are applied per-layer immediately
-(discarding the gradient right after its update).  The JAX package
-realizes it as a layerwise-update mode of its optimizer for TTA; the
-port's optimizer is not ported yet, so here it is the byte count only.
+(discarding the gradient right after its update).  The JAX package's
+docstring attributes it to a layerwise-update mode of its optimizer, but
+neither package's optimizer has one (``optim/adamw.py`` has ``init``,
+``global_norm`` and ``apply`` in both), so here it is the byte count
+only.
 
 ``EngineConfig.to_runtime_options`` gives the same options as the JAX
 package, ``kv_cache_dtype="int8"`` mapped to ``"bfloat16"`` included (the

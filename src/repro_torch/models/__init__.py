@@ -1,3 +1,4 @@
+from . import moe
 from .configs import (ATTN, INPUT_SHAPES, LOCAL, MAMBA, SHARED_ATTN,
                       DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K,
                       InputShape, ModelConfig, tokens_per_step)
@@ -18,5 +19,5 @@ __all__ = [
     "init_paged_pool",
     "init_paged_slot_cache", "paged_kernel_sample_batched_step",
     "paged_prefill_admit", "RuntimeOptions", "DEFAULT_OPTIONS", "ATTN",
-    "LOCAL", "MAMBA", "SHARED_ATTN",
+    "LOCAL", "MAMBA", "SHARED_ATTN", "moe",
 ]

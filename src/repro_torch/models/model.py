@@ -2,17 +2,19 @@
 steps, and burst admission (``forward`` and ``lm_loss``, the
 full-sequence entry points, are re-exported from ``transformer``).
 
-Ported from the JAX package for dense attention stacks and the SSM
-stack.  Caches are dicts of tensors in the JAX package's layouts.  Where
-the JAX package returns a new cache, pool or slot cache (and the serving
-engine donates the old buffers), these functions update the tensors they
-are given in place and return the same dicts: the pool, the dense KV and
-the SSM state are the largest objects on the card and are never copied
-by a step.  Every leaf a decode step writes, ``pos`` included, is
-written in place, so the serving engine can capture a step as a CUDA
-graph and replay it over the same buffers.  The layer walk is a Python
-loop where the JAX package scans, and the slot axis of the batched steps
-is a batch dimension where the JAX package ``vmap``s a batch=1 step.
+Ported from the JAX package for dense and MoE attention stacks and the
+SSM stack (an MoE decode step runs the reference's dense dispatch,
+:func:`moe.moe_apply_decode`).  Caches are dicts of tensors in the JAX
+package's layouts.  Where the JAX package returns a new cache, pool or
+slot cache (and the serving engine donates the old buffers), these
+functions update the tensors they are given in place and return the same
+dicts: the pool, the dense KV and the SSM state are the largest objects
+on the card and are never copied by a step.  Every leaf a decode step
+writes, ``pos`` included, is written in place, so the serving engine can
+capture a step as a CUDA graph and replay it over the same buffers.  The
+layer walk is a Python loop where the JAX package scans, and the slot
+axis of the batched steps is a batch dimension where the JAX package
+``vmap``s a batch=1 step.
 
 Sampling keys are ``int64`` tensors holding the two uint32 words of a
 threefry key (see :mod:`repro_torch.models.prng`).
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import prng
 from . import ssm as ssm_mod
 from ..kernels import ops as kernel_ops
@@ -56,11 +59,11 @@ def _n_attn_layers(cfg: ModelConfig) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type in ("hybrid", "moe") or cfg.is_encoder_decoder \
+    if cfg.arch_type == "hybrid" or cfg.is_encoder_decoder \
             or cfg.vision_embed_dim:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention stacks and the SSM stack "
-            "are ported so far")
+            f"{cfg.name}: only dense and MoE attention stacks and the SSM "
+            "stack are ported so far")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -276,12 +279,15 @@ def _decode_qkv(layer: Params, x: torch.Tensor, sin, cos, cfg: ModelConfig):
 def _decode_out(layer: Params, x: torch.Tensor, out: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """Output projection of the attention ``out`` (B, H, hd), then the
-    FFN block."""
+    FFN block (an MoE block by dense dispatch)."""
     b, _ = x.shape
     x = x + matmul_w(out.reshape(b, -1), layer["attn"]["wo"]).to(x.dtype)
     h2 = rms_norm(x, layer["ln2"], cfg.norm_eps)
-    y = ffn_apply(layer["ffn"], h2, gated=cfg.gated_ffn,
-                  activation=cfg.activation)
+    if cfg.arch_type == "moe":
+        y = moe_mod.moe_apply_decode(layer["moe"], h2, cfg)
+    else:
+        y = ffn_apply(layer["ffn"], h2, gated=cfg.gated_ffn,
+                      activation=cfg.activation)
     return x + y.to(x.dtype)
 
 

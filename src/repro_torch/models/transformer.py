@@ -1,15 +1,16 @@
-"""Dense decoder stacks: parameter layout and the per-layer blocks.
+"""Decoder stacks: parameter layout and the per-layer blocks.
 
 Layer stacks keep the JAX package's *stacked* parameter layout (every
 per-layer leaf has a leading layer axis), and the layer walk is a Python
 loop where the JAX package scans.  Ported so far: the dense attention
-family (``ATTN`` / ``LOCAL`` blocks, dense FFN) and the attention-free
-SSM stack (``MAMBA`` blocks), with the full-sequence ``forward`` (train /
-prefill, no cache) that the elastic variants, TTA and the middleware
-run.  On the card every prefill block runs the flash attention kernel
-and the fused FFN kernel (through ``attention._attend`` and
-``layers.ffn_apply``), and every Mamba block the SSD scan kernel
-(through ``ssm.mamba_forward``).
+family (``ATTN`` / ``LOCAL`` blocks, dense FFN), the MoE family (the
+same attention blocks with a routed expert FFN, :mod:`.moe`) and the
+attention-free SSM stack (``MAMBA`` blocks), with the full-sequence
+``forward`` (train / prefill, no cache) that the elastic variants, TTA
+and the middleware run.  On the card every prefill block runs the flash
+attention kernel and the fused FFN kernel (through ``attention._attend``
+and ``layers.ffn_apply``; an MoE block only for its shared expert), and
+every Mamba block the SSD scan kernel (through ``ssm.mamba_forward``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .configs import ATTN, LOCAL, MAMBA, ModelConfig
 from .layers import (Params, cast_params, dtype_of, embed_lookup,
@@ -28,11 +30,11 @@ from .runtime import DEFAULT_OPTIONS, RuntimeOptions
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "ssm") or cfg.is_encoder_decoder \
-            or cfg.vision_embed_dim:
+    if cfg.arch_type not in ("dense", "moe", "ssm") \
+            or cfg.is_encoder_decoder or cfg.vision_embed_dim:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention stacks and the SSM stack "
-            f"are ported so far (arch_type={cfg.arch_type!r})")
+            f"{cfg.name}: only dense and MoE attention stacks and the SSM "
+            f"stack are ported so far (arch_type={cfg.arch_type!r})")
 
 
 # ----------------------------------------------------------------- init ----
@@ -44,10 +46,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     _check_dense(cfg)
     gen = torch.Generator().manual_seed(seed)
     dtype = dtype_of(cfg.param_dtype)
-    n, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    n, d = cfg.num_layers, cfg.d_model
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen) * std).to(dtype)
+    def normal(shape, std, dt=dtype):
+        return torch.randn(shape, generator=gen).mul_(std).to(dt)
 
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype)
@@ -67,17 +69,41 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if cfg.qkv_bias:
         attn.update(bq=zeros((n, cfg.q_dim)), bk=zeros((n, cfg.kv_dim)),
                     bv=zeros((n, cfg.kv_dim)))
+    layers = {"ln1": zeros((n, d)), "attn": attn, "ln2": zeros((n, d))}
+    if cfg.arch_type == "moe":
+        layers["moe"] = _moe_init(cfg, n, normal)
+    else:
+        layers["ffn"] = _ffn_init(cfg, n, normal)
+    params = {
+        "embed": normal((cfg.padded_vocab, d), 0.02),
+        "final_norm": zeros((d,)),
+        "layers": layers,
+    }
+    return _to_device(params, device)
+
+
+def _ffn_init(cfg: ModelConfig, n: int, normal) -> Params:
+    """A stacked dense FFN's weights."""
+    d, f = cfg.d_model, cfg.d_ff
     ffn = {"w_up": normal((n, d, f), 1.0 / math.sqrt(d)),
            "w_down": normal((n, f, d), 1.0 / math.sqrt(f))}
     if cfg.gated_ffn:
         ffn["w_gate"] = normal((n, d, f), 1.0 / math.sqrt(d))
-    params = {
-        "embed": normal((cfg.padded_vocab, d), 0.02),
-        "final_norm": zeros((d,)),
-        "layers": {"ln1": zeros((n, d)), "attn": attn,
-                   "ln2": zeros((n, d)), "ffn": ffn},
-    }
-    return _to_device(params, device)
+    return ffn
+
+
+def _moe_init(cfg: ModelConfig, n: int, normal) -> Params:
+    """The stacked MoE block parameters of ``moe.moe_init`` in the JAX
+    package: an f32 router ``(n, D, E)``, expert weights ``(n, E, D,
+    F)`` / ``(n, E, F, D)`` and, for a shared expert, a dense FFN."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {"router": normal((n, d, e), 1.0 / math.sqrt(d), torch.float32),
+         "w_gate": normal((n, e, d, f), 1.0 / math.sqrt(d)),
+         "w_up": normal((n, e, d, f), 1.0 / math.sqrt(d)),
+         "w_down": normal((n, e, f, d), 1.0 / math.sqrt(f))}
+    if cfg.moe_shared_expert:
+        p["shared"] = _ffn_init(cfg, n, normal)
+    return p
 
 
 def _mamba_init(cfg: ModelConfig, n: int, normal, zeros) -> Params:
@@ -138,12 +164,14 @@ def attn_block(layer: Params, x: torch.Tensor, cfg: ModelConfig,
 def ffn_or_moe_block(layer: Params, x: torch.Tensor, cfg: ModelConfig,
                      opts: RuntimeOptions
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if cfg.arch_type == "moe":
-        raise NotImplementedError("MoE blocks are not ported yet")
     h = rms_norm(x, layer["ln2"], cfg.norm_eps)
-    y = ffn_apply(layer["ffn"], h, gated=cfg.gated_ffn,
-                  activation=cfg.activation)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.arch_type == "moe":
+        y, aux = moe_mod.moe_apply(layer["moe"], h, cfg,
+                                   capacity_factor=opts.moe_capacity_factor)
+    else:
+        y = ffn_apply(layer["ffn"], h, gated=cfg.gated_ffn,
+                      activation=cfg.activation)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y.to(x.dtype), aux
 
 

@@ -28,9 +28,10 @@ from .partition import PrePartition, Unit
 #: device, so no egress link exists.  The placement DP never reads the
 #: last device's ``link_bw`` (transfers are charged on the *previous*
 #: device's link), so any value would work — this constant makes the
-#: "terminal device" intent explicit instead of a bare ``0``.  The JAX
-#: package's fleet placement synthesizes real per-hop bandwidths from its
-#: site topology (not ported yet) and uses this only for the chain tail.
+#: "terminal device" intent explicit instead of a bare ``0``.  The fleet
+#: placement (``repro_torch.fleet.placement``, as in the JAX package)
+#: synthesizes real per-hop bandwidths from its site topology and uses
+#: this only for the chain tail.
 NO_NEXT_LINK: float = 0.0
 
 

@@ -186,7 +186,9 @@ class _EagerStep:
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,mode", [("paper-backbone", "paged"),
                                        ("paper-backbone", "batched"),
-                                       ("mamba2-370m", "batched")])
+                                       ("mamba2-370m", "batched"),
+                                       ("olmoe-1b-7b", "paged"),
+                                       ("olmoe-1b-7b", "batched")])
 def test_graph_replayed_engine_matches_eager_steps(cuda, monkeypatch, name,
                                                    mode):
     """On the card the paged block-table step and the batched decode and
@@ -194,11 +196,15 @@ def test_graph_replayed_engine_matches_eager_steps(cuda, monkeypatch, name,
     of greedy and sampled requests (slots recycled, so the graphs replay
     after admissions write into their buffers) the graph-replayed
     engine's streams equal those of an engine whose steps run eagerly,
-    and the kernels' launch counts, replays included, are equal too."""
+    and the kernels' launch counts, replays included, are equal too.
+    The MoE decode step (dense dispatch, stable top-k) replays too."""
     from repro_torch.serving import engine as engine_mod
     if name == "mamba2-370m":
         cfg = get_config(name).reduced(d_model=64).with_updates(
             vocab_size=300, ssm_chunk=16, activation_dtype="float32")
+    elif name == "olmoe-1b-7b":
+        cfg = get_config(name).reduced(d_model=64, max_experts=16) \
+            .with_updates(vocab_size=300, activation_dtype="float32")
     else:
         cfg = get_config(name).with_updates(
             num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
