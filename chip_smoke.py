@@ -140,6 +140,35 @@ Phases (any failure exits non-zero):
    expert through K3) paged over an f32 pool, reduced mixtral-8x7b
    (d_model 2048: top-2 of 4, GQA 16/8) batched; exact K1/K2/K3 launches
    and the CPU's smallest top-2 margins along each stream.
+9. hybrid — the zamba2 family (a Mamba2 stack with ONE shared attention
+   block after every full period of Mamba blocks).  9.0: K6 at
+   zamba2-1.2b's prefill (bf16, 8 x 1024 and a ragged 8 x 1000, 64 heads,
+   P 64, N 64, chunk 256, x/b/c as views of a 4224-wide conv row), K2 at
+   its shared block's prefill (bf16, causal, 8 x 1024, 32 heads of 64)
+   and K3 at its FFN (gelu, D 2048, F 8192, bf16, M 8 on the route the
+   plan picks, and M 8 x 1024), each against its plain version and
+   repeating bit for bit, timed beside its bound, its plain version and
+   SDPA (K2) or the unfused cuBLAS chain (K3).  9a, bf16: full-width
+   zamba2-1.2b (1.1 B parameters, nothing cut; weights from seed 0, the
+   init timed) served batched (8 slots, max_seq 2048) in two waves of 16
+   requests of 8-1000 tokens x 64 new tokens: budgets, K6 38 per prefill
+   call, K2 6 per prefill call and K3 6 per prefill call and decode step
+   exactly (replays included), no K1/K4/K5, no new program on the second
+   wave, TTFT per bucket; a whole decode step repeats bit for bit on two
+   clones of one state; the graph-replayed step beside the eager step on
+   clones (tokens equal, host clock, device time, idle share), the eager
+   step's device time split into K3, K2, the Mamba blocks' products and
+   the rest, beside the step's byte bound.  9b, f32 activations and
+   caches: the reduced hybrid at 5 layers and period 2 (2 sites and a
+   leftover layer) card == CPU greedy streams and counters in
+   ``batched``, ``per_slot`` and ``batched`` with ``swap_model`` after 4
+   steps to the same and to other weights, with exact launches, and the
+   full-depth, full-width zamba2-1.2b in f32 on a short wave (3 requests
+   of 8-100 tokens x 8 new tokens: K6, K2 and K3 on their f32 routes at
+   its widths); then the reduced hybrid's requests with the bf16 conv
+   and shared K/V caches the JAX package keeps, measured and not held
+   (ROADMAP P4): the first step where card and CPU part, per stream,
+   with the CPU's top-2 margin.
 
 The line before the last is a JSON object listing every kernel with its
 launches on its main path and its times (K4 and K5 as their four entry
@@ -1107,10 +1136,12 @@ def check_counts(engines, what):
     counters of the engines that served it: the paged block-table step
     runs K1 and K3 per layer, the dense batched, per-slot and gather
     steps K3; a dense prefill call runs K2 and K3 per layer, an SSM
-    prefill call K6.  A step replayed as a CUDA graph counts the launches
-    captured in its graph.  Every kernel of the path must have launched,
-    and no other; engines of other modes add their own.  Returns
-    ``{kernel name: launches}``."""
+    prefill call K6; a hybrid runs K6 per layer of a prefill call and
+    its shared block's K2 (prefill) and K3 (prefill and step) per site.
+    A step replayed as a CUDA graph counts the launches captured in its
+    graph.  Every kernel of the path must have launched, and no other;
+    engines of other modes add their own.  Returns ``{kernel name:
+    launches}``."""
     layers = engines[0].cfg.num_layers
     decode = sum(e.stats.decode_calls for e in engines)
     prefill = sum(e.stats.prefill_calls for e in engines)
@@ -1119,8 +1150,14 @@ def check_counts(engines, what):
     for e in engines:
         n = e.cfg.num_layers
         d, p = e.stats.decode_calls, e.stats.prefill_calls
-        if e.cfg.arch_type == "ssm":
+        if e.cfg.arch_type in ("ssm", "hybrid"):
             expect["ssd_scan"] += p * n
+            # a hybrid's shared attention block: K2 at each site of a
+            # prefill call, K3 at each site of a prefill call and a step
+            sites = (n // (e.cfg.shared_attn_period or n)
+                     if e.cfg.arch_type == "hybrid" else 0)
+            expect["flash_attention"] += p * sites
+            expect["fused_ffn"] += (p + d) * sites
         else:
             expect["flash_attention"] += p * n
             # an MoE block runs K3 only for a shared expert
@@ -3137,6 +3174,395 @@ def phase_experts(torch, smi):
     return totals, extra
 
 
+# ---------------------------------------------------------------- phase 9
+def hybrid_kernels_alone(torch):
+    """9.0: K6, K2 and K3 at the shapes zamba2-1.2b gives them, each
+    against its plain version and repeating bit for bit, then timed
+    beside its bound, its plain version and, for K2 and K3, a library
+    yardstick.  Returns the timing fields for the kernels line, by kernel
+    name."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.kernels.fused_ffn import ffn_plan
+    from repro_torch.kernels.ref import fused_ffn_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import ssd_scan_ref
+    gen = torch.Generator().manual_seed(99)
+    out = {}
+    # K6: a prefill burst of 8 prompts, 64 heads of 64, state 64, one
+    # group, chunk 256; x, b and c are views of a 4224-wide conv row
+    # (b at column 4096, c at 4160: 16-byte aligned), bucket 1024 and a
+    # ragged 1000
+    b, h, g, p, n = 8, 64, 1, 64, 64
+    err = 0.0
+    for s in (1024, 1000):
+        x, dt, a, bm, cm = ssd_case(torch, gen, b, s, h, g, p, n,
+                                    "bfloat16")
+        y, st = ssd_scan(x, dt, a, bm, cm, chunk=256)
+        yr, sr = ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
+        what = f"zamba2 {b} x {s}, H {h}, P {p}, N {n}, bf16"
+        err = max(err, check_close("ssd_scan", y, yr, SSD_TOL["bfloat16"],
+                                   "y " + what))
+        check_close("ssd_scan", st, sr, STATE_TOL, "state " + what)
+        y2, st2 = ssd_scan(x, dt, a, bm, cm, chunk=256)
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise AssertionError(f"ssd_scan does not repeat at {what}")
+        del y, st, yr, sr, y2, st2
+
+    def k6():
+        return ssd_scan(x, dt, a, bm, cm, chunk=256)
+
+    x, dt, a, bm, cm = ssd_case(torch, gen, b, 1024, h, g, p, n, "bfloat16")
+    nbytes, flops = ssd_work(b, 1024, h, g, p, n, 256, 2, 2)
+    k6t = dict(ms=cuda_ms(torch, k6, iters=20, warmup=3),
+               device_ms=device_ms(torch, k6, iters=10, part="ssd_scan"),
+               plain_ms=cuda_ms(torch, lambda: ssd_scan_ref(
+                   x, dt, a, bm, cm, chunk=256), iters=3, warmup=1),
+               library_ms=None, max_abs_err=err)
+    k6t["bound_ms"], k6t["bound_by"] = bound(nbytes, flops, H100_BF16_FLOPS)
+    out["ssd_scan"] = k6t
+    del x, dt, a, bm, cm
+
+    # K2: the shared block at prefill, 8 x 1024 tokens, 32 heads of 64
+    # (MHA), causal, bf16
+    q, k, v = flash_case(torch, gen, 8, 32, 32, 1024, 64, "bfloat16")
+    o = flash_attention(q, k, v)
+    err = check_close("flash_attention", o, flash_plain(q, k, v),
+                      TOL["bfloat16"], "zamba2 8 x 1024, 32 heads of 64")
+    if not torch.equal(o, flash_attention(q, k, v)):
+        raise AssertionError("flash_attention does not repeat at 8 x 1024, "
+                             "32 heads of 64")
+    pairs = flash_pairs(1024, True, 0, None) * 8 * 32
+    k2t = dict(
+        ms=cuda_ms(torch, lambda: flash_attention(q, k, v), iters=50),
+        device_ms=device_ms(torch, lambda: flash_attention(q, k, v),
+                            part="flash_attn"),
+        plain_ms=cuda_ms(torch, lambda: flash_plain(q, k, v), iters=5,
+                         warmup=2),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=50),
+        library_device_ms=device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)),
+        max_abs_err=err)
+    k2t["bound_ms"], k2t["bound_by"] = bound(4 * q.numel() * q.element_size(),
+                                             4 * 64 * pairs, H100_BF16_FLOPS)
+    out["flash_attention"] = k2t
+    del q, k, v, o
+
+    # K3: the shared block's gated gelu FFN, D 2048, F 8192, bf16, at a
+    # decode step (M 8) and a prefill burst (M 8 x 1024)
+    for m in (8, 8 * 1024):
+        x, wg, wu, wd = ffn_case(torch, gen, m, 2048, 8192, "bfloat16")
+        route = ffn_plan(x.dtype, m, 2048, 8192).route
+        o = fused_ffn(x, wg, wu, wd, "gelu")
+        err = check_close("fused_ffn", o, fused_ffn_ref(x, wg, wu, wd,
+                                                        "gelu"),
+                          FFN_TOL["bfloat16"],
+                          f"zamba2 M {m}, D 2048, F 8192, gelu ({route})")
+        if not torch.equal(o, fused_ffn(x, wg, wu, wd, "gelu")):
+            raise AssertionError(f"fused_ffn does not repeat at M {m}, "
+                                 "D 2048")
+
+        def chain():
+            return (F.gelu(x @ wg, approximate="tanh") * (x @ wu)) @ wd
+
+        iters = 200 if m == 8 else 20
+        t = dict(
+            route=route,
+            ms=cuda_ms(torch, lambda: fused_ffn(x, wg, wu, wd, "gelu"),
+                       iters=iters),
+            device_ms=device_ms(torch, lambda: fused_ffn(x, wg, wu, wd,
+                                                         "gelu"),
+                                part="fused_ffn"),
+            plain_ms=cuda_ms(torch, lambda: fused_ffn_ref(x, wg, wu, wd,
+                                                          "gelu"),
+                             iters=10, warmup=2),
+            chain_ms=cuda_ms(torch, chain, iters=iters),
+            chain_device_ms=device_ms(torch, chain),
+            library_ms=None, max_abs_err=err)
+        t["bound_ms"], t["bound_by"] = bound(
+            (2 * x.numel() + wg.numel() + wu.numel() + wd.numel())
+            * x.element_size(), 6 * m * 2048 * 8192, H100_BF16_FLOPS)
+        out["fused_ffn" if m == 8 else "fused_ffn_m8192"] = t
+        del x, wg, wu, wd, o
+    for name, t in out.items():
+        log(f"{name} at zamba2-1.2b's shape"
+            + (f" (route {t['route']})" if "route" in t else "")
+            + f": kernel_ms {t['ms']:.4f} device {fmt(t['device_ms'])}; "
+            f"plain_ms {t['plain_ms']:.4f}; "
+            + (f"SDPA {t['library_ms']:.4f} ms, device "
+               f"{fmt(t['library_device_ms'])}; " if t["library_ms"]
+               else "")
+            + (f"unfused cuBLAS chain {t['chain_ms']:.4f} ms, device "
+               f"{fmt(t['chain_device_ms'])}; " if "chain_ms" in t else "")
+            + f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}); "
+            f"max_abs_err {t['max_abs_err']:.3g}")
+    log("phase 9 shapes: K6 (8 x 1024 and 8 x 1000, H 64, P 64, N 64), K2 "
+        "(8 x 1024, 32 heads of 64) and K3 (gelu, D 2048, F 8192, M 8 and "
+        "8192) == plain versions, each repeating bit for bit")
+    extra = {name: {f"{key}_zamba2": val for key, val in t.items()}
+             for name, t in out.items()}
+    extra["fused_ffn"].update({f"{key}_zamba2_m8192": val for key, val
+                               in out["fused_ffn_m8192"].items()})
+    del extra["fused_ffn_m8192"]
+    return extra
+
+
+ZAMBA_LENS = (8, 1000, 30, 900, 60, 400, 100, 200,
+              12, 800, 25, 600, 50, 500, 120, 250)
+
+
+def _zamba_prompts(seed, vocab):
+    """16 prompts of 8..1000 tokens, two in each bucket from 16 to 1024
+    (four at 1024), interleaved short and long; ``seed`` draws the
+    tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in ZAMBA_LENS]
+
+
+def hybrid_split(torch, step, cfg, reps=8):
+    """Device time of an eager hybrid decode step split into K3 (the
+    shared block's FFN at its sites), K2 (none: decode attention is
+    plain), the Mamba blocks' products (the in_proj and out_proj
+    ``matmul``s, found by their weight shapes, with the out_proj
+    weight's cast to f32 that the f32 product takes) and the rest, from
+    one profile with shapes recorded.  Returns ``(busy, K3, K2, mamba)``
+    in ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+    d, di = cfg.d_model, cfg.ssm_d_inner
+    in_dim = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state_dim \
+        + cfg.ssm_num_heads
+    weights = ([d, in_dim], [di, d])
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+
+    def mamba_product(ev):
+        shapes = ev.input_shapes or []
+        if ev.name == "aten::matmul":
+            return len(shapes) >= 2 and list(shapes[1]) in weights
+        return ev.name == "aten::to" and bool(shapes) \
+            and list(shapes[0]) == [di, d]
+
+    mamba = sum(ev.device_time_total for ev in prof.events()
+                if mamba_product(ev)) / 1e3 / reps
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ev.self_device_time_total for ev in kernels) / 1e3 / reps
+
+    def kernel_ms(part):
+        return sum(ev.self_device_time_total for ev in kernels
+                   if part in ev.key) / 1e3 / reps
+
+    k3, k2 = kernel_ms("fused_ffn"), kernel_ms("flash_attn")
+    if mamba <= 0 or k3 <= 0:
+        raise RuntimeError(f"the profile split found Mamba products {mamba} "
+                           f"ms, K3 {k3} ms")
+    return busy, k3, k2, mamba
+
+
+def hybrid_step_bytes(params, eng):
+    """Bytes a hybrid decode step must move at least: every weight read
+    once but the shared block's, read at each of its sites (the tied
+    unembedding reads the whole table); the f32 SSM state and the conv
+    tail read and written; each active slot's shared K/V rows read at
+    every site and its new row written.  Returns ``(weights, state,
+    kv)``."""
+    from repro_torch.models.layers import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    cache = eng._cache
+    sites = cache["shared_k"].shape[1]
+    weights = nbytes({k: v for k, v in params.items()
+                      if k != "shared_attn"}) \
+        + sites * nbytes(params["shared_attn"])
+    state = 2 * (nbytes(cache["ssm"]) + nbytes(cache["conv"]))
+    _, _, _, _, kvh, hd = cache["shared_k"].shape
+    row = 2 * sites * kvh * hd * cache["shared_k"].element_size()
+    rows = sum(min(int(p), eng.max_seq - 1) + 1 for p, r in zip(
+        cache["pos"].tolist(), eng._active) if r is not None)
+    return weights, state, rows * row
+
+
+def hybrid_repeats(torch, eng):
+    """A whole hybrid decode step repeats bit for bit: the step run
+    eagerly on two clones of one engine state gives equal tokens and
+    equal cache leaves (SSM state, conv tail, shared K/V).  Returns the
+    eager step on the first clone."""
+    from repro_torch.models.layers import tree_leaves
+    fill_slots(eng, 32)
+    step_a, state_a = eager_on_clones(torch, eng)
+    step_b, state_b = eager_on_clones(torch, eng)
+    toks_a, toks_b = step_a(), step_b()
+    if not (torch.equal(toks_a, toks_b) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(state_a),
+                                              tree_leaves(state_b)))):
+        raise AssertionError("the zamba2 decode step does not repeat bit "
+                             "for bit on two clones of one state")
+    log("a whole zamba2-1.2b decode step (tokens, SSM state, conv tail, "
+        "shared K/V) repeats bit for bit")
+    return step_a
+
+
+def p4_measured(torch, cfg, lens, new_tokens, seed, what):
+    """P4 on the hybrid, measured and not held: the same greedy requests
+    with the bf16 caches the JAX package keeps (conv tail and shared
+    K/V in bf16, f32 activations), batched, on the card and on the CPU.
+    Logs per stream the first step where the two part (or that they stay
+    equal) and the CPU's top-2 logit margin there."""
+    import numpy as np
+    prompts = greedy_prompts(seed, cfg.vocab_size, lens)
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        streams[dev], _, params = serve_greedy(
+            torch, cfg, prompts, new_tokens, dev, max_seq=512,
+            decode_mode="batched")
+    parts = []
+    for p, a, b in zip(prompts, streams["cuda"], streams["cpu"]):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            parts.append("equal")
+            continue
+        margin = top2_margin(torch, params, cfg, np.concatenate([p, b[:i]]))
+        parts.append(f"step {i} (CPU top-2 margin {margin:.3g})")
+    log(f"  P4, {what}, bf16 conv and shared K/V caches (measured, not "
+        f"held): {parts.count('equal')} of {len(parts)} streams equal card "
+        f"and CPU over {new_tokens} tokens; per stream: " + "; ".join(parts))
+
+
+def phase_hybrid(torch, smi):
+    """The hybrid on the card: 9.0 the kernels at zamba2-1.2b's shapes;
+    9a full-width zamba2-1.2b served batched in bf16; 9b card == CPU on
+    the reduced hybrid (5 layers at period 2) in f32, and P4 measured.
+    Returns ``({kernel name: launches}, {kernel name: timing fields})``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import cast_params, tree_leaves
+    from repro_torch.models.runtime import RuntimeOptions
+    from repro_torch.serving import CompileCache, ServingEngine
+    t_phase = time.perf_counter()
+    extra = hybrid_kernels_alone(torch)
+    totals = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    # --- 9a: full-width zamba2-1.2b, bf16, batched ---------------------
+    cfg = get_config("zamba2-1.2b")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # drawn in f32 (the config's param dtype), cast once on the card to
+    # bf16 (a_log, d_skip and dt_bias stay f32), shared by every engine
+    params = cast_params(init_params(cfg, seed=0, device="cuda"),
+                         torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"zamba2-1.2b: {n_params / 1e9:.3f} B parameters drawn from seed 0 "
+        f"on the host, moved to the card and cast to bf16 in {init_s:.1f} "
+        "s")
+    cache = CompileCache()
+
+    def engine():
+        return ServingEngine(cfg, params, slots=8, max_seq=2048,
+                             decode_mode="batched", compile_cache=cache,
+                             device="cuda")
+
+    eng = engine()
+    zero_counts()
+    waves = []
+    for wave in range(2):
+        waves.append(serve_wave(torch, eng, _zamba_prompts(
+            60 + wave, cfg.vocab_size), 12000 + 100 * wave, 64))
+        if wave == 0:
+            warm = eng.stats.recompiles
+    counts = check_counts([eng], "zamba2-1.2b batched, two waves")
+    if set(counts) != {"ssd_scan", "flash_attention", "fused_ffn"}:
+        raise AssertionError(f"zamba2 launched {sorted(counts)}")
+    if eng.stats.recompiles != warm:
+        raise AssertionError(f"the second zamba2 wave built "
+                             f"{eng.stats.recompiles - warm} new programs")
+    if not 1 <= captures(eng) <= 2:
+        raise AssertionError(f"zamba2: {captures(eng)} graph captures "
+                             "(expected at most decode and decode_greedy)")
+    add(counts)
+    for wave, (tps, ms, reqs) in enumerate(waves):
+        log(f"zamba2-1.2b batched on {smi}, wave {wave + 1}: {tps:.1f} "
+            f"tok/s, {ms:.3f} ms/decode step; TTFT by bucket " + "; ".join(
+                f"{b}: mean {mean:.1f} ms, max {mx:.1f} ms over {n}"
+                for b, (mean, mx, n) in ttft_by_bucket(eng, reqs).items()))
+    log(f"  decode steps {eng.stats.decode_calls}, prefill calls "
+        f"{eng.stats.prefill_calls}, programs built {warm}, graph captures "
+        f"{captures(eng)}")
+    busy_eng = engine()
+    step = hybrid_repeats(torch, busy_eng)
+    weights, state, kv = hybrid_step_bytes(params, busy_eng)
+    graph_ms, _, g_busy, _ = graph_vs_eager(
+        torch, engine(), "zamba2-1.2b batched step", smi)
+    busy, k3, k2, mamba = hybrid_split(torch, step, cfg)
+    bound_ms = 1e3 * (weights + state + kv) / H100_BYTES_PER_S
+    log(f"zamba2-1.2b decode step on {smi}: eager device {busy:.3f} ms = "
+        f"K3 {k3:.4f} + K2 {k2:.4f} + Mamba products {mamba:.3f} + the "
+        f"rest {busy - k3 - k2 - mamba:.3f}; graph-replayed "
+        f"{graph_ms:.3f} ms host (device {g_busy:.3f} ms, idle share "
+        f"{1 - g_busy / graph_ms:.3f}); byte bound {bound_ms:.3f} ms "
+        f"({weights / 1e9:.3f} GB of weights with the shared block at "
+        f"each site, {state / 1e9:.3f} GB of SSM and conv state read and "
+        f"written, {kv / 1e6:.1f} MB of shared K/V at 8 busy slots, at "
+        f"{H100_BYTES_PER_S / 1e12:.2f} TB/s): graph step at "
+        f"{bound_ms / graph_ms:.3f} of the bound")
+    del params, eng, busy_eng, step
+    torch.cuda.empty_cache()
+
+    # --- 9b: card == CPU, f32, the reduced hybrid at period 2 -----------
+    rcfg = get_config("zamba2-1.2b").reduced(num_layers=5).with_updates(
+        shared_attn_period=2, activation_dtype="float32")
+    f32 = RuntimeOptions(kv_cache_dtype="float32")
+    what = "zamba2 reduced (5 layers, period 2)"
+    lens = (8, 37, 120, 200)
+    for mode in ("batched", "per_slot"):
+        keep = []
+        zero_counts()
+        card_vs_cpu(torch, rcfg, lens, 24, 90, f"{what} {mode}, f32 "
+                    "caches", keep=keep, max_seq=512, decode_mode=mode,
+                    opts=f32)
+        add(check_counts(keep, f"{what} {mode}"))
+    for swap in ("same", "other"):
+        keep = []
+        zero_counts()
+        _, st = card_vs_cpu(torch, rcfg, (8, 37, 120, 200, 60, 90), 24, 91,
+                            f"{what} batched, f32 caches, swap_model to "
+                            f"the {swap} weights after 4 steps", swap=swap,
+                            keep=keep, max_seq=512, decode_mode="batched",
+                            opts=f32)
+        if st["requeues"] != 4 or st["thaws"] != (4 if swap == "same"
+                                                  else 0):
+            raise AssertionError(f"zamba2 swap ({swap}): {st}")
+        add(check_counts(keep, f"{what} swap ({swap})"))
+    # the full-depth, full-width config in f32 (4.4 GB of weights): a
+    # short wave with every kernel on its f32 route at zamba2's widths
+    fcfg = get_config("zamba2-1.2b").with_updates(activation_dtype="float32")
+    keep = []
+    zero_counts()
+    card_vs_cpu(torch, fcfg, (8, 30, 100), 8, 92, "zamba2-1.2b full width, "
+                "f32 caches", keep=keep, max_seq=256, decode_mode="batched",
+                opts=f32)
+    add(check_counts(keep, "zamba2-1.2b full width, f32"))
+    p4_measured(torch, rcfg, lens, 48, 90, what)
+    log(f"hybrid phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals, extra
+
+
 def main() -> int:
     import torch
     smi, idle_w = phase_device(torch)
@@ -3153,12 +3579,16 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     for k, n in phase_crowd(torch, smi).items():
         launches[k] = launches.get(k, 0) + n
-    counts, extra = phase_experts(torch, smi)
-    for k, n in counts.items():
-        launches[k] = launches.get(k, 0) + n
+    extras = []
+    for phase in (phase_experts, phase_hybrid):
+        counts, extra = phase(torch, smi)
+        extras.append(extra)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        k.update(extra.get(k["name"], {}))
+        for extra in extras:
+            k.update(extra.get(k["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -40,7 +40,9 @@ def forward_with_exits(params: Params, cfg: ModelConfig,
                        ) -> List[torch.Tensor]:
     """Return logits at every exit position plus the final head.
 
-    Runs the stack in segments between exit positions."""
+    Runs the stack in segments between exit positions; a hybrid's
+    shared attention block runs after each full period of a segment, so
+    its placement restarts at every exit, as in the JAX package."""
     act_dt = dtype_of(cfg.activation_dtype)
     ps = cast_params(params, act_dt)
     x = embed_lookup(ps["embed"], tokens).to(act_dt)
@@ -52,7 +54,8 @@ def forward_with_exits(params: Params, cfg: ModelConfig,
     for i, end in enumerate(bounds):
         if end > start:
             seg = tree_map(lambda a: a[start:end], ps["layers"])
-            x, _ = apply_stack(seg, x, cfg, opts)
+            x, _ = apply_stack(seg, x, cfg, opts,
+                               shared=ps.get("shared_attn"))
         if i < len(positions):
             h = rms_norm(x, ps["exits"]["norms"][i], cfg.norm_eps)
             outs.append(unembed(ps["embed"], h))

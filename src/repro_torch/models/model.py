@@ -2,17 +2,18 @@
 steps, and burst admission (``forward`` and ``lm_loss``, the
 full-sequence entry points, are re-exported from ``transformer``).
 
-Ported from the JAX package for dense and MoE attention stacks and the
-SSM stack (an MoE decode step runs the reference's dense dispatch,
-:func:`moe.moe_apply_decode`).  Caches are dicts of tensors in the JAX
-package's layouts.  Where the JAX package returns a new cache, pool or
-slot cache (and the serving engine donates the old buffers), these
-functions update the tensors they are given in place and return the same
-dicts: the pool, the dense KV and the SSM state are the largest objects
-on the card and are never copied by a step.  Every leaf a decode step
-writes, ``pos`` included, is written in place, so the serving engine can
-capture a step as a CUDA graph and replay it over the same buffers.  The
-layer walk is a Python loop where the JAX package scans, and the slot
+Ported from the JAX package for dense and MoE attention stacks, the SSM
+stack and the hybrid (Mamba blocks with one shared attention block,
+whose K/V every site caches apart; an MoE decode step runs the
+reference's dense dispatch, :func:`moe.moe_apply_decode`).  Caches are
+dicts of tensors in the JAX package's layouts.  Where the JAX package
+returns a new cache, pool or slot cache (and the serving engine donates
+the old buffers), these functions update the tensors they are given in
+place and return the same dicts: the pool, the dense KV and the SSM
+state are the largest objects on the card and are never copied by a
+step.  Every leaf a decode step writes, ``pos`` included, is written in
+place, so the serving engine can capture a step as a CUDA graph and
+replay it over the same buffers.  The layer walk is a Python loop where the JAX package scans, and the slot
 axis of the batched steps is a batch dimension where the JAX package
 ``vmap``s a batch=1 step.
 
@@ -38,8 +39,8 @@ from .layers import (Params, apply_rotary, cast_params, dtype_of,
                      matmul_w, ffn_apply, rms_norm, rotary_embedding,
                      unembed)
 from .runtime import DEFAULT_OPTIONS, RuntimeOptions
-from .transformer import (_pattern_period, _select_impl, ffn_or_moe_block,
-                          forward, lm_loss)
+from .transformer import (_pattern_period, _select_impl, _shared_site,
+                          ffn_or_moe_block, forward, lm_loss)
 
 Cache = Dict[str, Any]
 
@@ -58,12 +59,19 @@ def _n_attn_layers(cfg: ModelConfig) -> int:
     return cfg.num_layers
 
 
+def _n_shared_sites(cfg: ModelConfig) -> int:
+    """Sites of a hybrid's shared attention block: one after each full
+    period of Mamba blocks (zamba2: 38 // 6 = 6)."""
+    if cfg.arch_type != "hybrid":
+        return 0
+    return cfg.num_layers // (cfg.shared_attn_period or cfg.num_layers)
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type == "hybrid" or cfg.is_encoder_decoder \
-            or cfg.vision_embed_dim:
+    if cfg.is_encoder_decoder or cfg.vision_embed_dim:
         raise NotImplementedError(
             f"{cfg.name}: only dense and MoE attention stacks and the SSM "
-            "stack are ported so far")
+            "and hybrid stacks are ported so far")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -73,7 +81,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``(layers, batch, max_seq, kv_heads, head_dim)`` in
     ``kv_cache_dtype`` for attention stacks; for the SSM stack the f32
     ``ssm`` state ``(layers, batch, H, P, N)`` and the ``conv`` tail
-    ``(layers, batch, W-1, conv_dim)`` in ``kv_cache_dtype``."""
+    ``(layers, batch, W-1, conv_dim)`` in ``kv_cache_dtype``; a hybrid
+    has both, plus the shared attention block's ``shared_k``/``shared_v``
+    of shape ``(sites, batch, max_seq, kv_heads, head_dim)``."""
     _check_ported(cfg)
     kv_dt = dtype_of(opts.kv_cache_dtype)
     cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -83,12 +93,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                  cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=kv_dt, device=device)
         cache["v"] = torch.zeros(shape, dtype=kv_dt, device=device)
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         st, cv = ssm_mod.mamba_state_shapes(cfg, batch)
         cache["ssm"] = torch.zeros((cfg.num_layers,) + st,
                                    dtype=torch.float32, device=device)
         cache["conv"] = torch.zeros((cfg.num_layers,) + cv, dtype=kv_dt,
                                     device=device)
+    sites = _n_shared_sites(cfg)
+    if sites:
+        shape = (sites, batch, max_seq, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["shared_k"] = torch.zeros(shape, dtype=kv_dt, device=device)
+        cache["shared_v"] = torch.zeros(shape, dtype=kv_dt, device=device)
     return cache
 
 
@@ -198,8 +214,10 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     One walk over the stacked layers computes the activations and
     captures each layer's cache entries: rotated K and V (padded to the
     cache's ``max_seq``) for attention stacks, the final SSM state and
-    the conv tail for the SSM stack.  Left-padding tokens run through
-    the conv and the scan like any other token, as in the JAX package."""
+    the conv tail for the SSM stack, and for a hybrid also the shared
+    attention block's rotated K and V at each of its sites.  Left-padding
+    tokens run through the conv and the scan like any other token, as in
+    the JAX package."""
     _check_ported(cfg)
     act_dt = dtype_of(cfg.activation_dtype)
     params = cast_params(params, act_dt)
@@ -208,8 +226,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     kv_dt = dtype_of(opts.kv_cache_dtype)
     kinds, _ = _pattern_period(cfg)
     new_cache = dict(cache)
-    if cfg.arch_type == "ssm":
-        sts, cvs = [], []
+    if cfg.arch_type in ("ssm", "hybrid"):
+        shared = params.get("shared_attn")
+        sts, cvs, sks, svs = [], [], [], []
         for j in range(cfg.num_layers):
             layer = layer_slice(params["layers"], j)
             y, st, cv = ssm_mod.mamba_forward_states(
@@ -217,8 +236,16 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x = x + y.to(x.dtype)
             sts.append(st)
             cvs.append(cv.to(kv_dt))
+            if shared is not None and _shared_site(cfg, j) >= 0:
+                x, kk, vv = _attn_prefill_kv(shared, x, cfg, opts)
+                sks.append(kk.to(kv_dt))
+                svs.append(vv.to(kv_dt))
         new_cache["ssm"] = torch.stack(sts)
         new_cache["conv"] = torch.stack(cvs)
+        if sks:
+            pad = (0, 0, 0, 0, 0, cache["shared_k"].shape[2] - s)
+            new_cache["shared_k"] = F.pad(torch.stack(sks), pad)
+            new_cache["shared_v"] = F.pad(torch.stack(svs), pad)
     else:
         max_seq = cache["k"].shape[2]
         ks, vs = [], []
@@ -325,21 +352,34 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     SSM/conv state are written in place.  Returns ``(logits (B,
     padded vocab), cache)`` with ``pos`` advanced by one, in place.
 
-    The KV write row and the attention length are clamped to ``max_seq -
-    1``, as the JAX package's ``dynamic_update_slice`` clamps them: a
-    prompt whose bucket equals ``max_seq`` decodes once at ``pos ==
-    max_seq`` and its new token replaces the last cached key, and free
-    slots of the engine, whose ``pos`` keeps rising, stay in range."""
+    The KV write row and the attention length (a hybrid's shared K/V
+    rows too) are clamped to ``max_seq - 1``, as the JAX package's
+    ``dynamic_update_slice`` clamps them: a prompt whose bucket equals
+    ``max_seq`` decodes once at ``pos == max_seq`` and its new token
+    replaces the last cached key, and free slots of the engine, whose
+    ``pos`` keeps rising, stay in range."""
     _check_ported(cfg)
     act_dt = dtype_of(cfg.activation_dtype)
     params = cast_params(params, act_dt)
     x = embed_lookup(params["embed"], token).to(act_dt)      # (B, D)
     pos = cache["pos"]
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
+        shared = params.get("shared_attn")
+        if shared is not None:
+            # one rotary phase and one clamped row for every site
+            rows = pos.expand(x.shape[0]) if pos.dim() == 0 else pos
+            sin, cos = rotary_embedding(rows[:, None], cfg.resolved_head_dim,
+                                        cfg.rope_theta)
+            att_pos = torch.clamp(rows, max=cache["shared_k"].shape[2] - 1)
         for j in range(cfg.num_layers):
             layer = layer_slice(params["layers"], j)
             x = _mamba_decode(layer, x, cache["ssm"][j], cache["conv"][j],
                               cfg)
+            site = _shared_site(cfg, j)
+            if shared is not None and site >= 0:
+                x = _attn_decode(shared, x, cache["shared_k"][site],
+                                 cache["shared_v"][site], att_pos, sin, cos,
+                                 cfg, opts, window=0)
     else:
         rows = pos.expand(x.shape[0]) if pos.dim() == 0 else pos
         sin, cos = rotary_embedding(rows[:, None], cfg.resolved_head_dim,

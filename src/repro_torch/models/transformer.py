@@ -4,8 +4,10 @@ Layer stacks keep the JAX package's *stacked* parameter layout (every
 per-layer leaf has a leading layer axis), and the layer walk is a Python
 loop where the JAX package scans.  Ported so far: the dense attention
 family (``ATTN`` / ``LOCAL`` blocks, dense FFN), the MoE family (the
-same attention blocks with a routed expert FFN, :mod:`.moe`) and the
-attention-free SSM stack (``MAMBA`` blocks), with the full-sequence
+same attention blocks with a routed expert FFN, :mod:`.moe`), the
+attention-free SSM stack (``MAMBA`` blocks) and the hybrid (a Mamba
+stack with ONE shared attention block run after every full period of
+``shared_attn_period`` Mamba blocks, Zamba2), with the full-sequence
 ``forward`` (train / prefill, no cache) that the elastic variants, TTA
 and the middleware run.  On the card every prefill block runs the flash
 attention kernel and the fused FFN kernel (through ``attention._attend``
@@ -30,11 +32,12 @@ from .runtime import DEFAULT_OPTIONS, RuntimeOptions
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm") \
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") \
             or cfg.is_encoder_decoder or cfg.vision_embed_dim:
         raise NotImplementedError(
             f"{cfg.name}: only dense and MoE attention stacks and the SSM "
-            f"stack are ported so far (arch_type={cfg.arch_type!r})")
+            f"and hybrid stacks are ported so far "
+            f"(arch_type={cfg.arch_type!r})")
 
 
 # ----------------------------------------------------------------- init ----
@@ -54,12 +57,27 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype)
 
-    if cfg.arch_type == "ssm":
-        layers = {"ln": zeros((n, d)), "mamba": _mamba_init(cfg, n, normal,
-                                                            zeros)}
-        return _to_device({"embed": normal((cfg.padded_vocab, d), 0.02),
-                           "final_norm": zeros((d,)), "layers": layers},
-                          device)
+    shared = None
+    if cfg.arch_type in ("ssm", "hybrid"):
+        layers = {"ln": zeros((n, d)),
+                  "mamba": _mamba_init(cfg, n, normal, zeros)}
+        if cfg.arch_type == "hybrid":
+            # ONE attention layer, shared by every site of the stack
+            shared = layer_slice(_attn_init(cfg, 1, normal, zeros), 0)
+    else:
+        layers = _attn_init(cfg, n, normal, zeros)
+    # the embedding is drawn after the layers
+    params = {"embed": normal((cfg.padded_vocab, d), 0.02),
+              "final_norm": zeros((d,)), "layers": layers}
+    if shared is not None:
+        params["shared_attn"] = shared
+    return _to_device(params, device)
+
+
+def _attn_init(cfg: ModelConfig, n: int, normal, zeros) -> Params:
+    """``n`` stacked attention layers: norms, projections and the FFN
+    (dense, or the MoE block)."""
+    d = cfg.d_model
     attn = {
         "wq": normal((n, d, cfg.q_dim), 1.0 / math.sqrt(d)),
         "wk": normal((n, d, cfg.kv_dim), 1.0 / math.sqrt(d)),
@@ -74,12 +92,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         layers["moe"] = _moe_init(cfg, n, normal)
     else:
         layers["ffn"] = _ffn_init(cfg, n, normal)
-    params = {
-        "embed": normal((cfg.padded_vocab, d), 0.02),
-        "final_norm": zeros((d,)),
-        "layers": layers,
-    }
-    return _to_device(params, device)
+    return layers
 
 
 def _ffn_init(cfg: ModelConfig, n: int, normal) -> Params:
@@ -204,10 +217,20 @@ def _pattern_period(cfg: ModelConfig) -> Tuple[Tuple[str, ...], bool]:
     return (ATTN,), False
 
 
+def _shared_site(cfg: ModelConfig, j: int) -> int:
+    """The site of a hybrid's shared attention block that runs after
+    layer ``j``, or -1.  A site closes each full period of Mamba blocks,
+    so the leftover layers of a partial period have none (zamba2: after
+    layers 5, 11, ..., 35, none after 36 and 37)."""
+    kinds, shared_after = _pattern_period(cfg)
+    period = len(kinds)
+    return j // period if shared_after and (j + 1) % period == 0 else -1
+
+
 # -------------------------------------------------------------- the stack --
 def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
-                opts: RuntimeOptions, *, causal: bool = True,
-                num_layers: Optional[int] = None
+                opts: RuntimeOptions, *, shared: Optional[Params] = None,
+                causal: bool = True, num_layers: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run a stacked layer dict over x.  Returns (x, aux_loss_sum).
 
@@ -217,7 +240,11 @@ def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
     (a period's kinds, then the leftover layers of a partial period);
     the JAX package's ``scan_layers`` and ``remat`` options have no
     counterpart here (no trace to keep small, and autograd keeps what a
-    backward needs)."""
+    backward needs).
+
+    A hybrid stack runs the ``shared`` attention layer after each FULL
+    period of the first n layers; the leftover layers of a partial
+    period run without it (zamba2: 38 = 6 x 6 + 2, so 6 sites)."""
     _check_dense(cfg)
     kinds, _ = _pattern_period(cfg)
     total = _stack_depth(stack)
@@ -228,11 +255,15 @@ def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
         kind = kinds[j % len(kinds)]
         if kind == MAMBA:
             x = mamba_block(layer, x, cfg)
-            continue
-        window = cfg.sliding_window if kind == LOCAL else 0
-        x, a = transformer_block(layer, x, cfg, opts, window=window,
-                                 causal=causal)
-        aux = aux + a
+        else:
+            window = cfg.sliding_window if kind == LOCAL else 0
+            x, a = transformer_block(layer, x, cfg, opts, window=window,
+                                     causal=causal)
+            aux = aux + a
+        if shared is not None and _shared_site(cfg, j) >= 0:
+            x, a = transformer_block(shared, x, cfg, opts, window=0,
+                                     causal=causal)
+            aux = aux + a
     return x, aux
 
 
@@ -260,6 +291,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     params = cast_params(params, act_dt)
     x = embed_lookup(params["embed"], tokens).to(act_dt)
     x, aux = apply_stack(params["layers"], x, cfg, opts,
+                         shared=params.get("shared_attn"),
                          num_layers=num_layers)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x)

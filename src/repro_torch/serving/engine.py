@@ -86,7 +86,7 @@ PREFILL_MODES = ("batched", "per_request")
 
 # cache leaves whose sequence axis (axis 2 in batch=1 layout) is trimmed
 # to ``pos`` when freezing — everything past pos is zero by construction
-_SEQ_TRIM_LEAVES = ("k", "v")
+_SEQ_TRIM_LEAVES = ("k", "v", "shared_k", "shared_v")
 
 # default observability pids: distinct per engine so two untagged
 # engines sharing one TraceRecorder never interleave on one track

@@ -187,6 +187,7 @@ class _EagerStep:
 @pytest.mark.parametrize("name,mode", [("paper-backbone", "paged"),
                                        ("paper-backbone", "batched"),
                                        ("mamba2-370m", "batched"),
+                                       ("zamba2-1.2b", "batched"),
                                        ("olmoe-1b-7b", "paged"),
                                        ("olmoe-1b-7b", "batched")])
 def test_graph_replayed_engine_matches_eager_steps(cuda, monkeypatch, name,
@@ -197,11 +198,17 @@ def test_graph_replayed_engine_matches_eager_steps(cuda, monkeypatch, name,
     after admissions write into their buffers) the graph-replayed
     engine's streams equal those of an engine whose steps run eagerly,
     and the kernels' launch counts, replays included, are equal too.
-    The MoE decode step (dense dispatch, stable top-k) replays too."""
+    The MoE decode step (dense dispatch, stable top-k) replays too, and
+    so does the hybrid's (5 layers at period 2: two sites of the shared
+    block, each writing its own K/V in place, and a leftover layer)."""
     from repro_torch.serving import engine as engine_mod
     if name == "mamba2-370m":
         cfg = get_config(name).reduced(d_model=64).with_updates(
             vocab_size=300, ssm_chunk=16, activation_dtype="float32")
+    elif name == "zamba2-1.2b":
+        cfg = get_config(name).reduced(num_layers=5, d_model=64) \
+            .with_updates(shared_attn_period=2, vocab_size=300,
+                          ssm_chunk=16, activation_dtype="float32")
     elif name == "olmoe-1b-7b":
         cfg = get_config(name).reduced(d_model=64, max_experts=16) \
             .with_updates(vocab_size=300, activation_dtype="float32")

@@ -60,7 +60,7 @@ def _rel(a, b):
 
 
 # ------------------------------------------------------------ fp8 KV ----
-@pytest.mark.parametrize("arch", ["yi-34b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["yi-34b", "gemma3-12b", "zamba2-1.2b"])
 def test_fp8_kv_cache_decode_close(arch):
     """fp8 KV decode within 0.15 (relative) of bf16 in the port, as in
     the reference, and each cache dtype's decode logits equal the JAX
@@ -83,7 +83,10 @@ def test_fp8_kv_cache_decode_close(arch):
         to = RuntimeOptions(kv_cache_dtype=name)
         cache = tm.init_cache(tcfg, 2, 24, to, device="cpu")
         if name == "fp8":
-            assert cache["k"].dtype == torch.float8_e4m3fn
+            # the hybrid's shared K/V and conv tail take the cache dtype
+            for leaf in ("k", "shared_k", "conv"):
+                if leaf in cache:
+                    assert cache[leaf].dtype == torch.float8_e4m3fn, leaf
         _, cache = tm.prefill(tp, tcfg, torch.from_numpy(toks[:, :11]),
                               cache, to)
         lt, _ = tm.decode_step(tp, tcfg, cache,

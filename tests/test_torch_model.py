@@ -271,7 +271,7 @@ def test_paged_copy_block_copies_every_leaf():
 
 def test_not_ported_families_raise():
     with pytest.raises(NotImplementedError):
-        tm.init_cache(get_config("zamba2-1.2b"), 1, 16, device="cpu")
+        tm.init_cache(get_config("internvl2-26b"), 1, 16, device="cpu")
     with pytest.raises(NotImplementedError):
         t_init_params(get_config("whisper-small").reduced(), device="cpu")
 

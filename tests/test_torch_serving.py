@@ -170,11 +170,11 @@ def test_shared_prompts_share_blocks_and_hit_prefix_cache():
 
 @pytest.mark.parametrize("mode", ["batched", "per_slot"])
 def test_not_ported_modes_raise(mode):
-    """The hybrid stack is not ported, so ``batched`` still refuses it.
-    ``per_slot`` is ported now: it constructs, admits per request and
-    serves a request to its budget."""
+    """The encoder-decoder stack is not ported, so ``batched`` still
+    refuses it.  ``per_slot`` is ported now: it constructs, admits per
+    request and serves a request to its budget."""
     if mode == "batched":
-        cfg = get_config("zamba2-1.2b").reduced(d_model=64)
+        cfg = get_config("whisper-small").reduced(d_model=64)
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, {}, decode_mode=mode, device="cpu")
         return

@@ -2,8 +2,9 @@
 
 ``decode_mode="batched"`` — one slot-stacked dense cache, one step per
 tick — on the JAX suites' tiny ``mamba2-370m`` (SSM state and conv
-tail) and tiny ``paper-backbone`` (dense KV), with the JAX weights
-brought across by the bridge.  On the f32-activation variants the
+tail), tiny ``paper-backbone`` (dense KV) and tiny ``zamba2-1.2b`` (the
+hybrid: SSM state, conv tail and the shared attention block's K/V per
+site), with the JAX weights brought across by the bridge.  On the f32-activation variants the
 greedy and sampled streams are equal, and so are the engine counters.
 Burst admission is one prefill call; a repeat of a wave builds no new
 program; a bucket equal to ``max_seq`` and free slots whose position
@@ -35,7 +36,7 @@ F32 = dict(activation_dtype="float32")
 
 
 def _configs(name):
-    if name == "mamba2-370m":
+    if name in ("mamba2-370m", "zamba2-1.2b"):
         kw = dict(vocab_size=300, ssm_chunk=16, **F32)
         return (j_get_config(name).reduced(d_model=64).with_updates(**kw),
                 get_config(name).reduced(d_model=64).with_updates(**kw))
@@ -44,7 +45,7 @@ def _configs(name):
 
 
 MODELS = {}
-for _name in ("mamba2-370m", "paper-backbone"):
+for _name in ("mamba2-370m", "paper-backbone", "zamba2-1.2b"):
     _jcfg, _tcfg = _configs(_name)
     _jp = init_params(_jcfg, jax.random.PRNGKey(1))
     MODELS[_name] = (_jcfg, _jp, JCompileCache(), _tcfg, params_from_numpy(

@@ -151,7 +151,7 @@ def test_lm_loss_matches_reference(masked):
 
 
 def test_unported_families_raise():
-    for name in ("zamba2-1.2b", "whisper-small"):
+    for name in ("internvl2-26b", "whisper-small"):
         cfg = get_config(name).reduced(d_model=64)
         with pytest.raises(NotImplementedError):
             forward({"embed": torch.zeros(cfg.padded_vocab, 64)}, cfg,
