@@ -88,8 +88,12 @@ Phases (any failure exits non-zero):
    embedding): the entropy falls and only norm scales and ``logit_bias``
    change.  In f32, card == CPU for every variant of the action space
    (logits), for the TTA gradients of every leaf (the K2/K3 backwards)
-   and for the early-exit depths (exits at layers 2, 4, 6); the
-   ``H100_SXM`` estimates are ranked against the card's forward times.
+   and for the early-exit depths (exits at layers 2, 4, 6).  P6: the
+   reference calibration test's ladder of 4 variants (full, width 0.75,
+   width 0.5 at depth 0.75 and at 0.5; tokens 2 x 256) is ranked by its
+   ``H100_SXM`` estimates against each forward's device time (the
+   profiler's kernel sum, taken only from profiles that recorded every
+   flash attention launch), beside the reference's bar of 0.79.
    Phase 1 reads the idle card's power draw, which ``H100_SXM.idle_w``
    takes.
 7. crowd — the fleet (``repro_torch.fleet``, ``faults``, ``obs``) with
@@ -1160,8 +1164,10 @@ def check_counts(engines, what):
             expect["fused_ffn"] += (p + d) * sites
         else:
             expect["flash_attention"] += p * n
-            # an MoE block runs K3 only for a shared expert
-            if e.cfg.arch_type != "moe" or e.cfg.moe_shared_expert:
+            # an MoE block runs K3 only for a shared expert, and a
+            # non-gated FFN (whisper's) is plain products
+            if e.cfg.gated_ffn and (e.cfg.arch_type != "moe"
+                                    or e.cfg.moe_shared_expert):
                 expect["fused_ffn"] += (p + d) * n
             if e.decode_mode == "paged" and e.opts.paged_kernel:
                 expect["paged_decode_attention"] += d * n
@@ -2184,8 +2190,7 @@ def phase_adapt(torch, smi, idle_w):
     from repro_torch.configs import get_config
     from repro_torch.core import (H100_SXM, Budgets, Middleware,
                                   ResourceContext, budget_sweep_trace,
-                                  case_study_trace, estimate_latency,
-                                  layer_costs, rank_consistency)
+                                  case_study_trace)
     from repro_torch.elastic import (NORM_KEYS, ElasticSupernet,
                                      attach_exits, early_exit_predict,
                                      forward_with_exits, tta_grads)
@@ -2380,28 +2385,83 @@ def phase_adapt(torch, smi, idle_w):
         f"from the nearest confidence): depths card == CPU, tokens per "
         f"exit {hist}")
 
-    # (e) the H100 profile's estimates against the card's forward times
-    sn = ElasticSupernet(cfg, params, max_cached=32)
-    est, meas = [], []
-    for spec in space:
-        vcfg, vparams = sn.variant(spec)
-        est.append(estimate_latency(layer_costs(vcfg, 4, 256), 0.70,
-                                    H100_SXM))
-        with torch.no_grad():
-            meas.append(cuda_ms(torch, lambda: forward(vparams, vcfg,
-                                                       tokens), 10, 3))
-    rho = rank_consistency(est, meas)
-    log(f"profiler vs card: rank_consistency {rho:.4f} of H100_SXM "
-        f"estimates (eps 0.70) against CUDA-event forward times over "
-        f"{len(space)} variants")
-    for spec, e, m in zip(space, est, meas):
-        log(f"  {spec_name(spec):40s} est {1e3 * e:.4f} ms, card "
-            f"{m:.4f} ms")
+    # (e) P6: the reference's ladder (test_profiler_calibration.py: full,
+    # w 0.75, (w 0.5, d 0.75), (w 0.5, d 0.5), tokens (2, 256)), ranked
+    # by its H100_SXM estimates against the card's device time
+    rank_ladder(torch, cfg, params, tokens[:2])
     log(f"H100_SXM.idle_w {H100_SXM.idle_w} W; idle power.draw read in "
         f"phase 1: {idle_w} W ({smi})")
     log(f"adaptation phase: {time.perf_counter() - t_phase:.1f} s")
     return {k: n for k, n in counts.items() if n}
 
+
+
+P6_BAR = 0.79        # test_profiler_calibration.py's bar, not lowered
+P6_LADDER = (dict(), dict(width_ratio=0.75),
+             dict(width_ratio=0.5, depth_ratio=0.75),
+             dict(width_ratio=0.5, depth_ratio=0.5))
+
+
+def whole_profile_ms(torch, fn, k2_per_call, iters=20, tries=3):
+    """Device ms of one call of ``fn``: the profiler's kernel time over
+    ``iters`` calls, taken only from a profile that recorded every one
+    of the call's ``k2_per_call`` flash attention launches (the profiler
+    drops events late in a long run).  ``None`` when no profile of
+    ``tries`` was whole."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        k2 = sum(e.count for e in kernels if "flash_attn" in e.key)
+        if k2 == k2_per_call * iters:
+            return sum(e.self_device_time_total for e in kernels) \
+                / 1e3 / iters
+    return None
+
+
+def rank_ladder(torch, cfg, params, tokens):
+    """P6 on the card: the 4 variants of the reference's calibration
+    ladder, ranked by their ``H100_SXM`` estimates (eps 0.5, as the
+    reference estimates with ``MOBILE_CPU``) against each ``forward``'s
+    device time (the profiler's kernel sum, checked whole), beside the
+    ranking against CUDA-event times (host included).  Logs both
+    ``rank_consistency`` values beside the reference's bar; returns the
+    device-time one (``None`` when a device time was not measured)."""
+    from repro_torch.core import (H100_SXM, estimate_latency, layer_costs,
+                                  rank_consistency)
+    from repro_torch.elastic import VariantSpec, derive_variant
+    from repro_torch.models import forward
+    b, s = tokens.shape
+    est, dev, events = [], [], []
+    for kw in P6_LADDER:
+        vcfg, vparams = derive_variant(cfg, params, VariantSpec(**kw))
+        est.append(estimate_latency(layer_costs(vcfg, b, s), 0.5, H100_SXM))
+        with torch.no_grad():
+            def call():
+                return forward(vparams, vcfg, tokens)
+            dev.append(whole_profile_ms(torch, call, vcfg.num_layers))
+            events.append(cuda_ms(torch, call, 20, 3))
+        if dev[-1] is not None and dev[-1] > events[-1]:
+            raise AssertionError(f"P6 {kw}: device time {dev[-1]} ms above "
+                                 f"the CUDA-event time {events[-1]} ms")
+        log(f"  P6 ladder {kw or 'full'}: est {1e3 * est[-1]:.5f} ms, "
+            f"device {fmt(dev[-1])}, CUDA events {events[-1]:.4f} ms")
+    rho_ev = rank_consistency(est, events)
+    rho = None if None in dev else rank_consistency(est, dev)
+    verdict = ("not measured" if rho is None else
+               "met" if rho >= P6_BAR else "missed")
+    log(f"P6: rank_consistency of H100_SXM estimates on the reference's "
+        f"ladder at tokens {b} x {s}: "
+        f"{'not measured' if rho is None else f'{rho:.4f}'} against "
+        f"device time (bar {P6_BAR}: {verdict}), {rho_ev:.4f} against "
+        f"CUDA-event time")
+    return rho
 
 
 # ---------------------------------------------------------------- phase 7
@@ -3392,11 +3452,10 @@ def hybrid_step_bytes(params, eng):
     return weights, state, rows * row
 
 
-def hybrid_repeats(torch, eng):
-    """A whole hybrid decode step repeats bit for bit: the step run
-    eagerly on two clones of one engine state gives equal tokens and
-    equal cache leaves (SSM state, conv tail, shared K/V).  Returns the
-    eager step on the first clone."""
+def step_repeats(torch, eng, what):
+    """A whole decode step repeats bit for bit: the step run eagerly on
+    two clones of one engine state gives equal tokens and equal cache
+    (and pool) leaves.  Returns the eager step on the first clone."""
     from repro_torch.models.layers import tree_leaves
     fill_slots(eng, 32)
     step_a, state_a = eager_on_clones(torch, eng)
@@ -3405,10 +3464,10 @@ def hybrid_repeats(torch, eng):
     if not (torch.equal(toks_a, toks_b) and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(state_a),
                                               tree_leaves(state_b)))):
-        raise AssertionError("the zamba2 decode step does not repeat bit "
-                             "for bit on two clones of one state")
-    log("a whole zamba2-1.2b decode step (tokens, SSM state, conv tail, "
-        "shared K/V) repeats bit for bit")
+        raise AssertionError(f"the {what} decode step does not repeat "
+                             "bit for bit on two clones of one state")
+    log(f"a whole {what} decode step repeats bit for bit (tokens and "
+        f"every cache leaf)")
     return step_a
 
 
@@ -3505,7 +3564,7 @@ def phase_hybrid(torch, smi):
         f"{eng.stats.prefill_calls}, programs built {warm}, graph captures "
         f"{captures(eng)}")
     busy_eng = engine()
-    step = hybrid_repeats(torch, busy_eng)
+    step = step_repeats(torch, busy_eng, "zamba2-1.2b")
     weights, state, kv = hybrid_step_bytes(params, busy_eng)
     graph_ms, _, g_busy, _ = graph_vs_eager(
         torch, engine(), "zamba2-1.2b batched step", smi)
@@ -3563,6 +3622,578 @@ def phase_hybrid(torch, smi):
     return totals, extra
 
 
+# --------------------------------------------------------------- phase 10
+WHISPER_MAX_SEQ = 512        # the served wave's max_seq (10b): mb 32
+
+
+def _time_kernel(torch, fn, plain, library, part, nbytes, flops, iters=50,
+                 plain_iters=5):
+    """The timing fields of one kernel call: CUDA-event and device ms,
+    its plain version's and a library call's ms, its bound."""
+    t = dict(ms=cuda_ms(torch, fn, iters=iters),
+             device_ms=device_ms(torch, fn, iters=min(iters, 50),
+                                 part=part),
+             plain_ms=cuda_ms(torch, plain, iters=plain_iters, warmup=1))
+    if library is not None:
+        t["library_ms"] = cuda_ms(torch, library, iters=iters)
+        t["library_device_ms"] = device_ms(torch, library,
+                                           iters=min(iters, 50))
+    else:
+        t["library_ms"] = None
+    t["bound_ms"], t["bound_by"] = bound(nbytes, flops, H100_BF16_FLOPS)
+    return t
+
+
+def encdec_kernels_alone(torch):
+    """10.0: K2 at whisper-small's encoder self-attention (8 x 1500
+    frames, 12 heads of 64, non-causal) and its cross-attention (8 x 16
+    and 8 x 448 decoder queries over the 1500 frames: the key length
+    apart from the query length), K1 at its paged decode step and K3 at
+    internvl2-26b's FFN (silu, D 6144, F 16384 at M 8 and 2048), each
+    against its plain version and repeating bit for bit, then timed
+    beside its bound, its plain version and SDPA (K2, K1) or the unfused
+    cuBLAS chain (K3).  Returns the timing fields for the kernels line,
+    by kernel name."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.kernels.fused_ffn import ffn_plan
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
+    from repro_torch.kernels.ref import fused_ffn_ref, paged_decode_attn_ref
+    gen = torch.Generator().manual_seed(2300)
+    times = {}
+    b, h, hd, se = 8, 12, 64, 1500
+    # K2, the encoder: 8 x 1500 frames, non-causal
+    q, k, v = flash_case(torch, gen, b, h, h, se, hd, "bfloat16")
+    nc = dict(causal=False)
+    err = check_close("flash_attention", flash_attention(q, k, v, **nc),
+                      flash_plain(q, k, v, **nc), TOL["bfloat16"],
+                      "whisper encoder 8 x 1500, 12 heads of 64")
+    if not torch.equal(flash_attention(q, k, v, **nc),
+                       flash_attention(q, k, v, **nc)):
+        raise AssertionError("flash_attention does not repeat at the "
+                             "whisper encoder's shape")
+    times["encoder"] = _time_kernel(
+        torch, lambda: flash_attention(q, k, v, **nc),
+        lambda: flash_plain(q, k, v, **nc),
+        lambda: F.scaled_dot_product_attention(q, k, v), "flash_attn",
+        4 * q.numel() * 2, 4 * b * h * se * se * hd)
+    times["encoder"]["max_abs_err"] = err
+    # K2, the cross-attention: decoder queries over the 1500 frames
+    for sq in (16, 448):
+        qc = torch.randn(b, sq, h, hd, generator=gen).to(
+            torch.bfloat16).cuda().transpose(1, 2)
+        out = flash_attention(qc, k, v, **nc)
+        err = check_close("flash_attention", out, flash_plain(qc, k, v, **nc),
+                          TOL["bfloat16"], f"whisper cross-attention {b} x "
+                          f"{sq} queries over {se} keys")
+        if not torch.equal(out, flash_attention(qc, k, v, **nc)):
+            raise AssertionError(f"flash_attention does not repeat at {sq} "
+                                 f"queries over {se} keys")
+        times[f"cross{sq}"] = _time_kernel(
+            torch, lambda: flash_attention(qc, k, v, **nc),
+            lambda: flash_plain(qc, k, v, **nc),
+            lambda: F.scaled_dot_product_attention(qc, k, v), "flash_attn",
+            (2 * qc.numel() + 2 * k.numel()) * 2, 4 * b * h * sq * se * hd)
+        times[f"cross{sq}"]["max_abs_err"] = err
+    del q, k, v, qc, out
+    # K1 at whisper's paged decode: 8 slots x 12 heads of 64 (group 1), an
+    # int8 pool of 12 layers, block 16, mb 32 (max_seq 512)
+    mb = WHISPER_MAX_SEQ // 16
+    err = 0.0
+    for pos_kind in ("ragged", "full_tail", "short"):
+        args, sc = make_case(torch, gen, slots=b, heads=h, kvh=h, hd=hd,
+                             bs=16, mb=mb, pool_dtype="int8",
+                             q_dtype="bfloat16", pos_kind=pos_kind,
+                             layers=12, layer=5)
+        err = max(err, check_close(
+            "paged_decode_attention", k1_repeated(torch, args, sc, 0),
+            paged_decode_attn_ref(*args, **sc), TOL["bfloat16"],
+            f"whisper decode, pos {pos_kind}"))
+    k1 = dict(ms=cuda_ms(torch, lambda: paged_decode_attention(*args, **sc)),
+              device_ms=device_ms(torch, lambda: paged_decode_attention(
+                  *args, **sc), part="paged_decode"),
+              plain_ms=cuda_ms(torch, lambda: paged_decode_attn_ref(
+                  *args, **sc), iters=20),
+              max_abs_err=err)
+    k1["library_ms"], k1["library_device_ms"] = sdpa_yardstick(torch, args,
+                                                               sc)
+    k1["bound_ms"], k1["bound_by"] = paged_bound_ms(args, sc)
+    times["k1"] = k1
+    # K3 at internvl2-26b's FFN: silu, D 6144, F 16384, bf16
+    for m in (8, 2048):
+        x, wg, wu, wd = ffn_case(torch, gen, m, 6144, 16384, "bfloat16")
+        route = ffn_plan(x.dtype, m, 6144, 16384).route
+        out = fused_ffn(x, wg, wu, wd)
+        err = check_close("fused_ffn", out, fused_ffn_ref(x, wg, wu, wd),
+                          FFN_TOL["bfloat16"], f"internvl2 M {m}, D 6144, F "
+                          f"16384 ({route})")
+        if not torch.equal(out, fused_ffn(x, wg, wu, wd)):
+            raise AssertionError(f"fused_ffn does not repeat at M {m}, "
+                                 "D 6144")
+
+        def chain():
+            return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+        t = _time_kernel(
+            torch, lambda: fused_ffn(x, wg, wu, wd),
+            lambda: fused_ffn_ref(x, wg, wu, wd), None, "fused_ffn",
+            (2 * x.numel() + 3 * wg.numel()) * 2, 6 * m * 6144 * 16384,
+            iters=10, plain_iters=3)
+        t.update(route=route, max_abs_err=err,
+                 chain_ms=cuda_ms(torch, chain, iters=10),
+                 chain_device_ms=device_ms(torch, chain, iters=10))
+        times[f"ffn{m}"] = t
+        del x, wg, wu, wd, out
+    labels = {"encoder": "K2, whisper encoder (8 x 1500, 12 heads of 64, "
+                         "non-causal)",
+              "cross16": "K2, whisper cross-attention (8 x 16 over 1500)",
+              "cross448": "K2, whisper cross-attention (8 x 448 over 1500)",
+              "k1": "K1, whisper paged decode (8 slots x 12 heads of 64, "
+                    "int8, mb 32)",
+              "ffn8": "K3, internvl2-26b FFN (M 8, D 6144, F 16384)",
+              "ffn2048": "K3, internvl2-26b FFN (M 2048, D 6144, F 16384)"}
+    for key, t in times.items():
+        log(f"{labels[key]}" + (f" (route {t['route']})" if "route" in t
+                                else "")
+            + f": kernel_ms {t['ms']:.4f} device {fmt(t['device_ms'])}; "
+            f"plain_ms {t['plain_ms']:.4f}; "
+            + (f"SDPA {t['library_ms']:.4f} ms, device "
+               f"{fmt(t['library_device_ms'])}; " if t["library_ms"]
+               else "")
+            + (f"unfused cuBLAS chain {t['chain_ms']:.4f} ms, device "
+               f"{fmt(t['chain_device_ms'])}; " if "chain_ms" in t else "")
+            + f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}); "
+            f"max_abs_err {t['max_abs_err']:.3g}")
+    log("phase 10 shapes: K2 (whisper's encoder and cross-attention at "
+        "its key length), K1 (whisper's paged decode) and K3 (internvl2's "
+        "FFN at M 8 and 2048) == plain versions, each repeating bit for "
+        "bit")
+    extra = {"flash_attention": {}, "paged_decode_attention": {},
+             "fused_ffn": {}}
+    for key, t in times.items():
+        name = ("paged_decode_attention" if key == "k1" else "fused_ffn"
+                if key.startswith("ffn") else "flash_attention")
+        suffix = {"encoder": "_whisper_encoder", "cross16": "_whisper_cross16",
+                  "cross448": "_whisper_cross448", "k1": "_whisper",
+                  "ffn8": "_internvl2", "ffn2048": "_internvl2_m2048"}[key]
+        extra[name].update({f"{k}{suffix}": v for k, v in t.items()})
+    return extra
+
+
+def whisper_frames(torch, cfg, batch, seed):
+    """Stub audio frames (batch, S_enc, D): std normal x 0.1, drawn from a
+    numpy seed (as ``test_arch_smoke.py`` draws them)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(
+        (batch, cfg.encoder_seq_len, cfg.d_model)) * 0.1).astype(np.float32))
+
+
+def decode_split(torch, step, se, max_seq, reps=8):
+    """Device time of an eager model-level decode step of an
+    encoder-decoder split into the cross-attention over the cached
+    encoder K/V (the top-level ops one of whose inputs, or their
+    children's, spans the ``se`` encoder frames: the f32 casts, products,
+    mask and softmax of ``decode_attention``), the self-attention over
+    the dense ``max_seq``
+    cache (the same for ``max_seq``), the weight products (top-level
+    ``aten::matmul``/``aten::mm``) and the rest, from one profile with
+    shapes recorded.  Returns ``(busy, cross, self, matmuls)`` in ms a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+
+    def spans(ev, n):
+        # an einsum records no input shapes: its children's show them
+        return any(n in s for s in ev.input_shapes or []) or any(
+            spans(c, n) for c in ev.cpu_children)
+
+    parts = {"cross": 0.0, "self": 0.0, "matmuls": 0.0}
+    for ev in prof.events():
+        if ev.cpu_parent is not None or not ev.name.startswith("aten::"):
+            continue
+        if spans(ev, se):
+            key = "cross"
+        elif spans(ev, max_seq):
+            key = "self"
+        elif ev.name in ("aten::matmul", "aten::mm"):
+            key = "matmuls"
+        else:
+            continue
+        parts[key] += ev.device_time_total / 1e3 / reps
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ev.self_device_time_total for ev in kernels) / 1e3 / reps
+    if parts["cross"] <= 0 or parts["matmuls"] <= 0:
+        raise RuntimeError(f"the profile split found {parts}")
+    return busy, parts["cross"], parts["self"], parts["matmuls"]
+
+
+def encdec_step_bytes(params, cache, pos):
+    """Bytes a model-level whisper decode step must move at least: the
+    decoder's weights it reads (every decoder leaf but the cross blocks'
+    K/V projections, whose products the prefill cached) and the tied
+    embedding, each once; the cross K/V of every layer read; each row's
+    self K/V up to ``pos`` read and its new row written.  Returns
+    ``(weights, cross, self)``."""
+    from repro_torch.models.layers import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    layers = dict(params["layers"])
+    layers["cross"] = {k: v for k, v in layers["cross"].items()
+                       if k not in ("wk", "wv")}
+    weights = nbytes(layers) + nbytes(params["embed"]) \
+        + nbytes(params["final_norm"])
+    cross = nbytes(cache["cross_k"]) + nbytes(cache["cross_v"])
+    n, b, _, kvh, hd = cache["k"].shape
+    row = 2 * n * kvh * hd * cache["k"].element_size()
+    return weights, cross, b * (pos + 1) * row
+
+
+def whisper_transcribe(torch, smi, params, cfg):
+    """10a: the transcription path at full width, bf16: ``prefill`` of 8
+    prompts of 16 tokens with 8 x 1500 stub frames, then 64 greedy
+    ``decode_step``s.  K2 exactly 36 a prefill call (12 encoder, 12
+    self, 12 cross), nothing else launched; the encoder's and the
+    prefill's times, the decode step's host and device ms, idle share,
+    device split and byte bound.  Returns ``{kernel name: launches}``."""
+    import numpy as np
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.runtime import DEFAULT_OPTIONS
+    from repro_torch.models.transformer import encode
+    b, s, steps = 8, 16, 64
+    max_seq = 128
+    rng = np.random.default_rng(71)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)).cuda()
+    frames = whisper_frames(torch, cfg, b, 72).cuda()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, tokens,
+                            init_cache(cfg, b, max_seq), encoder_frames=frames)
+    torch.cuda.synchronize()
+    ttft_ms = 1e3 * (time.perf_counter() - t0)
+    tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1).to(torch.int32)
+    streams = [tok]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, cache = decode_step(params, cfg, cache, tok)
+        tok = torch.argmax(lg[:, :cfg.vocab_size], -1).to(torch.int32)
+        streams.append(tok)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    counts = {name: fn.launches for name, fn in _kernel_fns().items()}
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = cfg.encoder_layers + 2 * cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"whisper prefill + {steps} decode steps: "
+                             f"launches {counts}, expected {want}")
+    toks = torch.stack(streams, 1).cpu()
+    if int(cache["pos"]) != s + steps or not bool(torch.isfinite(
+            lg.float()).all()) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError("whisper decode: bad positions, logits or "
+                             "tokens")
+    log(f"whisper-small transcription on {smi}: prefill of {b} x {s} tokens "
+        f"with {b} x {cfg.encoder_seq_len} frames {ttft_ms:.2f} ms host "
+        f"(first call), {steps} greedy decode steps {step_ms:.3f} ms/step "
+        f"host; launches {counts} (K2 = 36 a prefill call); "
+        f"{len(set(toks[:, 1:].flatten().tolist()))} distinct tokens")
+    enc_ms = cuda_ms(torch, lambda: encode(params, cfg, frames,
+                                           DEFAULT_OPTIONS), 10, 2)
+    enc_dev = device_ms(torch, lambda: encode(params, cfg, frames,
+                                              DEFAULT_OPTIONS), iters=10)
+
+    def run_prefill():
+        return prefill(params, cfg, tokens, init_cache(cfg, b, max_seq),
+                       encoder_frames=frames)
+
+    pre_ms = cuda_ms(torch, run_prefill, 10, 2)
+    pre_dev = device_ms(torch, run_prefill, iters=10)
+    log(f"  encoder (12 layers over 8 x 1500 frames): {enc_ms:.3f} ms, "
+        f"device {fmt(enc_dev)}; prefill (encoder + 12 decoder layers "
+        f"with cross K/V captured): {pre_ms:.3f} ms (CUDA events), device "
+        f"{fmt(pre_dev)}")
+    pos = int(cache["pos"])
+
+    def one_step():
+        return decode_step(params, cfg, cache, tok)[0]
+
+    # the steps below write row pos again and again (its position stays),
+    # the same work a step at that depth does
+    pos_t = cache["pos"].clone()
+
+    def fixed_step():
+        cache["pos"].copy_(pos_t)
+        return one_step()
+
+    busy, cross, self_, mm = decode_split(torch, fixed_step,
+                                          cfg.encoder_seq_len, max_seq)
+    weights, cross_b, self_b = encdec_step_bytes(params, cache, pos)
+    bound_ms = 1e3 * (weights + cross_b + self_b) / H100_BYTES_PER_S
+    log(f"  decode step at pos {pos}, 8 rows: host {step_ms:.3f} ms, "
+        f"device {busy:.3f} ms (idle share {1 - busy / step_ms:.3f}) = "
+        f"cross-attention {cross:.3f} + self-attention {self_:.3f} + "
+        f"weight products {mm:.3f} + the rest {busy - cross - self_ - mm:.3f}"
+        f"; byte bound {bound_ms:.4f} ms ({weights / 1e9:.3f} GB of decoder "
+        f"weights and the embedding, {cross_b / 1e9:.3f} GB of cross K/V, "
+        f"{self_b / 1e6:.2f} MB of self K/V, at "
+        f"{H100_BYTES_PER_S / 1e12:.2f} TB/s): the step at "
+        f"{bound_ms / step_ms:.3f} of the bound")
+    return {k: n for k, n in counts.items() if n}
+
+
+def whisper_served(torch, smi, params, cfg):
+    """10b: whisper-small at full width served as the JAX engine serves
+    it (no frames: zero cross K/V, R8): paged, ``paged_kernel=True``,
+    ``kv_dtype="int8"``, 8 slots, two waves of 16 requests.  Exact K1
+    (12 a step) and K2 (12 a prefill call) launches, no K3; no new
+    program on the second wave; a whole step repeats bit for bit; graph
+    == eager; one slot frozen and thawed (its cross leaves whole) gives
+    the stream of an unfrozen run.  Returns ``{kernel name:
+    launches}``."""
+    from repro_torch.models.runtime import RuntimeOptions
+    from repro_torch.serving import CompileCache, ServingEngine
+    opts = RuntimeOptions(paged_kernel=True, kv_dtype="int8")
+    cache = CompileCache()
+
+    def engine():
+        return ServingEngine(cfg, params, slots=8, max_seq=WHISPER_MAX_SEQ,
+                             opts=opts, decode_mode="paged",
+                             compile_cache=cache, device="cuda")
+
+    eng = engine()
+    zero_counts()
+    waves = []
+    for wave in range(2):
+        waves.append(serve_wave(torch, eng, _prompts(
+            16, 80 + wave, cfg.vocab_size), 23000 + 100 * wave, 32))
+        if wave == 0:
+            warm = eng.stats.recompiles
+    counts = check_counts([eng], "whisper-small paged int8, two waves")
+    if set(counts) != {"paged_decode_attention", "flash_attention"}:
+        raise AssertionError(f"whisper launched {sorted(counts)}")
+    if eng.stats.recompiles != warm:
+        raise AssertionError(f"the second whisper wave built "
+                             f"{eng.stats.recompiles - warm} new programs")
+    for wave, (tps, ms, reqs) in enumerate(waves):
+        log(f"whisper-small paged int8 on {smi}, wave {wave + 1}: "
+            f"{tps:.1f} tok/s, {ms:.3f} ms/decode step; TTFT by bucket "
+            + "; ".join(f"{b}: mean {mean:.1f} ms, max {mx:.1f} ms over {n}"
+                        for b, (mean, mx, n) in ttft_by_bucket(
+                            eng, reqs).items()))
+    log(f"  decode steps {eng.stats.decode_calls}, prefill calls "
+        f"{eng.stats.prefill_calls}, programs built {warm}, graph captures "
+        f"{captures(eng)}")
+    # freeze and thaw one slot mid-wave: the same stream as unfrozen
+    prompts = _prompts(8, 85, cfg.vocab_size)
+    zero_counts()
+    ref = engine()
+    ref_reqs = greedy_requests(prompts, 24, rid_base=24000)
+    for r in ref_reqs:
+        ref.submit(r)
+    ref.drain()
+    fz = engine()
+    reqs = greedy_requests(prompts, 24, rid_base=24000)
+    for r in reqs:
+        fz.submit(r)
+    for _ in range(5):
+        fz.step()
+    moved = fz.freeze(reqs[3].rid)
+    shape = tuple(moved.frozen.leaves["cross_k"].shape)
+    if shape != (cfg.num_layers, 1, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim) or not fz.thaw(moved):
+        raise AssertionError(f"whisper freeze: cross leaves {shape}")
+    fz.drain()
+    if [r.generated for r in reqs] != [r.generated for r in ref_reqs] \
+            or fz.stats.freezes != 1 or fz.stats.thaws != 1:
+        raise AssertionError("whisper: a frozen and thawed slot's stream "
+                             "differs from the unfrozen run")
+    log(f"whisper-small: one slot frozen after 5 steps (cross leaves "
+        f"{shape}, kept whole) and thawed: 8 streams equal the unfrozen "
+        f"run's, {fz.stats.prefill_calls} prefill calls against "
+        f"{ref.stats.prefill_calls}")
+    for k, n in check_counts([ref, fz], "whisper freeze/thaw runs").items():
+        counts[k] = counts.get(k, 0) + n
+    step_repeats(torch, engine(), "whisper-small paged int8")
+    graph_vs_eager(torch, engine(), "whisper-small paged int8 step", smi)
+    return counts
+
+
+def encdec_card_vs_cpu(torch):
+    """10c: card == CPU in f32 with f32 caches: reduced whisper with
+    frames (prefill and 32 greedy decode steps), reduced whisper in the
+    engine (``batched``, ``per_slot``, ``paged`` and both swaps), the
+    full-width whisper-small with frames on a short prefill and decode
+    and through the engine, and reduced internvl2 with patch embeddings
+    (``forward`` logits, prefill and greedy decode).  Returns ``{kernel
+    name: launches}`` of the card's runs."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.runtime import RuntimeOptions
+    totals = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    f32 = RuntimeOptions(kv_cache_dtype="float32")
+
+    def model_streams(cfg, device, toks, steps, **stub):
+        """Greedy prefill + decode at model level on ``device``."""
+        params = init_params(cfg, seed=0, device=device)
+        t = torch.from_numpy(toks).to(device)
+        kw = {k: v.to(device) for k, v in stub.items()}
+        cache = init_cache(cfg, t.shape[0], t.shape[1] + steps, f32,
+                           device=device)
+        logits, cache = prefill(params, cfg, t, cache, f32, **kw)
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1).to(
+            torch.int32)
+        out = [tok]
+        for _ in range(steps):
+            lg, cache = decode_step(params, cfg, cache, tok, f32)
+            tok = torch.argmax(lg[:, :cfg.vocab_size], -1).to(torch.int32)
+            out.append(tok)
+        return torch.stack(out, 1).cpu(), logits[:, -1].float().cpu(), params
+
+    def held(cfg, toks, steps, what, k2_per_call, k3_per_call=0, **stub):
+        zero_counts()
+        card, card_lg, _ = model_streams(cfg, "cuda", toks, steps, **stub)
+        counts = {name: fn.launches for name, fn in _kernel_fns().items()}
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention"] = k2_per_call
+        want["fused_ffn"] = k3_per_call * (steps + 1)
+        if counts != want:
+            raise AssertionError(f"{what}: launches {counts}, expected "
+                                 f"{want}")
+        cpu, cpu_lg, _ = model_streams(cfg, "cpu", toks, steps, **stub)
+        err = check_close("prefill logits", card_lg, cpu_lg, LOGITS_TOL,
+                          what)
+        if not torch.equal(card, cpu):
+            raise AssertionError(f"{what}: card and CPU greedy streams "
+                                 f"differ:\ncuda {card.tolist()}\ncpu  "
+                                 f"{cpu.tolist()}")
+        log(f"{what}: card == CPU greedy streams {tuple(card.shape)}, "
+            f"last prefill logits max_abs_err {err:.3g}; launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        add(counts)
+
+    rng = np.random.default_rng(93)
+    wr = get_config("whisper-small").reduced().with_updates(
+        activation_dtype="float32")
+    toks = rng.integers(0, wr.vocab_size, (4, 12)).astype(np.int32)
+    held(wr, toks, 32, "whisper reduced with frames, f32",
+         wr.encoder_layers + 2 * wr.num_layers,
+         encoder_frames=whisper_frames(torch, wr, 4, 94))
+    wf = get_config("whisper-small").with_updates(activation_dtype="float32")
+    toks = rng.integers(0, wf.vocab_size, (2, 8)).astype(np.int32)
+    held(wf, toks, 8, "whisper-small full width with frames, f32",
+         wf.encoder_layers + 2 * wf.num_layers,
+         encoder_frames=whisper_frames(torch, wf, 2, 95))
+    vr = get_config("internvl2-26b").reduced().with_updates(
+        activation_dtype="float32")
+    toks = rng.integers(0, vr.vocab_size, (4, 12)).astype(np.int32)
+    vis = torch.from_numpy((rng.standard_normal(
+        (4, vr.num_vision_tokens, vr.vision_embed_dim)) * 0.1).astype(
+            np.float32))
+    held(vr, toks, 16, "internvl2 reduced with patch embeddings, f32",
+         vr.num_layers, vr.num_layers, vision_embeds=vis)
+    params = init_params(vr, seed=0, device="cuda")
+    t = torch.from_numpy(toks)
+    zero_counts()
+    card = forward(params, vr, t.cuda(), vision_embeds=vis.cuda())[0]
+    if {k: fn.launches for k, fn in _kernel_fns().items()
+            if fn.launches} != {"flash_attention": vr.num_layers,
+                                "fused_ffn": vr.num_layers}:
+        raise AssertionError("internvl2 forward: launches")
+    add({"flash_attention": vr.num_layers, "fused_ffn": vr.num_layers})
+    cpu = forward(to_cpu(params), vr, t, vision_embeds=vis)[0]
+    err = check_close("forward logits", card.cpu(), cpu, LOGITS_TOL,
+                      "internvl2 reduced forward with patch embeddings")
+    log(f"internvl2 reduced forward with patch embeddings card == CPU: "
+        f"max_abs_err {err:.3g} (atol {LOGITS_TOL['atol']}, rtol "
+        f"{LOGITS_TOL['rtol']})")
+    # the engines, as the JAX engine serves whisper (no frames)
+    lens = (8, 37, 120, 200)
+    paged = dict(decode_mode="paged", opts=RuntimeOptions(
+        paged_kernel=True, kv_dtype="int8", kv_cache_dtype="float32"))
+    for what, kw in (("batched", dict(decode_mode="batched", opts=f32)),
+                     ("per_slot", dict(decode_mode="per_slot", opts=f32)),
+                     ("paged int8", paged)):
+        keep = []
+        zero_counts()
+        card_vs_cpu(torch, wr, lens, 24, 96, f"whisper reduced {what}",
+                    keep=keep, max_seq=512, **kw)
+        add(check_counts(keep, f"whisper reduced {what}"))
+    for swap in ("same", "other"):
+        keep = []
+        zero_counts()
+        _, st = card_vs_cpu(torch, wr, (8, 37, 120, 200, 60, 90), 24, 97,
+                            f"whisper reduced paged int8, swap_model to the "
+                            f"{swap} weights after 4 steps", swap=swap,
+                            keep=keep, max_seq=512, **paged)
+        if st["requeues"] != 4 or st["thaws"] != (4 if swap == "same"
+                                                  else 0):
+            raise AssertionError(f"whisper swap ({swap}): {st}")
+        add(check_counts(keep, f"whisper reduced swap ({swap})"))
+    keep = []
+    zero_counts()
+    card_vs_cpu(torch, wf, (8, 30, 100), 8, 98, "whisper-small full width "
+                "batched, f32 caches", keep=keep, max_seq=256,
+                decode_mode="batched", opts=f32)
+    add(check_counts(keep, "whisper-small full width, f32"))
+    return totals
+
+
+def phase_encdec(torch, smi):
+    """The encoder-decoder and the VLM stub on the card: 10.0 the kernels
+    at whisper-small's and internvl2-26b's shapes; 10a whisper-small's
+    transcription path at full width in bf16; 10b whisper-small served
+    by the engine at full width; 10c card == CPU in f32.  Returns
+    ``({kernel name: launches}, {kernel name: timing fields})``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import cast_params, tree_leaves
+    t_phase = time.perf_counter()
+    extra = encdec_kernels_alone(torch)
+    torch.cuda.empty_cache()
+    totals = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    cfg = get_config("whisper-small")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = cast_params(init_params(cfg, seed=0, device="cuda"),
+                         torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"whisper-small: {n_params / 1e9:.3f} B parameters (param_count() "
+        f"{cfg.param_count() / 1e9:.3f} B) drawn from seed 0 on the host, "
+        f"moved to the card and cast to bf16 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    add(whisper_transcribe(torch, smi, params, cfg))
+    add(whisper_served(torch, smi, params, cfg))
+    del params
+    torch.cuda.empty_cache()
+    add(encdec_card_vs_cpu(torch))
+    log(f"encoder-decoder phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals, extra
+
+
 def main() -> int:
     import torch
     smi, idle_w = phase_device(torch)
@@ -3580,7 +4211,7 @@ def main() -> int:
     for k, n in phase_crowd(torch, smi).items():
         launches[k] = launches.get(k, 0) + n
     extras = []
-    for phase in (phase_experts, phase_hybrid):
+    for phase in (phase_experts, phase_hybrid, phase_encdec):
         counts, extra = phase(torch, smi)
         extras.append(extra)
         for k, n in counts.items():

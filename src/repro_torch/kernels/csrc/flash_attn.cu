@@ -7,9 +7,12 @@
 // repro_torch.kernels.ref.flash_attn_ref.
 //
 // What it computes: for every (batch, head) and query row, softmax over
-// the valid keys of q.k / sqrt(hd), times V.  Key column c of row r is
-// valid iff c < S, and c <= r when causal, c > r - window when a window
-// is set, c < kv_len when kv_len >= 0.  Scores, the online softmax state
+// the valid keys of q.k / sqrt(hd), times V.  The queries are S_q rows
+// and the keys S_k columns (S_q == S_k for self-attention; a decoder's
+// cross-attention reads S_k encoder frames).  Key column c of row r is
+// valid iff c < S_k, and c <= r when causal, c > r - window when a
+// window is set, c < kv_len when kv_len >= 0 (the wrapper allows causal
+// and window only when S_q == S_k).  Scores, the online softmax state
 // and the output sum are f32; the output is rounded once to q's dtype.
 // A row that has seen no valid key keeps the running max at the -1e30
 // sentinel (never -inf, so exp(m_old - m_new) stays exp(0) == 1) and
@@ -18,7 +21,7 @@
 // place through their strides, so the model's (B, S, H, hd) and
 // (B, S, K, hd) tensors after rotary need no transpose, and grouped KV
 // heads are read as kv head = h / (H / K) with no broadcast copy.  Any
-// S: the ragged last tiles are masked.  Head dims 16, 32, 64, 128, 256.
+// S_q and S_k: the ragged last query and key tiles are masked.  Head dims 16, 32, 64, 128, 256.
 //
 // Bound on the H100: operations at the served shapes.  A causal prefill
 // at S = 1024..2048 and hd 32 does 2 * 2 * hd flops per valid (row,
@@ -96,7 +99,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int heads, kv_heads, seq, q_tiles;
+  int heads, kv_heads, seq, seq_k, q_tiles;   // seq: query rows
   // strides in elements over (batch, head, seq); the last dim is dense
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
@@ -129,7 +132,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / a.heads, h = bh % a.heads;
   const int kh = h / (a.heads / a.kv_heads);
   const int q0 = qt * kBQ;
-  const int S = a.seq;
+  const int S = a.seq, Sk = a.seq_k;
   const int tid = threadIdx.x;
   const int r = tid / kTPR, t = tid % kTPR;
   const int row = q0 + r;
@@ -152,7 +155,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // keys any row of this tile can see
   const int row_hi = min(q0 + kBQ, S) - 1;
-  int col_end = S;
+  int col_end = Sk;
   if (a.causal) col_end = min(col_end, row_hi + 1);
   if (a.kv_len >= 0) col_end = min(col_end, a.kv_len);
   int col_begin = 0;
@@ -164,7 +167,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = i / HD, d = i % HD;
       const int col = c0 + c;
       float kv = 0.f, vv = 0.f;
-      if (col < S) {
+      if (col < Sk) {
         kv = to_float(kb[col * a.k_ss + d]);
         vv = to_float(vb[col * a.v_ss + d]);
       }
@@ -186,7 +189,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
       const int col = c0 + t + kTPR * j;
-      bool valid = row < S && col < S;
+      bool valid = row < S && col < Sk;
       if (a.causal) valid = valid && col <= row;
       if (a.window > 0) valid = valid && col > row - a.window;
       if (a.kv_len >= 0) valid = valid && col < a.kv_len;
@@ -365,7 +368,7 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
   const int b = bh / a.heads, h = bh % a.heads;
   const int kh = h / (a.heads / a.kv_heads);
   const int q0 = qt * kBQ;
-  const int S = a.seq;
+  const int S = a.seq, Sk = a.seq_k;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;          // ldmatrix address
@@ -376,7 +379,7 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
 
   // keys any row of this tile can see
   const int row_hi = min(q0 + kBQ, S) - 1;
-  int col_end = S;
+  int col_end = Sk;
   if (a.causal) col_end = min(col_end, row_hi + 1);
   if (a.kv_len >= 0) col_end = min(col_end, a.kv_len);
   int col_begin = 0;
@@ -405,7 +408,7 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
 #pragma unroll
     for (int r = 0; r < kBK; r += kRowStep) {
       if (kRowStep > kBK && r0 >= kBK) break;       // more threads than rows
-      const bool ok = c0 + r0 + r < S;
+      const bool ok = c0 + r0 + r < Sk;
       const long long off = ok ? (long long)(c0 + r) : -(long long)r0;
       cp_async16(ks + r * kStride, kp + off * a.k_ss, ok);
       cp_async16(vs + r * kStride, vp + off * a.v_ss, ok);
@@ -481,7 +484,7 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
     // registers: the running max is kept in raw score units, and each
     // weight is exp2(s * scale * log2(e) - m * scale * log2(e)), one FFMA
     // and one ex2
-    const bool need_mask = c0 + kBK > S ||
+    const bool need_mask = c0 + kBK > Sk ||
                            (a.causal && c0 + kBK - 1 > r_lo) ||
                            (a.window > 0 && c0 <= r_hi - a.window) ||
                            (a.kv_len >= 0 && c0 + kBK > a.kv_len);
@@ -492,7 +495,7 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
         for (int e = 0; e < 4; ++e) {
           const int row = e < 2 ? row0 : row1;
           const int col = c0 + 8 * j + 2 * t + (e & 1);
-          bool valid = col < S;
+          bool valid = col < Sk;
           if (a.causal) valid = valid && col <= row;
           if (a.window > 0) valid = valid && col > row - a.window;
           if (a.kv_len >= 0) valid = valid && col < a.kv_len;
@@ -606,14 +609,15 @@ cudaError_t dispatch_tc(int hd, const Args& a, int batch,
 
 extern "C" int flash_attn(
     const void* q, const void* k, const void* v, void* out, int batch,
-    int heads, int kv_heads, int seq, int head_dim, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss, int causal, int window,
+    int heads, int kv_heads, int seq, int seq_k, int head_dim,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    int causal, int window,
     int kv_len, float scale, int dtype, void* stream) {
   if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
   const int q_tiles = (seq + kBQ - 1) / kBQ;
-  Args a{q, k, v, out, heads, kv_heads, seq, q_tiles,
+  Args a{q, k, v, out, heads, kv_heads, seq, seq_k, q_tiles,
          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
          o_sb, o_sh, o_ss, causal, window, kv_len, scale};
   const long long blocks = (long long)batch * heads * q_tiles;

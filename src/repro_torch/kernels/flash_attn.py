@@ -47,13 +47,13 @@ def _kernel_fn():
     fn = _build.load("flash_attn").flash_attn
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 4 + [i] * 5 + [ll] * 12
+        fn.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12
                        + [i, i, i, ctypes.c_float, i, p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, window, kv_len) -> None:
+def _check(q, k, v, window, kv_len, causal=False) -> None:
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -62,14 +62,19 @@ def _check(q, k, v, window, kv_len) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype {q.dtype} not supported (f32 or bf16)")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"q must be (B, H, S, hd) and k, v (B, K, S, hd), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+        raise ValueError(f"q must be (B, H, Sq, hd) and k, v (B, K, Sk, "
+                         f"hd), got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, s, hd = q.shape
     kb, kvh, ks, khd = k.shape
-    if (kb, ks, khd) != (b, s, hd) or kvh == 0 or h % kvh:
+    if (kb, khd) != (b, hd) or ks == 0 or kvh == 0 or h % kvh:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (K must divide H)")
+    if ks != s and (causal or window):
+        # these masks compare a key's column with a query's row: one
+        # sequence on both sides
+        raise ValueError(f"causal or window masks need as many keys as "
+                         f"queries, got {ks} keys for {s} queries")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -93,24 +98,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """Masked attention, f32 sums inside, out in q's dtype.
 
-    q: (B, H, S, hd); k, v: (B, K, S, hd) with K dividing H (query head h
-    reads kv head ``h // (H // K)``; K == H is the JAX package's
-    pre-broadcast layout).  Any strides with a dense last dim: the
-    model's (B, S, H, hd) tensors pass as ``.transpose(1, 2)`` views and
-    are read in place.  Masks: ``causal`` (col <= row), ``window``
-    (col > row - window) and ``kv_len`` (col < kv_len); a row with no
-    valid key is exactly 0.  The output has q's strides, so a transposed
-    view of a contiguous q gives an output whose ``.transpose(1, 2)`` is
+    q: (B, H, Sq, hd); k, v: (B, K, Sk, hd) with K dividing H (query head
+    h reads kv head ``h // (H // K)``; K == H is the JAX package's
+    pre-broadcast layout).  Sk may differ from Sq (a decoder's
+    cross-attention over encoder frames), and then ``causal`` and
+    ``window`` raise.  Any strides with a dense last dim: the model's
+    (B, S, H, hd) tensors pass as ``.transpose(1, 2)`` views and are read
+    in place.  Masks: ``causal`` (col <= row), ``window`` (col > row -
+    window) and ``kv_len`` (col < kv_len); a row with no valid key is
+    exactly 0.  The output has q's strides, so a transposed view of a
+    contiguous q gives an output whose ``.transpose(1, 2)`` is
     contiguous."""
     if q.device.type == "cpu":
-        b, h, s, hd = q.shape
-        group = h // k.shape[1]
+        group = q.shape[1] // k.shape[1]
         return flash_attn_ref(q, k.repeat_interleave(group, dim=1),
                               v.repeat_interleave(group, dim=1),
                               causal=causal, window=window, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
-    _check(q, k, v, window, kv_len)
+    _check(q, k, v, window, kv_len, causal=causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, kv_len)
@@ -124,8 +130,8 @@ def _launch(q, k, v, causal, window, kv_len) -> torch.Tensor:
     strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
     err = _kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, k.shape[1], s, hd, *strides, int(causal), window,
-        -1 if kv_len is None else kv_len, 1.0 / math.sqrt(hd),
+        b, h, k.shape[1], s, k.shape[2], hd, *strides, int(causal),
+        window, -1 if kv_len is None else kv_len, 1.0 / math.sqrt(hd),
         _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attn launch failed: CUDA error {err}")
@@ -167,8 +173,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     ``dP = dO V^T``, ``dS = P * (dP - rowsum(dO * O))``, ``dQ = dS K``
     and ``dK = dS^T Q`` (both scaled by 1/sqrt(hd)); dK and dV are summed
     over each GQA group of query heads.  ``out`` is the forward's output.
-    Any strides; memory is O(B H S^2)."""
+    Any strides; memory is O(B H Sq Sk)."""
     b, h, s, hd = q.shape
+    sk = k.shape[2]
     group = h // k.shape[1]
     acc = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / math.sqrt(hd)
@@ -176,8 +183,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     kf = k.to(acc).repeat_interleave(group, dim=1)
     vf = v.to(acc).repeat_interleave(group, dim=1)
     rows = torch.arange(s, device=q.device)[:, None]
-    cols = torch.arange(s, device=q.device)[None, :]
-    valid = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    cols = torch.arange(sk, device=q.device)[None, :]
+    valid = torch.ones((s, sk), dtype=torch.bool, device=q.device)
     if causal:
         valid &= cols <= rows
     if window:
@@ -193,6 +200,6 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dq = (ds @ kf) * scale
     dk = (ds.transpose(-1, -2) @ qf) * scale
     kvh = k.shape[1]
-    dk = dk.reshape(b, kvh, group, s, hd).sum(dim=2)
-    dv = dv.reshape(b, kvh, group, s, hd).sum(dim=2)
+    dk = dk.reshape(b, kvh, group, sk, hd).sum(dim=2)
+    dv = dv.reshape(b, kvh, group, sk, hd).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -51,9 +51,10 @@ def gated_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0,
               kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, S, hd); k, v: (B, K, S, hd) with K dividing H — K == H
+    """q: (B, H, Sq, hd); k, v: (B, K, Sk, hd) with K dividing H — K == H
     is the JAX package's pre-broadcast layout, K < H reads grouped KV
-    heads with no broadcast copy.  The device of ``q`` picks the flash
+    heads with no broadcast copy.  Sk != Sq (cross-attention) only
+    without ``causal`` and ``window``.  The device of ``q`` picks the flash
     kernel or its plain version."""
     return flash_attention(q, k, v, causal=causal, window=window,
                            kv_len=kv_len)

@@ -163,18 +163,23 @@ def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    kv_len: Optional[int] = None) -> torch.Tensor:
     """Attention with the flash kernel's masks.
 
-    q, k, v: (B, H, S, hd), KV heads already broadcast to the query
-    heads.  Keys are masked by ``causal`` (col <= row), ``window``
-    (col > row - window) and ``kv_len`` (col < kv_len).  A query row with
-    no valid key outputs exactly zero.  f32 inside (f64 for f64 inputs),
-    out in q's dtype."""
+    q: (B, H, Sq, hd); k, v: (B, H, Sk, hd), KV heads already broadcast
+    to the query heads.  Keys are masked by ``causal`` (col <= row),
+    ``window`` (col > row - window) and ``kv_len`` (col < kv_len); the
+    first two only when Sq == Sk.  A query row with no valid key
+    outputs exactly zero.  f32 inside (f64 for f64 inputs), out in q's
+    dtype."""
     s, hd = q.shape[-2:]
+    sk = k.shape[-2]
+    if sk != s and (causal or window):
+        raise ValueError(f"causal or window masks need as many keys as "
+                         f"queries, got {sk} keys for {s} queries")
     scale = 1.0 / math.sqrt(hd)
     acc = torch.promote_types(q.dtype, torch.float32)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
     rows = torch.arange(s, device=q.device)[:, None]
-    cols = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    cols = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= rows >= cols
     if window:

@@ -9,7 +9,10 @@ card all three go through the flash kernel
 function with bounded memory and skips the key tiles outside the
 window; on the CPU they run as the plain ``full_attention``,
 ``chunked_attention`` and ``banded_attention`` below, as the JAX package
-runs them.  Decode attention reads the paged pool through
+runs them.  A decoder's cross-attention over encoder frames
+(:func:`cross_attention`) takes the flash kernel with the frames' count
+as its key length on the card, ``full_attention(causal=False)`` on the
+CPU.  Decode attention reads the paged pool through
 :func:`repro_torch.kernels.ops.paged_attention`, or a dense cache through
 the plain :func:`decode_attention` (plain ``jnp`` in the JAX package
 too).
@@ -178,6 +181,19 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_chunk=q_chunk, k_chunk=min(k_chunk, s))
     return full_attention(q, k, v, causal=causal, window=window)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention of decoder queries over encoder keys: q
+    (B,Sq,H,hd), k/v (B,Se,K,hd) -> (B,Sq,H,hd).  On the card the flash
+    kernel reads the tensors in place with Se as its key length; on the
+    CPU the plain ``full_attention``, as the JAX package computes it."""
+    if q.device.type != "cpu":
+        out = kernel_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=False)
+        return out.transpose(1, 2)
+    return full_attention(q, k, v, causal=False)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

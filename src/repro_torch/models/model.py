@@ -2,10 +2,14 @@
 steps, and burst admission (``forward`` and ``lm_loss``, the
 full-sequence entry points, are re-exported from ``transformer``).
 
-Ported from the JAX package for dense and MoE attention stacks, the SSM
-stack and the hybrid (Mamba blocks with one shared attention block,
-whose K/V every site caches apart; an MoE decode step runs the
-reference's dense dispatch, :func:`moe.moe_apply_decode`).  Caches are
+Ported from the JAX package for every family: dense and MoE attention
+stacks, the SSM stack, the hybrid (Mamba blocks with one shared
+attention block, whose K/V every site caches apart; an MoE decode step
+runs the reference's dense dispatch, :func:`moe.moe_apply_decode`), the
+encoder-decoder (the encoder runs once in ``prefill``, which caches
+every decoder layer's cross K/V; each decode step attends over them)
+and the VLM stub (projected patch embeddings in the first prompt
+positions).  Caches are
 dicts of tensors in the JAX package's layouts.  Where the JAX package
 returns a new cache, pool or slot cache (and the serving engine donates
 the old buffers), these functions update the tensors they are given in
@@ -22,7 +26,7 @@ threefry key (see :mod:`repro_torch.models.prng`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +44,7 @@ from .layers import (Params, apply_rotary, cast_params, dtype_of,
                      unembed)
 from .runtime import DEFAULT_OPTIONS, RuntimeOptions
 from .transformer import (_pattern_period, _select_impl, _shared_site,
+                          cross_block, embed_inputs, encode,
                           ffn_or_moe_block, forward, lm_loss)
 
 Cache = Dict[str, Any]
@@ -67,11 +72,11 @@ def _n_shared_sites(cfg: ModelConfig) -> int:
     return cfg.num_layers // (cfg.shared_attn_period or cfg.num_layers)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder or cfg.vision_embed_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense and MoE attention stacks and the SSM "
-            "and hybrid stacks are ported so far")
+def _cross_shape(cfg: ModelConfig, batch: int) -> Tuple[int, ...]:
+    """An encoder-decoder's cross K/V leaf: ``(layers, batch, S_enc,
+    kv_heads, head_dim)``."""
+    return (cfg.num_layers, batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -83,8 +88,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``ssm`` state ``(layers, batch, H, P, N)`` and the ``conv`` tail
     ``(layers, batch, W-1, conv_dim)`` in ``kv_cache_dtype``; a hybrid
     has both, plus the shared attention block's ``shared_k``/``shared_v``
-    of shape ``(sites, batch, max_seq, kv_heads, head_dim)``."""
-    _check_ported(cfg)
+    of shape ``(sites, batch, max_seq, kv_heads, head_dim)``; an
+    encoder-decoder adds ``cross_k``/``cross_v`` of shape ``(layers,
+    batch, encoder_seq_len, kv_heads, head_dim)``, zero until a prefill
+    is given encoder frames."""
     kv_dt = dtype_of(opts.kv_cache_dtype)
     cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     n_attn = _n_attn_layers(cfg)
@@ -105,6 +112,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                  cfg.resolved_head_dim)
         cache["shared_k"] = torch.zeros(shape, dtype=kv_dt, device=device)
         cache["shared_v"] = torch.zeros(shape, dtype=kv_dt, device=device)
+    if cfg.is_encoder_decoder:
+        shape = _cross_shape(cfg, batch)
+        cache["cross_k"] = torch.zeros(shape, dtype=kv_dt, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=kv_dt, device=device)
     return cache
 
 
@@ -207,7 +218,9 @@ def sample_logits(logits: torch.Tensor, key: torch.Tensor,
 
 # ================================================================ prefill ==
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Cache, opts: RuntimeOptions = DEFAULT_OPTIONS
+            cache: Cache, opts: RuntimeOptions = DEFAULT_OPTIONS, *,
+            encoder_frames: Optional[torch.Tensor] = None,
+            vision_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Process a prompt, filling the cache.  Returns (logits, cache).
 
@@ -217,11 +230,19 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the conv tail for the SSM stack, and for a hybrid also the shared
     attention block's rotated K and V at each of its sites.  Left-padding
     tokens run through the conv and the scan like any other token, as in
-    the JAX package."""
-    _check_ported(cfg)
+    the JAX package.
+
+    An encoder-decoder given ``encoder_frames`` (B, S_enc, D) runs the
+    encoder first; each decoder layer then attends over its output and
+    the cache's ``cross_k``/``cross_v`` take every layer's cross K/V
+    (as the JAX package, only the layers of whole pattern periods: a
+    leftover layer writes none).  Without frames (as the serving engine
+    calls it) no cross block runs and the cross leaves stay as they are.
+    A VLM's ``vision_embeds`` replace the first prompt positions
+    (:func:`transformer.embed_inputs`)."""
     act_dt = dtype_of(cfg.activation_dtype)
     params = cast_params(params, act_dt)
-    x = embed_lookup(params["embed"], tokens).to(act_dt)
+    x = embed_inputs(params, cfg, tokens, vision_embeds)
     s = x.shape[1]
     kv_dt = dtype_of(opts.kv_cache_dtype)
     kinds, _ = _pattern_period(cfg)
@@ -237,7 +258,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             sts.append(st)
             cvs.append(cv.to(kv_dt))
             if shared is not None and _shared_site(cfg, j) >= 0:
-                x, kk, vv = _attn_prefill_kv(shared, x, cfg, opts)
+                x, kk, vv, _ = _attn_prefill_kv(shared, x, cfg, opts)
                 sks.append(kk.to(kv_dt))
                 svs.append(vv.to(kv_dt))
         new_cache["ssm"] = torch.stack(sts)
@@ -247,17 +268,28 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             new_cache["shared_k"] = F.pad(torch.stack(sks), pad)
             new_cache["shared_v"] = F.pad(torch.stack(svs), pad)
     else:
+        cross_src = None
+        if cfg.is_encoder_decoder and encoder_frames is not None:
+            cross_src = encode(params, cfg, encoder_frames, opts)
+        n_full = cfg.num_layers // len(kinds) * len(kinds)
         max_seq = cache["k"].shape[2]
-        ks, vs = [], []
+        ks, vs, cks, cvs = [], [], [], []
         for j in range(cfg.num_layers):
             layer = layer_slice(params["layers"], j)
             w = cfg.sliding_window if kinds[j % len(kinds)] == LOCAL else 0
-            x, kk, vv = _attn_prefill_kv(layer, x, cfg, opts, window=w)
+            x, kk, vv, ckv = _attn_prefill_kv(layer, x, cfg, opts, window=w,
+                                              cross_src=cross_src)
             ks.append(kk.to(kv_dt))
             vs.append(vv.to(kv_dt))
+            if ckv is not None and j < n_full:
+                cks.append(ckv[0].to(kv_dt))
+                cvs.append(ckv[1].to(kv_dt))
         pad = (0, 0, 0, 0, 0, max_seq - s)
         new_cache["k"] = F.pad(torch.stack(ks), pad)
         new_cache["v"] = F.pad(torch.stack(vs), pad)
+        if cks:
+            new_cache["cross_k"] = torch.stack(cks)
+            new_cache["cross_v"] = torch.stack(cvs)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = mask_padded_logits_raw(unembed(params["embed"], x),
                                     cfg.vocab_size)
@@ -265,9 +297,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, new_cache
 
 
-def _attn_prefill_kv(layer, x, cfg, opts, window: int = 0):
-    """Run a transformer block, returning (x, K, V) of the self-attention
-    (K rotated, as the cache stores it)."""
+def _attn_prefill_kv(layer, x, cfg, opts, window: int = 0, cross_src=None):
+    """Run a transformer block, returning (x, K, V, cross K/V) of its
+    attention: the self-attention's K (rotated, as the cache stores it)
+    and V, and with ``cross_src`` the cross block's ``(K, V)`` (else
+    ``None``)."""
     y, k_rot, v = attn_mod.self_attention(
         layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps),
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -276,8 +310,12 @@ def _attn_prefill_kv(layer, x, cfg, opts, window: int = 0):
         impl=_select_impl(cfg, opts, x.shape[1], window),
         q_chunk=opts.q_chunk, k_chunk=opts.k_chunk)
     x = x + y.to(x.dtype)
+    cross_kv = None
+    if cross_src is not None and "cross" in layer:
+        x, ck, cv = cross_block(layer, x, cross_src, cfg)
+        cross_kv = (ck, cv)
     x, _ = ffn_or_moe_block(layer, x, cfg, opts)
-    return x, k_rot, v
+    return x, k_rot, v, cross_kv
 
 
 # =========================================================== decode blocks ==
@@ -303,12 +341,35 @@ def _decode_qkv(layer: Params, x: torch.Tensor, sin, cos, cfg: ModelConfig):
     return _apply_rot1(q, sin, cos), _apply_rot1(k, sin, cos), v
 
 
+def _cross_decode(layer: Params, x: torch.Tensor, cross_kv,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """One-token cross-attention block over a layer's cached cross K/V
+    (B, S_enc, kvh, hd): every encoder frame is attended, through the
+    plain :func:`attention.decode_attention` at position ``S_enc - 1``,
+    as the JAX package computes it (outside any kernel), the cache read
+    in the activation dtype."""
+    b, _ = x.shape
+    c = layer["cross"]
+    hq = rms_norm(x, layer["ln_cross"], cfg.norm_eps)
+    qc = matmul_w(hq, c["wq"]).reshape(b, cfg.num_heads,
+                                       cfg.resolved_head_dim)
+    ck, cv = cross_kv
+    last = torch.full((), ck.shape[1] - 1, dtype=torch.int64,
+                      device=x.device)
+    out = attn_mod.decode_attention(qc, ck.to(x.dtype), cv.to(x.dtype),
+                                    last, window=0)
+    return x + matmul_w(out.reshape(b, -1), c["wo"]).to(x.dtype)
+
+
 def _decode_out(layer: Params, x: torch.Tensor, out: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """Output projection of the attention ``out`` (B, H, hd), then the
-    FFN block (an MoE block by dense dispatch)."""
+                cfg: ModelConfig, cross_kv=None) -> torch.Tensor:
+    """Output projection of the attention ``out`` (B, H, hd), the
+    cross-attention block when ``cross_kv`` is given, then the FFN block
+    (an MoE block by dense dispatch)."""
     b, _ = x.shape
     x = x + matmul_w(out.reshape(b, -1), layer["attn"]["wo"]).to(x.dtype)
+    if cross_kv is not None and "cross" in layer:
+        x = _cross_decode(layer, x, cross_kv, cfg)
     h2 = rms_norm(x, layer["ln2"], cfg.norm_eps)
     if cfg.arch_type == "moe":
         y = moe_mod.moe_apply_decode(layer["moe"], h2, cfg)
@@ -320,15 +381,16 @@ def _decode_out(layer: Params, x: torch.Tensor, out: torch.Tensor,
 
 def _attn_decode(layer: Params, x: torch.Tensor, k_cache, v_cache, pos,
                  sin, cos, cfg: ModelConfig, opts: RuntimeOptions, *,
-                 window: int) -> torch.Tensor:
+                 window: int, cross_kv=None) -> torch.Tensor:
     """One-token attention block over a dense cache.  x: (B, D);
     ``k_cache``/``v_cache``: one layer's (B, max_seq, kvh, hd), written
-    in place at each row's ``pos`` (B,)."""
+    in place at each row's ``pos`` (B,); ``cross_kv``: an
+    encoder-decoder layer's cached cross K/V."""
     q, k, v = _decode_qkv(layer, x, sin, cos, cfg)
     attn_mod.update_kv_cache(k_cache, v_cache, k, v, pos)
     out = attn_mod.decode_attention(q, k_cache, v_cache, pos,
                                     window=window or opts.decode_window)
-    return _decode_out(layer, x, out, cfg)
+    return _decode_out(layer, x, out, cfg, cross_kv)
 
 
 def _mamba_decode(layer: Params, x: torch.Tensor, ssm_state, conv_state,
@@ -357,8 +419,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     ``dynamic_update_slice`` clamps them: a prompt whose bucket equals
     ``max_seq`` decodes once at ``pos == max_seq`` and its new token
     replaces the last cached key, and free slots of the engine, whose
-    ``pos`` keeps rising, stay in range."""
-    _check_ported(cfg)
+    ``pos`` keeps rising, stay in range.  An encoder-decoder's layers
+    attend over the cache's ``cross_k``/``cross_v`` (zero when the
+    prefill had no frames, and then each cross block adds exactly 0)."""
     act_dt = dtype_of(cfg.activation_dtype)
     params = cast_params(params, act_dt)
     x = embed_lookup(params["embed"], token).to(act_dt)      # (B, D)
@@ -389,8 +452,11 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         for j in range(cfg.num_layers):
             layer = layer_slice(params["layers"], j)
             w = cfg.sliding_window if kinds[j % len(kinds)] == LOCAL else 0
+            ckv = ((cache["cross_k"][j], cache["cross_v"][j])
+                   if cfg.is_encoder_decoder else None)
             x = _attn_decode(layer, x, cache["k"][j], cache["v"][j],
-                             att_pos, sin, cos, cfg, opts, window=w)
+                             att_pos, sin, cos, cfg, opts, window=w,
+                             cross_kv=ckv)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = mask_padded_logits_raw(unembed(params["embed"], x),
                                     cfg.vocab_size)
@@ -465,21 +531,28 @@ def batched_prefill_admit(params: Params, cfg: ModelConfig, stacked: Cache,
     first, new_keys = sample_logits(logits[:, -1], keys, temps, top_ks,
                                     cfg.vocab_size)
     for i in range(k):
-        # batch lives at axis 1 of every leaf but the scalar ``pos``
-        row = {}
-        for name, a in cache.items():
-            if a.dim() == 0:
-                row[name] = a
-                continue
-            r = a[:, i:i + 1]
-            want = stacked[name].shape[1:]
-            pad = []
-            for have, full in zip(reversed(r.shape), reversed(want)):
-                pad += [0, full - have]
-            row[name] = F.pad(r, pad) if any(pad) else r
-        admit_slot(stacked, row, slot_ids[i], new_keys[i], temps[i],
-                   top_ks[i])
+        admit_slot(stacked, _burst_row(cache, i, stacked), slot_ids[i],
+                   new_keys[i], temps[i], top_ks[i])
     return first, stacked
+
+
+def _burst_row(cache: Cache, i: int, stacked: Cache) -> Cache:
+    """Row ``i`` of a burst prefill's cache as one slot's batch=1 cache:
+    batch lives at axis 1 of every leaf but the scalar ``pos``, and each
+    leaf is zero-padded to the slot's shape in ``stacked`` (a bucket-long
+    KV to ``max_seq``)."""
+    row = {}
+    for name, a in cache.items():
+        if a.dim() == 0:
+            row[name] = a
+            continue
+        r = a[:, i:i + 1]
+        want = stacked[name].shape[1:]
+        pad = []
+        for have, full in zip(reversed(r.shape), reversed(want)):
+            pad += [0, full - have]
+        row[name] = F.pad(r, pad) if any(pad) else r
+    return row
 
 
 # ============================================================ paged cache ==
@@ -522,10 +595,17 @@ def init_paged_slot_cache(cfg: ModelConfig, slots: int, max_seq: int,
                           opts: RuntimeOptions = DEFAULT_OPTIONS,
                           device: str = "cuda") -> Cache:
     """A slot-stacked serving cache *without* the dense ``k``/``v`` leaves
-    (those live in the block pool): ``pos`` and the ``"sample"`` dict."""
-    _check_ported(cfg)
-    return {"pos": torch.zeros((slots,), dtype=torch.int32, device=device),
-            "sample": _sample_state(slots, device)}
+    (those live in the block pool): ``pos``, the ``"sample"`` dict and,
+    for an encoder-decoder, the per-slot ``cross_k``/``cross_v`` of shape
+    ``(slots, layers, 1, encoder_seq_len, kv_heads, head_dim)``."""
+    cache = {"pos": torch.zeros((slots,), dtype=torch.int32, device=device),
+             "sample": _sample_state(slots, device)}
+    if cfg.is_encoder_decoder:
+        shape = (slots,) + _cross_shape(cfg, 1)
+        kv_dt = dtype_of(opts.kv_cache_dtype)
+        cache["cross_k"] = torch.zeros(shape, dtype=kv_dt, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=kv_dt, device=device)
+    return cache
 
 
 def _scatter_kv_rows(pool: Cache, rk: torch.Tensor, rv: torch.Tensor,
@@ -576,7 +656,8 @@ def paged_sample_batched_step(params: Params, cfg: ModelConfig,
 
     pos = slot_cache["pos"]
     att_pos = torch.clamp(pos, max=mb * bs - 1).long()
-    dense = {"pos": pos, "k": dense_view("k"), "v": dense_view("v")}
+    dense = _slot_view(slot_cache)
+    dense["k"], dense["v"] = dense_view("k"), dense_view("v")
     logits, _ = decode_step(params, cfg, dense, tokens, opts)
     s = slot_cache["sample"]
     nxt, new_keys = sample_logits(logits, s["key"], s["temp"], s["top_k"],
@@ -592,7 +673,7 @@ def paged_sample_batched_step(params: Params, cfg: ModelConfig,
 
 def _attn_decode_paged(layer: Params, x: torch.Tensor, kb, vb, ks, vs,
                        tables, pos, sin, cos, cfg: ModelConfig,
-                       opts: RuntimeOptions, *, window: int):
+                       opts: RuntimeOptions, *, window: int, cross_kv=None):
     """One-token attention block reading KV straight off the block table.
 
     x is ``(slots, D)``, ``kb``/``vb`` are ONE layer's pool blocks
@@ -600,12 +681,13 @@ def _attn_decode_paged(layer: Params, x: torch.Tensor, kb, vb, ks, vs,
     matching int8 scales or ``None``), ``pos`` is per-slot.  Attention
     runs through :func:`kernel_ops.paged_attention`; the new token's KV
     is *returned* — ``(slots, kvh, hd)`` each — for one batched scatter
-    at the end of the step."""
+    at the end of the step.  ``cross_kv``: an encoder-decoder layer's
+    per-slot cross K/V ``(slots, S_enc, kvh, hd)``."""
     q, k, v = _decode_qkv(layer, x, sin, cos, cfg)
     w = window or opts.decode_window
     out = kernel_ops.paged_attention(q, kb, vb, tables, pos, k,
                                      v.contiguous(), ks, vs, window=w)
-    return _decode_out(layer, x, out, cfg), k, v
+    return _decode_out(layer, x, out, cfg, cross_kv), k, v
 
 
 def paged_kernel_sample_batched_step(params: Params, cfg: ModelConfig,
@@ -645,11 +727,16 @@ def paged_kernel_sample_batched_step(params: Params, cfg: ModelConfig,
     for j in range(cfg.num_layers):
         layer = layer_slice(params["layers"], j)
         w = cfg.sliding_window if kinds[j % len(kinds)] == LOCAL else 0
+        # an encoder-decoder's cross K/V ride in the slot cache,
+        # (slots, layers, 1, S_enc, kvh, hd), read layer by layer
+        ckv = ((slot_cache["cross_k"][:, j, 0],
+                slot_cache["cross_v"][:, j, 0])
+               if cfg.is_encoder_decoder else None)
         x, k1, v1 = _attn_decode_paged(
             layer, x, pk[:, j], pv[:, j],
             pool["k_scale"][:, j] if scales else None,
             pool["v_scale"][:, j] if scales else None,
-            tables, att_pos, sin, cos, cfg, opts, window=w)
+            tables, att_pos, sin, cos, cfg, opts, window=w, cross_kv=ckv)
         rows_k.append(k1)
         rows_v.append(v1)
 
@@ -675,8 +762,9 @@ def paged_prefill_admit(params: Params, cfg: ModelConfig, slot_cache: Cache,
                         dest_blocks: torch.Tensor, opts: RuntimeOptions):
     """Burst admission into the paged cache: prefill ``(k, bucket)``
     left-padded prompts in ONE call, write each row's KV into its
-    destination pool blocks and its ``pos`` + sampling state into its
-    slot (both in place).  ``dest_blocks`` is ``(k, bucket // block_size)``
+    destination pool blocks and its other leaves (``pos``, an
+    encoder-decoder's cross K/V) + sampling state into its slot (both in
+    place).  ``dest_blocks`` is ``(k, bucket // block_size)``
     int32 — padding rows target the trash block.  Rows are written in
     order, so a padding row aimed at a real row's slot is overwritten by
     it.  Returns ``((k,) first tokens, (k, vocab) last-position logits,
@@ -703,10 +791,10 @@ def paged_prefill_admit(params: Params, cfg: ModelConfig, slot_cache: Cache,
         pool["v_scale"][flat] = sv
     pool["k"][flat] = bk.to(pool["k"].dtype)
     pool["v"][flat] = bv.to(pool["v"].dtype)
-    row = {"pos": cache["pos"]}
+    rows = {name: a for name, a in cache.items() if name not in ("k", "v")}
     for i in range(k):
-        admit_slot(slot_cache, row, slot_ids[i], new_keys[i],
-                   temps[i], top_ks[i])
+        admit_slot(slot_cache, _burst_row(rows, i, slot_cache), slot_ids[i],
+                   new_keys[i], temps[i], top_ks[i])
     return first, last, slot_cache, pool
 
 

@@ -1,18 +1,24 @@
-"""Decoder stacks: parameter layout and the per-layer blocks.
+"""Model stacks: parameter layout and the per-layer blocks.
 
 Layer stacks keep the JAX package's *stacked* parameter layout (every
 per-layer leaf has a leading layer axis), and the layer walk is a Python
-loop where the JAX package scans.  Ported so far: the dense attention
-family (``ATTN`` / ``LOCAL`` blocks, dense FFN), the MoE family (the
-same attention blocks with a routed expert FFN, :mod:`.moe`), the
-attention-free SSM stack (``MAMBA`` blocks) and the hybrid (a Mamba
+loop where the JAX package scans.  Every family of the JAX package: the
+dense attention family (``ATTN`` / ``LOCAL`` blocks, dense FFN), the MoE
+family (the same attention blocks with a routed expert FFN, :mod:`.moe`),
+the attention-free SSM stack (``MAMBA`` blocks), the hybrid (a Mamba
 stack with ONE shared attention block run after every full period of
-``shared_attn_period`` Mamba blocks, Zamba2), with the full-sequence
-``forward`` (train / prefill, no cache) that the elastic variants, TTA
-and the middleware run.  On the card every prefill block runs the flash
-attention kernel and the fused FFN kernel (through ``attention._attend``
-and ``layers.ffn_apply``; an MoE block only for its shared expert), and
-every Mamba block the SSD scan kernel (through ``ssm.mamba_forward``).
+``shared_attn_period`` Mamba blocks, Zamba2), the encoder-decoder
+(Whisper: a non-causal encoder stack over stub audio frames, and decoder
+blocks with a cross-attention block over the encoder's output) and the
+VLM stub (InternVL2: a projection of stub patch embeddings into the
+first positions), with the full-sequence ``forward`` (train / prefill,
+no cache) that the elastic variants, TTA and the middleware run.  On the
+card every prefill block runs the flash attention kernel and the fused
+FFN kernel (through ``attention._attend`` and ``layers.ffn_apply``; an
+MoE block only for its shared expert; a non-gated FFN as plain
+products), a cross-attention block the flash attention kernel with the
+encoder's length as its key length, and every Mamba block the SSD scan
+kernel (through ``ssm.mamba_forward``).
 """
 from __future__ import annotations
 
@@ -27,17 +33,8 @@ from . import ssm as ssm_mod
 from .configs import ATTN, LOCAL, MAMBA, ModelConfig
 from .layers import (Params, cast_params, dtype_of, embed_lookup,
                      ffn_apply, layer_slice, mask_padded_logits_raw,
-                     rms_norm, unembed)
+                     matmul_w, rms_norm, unembed)
 from .runtime import DEFAULT_OPTIONS, RuntimeOptions
-
-
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") \
-            or cfg.is_encoder_decoder or cfg.vision_embed_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense and MoE attention stacks and the SSM "
-            f"and hybrid stacks are ported so far "
-            f"(arch_type={cfg.arch_type!r})")
 
 
 # ----------------------------------------------------------------- init ----
@@ -45,8 +42,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: str = "cuda") -> Params:
     """Random weights in the JAX package's layout, drawn from ``seed``
     with a CPU ``torch.Generator`` (the JAX draws cannot be reproduced;
-    tests bring the JAX weights across with :mod:`repro_torch.weights`)."""
-    _check_dense(cfg)
+    tests bring the JAX weights across with :mod:`repro_torch.weights`).
+    An encoder-decoder adds the ``encoder`` stack (attention layers
+    without cross-attention) and ``encoder_norm``, and its decoder layers
+    a ``cross`` block; a VLM adds ``vision_proj``."""
     gen = torch.Generator().manual_seed(seed)
     dtype = dtype_of(cfg.param_dtype)
     n, d = cfg.num_layers, cfg.d_model
@@ -65,25 +64,43 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             # ONE attention layer, shared by every site of the stack
             shared = layer_slice(_attn_init(cfg, 1, normal, zeros), 0)
     else:
-        layers = _attn_init(cfg, n, normal, zeros)
+        layers = _attn_init(cfg, n, normal, zeros,
+                            cross=cfg.is_encoder_decoder)
     # the embedding is drawn after the layers
     params = {"embed": normal((cfg.padded_vocab, d), 0.02),
               "final_norm": zeros((d,)), "layers": layers}
     if shared is not None:
         params["shared_attn"] = shared
+    if cfg.is_encoder_decoder:
+        params["encoder"] = _attn_init(cfg, cfg.encoder_layers, normal,
+                                       zeros)
+        params["encoder_norm"] = zeros((d,))
+    if cfg.vision_embed_dim:
+        params["vision_proj"] = {
+            "w": normal((cfg.vision_embed_dim, d),
+                        1.0 / math.sqrt(cfg.vision_embed_dim)),
+            "b": zeros((d,))}
     return _to_device(params, device)
 
 
-def _attn_init(cfg: ModelConfig, n: int, normal, zeros) -> Params:
-    """``n`` stacked attention layers: norms, projections and the FFN
-    (dense, or the MoE block)."""
+def _proj_init(cfg: ModelConfig, n: int, normal) -> Params:
+    """``n`` stacked attention projections (no biases)."""
     d = cfg.d_model
-    attn = {
+    return {
         "wq": normal((n, d, cfg.q_dim), 1.0 / math.sqrt(d)),
         "wk": normal((n, d, cfg.kv_dim), 1.0 / math.sqrt(d)),
         "wv": normal((n, d, cfg.kv_dim), 1.0 / math.sqrt(d)),
         "wo": normal((n, cfg.q_dim, d), 1.0 / math.sqrt(cfg.q_dim)),
     }
+
+
+def _attn_init(cfg: ModelConfig, n: int, normal, zeros,
+               cross: bool = False) -> Params:
+    """``n`` stacked attention layers: norms, projections and the FFN
+    (dense, or the MoE block); with ``cross``, a cross-attention block
+    too (``ln_cross`` and ``cross`` projections without biases)."""
+    d = cfg.d_model
+    attn = _proj_init(cfg, n, normal)
     if cfg.qkv_bias:
         attn.update(bq=zeros((n, cfg.q_dim)), bk=zeros((n, cfg.kv_dim)),
                     bv=zeros((n, cfg.kv_dim)))
@@ -92,6 +109,9 @@ def _attn_init(cfg: ModelConfig, n: int, normal, zeros) -> Params:
         layers["moe"] = _moe_init(cfg, n, normal)
     else:
         layers["ffn"] = _ffn_init(cfg, n, normal)
+    if cross:
+        layers["ln_cross"] = zeros((n, d))
+        layers["cross"] = _proj_init(cfg, n, normal)
     return layers
 
 
@@ -188,11 +208,33 @@ def ffn_or_moe_block(layer: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + y.to(x.dtype), aux
 
 
+def cross_block(layer: Params, x: torch.Tensor, cross_src: torch.Tensor,
+                cfg: ModelConfig):
+    """The decoder's cross-attention block: queries from ``x`` (after
+    ``ln_cross``), keys and values from the encoder output ``cross_src``
+    (B, S_enc, D), no rotary, non-causal.  Returns ``(x, k, v)`` with the
+    block's residual added and the cross K/V (B, S_enc, K, hd) that a
+    prefill caches."""
+    b, s, _ = x.shape
+    se, hd = cross_src.shape[1], cfg.resolved_head_dim
+    c = layer["cross"]
+    q = matmul_w(rms_norm(x, layer["ln_cross"], cfg.norm_eps), c["wq"])
+    k = matmul_w(cross_src, c["wk"]).reshape(b, se, cfg.num_kv_heads, hd)
+    v = matmul_w(cross_src, c["wv"]).reshape(b, se, cfg.num_kv_heads, hd)
+    out = attn_mod.cross_attention(q.reshape(b, s, cfg.num_heads, hd), k, v)
+    x = x + matmul_w(out.reshape(b, s, cfg.num_heads * hd),
+                     c["wo"]).to(x.dtype)
+    return x, k, v
+
+
 def transformer_block(layer: Params, x: torch.Tensor, cfg: ModelConfig,
                       opts: RuntimeOptions, *, window: int,
-                      causal: bool = True
+                      causal: bool = True,
+                      cross_src: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     x = attn_block(layer, x, cfg, opts, window=window, causal=causal)
+    if cross_src is not None and "cross" in layer:
+        x, _, _ = cross_block(layer, x, cross_src, cfg)
     return ffn_or_moe_block(layer, x, cfg, opts)
 
 
@@ -230,7 +272,9 @@ def _shared_site(cfg: ModelConfig, j: int) -> int:
 # -------------------------------------------------------------- the stack --
 def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
                 opts: RuntimeOptions, *, shared: Optional[Params] = None,
-                causal: bool = True, num_layers: Optional[int] = None
+                causal: bool = True,
+                cross_src: Optional[torch.Tensor] = None,
+                num_layers: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run a stacked layer dict over x.  Returns (x, aux_loss_sum).
 
@@ -244,8 +288,9 @@ def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
 
     A hybrid stack runs the ``shared`` attention layer after each FULL
     period of the first n layers; the leftover layers of a partial
-    period run without it (zamba2: 38 = 6 x 6 + 2, so 6 sites)."""
-    _check_dense(cfg)
+    period run without it (zamba2: 38 = 6 x 6 + 2, so 6 sites).  With
+    ``cross_src`` (an encoder-decoder's encoder output) each layer that
+    has a ``cross`` block attends over it after its self-attention."""
     kinds, _ = _pattern_period(cfg)
     total = _stack_depth(stack)
     n = total if num_layers is None else min(num_layers, total)
@@ -258,7 +303,7 @@ def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
         else:
             window = cfg.sliding_window if kind == LOCAL else 0
             x, a = transformer_block(layer, x, cfg, opts, window=window,
-                                     causal=causal)
+                                     causal=causal, cross_src=cross_src)
             aux = aux + a
         if shared is not None and _shared_site(cfg, j) >= 0:
             x, a = transformer_block(shared, x, cfg, opts, window=0,
@@ -275,24 +320,59 @@ def _stack_depth(stack: Params) -> int:
 
 
 # ------------------------------------------------------------- forward -----
+def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 vision_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The token embeddings in the activation dtype (``params`` already
+    cast to it).  A VLM's stub patch embeddings ``vision_embeds`` (B,
+    n_vis, vision_embed_dim), projected by ``vision_proj``, replace the
+    first n_vis positions; the token ids there are placeholders."""
+    act_dt = dtype_of(cfg.activation_dtype)
+    x = embed_lookup(params["embed"], tokens).to(act_dt)
+    if cfg.vision_embed_dim and vision_embeds is not None:
+        vp = params["vision_proj"]
+        v = (vision_embeds.to(act_dt) @ vp["w"] + vp["b"]).to(act_dt)
+        x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
+    return x
+
+
+def encode(params: Params, cfg: ModelConfig, encoder_frames: torch.Tensor,
+           opts: RuntimeOptions) -> torch.Tensor:
+    """An encoder-decoder's encoder over stub audio frames (B, S_enc, D):
+    the ``encoder`` stack, non-causal with ``full`` attention (on the
+    card the flash attention kernel at S_enc), then ``encoder_norm``.
+    The result is every decoder layer's ``cross_src``."""
+    enc = encoder_frames.to(dtype_of(cfg.activation_dtype))
+    enc, _ = apply_stack(params["encoder"], enc, cfg,
+                         opts.replace(attn_impl="full"), causal=False)
+    return rms_norm(enc, params["encoder_norm"], cfg.norm_eps)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             opts: RuntimeOptions = DEFAULT_OPTIONS, *,
+            encoder_frames: Optional[torch.Tensor] = None,
+            vision_embeds: Optional[torch.Tensor] = None,
             num_layers: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (train / prefill).  Returns (logits, aux_loss).
 
-    tokens: (B, S) integer ids on the params' device.  Weights are cast
-    to the activation dtype (``cast_params``); an optional
-    ``logit_bias`` (TTA's output prior) is added to the logits, and the
-    vocab padding is masked.  Differentiable: on the card the flash
-    attention and fused FFN launches carry their analytic gradients."""
-    _check_dense(cfg)
+    tokens: (B, S) integer ids on the params' device;
+    ``encoder_frames``: (B, S_enc, D) stub audio embeddings (enc-dec);
+    ``vision_embeds``: (B, n_vis, vision_embed_dim) stub patch embeddings
+    (VLM).  Weights are cast to the activation dtype (``cast_params``);
+    an optional ``logit_bias`` (TTA's output prior) is added to the
+    logits, and the vocab padding is masked.  Differentiable: on the card
+    the flash attention and fused FFN launches carry their analytic
+    gradients."""
     act_dt = dtype_of(cfg.activation_dtype)
     params = cast_params(params, act_dt)
-    x = embed_lookup(params["embed"], tokens).to(act_dt)
+    x = embed_inputs(params, cfg, tokens, vision_embeds)
+    cross_src = None
+    if cfg.is_encoder_decoder and encoder_frames is not None:
+        cross_src = encode(params, cfg, encoder_frames, opts)
     x, aux = apply_stack(params["layers"], x, cfg, opts,
                          shared=params.get("shared_attn"),
-                         num_layers=num_layers)
+                         cross_src=cross_src, num_layers=num_layers)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x)
     if "logit_bias" in params:

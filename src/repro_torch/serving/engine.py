@@ -85,7 +85,9 @@ DECODE_MODES = ("batched", "per_slot", "paged")
 PREFILL_MODES = ("batched", "per_request")
 
 # cache leaves whose sequence axis (axis 2 in batch=1 layout) is trimmed
-# to ``pos`` when freezing — everything past pos is zero by construction
+# to ``pos`` when freezing — everything past pos is zero by construction.
+# An encoder-decoder's cross K/V span the encoder frames, not the
+# decoded sequence, and are frozen whole.
 _SEQ_TRIM_LEAVES = ("k", "v", "shared_k", "shared_v")
 
 # default observability pids: distinct per engine so two untagged
@@ -630,7 +632,7 @@ class ServingEngine:
                         block_ids=tuple(
                             int(b) for b in self._blocks.tables[slot, :nblk]),
                         logits_row=last[pad + i],
-                        leaves={"pos": np.asarray(bucket, np.int32)},
+                        leaves=self._snapshot_slot_leaves(slot),
                         pos=bucket),
                     self._blocks)
             if not self._emit_first(req, int(first[pad + i]), stamp, free,
@@ -640,13 +642,22 @@ class ServingEngine:
                 self._blocks.release_slot(slot)
             self._update_block_gauges()
 
+    def _snapshot_slot_leaves(self, slot: int) -> dict:
+        """Copies, on the device, of one slot's non-KV, non-sampling
+        cache leaves (batch=1 layout): what a prefix-cache re-admission
+        restores beside the shared blocks (``pos``; an encoder-decoder's
+        cross K/V)."""
+        return {name: leaf[slot].clone() for name, leaf in self._cache.items()
+                if name != "sample"}
+
     def _admit_from_prefix(self, req: Request, entry: PrefixEntry,
                            free: List[int]) -> None:
         """Admit a request whose padded prompt hit the prefix cache: no
         prefill call at all.  Shared blocks are increfed into the slot's
-        table, ``pos`` and the request's own sampling state are written
-        to its slot, and the first token is sampled from the cached
-        last-position logits row with the request's own key."""
+        table, the cached non-KV leaves and the request's own sampling
+        state are written to its slot, and the first token is sampled
+        from the cached last-position logits row with the request's own
+        key."""
         slot = free.pop(0)
         for j, bid in enumerate(entry.block_ids):
             self._blocks.incref(bid)

@@ -232,10 +232,11 @@ class PrefixEntry:
     Holds pool block ids (the entry owns one reference each), the
     last-position logits row (device array — sampling a new request's
     first token from it with its *own* key reproduces a real prefill bit
-    for bit), and the non-KV batch=1 cache leaves at ``pos``."""
+    for bit), and the non-KV batch=1 cache leaves at ``pos`` (``pos``;
+    an encoder-decoder's cross K/V), copied on the device."""
     block_ids: Tuple[int, ...]
     logits_row: Any                       # (vocab,) device array
-    leaves: Dict[str, np.ndarray]         # non-KV batch=1 cache leaves
+    leaves: Dict[str, Any]                # non-KV batch=1 cache leaves
     pos: int
     hits: int = 0
 

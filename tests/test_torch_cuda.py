@@ -189,7 +189,9 @@ class _EagerStep:
                                        ("mamba2-370m", "batched"),
                                        ("zamba2-1.2b", "batched"),
                                        ("olmoe-1b-7b", "paged"),
-                                       ("olmoe-1b-7b", "batched")])
+                                       ("olmoe-1b-7b", "batched"),
+                                       ("whisper-small", "paged"),
+                                       ("whisper-small", "batched")])
 def test_graph_replayed_engine_matches_eager_steps(cuda, monkeypatch, name,
                                                    mode):
     """On the card the paged block-table step and the batched decode and
@@ -200,7 +202,9 @@ def test_graph_replayed_engine_matches_eager_steps(cuda, monkeypatch, name,
     and the kernels' launch counts, replays included, are equal too.
     The MoE decode step (dense dispatch, stable top-k) replays too, and
     so does the hybrid's (5 layers at period 2: two sites of the shared
-    block, each writing its own K/V in place, and a leftover layer)."""
+    block, each writing its own K/V in place, and a leftover layer), and
+    the encoder-decoder's (its cross blocks over the slot cache's cross
+    K/V, admitted in place)."""
     from repro_torch.serving import engine as engine_mod
     if name == "mamba2-370m":
         cfg = get_config(name).reduced(d_model=64).with_updates(
@@ -212,6 +216,9 @@ def test_graph_replayed_engine_matches_eager_steps(cuda, monkeypatch, name,
     elif name == "olmoe-1b-7b":
         cfg = get_config(name).reduced(d_model=64, max_experts=16) \
             .with_updates(vocab_size=300, activation_dtype="float32")
+    elif name == "whisper-small":
+        cfg = get_config(name).reduced(d_model=64).with_updates(
+            vocab_size=300, activation_dtype="float32")
     else:
         cfg = get_config(name).with_updates(
             num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
@@ -401,6 +408,32 @@ def test_flash_tensor_core_route(cuda, mask, s, hd):
     if mask.get("kv_len") == 0:
         assert bool((out == 0).all())
     assert torch.equal(out, flash_attention(q, k, v, **mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,kv_len", [(16, 1500, None), (448, 1500, None),
+                                          (1, 7, None), (100, 65, 40),
+                                          (64, 200, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_cross_lengths(cuda, dtype, sq, sk, kv_len):
+    """A key length apart from the query length (a decoder's
+    cross-attention over encoder frames) on both routes, GQA 8 over 2:
+    ragged query and key tiles, with and without ``kv_len``, equal to the
+    plain version and repeating bit for bit; causal or windowed masks at
+    unequal lengths raise."""
+    q, _, _ = _qkv(sq, 2, 8, 2, sq, 64, dtype)
+    _, k, v = _qkv(sk + 1, 2, 8, 2, sk, 64, dtype)
+    mask = dict(causal=False, kv_len=kv_len)
+    out = flash_attention(q, k, v, **mask)
+    ref = flash_attn_ref(q, k.repeat_interleave(4, 1),
+                         v.repeat_interleave(4, 1), **mask)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+    assert torch.equal(out, flash_attention(q, k, v, **mask))
+    if kv_len == 0:
+        assert bool((out == 0).all())
+    for bad in (dict(causal=True), dict(causal=False, window=4)):
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, **bad)
 
 
 @pytest.mark.gpu
@@ -970,3 +1003,47 @@ def test_crowd_migration_on_card(cuda):
     assert summarize_faults(rec.events)["migrated_reprefills"] == 0
     assert paged_decode_attention.launches - k1 == \
         src.stats.decode_calls * cfg.num_layers > 0
+
+
+# ------------------------------------------------ profiler ranking (P6) --
+@pytest.mark.gpu
+def test_profiler_ranks_reference_ladder_by_device_time(cuda):
+    """The card twin of ``test_profiler_calibration.py``: the reference's
+    ladder of paper-backbone variants (full, width 0.75, width 0.5 at
+    depth 0.75 and 0.5; bf16 weights, tokens 2 x 256) ranked by its
+    ``H100_SXM`` estimates (eps 0.5) against each forward's device time
+    (the profiler's kernel sum over 20 calls) meets the reference's bar,
+    ``rank_consistency >= 0.79``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import (H100_SXM, estimate_latency, layer_costs,
+                                  rank_consistency)
+    from repro_torch.elastic import VariantSpec, derive_variant
+    from repro_torch.models import forward
+    from repro_torch.models.layers import cast_params
+    cfg = get_config("paper-backbone")
+    params = cast_params(init_params(cfg, seed=0, device="cuda"),
+                         torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 256)).astype(np.int32)).cuda()
+    ladder = (dict(), dict(width_ratio=0.75),
+              dict(width_ratio=0.5, depth_ratio=0.75),
+              dict(width_ratio=0.5, depth_ratio=0.5))
+    est, dev = [], []
+    for kw in ladder:
+        vcfg, vparams = derive_variant(cfg, params, VariantSpec(**kw))
+        est.append(estimate_latency(layer_costs(vcfg, 2, 256), 0.5,
+                                    H100_SXM))
+        with torch.no_grad():
+            forward(vparams, vcfg, tokens)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    forward(vparams, vcfg, tokens)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum(e.count for e in kernels if "flash_attn" in e.key) \
+            == 20 * vcfg.num_layers
+        dev.append(sum(e.self_device_time_total for e in kernels))
+    rho = rank_consistency(est, dev)
+    assert rho >= 0.79, f"profiler ranking broke: est={est} dev={dev}"

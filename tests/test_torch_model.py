@@ -270,10 +270,23 @@ def test_paged_copy_block_copies_every_leaf():
 
 
 def test_not_ported_families_raise():
-    with pytest.raises(NotImplementedError):
-        tm.init_cache(get_config("internvl2-26b"), 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_init_params(get_config("whisper-small").reduced(), device="cpu")
+    """The two families that once raised ``NotImplementedError`` (the
+    encoder-decoder and the VLM stub) are ported: internvl2-26b's cache
+    is the dense attention cache, and whisper-small's weights hold the
+    encoder stack and a cross block per decoder layer; no config of the
+    registry raises any more."""
+    cache = tm.init_cache(get_config("internvl2-26b"), 1, 16, device="cpu")
+    assert set(cache) == {"pos", "k", "v"}
+    assert tuple(cache["k"].shape) == (48, 1, 16, 8, 128)
+    cfg = get_config("whisper-small").reduced()
+    params = t_init_params(cfg, device="cpu")
+    assert {"encoder", "encoder_norm"} <= set(params)
+    assert {"cross", "ln_cross"} <= set(params["layers"])
+    assert tuple(params["encoder"]["attn"]["wq"].shape) == (
+        cfg.encoder_layers, cfg.d_model, cfg.q_dim)
+    for name in T_REGISTRY:
+        tm.init_cache(get_config(name).reduced(d_model=64), 1, 16,
+                      device="cpu")
 
 
 # ----------------------------------------------- chunked / long prefill ----

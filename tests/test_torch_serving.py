@@ -170,13 +170,26 @@ def test_shared_prompts_share_blocks_and_hit_prefix_cache():
 
 @pytest.mark.parametrize("mode", ["batched", "per_slot"])
 def test_not_ported_modes_raise(mode):
-    """The encoder-decoder stack is not ported, so ``batched`` still
-    refuses it.  ``per_slot`` is ported now: it constructs, admits per
-    request and serves a request to its budget."""
+    """Both modes that once refused a family serve now.  ``batched``
+    takes the encoder-decoder (whisper-small, served as the JAX engine
+    serves it: no frames, so zero cross K/V): it constructs with the
+    slot cache's cross leaves and serves a request to its budget.
+    ``per_slot`` constructs, admits per request and serves a request to
+    its budget."""
     if mode == "batched":
+        from repro_torch.models import init_params as t_init_params
         cfg = get_config("whisper-small").reduced(d_model=64)
-        with pytest.raises(NotImplementedError):
-            ServingEngine(cfg, {}, decode_mode=mode, device="cpu")
+        eng = ServingEngine(cfg, t_init_params(cfg, seed=0, device="cpu"),
+                            slots=2, max_seq=64, decode_mode=mode,
+                            device="cpu", compile_cache=CompileCache())
+        assert tuple(eng._cache["cross_k"].shape) == (
+            2, cfg.num_layers, 1, cfg.encoder_seq_len, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
+        req = Request(rid=0, prompt=_prompt(9, 0), max_new_tokens=4)
+        eng.submit(req)
+        eng.drain()
+        assert req.done and len(req.generated) == 4
+        assert eng.stats.decode_calls == 3
         return
     cfg = get_config("paper-backbone").with_updates(**TINY)
     eng = ServingEngine(cfg, T_PARAMS, decode_mode=mode, device="cpu",

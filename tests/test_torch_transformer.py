@@ -151,11 +151,28 @@ def test_lm_loss_matches_reference(masked):
 
 
 def test_unported_families_raise():
+    """The families that once raised in ``forward`` run it now: the VLM
+    stub with projected patch embeddings in its first positions, the
+    encoder-decoder with and without encoder frames; the logits are
+    finite and the stub inputs move them."""
+    from repro_torch.models import init_params as t_init_params
     for name in ("internvl2-26b", "whisper-small"):
         cfg = get_config(name).reduced(d_model=64)
-        with pytest.raises(NotImplementedError):
-            forward({"embed": torch.zeros(cfg.padded_vocab, 64)}, cfg,
-                    torch.zeros((1, 4), dtype=torch.int32))
+        params = t_init_params(cfg, seed=0, device="cpu")
+        tokens = torch.zeros((1, 6), dtype=torch.int32)
+        plain, _ = forward(params, cfg, tokens)
+        g = torch.Generator().manual_seed(0)
+        if cfg.vision_embed_dim:
+            kw = dict(vision_embeds=0.1 * torch.randn(
+                1, cfg.num_vision_tokens, cfg.vision_embed_dim, generator=g))
+        else:
+            kw = dict(encoder_frames=0.1 * torch.randn(
+                1, cfg.encoder_seq_len, cfg.d_model, generator=g))
+        stub, _ = forward(params, cfg, tokens, **kw)
+        for logits in (plain, stub):
+            assert logits.shape == (1, 6, cfg.padded_vocab)
+            assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+        assert not torch.equal(plain, stub)
 
 
 # ------------------------------------------------------------ optim ----
