@@ -174,6 +174,34 @@ Phases (any failure exits non-zero):
    (ROADMAP P4): the first step where card and CPU part, per stream,
    with the CPU's top-2 margin.
 
+11. trainer — the port's drivers (``repro_torch.launch``, ``data``,
+   ``checkpoint``, ``baselines``).  11.0: K6 under autograd (its launch
+   in a ``torch.autograd.Function`` whose backward is the plain scan's
+   gradient) against autograd through the plain scan at the trainer's
+   shape (4 x 1024, H 64, P 64, N 64, x/b/c views of a 4224-wide row)
+   and mamba2-370m's (H 32, P 64, N 128), f32 and bf16; K6, K2 and K3
+   forward and their backwards timed at the trainer's bf16 shapes.  11a:
+   full-width zamba2-1.2b (1.105 B parameters, nothing cut) trained by
+   ``train_loop`` for 6 steps of 4 x 1024 tokens (bf16 activations, f32
+   weights and AdamW): finite losses, positive grad norms, K6 38, K2 6
+   and K3 6 a step exactly, a non-zero gradient on every floating leaf
+   (each Mamba layer's ``a_log`` and ``dt_bias`` reach the loss only
+   through K6's backward), the checkpoint restored bit for bit; the
+   step's host time, its device split (forward kernels and the rest,
+   backward, optimizer), peak memory, checkpoint bytes and times.  11b:
+   full-width paper-backbone trained with ``train.py``'s defaults (100
+   steps, batch 8, seq 256; the loss falls), checkpointed, restored into
+   a fresh tree, served through ``serve.py``'s loop (16 requests, 4
+   slots, the middleware swapping variants every 8 steps; 12 tokens a
+   request, K2/K3 held to each binding's prefill calls and steps), and a
+   greedy wave from the restored weights equal to the trained weights'.
+   11c: card == CPU in f32 over two ``make_train_step`` calls (loss,
+   grad norm, every gradient leaf, the parameters) on the reduced hybrid
+   and the reduced mamba2-370m.  11d: the baselines' chosen variants
+   (``HANDCRAFTED``, ``adadeep_select``, ``ofa_select``) through
+   ``Middleware.infer`` with exact K2/K3, card == CPU in f32.  11e: the
+   one-card planner over every arch x shape, without JAX.
+
 The line before the last is a JSON object listing every kernel with its
 launches on its main path and its times (K4 and K5 as their four entry
 points: act_quant, act_dequant, act_quant4, act_dequant4); the last
@@ -182,6 +210,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -4194,6 +4223,663 @@ def phase_encdec(torch, smi):
     return totals, extra
 
 
+# --------------------------------------------------------------- phase 11
+# K6's gradients through its autograd route against autograd through the
+# plain version: both differentiate the same f32 graph of the plain scan
+# on the card (the route's backward recomputes it), so they differ only
+# in the order of reduced sums; bf16 gradients of the conv row are
+# rounded to bf16 once on both sides (one bf16 ulp, 2**-8 relative)
+GRAD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+            "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+TRAIN_SHAPE = (4, 1024)       # zamba2-1.2b's train batch in 11a: B x S
+
+
+def plain_scan(x, dt, a, b, c, *, chunk):
+    """The plain SSD scan as the CPU path computes it (x in f32, y
+    rounded to x's dtype)."""
+    from repro_torch.kernels.ref import ssd_scan_ref
+    y, st = ssd_scan_ref(x.float(), dt, a, b, c, chunk=chunk)
+    return y.to(x.dtype), st
+
+
+def ssd_grad_case(torch, gen, bsz, s, h, p, n, dtype):
+    """An ``ssd_case`` whose conv row, dt and a are leaves that require
+    grad, x/b/c views of the row, and random output gradients."""
+    x, dt, a, bm, cm = ssd_case(torch, gen, bsz, s, h, 1, p, n, dtype)
+    row = x._base.detach().requires_grad_()
+    x = row[..., :h * p].reshape(bsz, s, h, p)
+    bm = row[..., h * p:h * p + n].reshape(bsz, s, 1, n)
+    cm = row[..., h * p + n:].reshape(bsz, s, 1, n)
+    dy = torch.randn(x.shape, generator=gen).to(x.dtype).cuda()
+    dst = torch.randn((bsz, h, p, n), generator=gen).cuda()
+    return (row, x, dt.requires_grad_(), a.requires_grad_(), bm, cm, dy,
+            dst)
+
+
+def trainer_kernels_alone(torch):
+    """11.0: K6 under autograd at the trainer's shape (zamba2-1.2b, 4 x
+    1024, H 64, P 64, N 64, G 1, chunk 256, x/b/c views of a 4224-wide
+    row) and at mamba2-370m's (H 32, P 64, N 128), f32 and bf16: the
+    gradients of the row, dt and a through the kernel's autograd route
+    against autograd through the plain version.  Then K6, K2 (32 heads of
+    64, causal) and K3 (gelu, D 2048, F 8192, M 4096) at the trainer's
+    bf16 shapes, forward and backward, timed beside their bounds, their
+    plain versions and a library call.  Returns the timing fields by
+    kernel name."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.kernels.flash_attn import flash_attention_backward
+    from repro_torch.kernels.fused_ffn import fused_ffn_backward
+    from repro_torch.kernels.ref import fused_ffn_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward
+    gen = torch.Generator().manual_seed(111)
+    bsz, s = TRAIN_SHAPE
+    out = {"ssd_scan": {}}
+    for what, (h, p, n) in (("zamba2", (64, 64, 64)),
+                            ("mamba2", (32, 64, 128))):
+        for dtype in ("float32", "bfloat16"):
+            row, x, dt, a, bm, cm, dy, dst = ssd_grad_case(
+                torch, gen, bsz, s, h, p, n, dtype)
+            grads = {}
+            for route, scan in (("kernel", ssd_scan), ("plain", plain_scan)):
+                before = ssd_scan.launches
+                y, st = scan(x, dt, a, bm, cm, chunk=256)
+                if route == "kernel" and (y.grad_fn is None or
+                                          ssd_scan.launches != before + 1):
+                    raise AssertionError("ssd_scan under autograd: no "
+                                         "grad_fn or no launch")
+                grads[route] = torch.autograd.grad([y, st], [row, dt, a],
+                                                   [dy, dst])
+            case = (f"{what} {bsz} x {s}, H {h}, P {p}, N {n}, {dtype}, "
+                    "x/b/c views")
+            err = 0.0
+            for name, g, ref in zip(("row", "dt", "a"), grads["kernel"],
+                                    grads["plain"]):
+                tol = GRAD_TOL[dtype] if name == "row" else \
+                    GRAD_TOL["float32"]
+                err = max(err, check_close("ssd_scan backward", g, ref, tol,
+                                           f"d{name}, {case}"))
+            if what == "zamba2" and dtype == "bfloat16":
+                args = [t.detach() for t in (x, dt, a, bm, cm)]
+                out["ssd_scan"].update(
+                    bwd_ms=cuda_ms(torch, lambda: ssd_scan_backward(
+                        *args, dy, dst, chunk=256), iters=5, warmup=1),
+                    bwd_max_abs_err=err)
+            del row, x, dt, a, bm, cm, dy, dst, grads, y, st
+    log("11.0: K6's autograd route == autograd through the plain scan at "
+        "zamba2's and mamba2's shapes, f32 and bf16")
+
+    # the forward kernels and their backwards at the trainer's shapes
+    x, dt, a, bm, cm = ssd_case(torch, gen, bsz, s, 64, 1, 64, 64,
+                                "bfloat16")
+    nbytes, flops = ssd_work(bsz, s, 64, 1, 64, 64, 256, 2, 2)
+    out["ssd_scan"].update(_time_kernel(
+        torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=256),
+        lambda: plain_scan(x, dt, a, bm, cm, chunk=256), None, "ssd_scan",
+        nbytes, flops, iters=20, plain_iters=3))
+    del x, dt, a, bm, cm
+    q, k, v = flash_case(torch, gen, bsz, 32, 32, s, 64, "bfloat16")
+    o = flash_attention(q, k, v)
+    do = torch.randn(o.shape, generator=gen).to(o.dtype).cuda()
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    pairs = flash_pairs(s, True, 0, None) * bsz * 32
+    k2t = _time_kernel(
+        torch, lambda: flash_attention(q, k, v), lambda: flash_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        "flash_attn", 4 * q.numel() * q.element_size(), 4 * 64 * pairs)
+    k2t.update(
+        bwd_ms=cuda_ms(torch, lambda: flash_attention_backward(
+            q, k, v, o, do), iters=10, warmup=2),
+        library_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            lib, (qg, kg, vg), do, retain_graph=True), iters=10, warmup=2))
+    out["flash_attention"] = k2t
+    del q, k, v, o, do, qg, kg, vg, lib
+    m = bsz * s
+    x, wg, wu, wd = ffn_case(torch, gen, m, 2048, 8192, "bfloat16")
+    dy = torch.randn((m, 2048), generator=gen).to(x.dtype).cuda()
+    xg, wgg, wug, wdg = (t.detach().requires_grad_() for t in (x, wg, wu,
+                                                               wd))
+    chain = (F.gelu(xg @ wgg, approximate="tanh") * (xg @ wug)) @ wdg
+    k3t = _time_kernel(
+        torch, lambda: fused_ffn(x, wg, wu, wd, "gelu"),
+        lambda: fused_ffn_ref(x, wg, wu, wd, "gelu"), None, "fused_ffn",
+        (2 * x.numel() + wg.numel() + wu.numel() + wd.numel())
+        * x.element_size(), 6 * m * 2048 * 8192, iters=10, plain_iters=2)
+    k3t.update(
+        chain_ms=cuda_ms(torch, lambda: (F.gelu(x @ wg, approximate="tanh")
+                                         * (x @ wu)) @ wd, iters=10),
+        bwd_ms=cuda_ms(torch, lambda: fused_ffn_backward(
+            x, wg, wu, wd, dy, "gelu"), iters=5, warmup=1),
+        library_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            chain, (xg, wgg, wug, wdg), dy, retain_graph=True), iters=5,
+            warmup=1))
+    out["fused_ffn"] = k3t
+    del x, wg, wu, wd, dy, xg, wgg, wug, wdg, chain
+    for name, t in out.items():
+        log(f"{name} at the trainer's shape: kernel_ms {t['ms']:.4f} "
+            f"device {fmt(t['device_ms'])}; plain_ms {t['plain_ms']:.4f}; "
+            + (f"library {t['library_ms']:.4f} ms; " if t["library_ms"]
+               else "")
+            + (f"cuBLAS chain {t['chain_ms']:.4f} ms; " if "chain_ms" in t
+               else "")
+            + f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}); backward "
+            f"{t['bwd_ms']:.4f} ms"
+            + (f" (library's backward {t['library_bwd_ms']:.4f} ms)"
+               if "library_bwd_ms" in t else ""))
+    return {name: {f"{key}_trainer": val for key, val in t.items()}
+            for name, t in out.items()}
+
+
+def bits(t):
+    """A tensor's raw bits, for bit-for-bit comparisons."""
+    import torch
+    return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                   1: torch.uint8}[t.element_size()])
+
+
+def same_bits(a, b):
+    from repro_torch.checkpoint import flatten_with_keys
+    fa, fb = dict(flatten_with_keys(a)), dict(flatten_with_keys(b))
+    return sorted(fa) == sorted(fb) and all(
+        fa[k].dtype == fb[k].dtype and bool((bits(fa[k]) == bits(fb[k])
+                                             .to(fa[k].device)).all())
+        for k in fa)
+
+
+def meta_like(torch, tree):
+    from repro_torch.models.layers import tree_map
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def exact_counts(expect, what):
+    """The launches since the last ``zero_counts`` must be ``expect`` (any
+    kernel not named: 0).  Returns the non-zero counts."""
+    counts = {name: fn.launches for name, fn in _kernel_fns().items()}
+    want = {name: expect.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    log(f"{what}: launches {({k: n for k, n in counts.items() if n})}")
+    return {k: n for k, n in counts.items() if n}
+
+
+def profile_parts(torch, fn, reps=2):
+    """Device ms of one call of ``fn`` (the profiler's kernel sum over
+    ``reps`` calls after one warm call), and of the port's K2, K3 and K6
+    in it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    ours = {k: sum(e.self_device_time_total for e in kernels
+                   if part in e.key) / 1e3 / reps
+            for k, part in PROFILED_KERNELS.items()}
+    return total, ours
+
+
+def train_split(torch, cfg, opts, params, opt_state, batch):
+    """One train step's device time split into its forward (the port's
+    kernels and the rest), its backward (autograd: the kernels' PyTorch-op
+    backwards and the rest) and the optimizer, each by the profiler,
+    mirroring ``make_train_step``."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import forward, lm_loss
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import warmup_cosine
+    p = tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()),
+                 params)
+    leaves = [t for t in tree_leaves(p) if t.requires_grad]
+
+    def fwd():
+        logits, aux = forward(p, cfg, batch["tokens"], opts)
+        return lm_loss(logits, batch["labels"]) + cfg.router_aux_weight * aux
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), leaves)
+
+    grads = iter(fwd_bwd())
+    grads = tree_map(lambda t: next(grads), p)
+    f_ms, f_ours = profile_parts(torch, fwd)
+    fb_ms, _ = profile_parts(torch, fwd_bwd)
+    with torch.no_grad():
+        o_ms, _ = profile_parts(torch, lambda: adamw.apply(
+            grads, params, opt_state, lr_scale=warmup_cosine(
+                opt_state.step)))
+    return f_ms, f_ours, fb_ms - f_ms, o_ms
+
+
+def zamba2_trained(torch, smi):
+    """11a: full-width zamba2-1.2b (1.105 B parameters, nothing cut)
+    trained by ``train_loop`` for 6 steps at 4 x 1024 tokens, bf16
+    activations over f32 weights and AdamW, checkpointed at the end.
+    Returns ``{kernel name: launches}``."""
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, place_batch
+    from repro_torch.launch.steps import make_train_step, options_for
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.configs import InputShape
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import _n_shared_sites
+    from repro_torch.optim import adamw
+    cfg = get_config("zamba2-1.2b")
+    bsz, s = TRAIN_SHAPE
+    shape, steps = InputShape("cli", s, bsz, "train"), 6
+    sites = _n_shared_sites(cfg)
+    per_step = {"ssd_scan": cfg.num_layers, "flash_attention": sites,
+                "fused_ffn": sites}
+    rec = {"t": [], "loss": [], "gnorm": []}
+
+    def callback(i, params, opt_state, metrics):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["loss"].append(float(metrics["loss"]))
+        rec["gnorm"].append(float(metrics["grad_norm"]))
+        return params, opt_state
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    totals = {}
+    zero_counts()
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        out = train_loop(cfg, shape, steps, log_every=1, checkpoint_dir=td,
+                         callback=callback)
+        t_end = time.perf_counter()
+        totals.update(exact_counts({k: n * steps for k, n in
+                                    per_step.items()},
+                                   f"zamba2-1.2b train_loop, {steps} steps"))
+        peak = torch.cuda.max_memory_allocated()
+        params = out["params"]
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        if not all(map(math.isfinite, rec["loss"] + rec["gnorm"])) or \
+                min(rec["gnorm"]) <= 0:
+            raise AssertionError(f"zamba2 training: losses {rec['loss']}, "
+                                 f"grad norms {rec['gnorm']}")
+        ckpt = Path(td) / f"step_{steps:06d}"
+        ck_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+        save_s = t_end - rec["t"][-1]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        restored, step = restore_checkpoint(ckpt, meta_like(torch, params))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        if step != steps or not same_bits(restored, params):
+            raise AssertionError("zamba2 checkpoint does not restore bit "
+                                 "for bit")
+        del restored
+    step_s = [b - a for a, b in zip(rec["t"], rec["t"][1:])]
+    log(f"zamba2-1.2b trained on {smi}: {n_params / 1e9:.3f} B parameters, "
+        f"{steps} steps of {bsz} x {s} tokens; losses "
+        + ", ".join(f"{x:.4f}" for x in rec["loss"]) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in rec["gnorm"])
+        + f"; init + first step {rec['t'][0] - t0:.1f} s, then host "
+        f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms a step; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; checkpoint "
+        f"{ck_bytes / 1e9:.3f} GB saved in {save_s:.2f} s, restored bit "
+        f"for bit in {restore_s:.2f} s")
+
+    # one make_train_step call from a fresh AdamW state: m = (1 - b1) *
+    # clip * grad, so every floating leaf (each layer of each stacked
+    # leaf) must have a non-zero m — a_log and dt_bias get theirs only
+    # through K6's backward
+    opts = options_for(cfg, shape, {"remat": "none"})
+    batch = place_batch(SyntheticLM(DataConfig(
+        cfg.vocab_size, s, bsz)).batch(steps), "cuda")
+    state = adamw.init(params)
+    zero_counts()
+    _, state1, metrics = make_train_step(cfg, opts)(params, state, batch)
+    for k, n in exact_counts(per_step, "zamba2-1.2b one make_train_step "
+                             "call").items():
+        totals[k] = totals.get(k, 0) + n
+    from repro_torch.checkpoint import flatten_with_keys
+    zero = []
+    for key, m in flatten_with_keys(state1.m):
+        rows = m.reshape(m.shape[0], -1) if key.startswith("layers/") \
+            else m.reshape(1, -1)
+        if not bool((rows.abs().sum(dim=1) > 0).all()):
+            zero.append(key)
+    if zero:
+        raise AssertionError(f"zamba2: zero gradient in {zero}")
+    log(f"zamba2-1.2b: every floating leaf got a non-zero gradient, each "
+        f"Mamba layer's in_proj, conv_w, conv_b, dt_bias and a_log "
+        f"included ({len(list(flatten_with_keys(state1.m)))} leaves; grad "
+        f"norm {float(metrics['grad_norm']):.3f})")
+    del state1, metrics
+    f_ms, f_ours, b_ms, o_ms = train_split(torch, cfg, opts, params, state,
+                                           batch)
+    kern = f_ours["K6"] + f_ours["K2"] + f_ours["K3"]
+    log(f"zamba2-1.2b train step device split on {smi}: forward "
+        f"{f_ms:.2f} ms (K6 {f_ours['K6']:.2f} + K2 {f_ours['K2']:.3f} + K3 "
+        f"{f_ours['K3']:.2f} = {kern:.2f} in the port's kernels, the rest "
+        f"{f_ms - kern:.2f}), backward {b_ms:.2f} ms (autograd, the "
+        f"kernels' PyTorch-op backwards), optimizer {o_ms:.2f} ms; "
+        f"device {f_ms + b_ms + o_ms:.2f} ms against a host step of "
+        f"{1e3 * min(step_s):.1f}–{1e3 * max(step_s):.1f} ms")
+    del params, state, out
+    torch.cuda.empty_cache()
+    return totals
+
+
+def serve_segments(torch, cfg, params):
+    """``launch.serve``'s loop on the card (16 requests, 4 slots, adapt
+    every 8 steps), with each binding the engine served under (its
+    variant and the engine's decode steps and prefill calls under it)
+    recorded around ``swap_model``.  Returns the loop's result and the
+    launches expected of its K2 and K3."""
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.serving import ServingEngine
+    segs = []
+    swap = ServingEngine.swap_model
+
+    def recording(self, vcfg, vparams, opts, **kw):
+        segs.append((self.cfg, self.params, self.stats.decode_calls,
+                     self.stats.prefill_calls))
+        return swap(self, vcfg, vparams, opts, **kw)
+
+    ServingEngine.swap_model = recording
+    try:
+        out = serve_loop(cfg, params, requests=16, slots=4, adapt_every=8,
+                         device="cuda")
+    finally:
+        ServingEngine.swap_model = swap
+    eng = out["engine"]
+    segs.append((eng.cfg, eng.params, eng.stats.decode_calls,
+                 eng.stats.prefill_calls))
+    expect = {"flash_attention": 0, "fused_ffn": 0}
+    d0 = p0 = 0
+    for vcfg, vparams, d, p in segs:
+        n = vcfg.num_layers
+        expect["flash_attention"] += (p - p0) * n
+        if dense_gated(vcfg, vparams):
+            expect["fused_ffn"] += (p - p0 + d - d0) * n
+        d0, p0 = d, p
+    return out, expect, len(segs) - 1
+
+
+def backbone_trained(torch, smi):
+    """11b: full-width paper-backbone trained by ``train_loop`` with
+    ``launch/train.py``'s defaults (100 steps, batch 8, seq 256),
+    checkpointed, restored into a fresh tree and served through
+    ``launch/serve.py``'s loop; a greedy wave from the restored weights
+    equals the wave from the trained weights.  Returns ``{kernel name:
+    launches}``."""
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import init_params
+    from repro_torch.models.configs import InputShape
+    from repro_torch.serving import CompileCache, ServingEngine
+    cfg = get_config("paper-backbone")
+    steps, n = 100, cfg.num_layers
+    totals = {}
+
+    def add(counts):
+        for k, c in counts.items():
+            totals[k] = totals.get(k, 0) + c
+
+    zero_counts()
+    with tempfile.TemporaryDirectory() as td:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_loop(cfg, InputShape("cli", 256, 8, "train"), steps,
+                         checkpoint_dir=td)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        add(exact_counts({"flash_attention": n * steps,
+                          "fused_ffn": n * steps},
+                         f"paper-backbone train_loop, {steps} steps"))
+        first, last = out["losses"][0][1], out["losses"][-1][1]
+        if not last < first:
+            raise AssertionError(f"paper-backbone: loss {first} -> {last}")
+        fresh = init_params(cfg, seed=1, device="cuda")
+        restored, _ = restore_checkpoint(Path(td) / f"step_{steps:06d}",
+                                         fresh)
+        if not same_bits(restored, out["params"]) or same_bits(fresh,
+                                                               restored):
+            raise AssertionError("paper-backbone checkpoint does not "
+                                 "restore bit for bit")
+    log(f"paper-backbone trained on {smi}: loss {first:.4f} -> {last:.4f} "
+        f"in {steps} steps of 8 x 256 tokens, {train_s:.1f} s "
+        f"({1e3 * train_s / steps:.1f} ms a step with the init); restored "
+        "bit for bit into a fresh tree")
+    zero_counts()
+    served, expect, swaps = serve_segments(torch, cfg, restored)
+    eng = served["engine"]
+    if eng.stats.tokens_out != 16 * 12 or any(
+            len(r.generated) != 12 for r in served["requests"]):
+        raise AssertionError(f"serve loop: {eng.stats.tokens_out} tokens")
+    add(exact_counts(expect, f"launch.serve loop on the restored weights "
+                     f"({swaps} swaps)"))
+    log(f"launch.serve loop on {smi}: 16 requests, {eng.stats.tokens_out} "
+        f"tokens in {served['seconds']:.2f} s, {eng.stats.steps} steps, "
+        f"{eng.stats.prefills} prefills, {eng.generation} variant swaps")
+    zero_counts()
+    prompts = greedy_prompts(77, cfg.vocab_size, (8, 40, 120, 200, 17, 64))
+    streams, engines = [], []
+    for params in (restored, out["params"]):
+        eng = ServingEngine(cfg, params, slots=4, max_seq=256,
+                            compile_cache=CompileCache(), device="cuda")
+        reqs = greedy_requests(prompts, 16)
+        for r in reqs:
+            eng.submit(r)
+        eng.drain()
+        streams.append([tuple(r.generated) for r in reqs])
+        engines.append(eng)
+    if streams[0] != streams[1]:
+        raise AssertionError("greedy waves differ between the restored and "
+                             "the trained weights")
+    add(check_counts(engines, "paper-backbone greedy waves, restored and "
+                     "trained weights"))
+    log("paper-backbone: the greedy wave from the restored weights == the "
+        "wave from the trained weights (6 requests x 16 tokens)")
+    return totals
+
+
+def train_card_vs_cpu(torch):
+    """11c: two ``make_train_step`` calls on the card and on the CPU from
+    the same f32 weights and batches (2 x 300 tokens: two chunks, the
+    second ragged), reduced zamba2 (d 256, 5 layers, period 2) and
+    reduced mamba2-370m: the loss, the gradient norm, every gradient leaf
+    (AdamW's first moment after the first call, (1 - b1) x clip x grad)
+    and the parameters after the second.  Returns ``{kernel name:
+    launches}`` of the card's calls."""
+    from repro_torch.checkpoint import flatten_with_keys
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, place_batch
+    from repro_torch.launch.steps import make_train_step, options_for
+    from repro_torch.models import init_params
+    from repro_torch.models.configs import InputShape
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import _n_shared_sites
+    from repro_torch.optim import adamw
+    totals = {}
+    shape = InputShape("t", 300, 2, "train")
+    cfgs = (("zamba2 reduced (d 256, 5 layers, period 2)",
+             get_config("zamba2-1.2b").reduced(num_layers=5).with_updates(
+                 shared_attn_period=2, activation_dtype="float32")),
+            ("mamba2-370m reduced", get_config("mamba2-370m").reduced()
+             .with_updates(activation_dtype="float32")))
+    lr = adamw.AdamWConfig().lr
+    for what, cfg in cfgs:
+        step = make_train_step(cfg, options_for(cfg, shape))
+        data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len, 2))
+        p_cpu = init_params(cfg, seed=0, device="cpu")
+        p_card = tree_map(lambda t: t.cuda(), p_cpu)
+        s_cpu, s_card = adamw.init(p_cpu), adamw.init(p_card)
+        zero_counts()
+        worst = 0.0
+        for i in range(2):
+            b = data.batch(i)
+            p_card, s_card, m_card = step(p_card, s_card,
+                                          place_batch(b, "cuda"))
+            p_cpu, s_cpu, m_cpu = step(p_cpu, s_cpu, place_batch(b, "cpu"))
+            for key, rtol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+                a, c = float(m_card[key]), float(m_cpu[key])
+                if abs(a - c) > rtol * abs(c):
+                    raise AssertionError(f"{what} step {i}: {key} card {a} "
+                                         f"CPU {c}")
+            if i == 0:
+                cpu_m = dict(flatten_with_keys(s_cpu.m))
+                for key, g in flatten_with_keys(s_card.m):
+                    ref = cpu_m[key]
+                    scale = float(ref.abs().max())
+                    err = float((g.cpu() - ref).abs().max())
+                    if err > GRAD_REL_TOL * scale + 1e-12:
+                        raise AssertionError(f"{what}: gradient of {key} "
+                                             f"card vs CPU max err {err} of "
+                                             f"max {scale}")
+                    worst = max(worst, err / max(scale, 1e-30))
+        # AdamW moves an element by ~lr x warmup_cosine(step) whatever its
+        # gradient, so a rounding-level gradient can land 2 lr x scale apart
+        cpu_p = dict(flatten_with_keys(p_cpu))
+        for key, t in flatten_with_keys(p_card):
+            err = float((t.cpu() - cpu_p[key]).abs().max())
+            if err > 2 * lr * 0.01 + 1e-6:
+                raise AssertionError(f"{what}: parameter {key} card vs CPU "
+                                     f"max err {err} after two steps")
+        n = cfg.num_layers
+        sites = _n_shared_sites(cfg)
+        for k, c in exact_counts({"ssd_scan": 2 * n,
+                                  "flash_attention": 2 * sites,
+                                  "fused_ffn": 2 * sites},
+                                 f"{what}, two train steps").items():
+            totals[k] = totals.get(k, 0) + c
+        log(f"{what}: card == CPU in f32 over two train steps (loss, grad "
+            f"norm, {len(cpu_m)} gradient leaves, worst error {worst:.3g} "
+            f"of the leaf's largest gradient (tolerance {GRAD_REL_TOL}); "
+            "parameters)")
+    return totals
+
+
+def baselines_on_card(torch, smi):
+    """11d: the variants that ``HANDCRAFTED``, ``adadeep_select`` (at 0.5
+    and 0.25 of the full model's estimated latency) and ``ofa_select``
+    (width x depth grid, 0.5) choose for full-width paper-backbone, run
+    through ``Middleware.infer`` on the card in bf16 and in f32 (exact K2
+    and K3 per ``infer``); the f32 logits equal the same variant's (its
+    weights derived on the card, copied) on the CPU.  Returns ``{kernel
+    name: launches}``."""
+    from repro_torch.baselines import HANDCRAFTED, adadeep_select, ofa_select
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Action, ActionEvaluator, Middleware,
+                                  ResourceContext)
+    from repro_torch.core.loop import Decision
+    from repro_torch.elastic import VariantSpec
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.configs import InputShape
+    from repro_torch.models.layers import cast_params
+    cfg = get_config("paper-backbone")
+    shape = InputShape("app", 256, 4, "prefill")
+    ev = ActionEvaluator(cfg, shape)
+    full = ev.evaluate(Action(), ResourceContext()).latency_s
+    chosen = dict(HANDCRAFTED)
+    for frac in (0.5, 0.25):
+        chosen[f"adadeep@{frac}"] = adadeep_select(cfg, shape, full * frac,
+                                                   ev)
+    chosen["ofa@0.5"] = ofa_select(
+        cfg, shape, full * 0.5, [VariantSpec(width_ratio=w, depth_ratio=d)
+                                 for w in (1.0, 0.75, 0.5)
+                                 for d in (1.0, 0.75, 0.5)], ev)
+    tokens = torch.stack([torch.from_numpy(p) for p in greedy_prompts(
+        5, cfg.vocab_size, (256,) * 4)]).cuda()
+    params = init_params(cfg, seed=0, device="cuda")
+    mws = {"bf16": Middleware(cfg=cfg, params=cast_params(
+               params, torch.bfloat16), shape=shape, allow_offload=False),
+           "f32": Middleware(cfg=cfg.with_updates(activation_dtype="float32"),
+                             params=params, shape=shape,
+                             allow_offload=False)}
+    fns = _kernel_fns()
+    totals = dict.fromkeys(fns, 0)
+    worst = 0.0
+    for name, spec in chosen.items():
+        for which, mw in mws.items():
+            mw.loop.current = Decision(tick=-1, ctx=ResourceContext(),
+                                       action=Action(variant=spec),
+                                       eval=None, reason=name)
+            vcfg, vparams, _ = mw.current_runtime()
+            before = {k: fn.launches for k, fn in fns.items()}
+            logits = mw.infer(tokens)
+            delta = {k: fn.launches - before[k] for k, fn in fns.items()}
+            expect = expected_launches(vcfg, vparams)
+            if delta != expect:
+                raise AssertionError(f"baseline {name} ({which}): launches "
+                                     f"{delta}, expected {expect}")
+            totals = {k: c + expect[k] for k, c in totals.items()}
+            if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+                raise AssertionError(f"baseline {name} ({which}): logits "
+                                     "not finite")
+        cpu = forward(to_cpu(vparams), vcfg, tokens.cpu())[0]
+        worst = max(worst, check_close(
+            "baseline variant", logits.cpu(), cpu, LOGITS_TOL,
+            f"{name} ({spec_name(spec)}) card vs CPU, f32"))
+        log(f"  baseline {name:12s} {spec_name(spec)}: K2 "
+            f"{expect['flash_attention']}, K3 {expect['fused_ffn']} an "
+            "infer")
+    log(f"11d: {len(chosen)} baseline variants through Middleware.infer on "
+        f"{smi} (bf16 and f32) with exact launches; card == CPU in f32, "
+        f"logits within {worst:.3g} (atol {LOGITS_TOL['atol']}, rtol "
+        f"{LOGITS_TOL['rtol']})")
+    return {k: c for k, c in totals.items() if c}
+
+
+def planner_run():
+    """11e: ``launch/dryrun.py --arch all --shape all`` into a temporary
+    directory, without JAX."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory() as td:
+        argv = sys.argv
+        sys.argv = ["dryrun", "--arch", "all", "--shape", "all", "--out", td]
+        try:
+            dryrun.main()
+        except SystemExit as e:
+            code = e.code
+        finally:
+            sys.argv = argv
+        recs = [json.loads(p.read_text()) for p in Path(td).glob("*.json")]
+    if code != 0 or len(recs) != 40 or any(r["status"] != "ok"
+                                           for r in recs):
+        raise AssertionError(f"planner: exit {code}, {len(recs)} records")
+    if any(m.split(".")[0] == "jax" for m in sys.modules):
+        raise AssertionError("the planner imported JAX")
+    fits = sorted(f"{r['arch']}:{r['shape']}" for r in recs if r["fits"])
+    log(f"11e: the one-card planner wrote 40 records (arch x shape), no "
+        f"JAX; fits 80 GB without activations: {', '.join(fits)}")
+
+
+def phase_trainer(torch, smi):
+    """The trainer on the card: 11.0 K6's gradient and the kernels at the
+    trainer's shapes; 11a full-width zamba2-1.2b trained; 11b full-width
+    paper-backbone trained, checkpointed, restored and served; 11c card
+    == CPU train steps in f32; 11d the baselines; 11e the planner.
+    Returns ``({kernel name: launches}, {kernel name: timing fields})``."""
+    t_phase = time.perf_counter()
+    extra = trainer_kernels_alone(torch)
+    torch.cuda.empty_cache()
+    totals = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    add(zamba2_trained(torch, smi))
+    add(backbone_trained(torch, smi))
+    add(train_card_vs_cpu(torch))
+    add(baselines_on_card(torch, smi))
+    planner_run()
+    log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals, extra
+
+
 def main() -> int:
     import torch
     smi, idle_w = phase_device(torch)
@@ -4211,7 +4897,8 @@ def main() -> int:
     for k, n in phase_crowd(torch, smi).items():
         launches[k] = launches.get(k, 0) + n
     extras = []
-    for phase in (phase_experts, phase_hybrid, phase_encdec):
+    for phase in (phase_experts, phase_hybrid, phase_encdec,
+                  phase_trainer):
         counts, extra = phase(torch, smi)
         extras.append(extra)
         for k, n in counts.items():

@@ -11,9 +11,10 @@ from .optimizer import (ActionEvaluator, Budgets, Evaluation, ahp_weights,
                         select_online)
 from .profiler import (H100_SXM, MOBILE_CPU, Calibration, HardwareProfile,
                        LayerCost, RooflineTerms, analytic_step_costs,
-                       estimate_energy, estimate_latency, layer_costs,
-                       model_flops_estimate, rank_consistency,
-                       roofline_terms)
+                       collective_bytes_from_hlo,
+                       collective_bytes_scan_corrected, estimate_energy,
+                       estimate_latency, layer_costs, model_flops_estimate,
+                       rank_consistency, roofline_terms, scan_trip_count)
 
 __all__ = ["analytic_step_costs", "Action", "OffloadChoice",
            "default_action_space", "AdaptationLoop", "Calibration",
@@ -25,4 +26,6 @@ __all__ = ["analytic_step_costs", "Action", "OffloadChoice",
            "select_online", "HardwareProfile", "H100_SXM", "LayerCost",
            "MOBILE_CPU", "RooflineTerms", "estimate_energy",
            "estimate_latency", "layer_costs", "model_flops_estimate",
-           "rank_consistency", "roofline_terms"]
+           "rank_consistency", "roofline_terms",
+           "collective_bytes_from_hlo", "collective_bytes_scan_corrected",
+           "scan_trip_count"]

@@ -14,14 +14,18 @@ online   — per-layer C_l (MACs) and M_l (bytes) come from the *current*
            are the engine configuration's (``ActionEvaluator``).
 
 The same module computes the three roofline terms (compute / memory /
-collective).  The JAX package's XLA-HLO text parsers (collective bytes of
-a compiled program, scan trip counts) have no counterpart here: they
-serve its dry-run launcher, which is not ported.
+collective), and keeps the JAX package's parsers of XLA's HLO text
+(collective bytes of a compiled program, with the layer scan's
+while-body trip count): pure regex and config arithmetic, which read a
+program that a JAX dry-run printed.  The port's one-card planner
+(``launch/dryrun.py``) compiles no XLA program, so its collective term
+is 0.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -300,3 +304,81 @@ def model_flops_estimate(cfg: ModelConfig, shape: InputShape) -> float:
         tokens = shape.global_batch * shape.seq_len
         return 2.0 * n * tokens
     return 2.0 * n * shape.global_batch      # decode: one token per seq
+
+
+# ------------------------------------------------------ XLA HLO parsers ----
+_SHAPE_RE = re.compile(r"(bf16|f32|f16|s32|u32|s8|u8|pred|f64|s64|u64)"
+                       r"\[([0-9,]*)\]")
+_DTYPE_BYTES = {"bf16": 2, "f16": 2, "f32": 4, "f64": 8, "s32": 4, "u32": 4,
+                "s8": 1, "u8": 1, "pred": 1, "s64": 8, "u64": 8}
+# result shape(s) appear between '=' and the op name; layouts {2,1,0} and
+# tuple shapes are tolerated.  -start/-done async pairs: count -start only.
+_COLL_LINE = re.compile(
+    r"=\s*(?P<shapes>[^=]*?)\s*"
+    r"(?P<kind>all-gather|all-reduce|reduce-scatter|all-to-all|"
+    r"collective-permute)(?P<suffix>-start|-done)?\(")
+
+
+def _line_collective_bytes(line: str):
+    m = _COLL_LINE.search(line)
+    if not m or m.group("suffix") == "-done":
+        return None
+    kind = m.group("kind")
+    nbytes = 0.0
+    for dt, dims in _SHAPE_RE.findall(m.group("shapes")):
+        n = 1
+        for d in dims.split(","):
+            if d:
+                n *= int(d)
+        nbytes += n * _DTYPE_BYTES.get(dt, 2)
+    return kind, nbytes
+
+
+def collective_bytes_from_hlo(hlo_text: str) -> Dict[str, float]:
+    """Parse lowered/compiled HLO text, summing result bytes of every
+    collective op.  Returns per-kind byte totals (one shard's program)."""
+    totals: Dict[str, float] = {}
+    for line in hlo_text.splitlines():
+        r = _line_collective_bytes(line.strip())
+        if r is None:
+            continue
+        kind, nbytes = r
+        totals[kind] = totals.get(kind, 0.0) + nbytes
+    return totals
+
+
+def collective_bytes_scan_corrected(hlo_text: str, trip_count: int
+                                    ) -> Dict[str, float]:
+    """Collective bytes with while-body correction.
+
+    XLA's printed HLO lists each while-body computation once; collectives
+    inside computations referenced as ``body=%name`` execute ``trip_count``
+    times (the layer scan), so their bytes are multiplied accordingly.
+    Returns per-kind totals for ONE shard's program."""
+    body_names = set(re.findall(r"body=%([\w.\-]+)", hlo_text))
+    totals: Dict[str, float] = {}
+    cur_name = ""
+    header = re.compile(r"^(?:ENTRY\s+)?%?([\w.\-]+)\s*\(.*->.*\{\s*$")
+    for line in hlo_text.splitlines():
+        stripped = line.strip()
+        m = header.match(stripped)
+        if m and "{" in line:
+            cur_name = m.group(1)
+        mult = trip_count if cur_name in body_names else 1
+        r = _line_collective_bytes(stripped)
+        if r is None:
+            continue
+        kind, nbytes = r
+        totals[kind] = totals.get(kind, 0.0) + nbytes * mult
+    return totals
+
+
+def scan_trip_count(cfg: ModelConfig) -> int:
+    """Layer-scan trip count (periods) for while-body cost correction."""
+    if cfg.arch_type == "hybrid":
+        period = cfg.shared_attn_period or cfg.num_layers
+    elif cfg.local_global_ratio:
+        period = cfg.local_global_ratio + 1
+    else:
+        period = 1
+    return max(1, cfg.num_layers // period)

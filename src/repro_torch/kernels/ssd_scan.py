@@ -16,6 +16,12 @@ arrival counters.
 A tensor on the CPU takes the plain version.  A tensor on the card
 launches the kernels or raises — there is no fallback.  Each call adds
 one to ``ssd_scan.launches``.
+
+Gradients: when autograd records (grad mode on and any input requiring
+grad), the launch runs inside a ``torch.autograd.Function`` that saves
+its inputs, and whose backward is :func:`ssd_scan_backward`, the
+gradient of the plain version in PyTorch ops (the JAX package
+differentiates its jnp scan; it has no backward kernel either).
 """
 from __future__ import annotations
 
@@ -154,6 +160,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no SSD scan kernel for device {x.device}")
     _check(x, dt, a, b, c, initial_state, out_dtype)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, initial_state)):
+        return _SsdScan.apply(x, dt, a, b, c, initial_state, chunk,
+                              out_dtype)
+    return _launch(x, dt, a, b, c, initial_state, chunk, out_dtype)
+
+
+def _launch(x, dt, a, b, c, initial_state, chunk, out_dtype):
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     plan = ssd_plan(x.dtype, bsz, s, h, p, n, chunk)
@@ -183,3 +198,59 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+class _SsdScan(torch.autograd.Function):
+    """The kernels' launch, differentiable: the forward launches them,
+    the backward is :func:`ssd_scan_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, initial_state, chunk, out_dtype):
+        ctx.save_for_backward(x, dt, a, b, c, initial_state)
+        ctx.chunk, ctx.out_dtype = chunk, out_dtype
+        return _launch(x, dt, a, b, c, initial_state, chunk, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, init = ctx.saved_tensors
+        grads = ssd_scan_backward(x, dt, a, b, c, dy, dstate,
+                                  chunk=ctx.chunk, initial_state=init,
+                                  out_dtype=ctx.out_dtype)
+        return (*grads, None, None)
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                      dstate: Optional[torch.Tensor] = None, *, chunk: int,
+                      initial_state: Optional[torch.Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None):
+    """The gradient of :func:`ssd_scan`: ``(dx, ddt, da, db, dc,
+    dinitial_state)`` in the inputs' dtypes and shapes (``None`` for an
+    absent initial state), given ``dy`` and, optionally, the final
+    state's ``dstate``.
+
+    The plain version (:func:`ssd_scan_ref` on x in f32, y rounded to
+    ``out_dtype``, as the CPU path computes it) is recomputed under
+    autograd and differentiated with ``torch.autograd.grad``: f32 inside,
+    as the plain version computes, and memory that of its forward (the
+    (B, S/chunk, H, chunk, chunk) decays).  Inputs may be views:
+    each gradient has its input's shape, and autograd carries it on to
+    the view's base."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, dt, a, b, c, initial_state) if t is not None]
+        xl, dtl, al, bl, cl = leaves[:5]
+        init = leaves[5] if initial_state is not None else None
+        y, state = ssd_scan_ref(
+            xl.float(), dtl, al, bl, cl, chunk=chunk, initial_state=init)
+        outs, douts = [y.to(out_dtype)], [dy]
+        if dstate is not None:
+            outs.append(state)
+            douts.append(dstate)
+        grads = torch.autograd.grad(outs, leaves, douts, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    if initial_state is None:
+        grads.append(None)
+    return tuple(grads)

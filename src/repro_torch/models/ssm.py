@@ -4,8 +4,10 @@ decode step.
 Follows the JAX package's ``models/ssm.py`` (the SSD formulation of
 arXiv:2405.21060).  The full-sequence block sends its scan through
 :func:`repro_torch.kernels.ops.ssd_scan` — the SSD kernel on the card,
-the plain :func:`ssd_scan_ref` on the CPU.  The decode step is plain
-tensor code in both packages.
+the plain :func:`ssd_scan_ref` on the CPU — and is differentiable on
+both: under autograd the card's launch carries the gradient of the
+plain version (``kernels.ssd_scan.ssd_scan_backward``).  The decode
+step is plain tensor code in both packages.
 """
 from __future__ import annotations
 
@@ -74,8 +76,10 @@ def mamba_forward_states(params: Params, x: torch.Tensor, cfg: ModelConfig
     x: (B, S, D) -> ``(y (B, S, D), final SSM state (B, H, P, N) f32,
     conv state (B, W-1, conv_dim))``, the conv state being the last W-1
     rows of the conv's input.  The scan runs through
-    :func:`kernel_ops.ssd_scan`; y is in the promoted dtype of the
-    block's f32 skip term and its weights, as in the JAX package."""
+    :func:`kernel_ops.ssd_scan` (under autograd on the card too: every
+    weight of the block gets its gradient through the scan); y is in the
+    promoted dtype of the block's f32 skip term and its weights, as in
+    the JAX package."""
     bsz, s, _ = x.shape
     proj = x @ params["in_proj"]
     z, xbc_pre, dt = _split_in_proj(cfg, proj)

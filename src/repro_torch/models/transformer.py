@@ -48,7 +48,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     a ``cross`` block; a VLM adds ``vision_proj``."""
     gen = torch.Generator().manual_seed(seed)
     dtype = dtype_of(cfg.param_dtype)
-    n, d = cfg.num_layers, cfg.d_model
 
     def normal(shape, std, dt=dtype):
         return torch.randn(shape, generator=gen).mul_(std).to(dt)
@@ -56,6 +55,16 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype)
 
+    return _to_device(param_tree(cfg, normal, zeros), device)
+
+
+def param_tree(cfg: ModelConfig, normal, zeros) -> Params:
+    """The parameter tree of ``cfg``, each weight from ``normal(shape,
+    std[, dtype])`` and each zero-initialised leaf from ``zeros(shape)``
+    in the order :func:`init_params` draws them (a ``normal`` that
+    returns meta tensors gives the tree's shapes and dtypes without
+    drawing a weight)."""
+    n, d = cfg.num_layers, cfg.d_model
     shared = None
     if cfg.arch_type in ("ssm", "hybrid"):
         layers = {"ln": zeros((n, d)),
@@ -80,7 +89,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             "w": normal((cfg.vision_embed_dim, d),
                         1.0 / math.sqrt(cfg.vision_embed_dim)),
             "b": zeros((d,))}
-    return _to_device(params, device)
+    return params
 
 
 def _proj_init(cfg: ModelConfig, n: int, normal) -> Params:
@@ -363,7 +372,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     an optional ``logit_bias`` (TTA's output prior) is added to the
     logits, and the vocab padding is masked.  Differentiable: on the card
     the flash attention and fused FFN launches carry their analytic
-    gradients."""
+    gradients, and the SSD scan's launch the gradient of its plain
+    version."""
     act_dt = dtype_of(cfg.activation_dtype)
     params = cast_params(params, act_dt)
     x = embed_inputs(params, cfg, tokens, vision_embeds)

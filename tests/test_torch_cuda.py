@@ -932,6 +932,43 @@ def test_fused_ffn_gradients_on_card(cuda, dtype, activation):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,p,n", [(64, 64, 64), (32, 64, 128)])
+def test_ssd_scan_grads_on_card(cuda, dtype, h, p, n):
+    """K6 under autograd at the trainer's shape (4 x 1024, zamba2-1.2b's
+    H 64, P 64, N 64 and mamba2-370m's H 32, P 64, N 128; G 1, chunk 256;
+    x, b and c views of one conv row): one launch, and the gradients of
+    the row, dt and a equal autograd through the plain scan on the card
+    (both differentiate the same f32 graph: f32 within 1e-4, bf16 row
+    gradients within one bf16 ulp, 2e-2 / 1e-2)."""
+    gen = torch.Generator().manual_seed(h + n)
+    bsz, s = 4, 1024
+    row = (torch.randn(bsz, s, h * p + 2 * n, generator=gen) * 0.5).to(
+        dtype).cuda().requires_grad_()
+    dt = torch.nn.functional.softplus(torch.randn(
+        bsz, s, h, generator=gen) - 1.0).cuda().requires_grad_()
+    a = (-torch.exp(torch.randn(h, generator=gen) * 0.5)).cuda() \
+        .requires_grad_()
+    x = row[..., :h * p].reshape(bsz, s, h, p)
+    bm = row[..., h * p:h * p + n].reshape(bsz, s, 1, n)
+    cm = row[..., h * p + n:].reshape(bsz, s, 1, n)
+    dy = torch.randn(x.shape, generator=gen).to(dtype).cuda()
+    dst = torch.randn((bsz, h, p, n), generator=gen).cuda()
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dt, a, bm, cm, chunk=256)
+    assert ssd_scan.launches == before + 1 and y.grad_fn is not None
+    got = torch.autograd.grad([y, st], [row, dt, a], [dy, dst])
+    assert ssd_scan.launches == before + 1          # backward: no launch
+    yr, sr = ssd_scan_ref(x.float(), dt, a, bm, cm, chunk=256)
+    want = torch.autograd.grad([yr.to(dtype), sr], [row, dt, a], [dy, dst])
+    for name, g, w in zip(("row", "dt", "a"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = (dict(atol=2e-2, rtol=1e-2) if g.dtype == torch.bfloat16
+               else dict(atol=1e-4, rtol=1e-4))
+        torch.testing.assert_close(g, w, **tol, msg=name)
+
+
+@pytest.mark.gpu
 def test_crowd_migration_on_card(cuda):
     """The chaos suite's crash migration on the card, tiny paper-backbone
     in f32: a paged engine-backed helper crashes, the detector evicts it,

@@ -24,7 +24,12 @@ from repro.serving.paging import BlockPool as JBlockPool
 from repro.serving.paging import PrefixCache as JPrefixCache
 from repro.serving.paging import block_hash_chain as j_hash_chain
 from repro.serving.sampling import request_key as j_request_key
+from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.data import place_batch
 from repro_torch.fleet import FleetController
+from repro_torch.launch import make_debug_mesh
+from repro_torch.launch.serve import serve_loop
+from repro_torch.launch.train import train_loop
 from repro_torch.kernels import _build
 from repro_torch.models.model import init_paged_pool
 from repro_torch.models.transformer import init_params
@@ -68,7 +73,10 @@ def test_import_never_loads_jax():
             "repro_torch.fleet.report", "repro_torch.fleet.placement",
             "repro_torch.fleet.placement.placer", "repro_torch.faults",
             "repro_torch.faults.injector", "repro_torch.obs.analysis",
-            "repro_torch.obs.flight", "repro_torch.obs.slo"} \
+            "repro_torch.obs.flight", "repro_torch.obs.slo",
+            "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.launch.dryrun", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.io", "repro_torch.baselines"} \
         <= set(_submodules())
 
 
@@ -84,7 +92,8 @@ def test_no_file_of_the_port_names_the_jax_package():
 
 def test_entry_points_default_to_cuda():
     for fn in (ServingEngine.__init__, init_params, init_paged_pool,
-               FleetController.build_engine):
+               FleetController.build_engine, train_loop, serve_loop,
+               restore_checkpoint, place_batch, make_debug_mesh):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
