@@ -17,9 +17,10 @@ Phases (any failure exits non-zero):
    each repeating bit for bit, K2 flash attention (bf16 on the tensor
    cores, f32 on the CUDA cores) over its masks, dtypes, head dims
    16..256, head groupings and lengths up to 2048, K3 fused gated FFN
-   (bf16 small-M and tile routes, f32) over both activations, dtypes,
-   ragged and large M, ragged F and widths up to 1024, each repeating
-   bit for bit, K6 SSD scan over ragged and multi-chunk lengths, groups,
+   (bf16 small_m and tiles up to D 512, split_f and two_pass above; f32)
+   over both activations, dtypes, ragged and large M, ragged F and
+   widths up to 2048 (the large-D shapes are timed in 9.0, 11.0 and
+   12.0), each repeating bit for bit, K6 SSD scan over ragged and multi-chunk lengths, groups,
    head/state widths, dtypes and both layouts, and its chunk split's
    edges (S 255, 256, 257, 4096, with and without an initial state),
    each repeating bit for bit, K4/K5 activation quantization (int8 and
@@ -173,7 +174,16 @@ Phases (any failure exits non-zero):
    and shared K/V caches the JAX package keeps, measured and not held
    (ROADMAP P4): the first step where card and CPU part, per stream,
    with the CPU's top-2 margin.
-
+10. encoder-decoder — whisper-small.  10.0: K2 at its encoder (8 x 1500
+   frames, non-causal) and cross-attention (queries over the 1500 keys)
+   and K1 at its paged decode, each against its plain version and
+   repeating bit for bit, timed beside SDPA.  10a: the transcription
+   path at full width (prefill of 8 x 16 tokens with 8 x 1500 stub
+   frames, 64 greedy decode steps; K2 36 a prefill call), the decode
+   step's device split and byte bound.  10b: served paged int8 by the
+   engine (no frames, as the JAX engine serves it), freeze/thaw, a
+   repeat bit for bit, graph == eager.  10c: card == CPU in f32 on
+   reduced whisper, full-width whisper-small and reduced internvl2.
 11. trainer — the port's drivers (``repro_torch.launch``, ``data``,
    ``checkpoint``, ``baselines``).  11.0: K6 under autograd (its launch
    in a ``torch.autograd.Function`` whose backward is the plain scan's
@@ -201,6 +211,26 @@ Phases (any failure exits non-zero):
    (``HANDCRAFTED``, ``adadeep_select``, ``ofa_select``) through
    ``Middleware.infer`` with exact K2/K3, card == CPU in f32.  11e: the
    one-card planner over every arch x shape, without JAX.
+12. VLM — internvl2-26b at full width (19.3 B parameters, nothing cut).
+   12.0: K1 at its paged decode (48 heads of 128 over 8: group 6; int8
+   pool, mb 64), K2 at its prefill (8 x 512, 48/8 heads of 128, causal)
+   and K3 at its FFN (silu, D 6144, F 16384: M 8 on split_f, M 2048 and
+   4096 on two_pass), each against its plain version and repeating bit
+   for bit, timed beside its bound, plain version and SDPA or the
+   unfused cuBLAS chain.  The weights are drawn in bf16 straight on the
+   card (``param_tree`` with a CUDA generator seeded 0).  12a: the VLM
+   path at model level (``prefill`` of 8 x 512 positions whose first 256
+   are stub patch embeddings of width 3200, all positions' logits, then
+   64 greedy decode steps): K2 and K3 48 a prefill call, K3 48 a step,
+   the run repeating bit for bit; the prefill's device ms, the decode
+   step's device split (K3, attention, weight products, the rest) beside
+   its byte bound.  12b: served paged int8 by the engine (text only, as
+   the JAX engine serves it; 8 slots, max_seq 1024, two waves of 12
+   requests of 8-500 tokens x 64 new tokens): budgets, K1/K2/K3 48 a
+   step or call, no new program on wave 2, one capture, a step repeating
+   bit for bit, graph == eager on clones.  12c: card == CPU in f32 at
+   every published width, depth 2 (1.37 B parameters drawn once on the
+   host): prefill with patch embeddings and 16 greedy decode steps.
 
 The line before the last is a JSON object listing every kernel with its
 launches on its main path and its times (K4 and K5 as their four entry
@@ -707,10 +737,13 @@ def phase_ffn(torch):
     cases = [(m, d, f, dtype) for d, f in ((256, 1024), (1024, 4096))
              for m in (8, 100, 8192) for dtype in ("bfloat16", "float32")]
     # the bf16 routes at their edges: ragged M and F, D over several
-    # output tiles, x resident or streamed, small M at D 1024
+    # output tiles, small M at D 1024; above D 512 split_f up to M 24 and
+    # two_pass beyond (64-row tiles up to M 64), ragged F and D chunks
     cases += [(m, d, f, "bfloat16") for m, d, f in (
         (1, 256, 1024), (64, 256, 1000), (65, 256, 1024), (8195, 256, 1024),
-        (127, 264, 200), (300, 512, 1032), (16, 1024, 4096))]
+        (127, 264, 200), (300, 512, 1032), (16, 1024, 4096),
+        (1, 2048, 1000), (24, 2048, 1032), (25, 2048, 1032),
+        (65, 2048, 200), (130, 1544, 1032))]
     routes = {}
     for m, d, f, dtype in cases:
         for act in ("silu", "gelu"):
@@ -3677,17 +3710,14 @@ def encdec_kernels_alone(torch):
     """10.0: K2 at whisper-small's encoder self-attention (8 x 1500
     frames, 12 heads of 64, non-causal) and its cross-attention (8 x 16
     and 8 x 448 decoder queries over the 1500 frames: the key length
-    apart from the query length), K1 at its paged decode step and K3 at
-    internvl2-26b's FFN (silu, D 6144, F 16384 at M 8 and 2048), each
+    apart from the query length) and K1 at its paged decode step, each
     against its plain version and repeating bit for bit, then timed
-    beside its bound, its plain version and SDPA (K2, K1) or the unfused
-    cuBLAS chain (K3).  Returns the timing fields for the kernels line,
-    by kernel name."""
+    beside its bound, its plain version and SDPA.  Returns the timing
+    fields for the kernels line, by kernel name."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, fused_ffn
-    from repro_torch.kernels.fused_ffn import ffn_plan
+    from repro_torch.kernels import flash_attention
     from repro_torch.kernels.paged_decode_attn import paged_decode_attention
-    from repro_torch.kernels.ref import fused_ffn_ref, paged_decode_attn_ref
+    from repro_torch.kernels.ref import paged_decode_attn_ref
     gen = torch.Generator().manual_seed(2300)
     times = {}
     b, h, hd, se = 8, 12, 64, 1500
@@ -3748,39 +3778,29 @@ def encdec_kernels_alone(torch):
                                                                sc)
     k1["bound_ms"], k1["bound_by"] = paged_bound_ms(args, sc)
     times["k1"] = k1
-    # K3 at internvl2-26b's FFN: silu, D 6144, F 16384, bf16
-    for m in (8, 2048):
-        x, wg, wu, wd = ffn_case(torch, gen, m, 6144, 16384, "bfloat16")
-        route = ffn_plan(x.dtype, m, 6144, 16384).route
-        out = fused_ffn(x, wg, wu, wd)
-        err = check_close("fused_ffn", out, fused_ffn_ref(x, wg, wu, wd),
-                          FFN_TOL["bfloat16"], f"internvl2 M {m}, D 6144, F "
-                          f"16384 ({route})")
-        if not torch.equal(out, fused_ffn(x, wg, wu, wd)):
-            raise AssertionError(f"fused_ffn does not repeat at M {m}, "
-                                 "D 6144")
-
-        def chain():
-            return (F.silu(x @ wg) * (x @ wu)) @ wd
-
-        t = _time_kernel(
-            torch, lambda: fused_ffn(x, wg, wu, wd),
-            lambda: fused_ffn_ref(x, wg, wu, wd), None, "fused_ffn",
-            (2 * x.numel() + 3 * wg.numel()) * 2, 6 * m * 6144 * 16384,
-            iters=10, plain_iters=3)
-        t.update(route=route, max_abs_err=err,
-                 chain_ms=cuda_ms(torch, chain, iters=10),
-                 chain_device_ms=device_ms(torch, chain, iters=10))
-        times[f"ffn{m}"] = t
-        del x, wg, wu, wd, out
     labels = {"encoder": "K2, whisper encoder (8 x 1500, 12 heads of 64, "
                          "non-causal)",
               "cross16": "K2, whisper cross-attention (8 x 16 over 1500)",
               "cross448": "K2, whisper cross-attention (8 x 448 over 1500)",
               "k1": "K1, whisper paged decode (8 slots x 12 heads of 64, "
-                    "int8, mb 32)",
-              "ffn8": "K3, internvl2-26b FFN (M 8, D 6144, F 16384)",
-              "ffn2048": "K3, internvl2-26b FFN (M 2048, D 6144, F 16384)"}
+                    "int8, mb 32)"}
+    log_times(times, labels)
+    log("phase 10 shapes: K2 (whisper's encoder and cross-attention at "
+        "its key length) and K1 (whisper's paged decode) == plain "
+        "versions, each repeating bit for bit")
+    extra = {"flash_attention": {}, "paged_decode_attention": {}}
+    for key, t in times.items():
+        name = ("paged_decode_attention" if key == "k1"
+                else "flash_attention")
+        suffix = {"encoder": "_whisper_encoder", "cross16": "_whisper_cross16",
+                  "cross448": "_whisper_cross448", "k1": "_whisper"}[key]
+        extra[name].update({f"{k}{suffix}": v for k, v in t.items()})
+    return extra
+
+
+def log_times(times, labels):
+    """One line per timed kernel case: its times beside its plain
+    version's, its yardstick's and its bound."""
     for key, t in times.items():
         log(f"{labels[key]}" + (f" (route {t['route']})" if "route" in t
                                 else "")
@@ -3793,20 +3813,6 @@ def encdec_kernels_alone(torch):
                f"{fmt(t['chain_device_ms'])}; " if "chain_ms" in t else "")
             + f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}); "
             f"max_abs_err {t['max_abs_err']:.3g}")
-    log("phase 10 shapes: K2 (whisper's encoder and cross-attention at "
-        "its key length), K1 (whisper's paged decode) and K3 (internvl2's "
-        "FFN at M 8 and 2048) == plain versions, each repeating bit for "
-        "bit")
-    extra = {"flash_attention": {}, "paged_decode_attention": {},
-             "fused_ffn": {}}
-    for key, t in times.items():
-        name = ("paged_decode_attention" if key == "k1" else "fused_ffn"
-                if key.startswith("ffn") else "flash_attention")
-        suffix = {"encoder": "_whisper_encoder", "cross16": "_whisper_cross16",
-                  "cross448": "_whisper_cross448", "k1": "_whisper",
-                  "ffn8": "_internvl2", "ffn2048": "_internvl2_m2048"}[key]
-        extra[name].update({f"{k}{suffix}": v for k, v in t.items()})
-    return extra
 
 
 def whisper_frames(torch, cfg, batch, seed):
@@ -3819,15 +3825,15 @@ def whisper_frames(torch, cfg, batch, seed):
 
 
 def decode_split(torch, step, se, max_seq, reps=8):
-    """Device time of an eager model-level decode step of an
-    encoder-decoder split into the cross-attention over the cached
-    encoder K/V (the top-level ops one of whose inputs, or their
-    children's, spans the ``se`` encoder frames: the f32 casts, products,
-    mask and softmax of ``decode_attention``), the self-attention over
-    the dense ``max_seq``
-    cache (the same for ``max_seq``), the weight products (top-level
-    ``aten::matmul``/``aten::mm``) and the rest, from one profile with
-    shapes recorded.  Returns ``(busy, cross, self, matmuls)`` in ms a
+    """Device time of an eager model-level decode step split into the
+    cross-attention over an encoder-decoder's cached encoder K/V (the
+    top-level ops one of whose inputs, or their children's, spans the
+    ``se`` encoder frames: the f32 casts, products, mask and softmax of
+    ``decode_attention``; none when ``se`` is None), the self-attention
+    over the dense ``max_seq`` cache (the same for ``max_seq``), the
+    weight products (top-level ``aten::matmul``/``aten::mm``), K3 (the
+    ``fused_ffn`` kernels) and the rest, from one profile with shapes
+    recorded.  Returns ``(busy, cross, self, matmuls, k3)`` in ms a
     step."""
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -3847,7 +3853,7 @@ def decode_split(torch, step, se, max_seq, reps=8):
     for ev in prof.events():
         if ev.cpu_parent is not None or not ev.name.startswith("aten::"):
             continue
-        if spans(ev, se):
+        if se is not None and spans(ev, se):
             key = "cross"
         elif spans(ev, max_seq):
             key = "self"
@@ -3859,9 +3865,12 @@ def decode_split(torch, step, se, max_seq, reps=8):
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(ev.self_device_time_total for ev in kernels) / 1e3 / reps
-    if parts["cross"] <= 0 or parts["matmuls"] <= 0:
+    k3 = sum(ev.self_device_time_total for ev in kernels
+             if "fused_ffn" in ev.key) / 1e3 / reps
+    if (se is not None and parts["cross"] <= 0) or parts["matmuls"] <= 0 \
+            or parts["self"] <= 0:
         raise RuntimeError(f"the profile split found {parts}")
-    return busy, parts["cross"], parts["self"], parts["matmuls"]
+    return busy, parts["cross"], parts["self"], parts["matmuls"], k3
 
 
 def encdec_step_bytes(params, cache, pos):
@@ -3965,8 +3974,8 @@ def whisper_transcribe(torch, smi, params, cfg):
         cache["pos"].copy_(pos_t)
         return one_step()
 
-    busy, cross, self_, mm = decode_split(torch, fixed_step,
-                                          cfg.encoder_seq_len, max_seq)
+    busy, cross, self_, mm, _ = decode_split(torch, fixed_step,
+                                             cfg.encoder_seq_len, max_seq)
     weights, cross_b, self_b = encdec_step_bytes(params, cache, pos)
     bound_ms = 1e3 * (weights + cross_b + self_b) / H100_BYTES_PER_S
     log(f"  decode step at pos {pos}, 8 rows: host {step_ms:.3f} ms, "
@@ -4187,7 +4196,7 @@ def encdec_card_vs_cpu(torch):
 
 def phase_encdec(torch, smi):
     """The encoder-decoder and the VLM stub on the card: 10.0 the kernels
-    at whisper-small's and internvl2-26b's shapes; 10a whisper-small's
+    at whisper-small's shapes; 10a whisper-small's
     transcription path at full width in bf16; 10b whisper-small served
     by the engine at full width; 10c card == CPU in f32.  Returns
     ``({kernel name: launches}, {kernel name: timing fields})``."""
@@ -4880,6 +4889,409 @@ def phase_trainer(torch, smi):
     return totals, extra
 
 
+# --------------------------------------------------------------- phase 12
+VLM_BUCKET = 512             # 12a's prompts: 256 patches, then text
+
+
+def vlm_kernels_alone(torch):
+    """12.0: K1 at internvl2-26b's paged decode (8 slots x 48 heads of
+    128 over 8 KV heads: group 6; int8 pool, mb 64), K2 at its prefill
+    (8 x 512 tokens, 48 / 8 heads of 128, causal) and K3 at its FFN
+    (silu, D 6144, F 16384 at M 8, 2048 and the prefill's 4096), each
+    against its plain version and repeating bit for bit, then timed
+    beside its bound, its plain version and SDPA (K1, K2) or the unfused
+    cuBLAS chain (K3).  Returns the timing fields for the kernels line,
+    by kernel name."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.kernels.fused_ffn import ffn_plan
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
+    from repro_torch.kernels.ref import fused_ffn_ref, paged_decode_attn_ref
+    gen = torch.Generator().manual_seed(2600)
+    times = {}
+    # K1 at group 6, which no earlier phase runs
+    err = 0.0
+    for pos_kind in ("ragged", "full_tail", "short"):
+        args, sc = make_case(torch, gen, slots=8, heads=48, kvh=8, hd=128,
+                             bs=16, mb=64, pool_dtype="int8",
+                             q_dtype="bfloat16", pos_kind=pos_kind)
+        err = max(err, check_close(
+            "paged_decode_attention", k1_repeated(torch, args, sc, 0),
+            paged_decode_attn_ref(*args, **sc), TOL["bfloat16"],
+            f"internvl2 decode, group 6, pos {pos_kind}"))
+    k1 = dict(ms=cuda_ms(torch, lambda: paged_decode_attention(*args, **sc)),
+              device_ms=device_ms(torch, lambda: paged_decode_attention(
+                  *args, **sc), part="paged_decode"),
+              plain_ms=cuda_ms(torch, lambda: paged_decode_attn_ref(
+                  *args, **sc), iters=20),
+              max_abs_err=err)
+    k1["library_ms"], k1["library_device_ms"] = sdpa_yardstick(torch, args,
+                                                               sc)
+    k1["bound_ms"], k1["bound_by"] = paged_bound_ms(args, sc)
+    times["k1"] = k1
+    del args, sc
+    # K2 at the prefill bucket: 8 x 512, 48 heads over 8 KV heads
+    q, k, v = flash_case(torch, gen, 8, 48, 8, VLM_BUCKET, 128, "bfloat16")
+    out = flash_attention(q, k, v)
+    err = check_close("flash_attention", out, flash_plain(q, k, v),
+                      TOL["bfloat16"], "internvl2 prefill 8 x 512, 48/8 "
+                      "heads of 128")
+    if not torch.equal(out, flash_attention(q, k, v)):
+        raise AssertionError("flash_attention does not repeat at 8 x 512, "
+                             "48/8 heads of 128")
+    # SDPA's yardstick over K/V repeated to 48 heads beforehand
+    kr, vr = k.repeat_interleave(6, 1), v.repeat_interleave(6, 1)
+    pairs = flash_pairs(VLM_BUCKET, True, 0, None) * 8 * 48
+    times["k2"] = _time_kernel(
+        torch, lambda: flash_attention(q, k, v), lambda: flash_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+        "flash_attn", (2 * q.numel() + 2 * k.numel()) * 2, 4 * 128 * pairs)
+    times["k2"]["max_abs_err"] = err
+    del q, k, v, kr, vr, out
+    # K3 at the FFN: a decode step, PERF.md's prefill row, the prefill
+    for m in (8, 2048, 8 * VLM_BUCKET):
+        x, wg, wu, wd = ffn_case(torch, gen, m, 6144, 16384, "bfloat16")
+        route = ffn_plan(x.dtype, m, 6144, 16384).route
+        out = fused_ffn(x, wg, wu, wd)
+        err = check_close("fused_ffn", out, fused_ffn_ref(x, wg, wu, wd),
+                          FFN_TOL["bfloat16"], f"internvl2 M {m}, D 6144, F "
+                          f"16384 ({route})")
+        if not torch.equal(out, fused_ffn(x, wg, wu, wd)):
+            raise AssertionError(f"fused_ffn does not repeat at M {m}, "
+                                 "D 6144")
+
+        def chain():
+            return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+        iters = 100 if m == 8 else 10
+        t = _time_kernel(
+            torch, lambda: fused_ffn(x, wg, wu, wd),
+            lambda: fused_ffn_ref(x, wg, wu, wd), None, "fused_ffn",
+            (2 * x.numel() + 3 * wg.numel()) * 2, 6 * m * 6144 * 16384,
+            iters=iters, plain_iters=3)
+        t.update(route=route, max_abs_err=err,
+                 chain_ms=cuda_ms(torch, chain, iters=iters),
+                 chain_device_ms=device_ms(torch, chain, iters=10))
+        times[f"ffn{m}"] = t
+        del x, wg, wu, wd, out
+    log_times(times, {
+        "k1": "K1, internvl2-26b paged decode (8 slots x 48 heads of 128 "
+              "over 8, group 6, int8, mb 64)",
+        "k2": "K2, internvl2-26b prefill (8 x 512, 48/8 heads of 128, "
+              "causal)",
+        "ffn8": "K3, internvl2-26b FFN (M 8, D 6144, F 16384)",
+        "ffn2048": "K3, internvl2-26b FFN (M 2048, D 6144, F 16384)",
+        "ffn4096": "K3, internvl2-26b FFN (M 4096 = 8 x 512, D 6144, F "
+                   "16384)"})
+    log("phase 12 shapes: K1 (group 6, hd 128), K2 (8 x 512, 48/8 heads of "
+        "128) and K3 (D 6144, F 16384 at M 8, 2048 and 4096) == plain "
+        "versions, each repeating bit for bit")
+    extra = {"paged_decode_attention": {}, "flash_attention": {},
+             "fused_ffn": {}}
+    for key, t in times.items():
+        name, suffix = {
+            "k1": ("paged_decode_attention", "_internvl2"),
+            "k2": ("flash_attention", "_internvl2"),
+            "ffn8": ("fused_ffn", "_internvl2"),
+            "ffn2048": ("fused_ffn", "_internvl2_m2048"),
+            "ffn4096": ("fused_ffn", "_internvl2_m4096")}[key]
+        extra[name].update({f"{k}{suffix}": v for k, v in t.items()})
+    return extra
+
+
+def vlm_params(torch, cfg):
+    """internvl2-26b's weight tree drawn straight into bf16 on the card,
+    leaf by leaf in ``init_params``'s order, from a CUDA generator seeded
+    0: the f32 tree (77 GB) would not fit the card beside its cast."""
+    from repro_torch.models.transformer import param_tree
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def normal(shape, std, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dt).mul_(std)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+
+    return param_tree(cfg, normal, zeros)
+
+
+def tree_bytes(tree):
+    from repro_torch.models.layers import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def vlm_prefill_decode(torch, smi, params, cfg):
+    """12a: the VLM path at model level, bf16: ``prefill`` of 8 prompts of
+    512 positions, the first 256 of them stub patch embeddings of width
+    3200 (``vision_embeds``), then 64 greedy ``decode_step``s over the
+    dense cache.  K2 48 and K3 48 a prefill call, K3 48 a step, nothing
+    else; the whole run repeats bit for bit (logits and tokens); the
+    prefill's device ms, the decode step's host and device ms, its device
+    split and byte bound.  Returns ``{kernel name: launches}``."""
+    import numpy as np
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    b, steps, n = 8, 64, cfg.num_layers
+    max_seq = VLM_BUCKET + steps
+    rng = np.random.default_rng(120)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, VLM_BUCKET)).astype(np.int32)).cuda()
+    vis = torch.from_numpy((rng.standard_normal(
+        (b, cfg.num_vision_tokens, cfg.vision_embed_dim)) * 0.1).astype(
+            np.float32)).cuda()
+
+    def run_prefill():
+        return prefill(params, cfg, tokens, init_cache(cfg, b, max_seq),
+                       vision_embeds=vis)
+
+    def run():
+        logits, cache = run_prefill()
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1).to(
+            torch.int32)
+        streams = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg, cache = decode_step(params, cfg, cache, tok)
+            tok = torch.argmax(lg[:, :cfg.vocab_size], -1).to(torch.int32)
+            streams.append(tok)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        return logits, torch.stack(streams, 1), cache, lg, step_ms
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, toks, cache, lg, step_ms = run()
+    wall_s = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in _kernel_fns().items()}
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=n, fused_ffn=n * (1 + steps))
+    if counts != want:
+        raise AssertionError(f"internvl2 prefill + {steps} decode steps: "
+                             f"launches {counts}, expected {want}")
+    if tuple(logits.shape[:2]) != (b, VLM_BUCKET) or int(cache["pos"]) \
+            != VLM_BUCKET + steps or not bool(torch.isfinite(
+                logits[..., :cfg.vocab_size].float()).all()) \
+            or not bool(torch.isfinite(lg[:, :cfg.vocab_size].float()).all()) \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError("internvl2 prefill/decode: bad logits, "
+                             "positions or tokens")
+    logits2, toks2, _, _, _ = run()
+    if not (torch.equal(logits, logits2) and torch.equal(toks, toks2)):
+        raise AssertionError("internvl2 prefill + decode does not repeat "
+                             "bit for bit")
+    log(f"internvl2-26b VLM path on {smi}: prefill of {b} x {VLM_BUCKET} "
+        f"positions ({cfg.num_vision_tokens} patch embeddings of width "
+        f"{cfg.vision_embed_dim}, then text) returning all positions' "
+        f"logits {tuple(logits.shape)} {logits.dtype}, then {steps} greedy "
+        f"decode steps: {wall_s:.2f} s host for the first run, "
+        f"{step_ms:.3f} ms/step host; launches {counts} (K2 and K3 48 a "
+        f"prefill call, K3 48 a step); the run repeats bit for bit "
+        f"(logits and {tuple(toks.shape)} tokens); "
+        f"{len(set(toks[:, 1:].flatten().tolist()))} distinct tokens")
+    del logits2, toks2
+    pre_ms = cuda_ms(torch, run_prefill, 3, 1)
+    pre_dev = device_ms(torch, run_prefill, iters=3)
+    pos_t = cache["pos"].clone()
+    tok = toks[:, -1].contiguous()
+
+    def fixed_step():
+        # rewrites row pos each time: the work of a step at that depth
+        cache["pos"].copy_(pos_t)
+        return decode_step(params, cfg, cache, tok)[0]
+
+    busy, _, attn, mm, k3 = decode_split(torch, fixed_step, None, max_seq)
+    weights = tree_bytes(params)
+    _, _, _, kvh, hd = cache["k"].shape
+    kv = 2 * n * b * (int(pos_t) + 1) * kvh * hd * cache["k"].element_size()
+    bound_ms = 1e3 * (weights + kv) / H100_BYTES_PER_S
+    log(f"  prefill ({b} x {VLM_BUCKET}): {pre_ms:.2f} ms (CUDA events), "
+        f"device {fmt(pre_dev)}; decode step at pos {int(pos_t)}, {b} rows: "
+        f"host {step_ms:.3f} ms, device {busy:.3f} ms (idle share "
+        f"{1 - busy / step_ms:.3f}) = K3 {k3:.3f} + attention {attn:.3f} + "
+        f"weight products {mm:.3f} + the rest {busy - k3 - attn - mm:.3f}; "
+        f"byte bound {bound_ms:.3f} ms ({weights / 1e9:.2f} GB of weights, "
+        f"the tree's bytes, and {kv / 1e6:.1f} MB of K/V, at "
+        f"{H100_BYTES_PER_S / 1e12:.2f} TB/s): the step at "
+        f"{bound_ms / busy:.3f} of the bound on the device")
+    return {k: c for k, c in counts.items() if c}
+
+
+def vlm_served(torch, smi, params, cfg):
+    """12b: internvl2-26b served as the JAX engine serves it (text only:
+    the engine passes no patch embeddings): paged, ``paged_kernel=True``,
+    ``kv_dtype="int8"``, 8 slots, max_seq 1024, block 16, two waves of 12
+    requests of 8-500 tokens x 64 new tokens.  Exact K1 (48 a step), K2
+    (48 a prefill call) and K3 (48 a call and a step) launches, replays
+    included; no new program on the second wave; the step captured once;
+    a whole step repeats bit for bit; graph == eager on clones.  Returns
+    ``{kernel name: launches}``."""
+    from repro_torch.models.runtime import RuntimeOptions
+    from repro_torch.serving import CompileCache, ServingEngine
+    opts = RuntimeOptions(paged_kernel=True, kv_dtype="int8")
+    cache = CompileCache()
+
+    def engine():
+        return ServingEngine(cfg, params, slots=8, max_seq=1024,
+                             block_size=16, opts=opts, decode_mode="paged",
+                             compile_cache=cache, device="cuda")
+
+    eng = engine()
+    zero_counts()
+    waves = []
+    for wave in range(2):
+        waves.append(serve_wave(torch, eng, _tight_prompts(
+            120 + wave, cfg.vocab_size, n=12, lo=8, hi=500),
+            26000 + 100 * wave, 64))
+        if wave == 0:
+            warm = eng.stats.recompiles
+    counts = check_counts([eng], "internvl2-26b paged int8, two waves")
+    if set(counts) != {"paged_decode_attention", "flash_attention",
+                       "fused_ffn"}:
+        raise AssertionError(f"internvl2 launched {sorted(counts)}")
+    if eng.stats.recompiles != warm:
+        raise AssertionError(f"the second internvl2 wave built "
+                             f"{eng.stats.recompiles - warm} new programs")
+    if captures(eng) != 1:
+        raise AssertionError("the internvl2 paged step was not captured "
+                             "once")
+    for wave, (tps, ms, reqs) in enumerate(waves):
+        log(f"internvl2-26b paged int8 on {smi}, wave {wave + 1}: "
+            f"{tps:.1f} tok/s, {ms:.3f} ms/decode step; TTFT by bucket "
+            + "; ".join(f"{b}: mean {mean:.1f} ms, max {mx:.1f} ms over {n}"
+                        for b, (mean, mx, n) in ttft_by_bucket(
+                            eng, reqs).items()))
+    log(f"  decode steps {eng.stats.decode_calls}, prefill calls "
+        f"{eng.stats.prefill_calls}, programs built {warm}, graph captures "
+        f"{captures(eng)}")
+    del eng
+    step_repeats(torch, engine(), "internvl2-26b paged int8")
+    graph_vs_eager(torch, engine(), "internvl2-26b paged int8 step", smi)
+    return counts
+
+
+def vlm_card_vs_cpu(torch):
+    """12c: card == CPU in f32 at every published width, depth cut to 2
+    layers (1.37 B parameters, 5.5 GB a side, drawn once on the CPU and
+    copied to the card): the model-level prefill of 2 prompts of 256
+    patch embeddings and 16 text tokens, then 16 greedy decode steps.
+    The greedy streams must be equal and the last prefill logits within
+    ``LOGITS_TOL``; K2 2 a prefill call and K3 2 a call and a step, on
+    their f32 routes.  Returns ``{kernel name: launches}``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.runtime import RuntimeOptions
+    cfg = get_config("internvl2-26b").with_updates(
+        num_layers=2, param_dtype="float32", activation_dtype="float32")
+    f32 = RuntimeOptions(kv_cache_dtype="float32")
+    b, steps = 2, 16
+    s = cfg.num_vision_tokens + 16
+    rng = np.random.default_rng(121)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32))
+    vis = torch.from_numpy((rng.standard_normal(
+        (b, cfg.num_vision_tokens, cfg.vision_embed_dim)) * 0.1).astype(
+            np.float32))
+    t0 = time.perf_counter()
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    card_params = tree_to(cpu_params, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(cpu_params))
+    init_s = time.perf_counter() - t0
+
+    def streams(params, device):
+        cache = init_cache(cfg, b, s + steps, f32, device=device)
+        logits, cache = prefill(params, cfg, toks.to(device), cache, f32,
+                                vision_embeds=vis.to(device))
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1).to(
+            torch.int32)
+        out = [tok]
+        for _ in range(steps):
+            lg, cache = decode_step(params, cfg, cache, tok, f32)
+            tok = torch.argmax(lg[:, :cfg.vocab_size], -1).to(torch.int32)
+            out.append(tok)
+        return torch.stack(out, 1).cpu(), logits[:, -1].float().cpu()
+
+    zero_counts()
+    card, card_lg = streams(card_params, "cuda")
+    counts = {name: fn.launches for name, fn in _kernel_fns().items()}
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=2, fused_ffn=2 * (1 + steps))
+    if counts != want:
+        raise AssertionError(f"internvl2 2 layers f32: launches {counts}, "
+                             f"expected {want}")
+    del card_params
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    cpu, cpu_lg = streams(cpu_params, "cpu")
+    cpu_s = time.perf_counter() - t1
+    what = "internvl2-26b, 2 layers at full width, f32, patch embeddings"
+    err = check_close("prefill logits", card_lg, cpu_lg, LOGITS_TOL, what)
+    if not torch.equal(card, cpu):
+        raise AssertionError(f"{what}: card and CPU greedy streams differ:"
+                             f"\ncuda {card.tolist()}\ncpu  {cpu.tolist()}")
+    log(f"{what} ({n_params / 1e9:.3f} B parameters drawn on the host and "
+        f"copied to the card in {init_s:.1f} s): card == CPU greedy streams "
+        f"{tuple(card.shape)}, last prefill logits max_abs_err {err:.3g} "
+        f"(atol {LOGITS_TOL['atol']}, rtol {LOGITS_TOL['rtol']}); the CPU "
+        f"side took {cpu_s:.1f} s; launches "
+        f"{ {k: c for k, c in counts.items() if c} }")
+    return {k: c for k, c in counts.items() if c}
+
+
+def tree_to(tree, device):
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def phase_vlm(torch, smi):
+    """internvl2-26b at full width on the card: 12.0 the kernels at its
+    shapes; the 19.3 B weights drawn in bf16 on the card; 12a the VLM
+    path at model level; 12b served paged int8 by the engine; 12c card
+    == CPU in f32 at depth 2.  Returns ``({kernel name: launches},
+    {kernel name: timing fields})``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import tree_leaves
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    extra = vlm_kernels_alone(torch)
+    torch.cuda.empty_cache()
+    totals = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    cfg = get_config("internvl2-26b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = vlm_params(torch, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if round(n_params / 1e9, 1) != 19.3:
+        raise AssertionError(f"internvl2-26b has {n_params} parameters, "
+                             "not 19.3 B")
+    log(f"internvl2-26b: {n_params / 1e9:.3f} B parameters "
+        f"({tree_bytes(params) / 1e9:.2f} GB) drawn in bf16 on the card "
+        f"from seed 0 in {init_s:.1f} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    add(vlm_prefill_decode(torch, smi, params, cfg))
+    torch.cuda.empty_cache()
+    add(vlm_served(torch, smi, params, cfg))
+    log(f"  phase 12 max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    add(vlm_card_vs_cpu(torch))
+    log(f"VLM phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals, extra
+
+
 def main() -> int:
     import torch
     smi, idle_w = phase_device(torch)
@@ -4898,7 +5310,7 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     extras = []
     for phase in (phase_experts, phase_hybrid, phase_encdec,
-                  phase_trainer):
+                  phase_trainer, phase_vlm):
         counts, extra = phase(torch, smi)
         extras.append(extra)
         for k, n in counts.items():

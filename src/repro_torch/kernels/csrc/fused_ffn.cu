@@ -1,6 +1,7 @@
 // Fused gated FFN, y = (act(x @ Wg) * (x @ Wu)) @ Wd, for Hopper (sm_90a),
-// in three routes: two for bf16 (tensor-core tiles for large M, an
-// F-split one-launch kernel for small M) and the f32 CUDA-core kernel.
+// in five routes: four for bf16 (two for D <= 512, two for larger D) and
+// the f32 CUDA-core kernel.  The wrapper's plan (ffn_plan in
+// kernels/fused_ffn.py) picks the route and sizes its launch.
 //
 // Replaces the Pallas TPU kernel `fused_ffn` in
 // src/repro/kernels/fused_ffn.py (pallas_call at line 54, kernel body
@@ -9,52 +10,100 @@
 //
 // What it computes: x (M, D), Wg and Wu (D, F), Wd (F, D), all f32 or
 // all bf16; act is silu or the tanh form of gelu (jax.nn.gelu's
-// default).  The hidden tile act(x@Wg) * (x@Wu) never goes to device
-// memory.  Accumulation: the TPU kernel adds each F tile's partial
+// default).  Accumulation: the TPU kernel adds each F tile's partial
 // product into its output block in the output's dtype, so in bf16 it
 // rounds once per F tile (fused_ffn.py:34-41).  These kernels follow the
-// oracle instead: every sum is f32 across all of F, rounded once to the
-// output dtype.  No float atomics anywhere: a result repeats bit for bit.
+// oracle instead: G and U are f32 sums over all of D, the output an f32
+// sum over all of F, rounded once to the output dtype.  No float atomics
+// anywhere: a result repeats bit for bit.
 //
-// Bound on the H100: at the served shapes (D 256, F 1024) a decode step
-// (M = 8) reads the three weight matrices, 1.5 MB in bf16, for 12.6
-// MFLOP: bytes bound (~0.5 us).  A prefill burst (M = 8 x 2048) does
-// 6 * M * D * F = 25.8 GFLOP on ~18 MB: operations bound on the bf16
-// tensor cores (0.026 ms).
+// Bounds on the H100 (bf16; 3.35 TB/s, 989 TFLOP/s dense):
+// - a decode step (M = 8) reads the three weight matrices once and is
+//   bound by their bytes: 1.5 MB at D 256, F 1024 (0.47 us); 100.7 MB at
+//   D 2048, F 8192 (30.1 us); 604 MB at D 6144, F 16384 (180 us);
+// - a prefill or training batch does 6 M D F operations and is bound by
+//   them: 25.8 GFLOP at M 16384, D 256, F 1024 (0.026 ms); 0.83 TFLOP at
+//   M 8192, D 2048, F 8192 (0.834 ms); 1.24 TFLOP at M 2048, D 6144,
+//   F 16384 (1.251 ms).
 //
-// bf16, large M (fused_ffn_wg_kernel), on wgmma: one warpgroup (4 warps)
-// per 64-row tile of x and 256-column tile of the output (blockIdx.y, D >
-// 256 only).  The x tile is staged in shared memory once when D <= 512,
-// else streamed with each D chunk.  The loop runs over 32-wide F tiles;
-// each F tile is a sequence of chunks, D/256 chunks of [Wg | Wu] (256 x
-// 64) and one chunk of Wd (32 x 256), staged with cp.async 16-byte copies
-// into a two-slot ring (one barrier a chunk) so the next chunk loads
-// while this one computes.  [G | U] = x [Wg | Wu] is one wgmma
-// m64n64k16 a k-step, both operands read by the tensor cores from shared
-// memory; H = act(G) * U is computed in f32 in registers (fast
-// intrinsics), rounded to bf16 and is the register A operand of O += H
-// Wd[f-tile, :], a wgmma m64n256k16 (the accumulator fragment of one is
-// the A fragment of the next).  O (64 x 256 over the warpgroup) stays in
-// f32 registers across all of F and is rounded once.  Each chunk's
-// products are committed as one group and waited for only at the next
-// chunk, so they overlap the next copy.  The operands use the 128-byte
-// swizzled layout (each 16-byte chunk of a 128-byte row XORed with the
-// row's index in its 8-row atom): without it the tensor cores' reads
-// conflict in shared memory.  Rounding H
-// to bf16 adds ~2^-9 relative per term of the last sum; the output's own
-// bf16 rounding is the same size.
+// bf16, D <= 512, large M ("tiles", fused_ffn_wg_kernel), on wgmma: one
+// warpgroup (4 warps) per 64-row tile of x and 256-column tile of the
+// output (blockIdx.y, D > 256 only).  The x tile is staged in shared
+// memory once.  The loop runs over 32-wide F tiles; each F tile is a
+// sequence of chunks, D/256 chunks of [Wg | Wu] (256 x 64) and one chunk
+// of Wd (32 x 256), staged with cp.async 16-byte copies into a two-slot
+// ring (one barrier a chunk) so the next chunk loads while this one
+// computes.  [G | U] = x [Wg | Wu] is one wgmma m64n64k16 a k-step, both
+// operands read by the tensor cores from shared memory; H = act(G) * U
+// is computed in f32 in registers (fast intrinsics), rounded to bf16 and
+// is the register A operand of O += H Wd[f-tile, :], a wgmma m64n256k16
+// (the accumulator fragment of one is the A fragment of the next).  O
+// (64 x 256 over the warpgroup) stays in f32 registers across all of F
+// and is rounded once.  H never goes to device memory.  The operands use
+// the 128-byte swizzled layout (each 16-byte chunk of a 128-byte row
+// XORed with the row's index in its 8-row atom): without it the tensor
+// cores' reads conflict in shared memory.  Rounding H to bf16 adds ~2^-9
+// relative per term of the last sum; the output's own bf16 rounding is
+// the same size.
 //
-// bf16, small M (fused_ffn_small_kernel, M <= 64, a decode step): bound
-// by the weight bytes, so the grid splits F into 16-column slices (two
-// 16-byte row segments of Wg/Wu) and the output into 64-column chunks:
-// 256 blocks of 8 warps at F 1024, D 256.  Each block stages x (M rows),
-// its Wg/Wu slices and its Wd rows with cp.async, computes G and U for
-// its slice on mma.sync (warps split D; their f32 partials are added in
-// a fixed order), H in f32, and its f32 partial of the output chunk on
-// the CUDA cores, written to the workspace.  The last block of a chunk to
-// arrive (__threadfence, then a counter in the workspace) adds the
-// partials in split order, 16 splits' loads in flight at a time, rounds
-// once and resets the counter: one launch, no float atomics.
+// bf16, small M ("small_m", fused_ffn_small_kernel: M <= 64 while x and
+// the slices fit in 200 KiB, so every M <= 64 at D <= 512): bound
+// by the weight bytes, so the grid splits F into 16-column slices and the
+// output into 64-column chunks: 256 blocks of 8 warps at F 1024, D 256.
+// Each block stages x (M rows), its Wg/Wu slices and its Wd rows whole
+// with cp.async, computes G and U for its slice on mma.sync (warps split
+// D; their f32 partials are added in a fixed order), H in f32, and its
+// f32 partial of the output chunk on the CUDA cores, written to the
+// workspace.  The last block of a chunk to arrive (__threadfence, then a
+// counter) adds the partials in split order, 16 splits' loads in flight
+// at a time, rounds once and resets the counter: one launch, no float
+// atomics.
+//
+// Why neither carries to D 2048 or 6144: small_m holds x and D x 16
+// slices whole (282 KB at D 2048, above the 227 KB a block may have) and
+// reads Wg/Wu once per 64-column output chunk; tiles gives each block
+// one 256-column output tile, so at M 8 only D/256 blocks run (8 at D
+// 2048, 24 at D 6144, on 132 SMs), each streaming all of Wg and Wu, and
+// the gate and up products are done D/256 times.
+//
+// bf16, D > 512, small M ("split_f", fused_ffn_split_kernel; M <= 64
+// while the workspace stays within a quarter of the weight bytes, which
+// is M <= 24): bound by the weight bytes, so every weight byte is read
+// once.  The grid splits F only, into 64-column slices: 128 blocks at F
+// 8192, 256 at F 16384 (one or two an SM).  A block streams x and its
+// slices of Wg/Wu through a four-stage cp.async ring of 64-row D chunks,
+// so its shared memory does not grow with D (88 KB at M 8: two blocks an
+// SM); G and U are computed once over all of D on mma.sync (each warp
+// owns 8 columns of G and the same 8 of U, so no partials are added
+// across warps).  H = act(G) * U is formed in f32 and split into bf16
+// hi + lo parts, so the product with the bf16 Wd rows on mma.sync keeps
+// H to ~2^-17 relative.  The block then streams its 64 Wd rows through
+// the same ring in 128-column chunks, starting at its own chunk (split
+// mod chunks) so the last arrivals spread over the blocks, and writes
+// each chunk's f32 partial to the workspace (nsplit x M x D: 8.4 MB at
+// M 8, D 2048; 50 MB at D 6144).  The last block to arrive at a chunk
+// adds its nsplit partials in split order (8 float4 loads in flight a
+// thread), rounds once and resets the chunk's counter.
+//
+// bf16, D > 512, larger M ("two_pass", fused_ffn_pass_kernel): two
+// launches on wgmma, each a 4-stage cp.async ring of 64-deep K chunks in
+// the 128-byte swizzled layout, tiles of 128 rows (two warpgroups
+// sharing B; 64 rows, one warpgroup, for M <= 64) by 256 columns, the
+// blocks rastered in groups of 8 row tiles so that concurrent blocks
+// share x / H rows and weight columns in L2.  Pass 1: [G | U] = x [Wg |
+// Wu] over all of D for 128 F columns (one m64n256k16 a k-step and
+// warpgroup), H = act(G) * U in f32 registers, rounded to bf16 into the
+// (M, F) workspace: the gate and up products are done once per row.
+// Pass 2: y = H Wd, f32 over all of F, rounded once.  Why H leaves the
+// chip here: fused, a block that owns an output tile must hold (or
+// recompute) H for all of F; at D 256 that is one 256-column tile and
+// H's 64 x 32 pieces live in registers, but at D > 512 the output has
+// D/256 tiles and either each recomputes [G | U] (the old tiles route:
+// D/256 times the gate and up products) or one block holds the tile's
+// 64 x D f32 output (96 KB of registers at D 6144).  The round trip costs
+// 2 M F 2 bytes (268 MB at M 8192, F 8192: ~0.08 ms against the 0.834 ms
+// operation bound), and H is rounded to bf16 exactly where the tiles
+// route rounds it.
 //
 // f32 (fused_ffn_kernel), kept from the first version: the tensor cores
 // would compute f32 as TF32.  Grid (64-row tile, 256-column output tile,
@@ -69,7 +118,8 @@
 //
 // Interface: plain C, bound with ctypes; each entry returns
 // cudaGetLastError() of its launches.  It launches on the caller's
-// stream and allocates nothing: the wrapper passes the workspace.
+// stream and allocates nothing: the wrapper passes the workspaces and
+// the arrival counters.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -421,6 +471,68 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 256 f32) (+)= a (64 x 16, K-major in shared memory) * b
+// (16 x 256, N-major in shared memory)
+__device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // ------------------------------------------------- bf16 large M on wgmma
 // Shared operands of wgmma in the 128-byte swizzled layout: atoms of 8
 // rows x 128 bytes on 1024-byte boundaries, the 16-byte chunk c of row r
@@ -465,38 +577,29 @@ constexpr int kBD = 256;                  // output columns a block
 constexpr int kKD = 256;                  // D rows of a Wg/Wu chunk
 constexpr int kThreads = 128;
 constexpr int kSlotA = 2 * kKD * kBF;     // [Wg | Wu], in bf16
-constexpr int kSlotX = kBM * kKD;         // + x's chunk when streamed
 constexpr int kSlotB = kBF * kBD;         // Wd
-__host__ __device__ constexpr int slot_elems(bool xres) {
-  return (xres ? kSlotA : kSlotA + kSlotX) > kSlotB
-             ? (xres ? kSlotA : kSlotA + kSlotX)
-             : kSlotB;
-}
+constexpr int kSlot = kSlotA > kSlotB ? kSlotA : kSlotB;
 __host__ __device__ inline int d_pad(int d) {
   return (d + kKD - 1) / kKD * kKD;
 }
-__host__ __device__ inline size_t smem_bytes(int d, bool xres) {
+__host__ __device__ inline size_t smem_bytes(int d) {
   // + 1024: the atoms need a 1024-byte aligned base
-  return sizeof(bf16) * ((xres ? (size_t)kBM * d_pad(d) : 0) +
-                         2 * (size_t)slot_elems(xres)) +
-         1024;
+  return sizeof(bf16) * ((size_t)kBM * d_pad(d) + 2 * (size_t)kSlot) + 1024;
 }
 }  // namespace wg
 
-template <bool XRES>
 __global__ void __launch_bounds__(wg::kThreads)
     fused_ffn_wg_kernel(TcArgs a) {
   constexpr int kBM = wg::kBM, kBF = wg::kBF, kBD = wg::kBD, kKD = wg::kKD;
-  constexpr int kThreads = wg::kThreads, kSlot = wg::slot_elems(XRES);
+  constexpr int kThreads = wg::kThreads, kSlot = wg::kSlot;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int M = a.m, D = a.d, F = a.f;
   const int dp = wg::d_pad(D);
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  // x: blocks of 64 k, each 64 rows x 128 bytes; resident (all of D) or
-  // one kKD chunk in each slot behind [Wg | Wu]
+  // x, resident: blocks of 64 k, each 64 rows x 128 bytes
   unsigned char* x_s = smem;
-  unsigned char* slots = smem + (XRES ? kBM * dp * 2 : 0);
+  unsigned char* slots = smem + kBM * dp * 2;
 
   const int m0 = blockIdx.x * kBM;
   const int d0 = blockIdx.y * kBD;
@@ -505,18 +608,14 @@ __global__ void __launch_bounds__(wg::kThreads)
   const int n_a = dp / kKD;                         // Wg/Wu chunks a tile
   const int n_chunks = (F + kBF - 1) / kBF * (n_a + 1);
 
-  // rows r of x, 16-byte chunks kc from column k0: block kc / 8, chunk
-  // kc % 8 of row r
-  auto load_x = [&](unsigned char* dst, int k0, int chunks) {
-    for (int i = tid; i < kBM * chunks; i += kThreads) {
-      const int r = i / chunks, kc = i % chunks;
-      const int row = m0 + r, col = k0 + kc * 8;
-      const bool ok = row < M && col < D;
-      cp_async16(dst + (kc >> 3) * (kBM * 128) + swz(r, kc & 7),
-                 a.x + (ok ? (long long)row * D + col : 0), ok);
-    }
-  };
-  if (XRES) load_x(x_s, 0, dp / 8);
+  // rows r of x, 16-byte chunks kc: block kc / 8, chunk kc % 8 of row r
+  for (int i = tid; i < kBM * (dp / 8); i += kThreads) {
+    const int r = i / (dp / 8), kc = i % (dp / 8);
+    const int row = m0 + r, col = kc * 8;
+    const bool ok = row < M && col < D;
+    cp_async16(x_s + (kc >> 3) * (kBM * 128) + swz(r, kc & 7),
+               a.x + (ok ? (long long)row * D + col : 0), ok);
+  }
   auto issue = [&](int i, int slot) {
     unsigned char* base = slots + slot * kSlot * 2;
     const int ft = i / (n_a + 1), c = i % (n_a + 1);
@@ -533,7 +632,6 @@ __global__ void __launch_bounds__(wg::kThreads)
         cp_async16(base + swz(r, nc), a.wg + off, ok);
         cp_async16(base + swz(r, kBF / 8 + nc), a.wu + off, ok);
       }
-      if (!XRES) load_x(base + wg::kSlotA * 2, k0, kKD / 8);
     } else {
       // Wd rows f0 + r, columns d0 + 8 nc: 64-column atoms of 32 rows,
       // 4096 bytes apart
@@ -574,10 +672,9 @@ __global__ void __launch_bounds__(wg::kThreads)
       wgmma_fence();
 #pragma unroll 4
       for (int kk = 0; kk < kKD / 16; ++kk) {
-        const int k = (XRES ? c * kKD : 0) + 16 * kk;
-        const unsigned char* xb = XRES ? x_s : base + wg::kSlotA * 2;
+        const int k = c * kKD + 16 * kk;
         wgmma_ss_n64(gu,
-                     wgmma_desc(xb + (k >> 6) * (kBM * 128) + (k & 63) * 2,
+                     wgmma_desc(x_s + (k >> 6) * (kBM * 128) + (k & 63) * 2,
                                 16, 1024),
                      wgmma_desc(base + kk * 16 * 128, 16, 1024), 1);
       }
@@ -792,6 +889,392 @@ __global__ void __launch_bounds__(sm::kThreads)
   if (tid == 0) a.counters[blockIdx.y] = 0;          // ready for the next
 }
 
+// ------------------------------------ bf16 small M at any D: split F only
+namespace sf {
+constexpr int kFS = 64;                   // F columns a block
+constexpr int kKC = 64;                   // D rows of a Wg/Wu/x chunk
+constexpr int kDC = 128;                  // output columns of a Wd chunk
+constexpr int kStages = 4;                // ring slots
+constexpr int kThreads = 256;
+constexpr int kMaxM = 64;
+constexpr int kWR = kFS + 8;              // Wg/Wu and H rows, in bf16
+constexpr int kXR = kKC + 8;              // x rows
+constexpr int kDR = kDC + 8;              // Wd rows
+constexpr int kInFlight = 8;              // float4 loads a thread, merge
+__device__ inline int m_pad(int m) {
+  return (m + 15) / 16 * 16;
+}
+// a ring slot holds [Wg; Wu] (2 kKC rows) and x (mp rows), or Wd
+__device__ inline int slot_elems(int mp) {
+  const int a = 2 * kKC * kWR + mp * kXR, b = kFS * kDR;
+  return a > b ? a : b;
+}
+}  // namespace sf
+
+__global__ void __launch_bounds__(sf::kThreads, 2)
+    fused_ffn_split_kernel(SmallArgs a) {
+  constexpr int kFS = sf::kFS, kKC = sf::kKC, kDC = sf::kDC;
+  constexpr int kStages = sf::kStages, kThreads = sf::kThreads;
+  constexpr int kMT = sf::kMaxM / 16;
+  constexpr int kWR = sf::kWR, kXR = sf::kXR, kDR = sf::kDR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int M = a.m, D = a.d, F = a.f;
+  // the layout that the wrapper's split_smem_bytes sizes
+  const int mp = sf::m_pad(M), slot = sf::slot_elems(mp);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* h_hi = ring + kStages * slot;                 // mp x kWR
+  bf16* h_lo = h_hi + mp * kWR;                       // mp x kWR
+
+  const int split = blockIdx.x, f0 = split * kFS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;
+  const int n_k = (D + kKC - 1) / kKC, n_c = (D + kDC - 1) / kDC;
+  const int n = n_k + n_c;
+  auto chunk_of = [&](int j) { return (j + split) % n_c; };
+
+  // chunk i of the sequence: D chunks of [Wg; Wu] and x, then this
+  // block's Wd rows in column chunks, starting at its own
+  auto issue = [&](int i) {
+    bf16* s = ring + (i % kStages) * slot;
+    if (i < n_k) {
+      const int k0 = i * kKC;
+      for (int j = tid; j < kKC * (kFS / 8); j += kThreads) {
+        const int r = j / (kFS / 8), c = (j % (kFS / 8)) * 8;
+        const bool ok = k0 + r < D && f0 + c < F;
+        const long long off = ok ? (long long)(k0 + r) * F + f0 + c : 0;
+        cp_async16(s + r * kWR + c, a.wg + off, ok);
+        cp_async16(s + (kKC + r) * kWR + c, a.wu + off, ok);
+      }
+      bf16* xs = s + 2 * kKC * kWR;
+      for (int j = tid; j < mp * (kKC / 8); j += kThreads) {
+        const int r = j / (kKC / 8), c = (j % (kKC / 8)) * 8;
+        const bool ok = r < M && k0 + c < D;
+        cp_async16(xs + r * kXR + c,
+                   a.x + (ok ? (long long)r * D + k0 + c : 0), ok);
+      }
+    } else {
+      const int d0 = chunk_of(i - n_k) * kDC;
+      for (int j = tid; j < kFS * (kDC / 8); j += kThreads) {
+        const int r = j / (kDC / 8), c = (j % (kDC / 8)) * 8;
+        const bool ok = f0 + r < F && d0 + c < D;
+        cp_async16(s + r * kDR + c,
+                   a.wd + (ok ? (long long)(f0 + r) * D + d0 + c : 0), ok);
+      }
+    }
+  };
+  // waits for chunk i and frees the slot of chunk i - 1 for chunk i + 3
+  auto advance = [&](int i) -> const bf16* {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (i + kStages - 1 < n) issue(i + kStages - 1);
+    cp_async_commit();
+    return ring + (i % kStages) * slot;
+  };
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n) issue(i);
+    cp_async_commit();
+  }
+
+  // ---- G, U over all of D: warp w owns columns 8w..8w+7 of both
+  {
+    float gacc[kMT][4], uacc[kMT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gacc[i][e] = uacc[i][e] = 0.f;
+    for (int i = 0; i < n_k; ++i) {
+      const bf16* s = advance(i);
+      const bf16* xs = s + 2 * kKC * kWR;
+#pragma unroll
+      for (int kk = 0; kk < kKC / 16; ++kk) {
+        // the four matrices: Wg k 0-7, Wg k 8-15, Wu k 0-7, Wu k 8-15
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, s + ((mi >> 1) * kKC + 16 * kk + (mi & 1) * 8 +
+                                  mr) * kWR + 8 * warp);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          if (16 * mt < mp) {
+            uint32_t af[4];
+            ldmatrix_x4(af, xs + (16 * mt + (mi & 1) * 8 + mr) * kXR +
+                                16 * kk + (mi >> 1) * 8);
+            mma_bf16(gacc[mt], af, b[0], b[1]);
+            mma_bf16(uacc[mt], af, b[2], b[3]);
+          }
+        }
+      }
+    }
+    // H = act(G) U in f32, kept as bf16 hi + lo for the Wd product
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      if (16 * mt < mp) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float h0 = activate_fast(gacc[mt][2 * hf], a.act) *
+                           uacc[mt][2 * hf];
+          const float h1 = activate_fast(gacc[mt][2 * hf + 1], a.act) *
+                           uacc[mt][2 * hf + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(h0, h1);
+          const __nv_bfloat162 lo =
+              __floats2bfloat162_rn(h0 - __low2float(hi),
+                                    h1 - __high2float(hi));
+          const int off = (16 * mt + g + 8 * hf) * kWR + 8 * warp + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(h_hi + off) = hi;
+          *reinterpret_cast<__nv_bfloat162*>(h_lo + off) = lo;
+        }
+      }
+    }
+  }
+
+  // ---- this slice's f32 partial of every output chunk: warp w owns
+  // columns 16w..16w+15 of a chunk
+  __shared__ int last;
+  const long long step = (long long)M * D;
+  for (int j = 0; j < n_c; ++j) {
+    const bf16* s = advance(n_k + j);       // its barrier orders H too
+    const int c = chunk_of(j), d0 = c * kDC;
+    float acc[kMT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kFS / 16; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, s + (16 * kk + (mi & 1) * 8 + mr) * kDR +
+                               16 * warp + (mi >> 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (16 * mt < mp) {
+          const int off = (16 * mt + (mi & 1) * 8 + mr) * kWR + 16 * kk +
+                          (mi >> 1) * 8;
+          uint32_t ah[4], al[4];
+          ldmatrix_x4(ah, h_hi + off);
+          ldmatrix_x4(al, h_lo + off);
+          mma_bf16(acc[mt][0], ah, b[0], b[1]);
+          mma_bf16(acc[mt][0], al, b[0], b[1]);
+          mma_bf16(acc[mt][1], ah, b[2], b[3]);
+          mma_bf16(acc[mt][1], al, b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      if (16 * mt < mp) {
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = 16 * mt + g + 8 * hf;
+            const int col = d0 + 16 * warp + 8 * nb + 2 * t;
+            if (row < M && col < D)
+              *reinterpret_cast<float2*>(a.ws + split * step +
+                                         (long long)row * D + col) =
+                  make_float2(acc[mt][nb][2 * hf], acc[mt][nb][2 * hf + 1]);
+          }
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(a.counters + c, 1) == a.nsplit - 1;
+    __syncthreads();
+    if (!last) continue;
+    // ---- the last block at chunk c adds the splits in order
+    __threadfence();
+    for (int q = tid; q < M * (kDC / 4); q += kThreads) {
+      const int row = q / (kDC / 4), col = d0 + (q % (kDC / 4)) * 4;
+      if (col >= D) continue;
+      const float* p = a.ws + (long long)row * D + col;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      int sp = 0;
+      for (; sp + sf::kInFlight <= a.nsplit; sp += sf::kInFlight) {
+        float4 v[sf::kInFlight];
+#pragma unroll
+        for (int r = 0; r < sf::kInFlight; ++r)
+          v[r] = __ldcg(reinterpret_cast<const float4*>(p + (sp + r) * step));
+#pragma unroll
+        for (int r = 0; r < sf::kInFlight; ++r) {
+          sum.x += v[r].x;
+          sum.y += v[r].y;
+          sum.z += v[r].z;
+          sum.w += v[r].w;
+        }
+      }
+      for (; sp < a.nsplit; ++sp) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(p + sp * step));
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      *reinterpret_cast<uint2*>(a.out + (long long)row * D + col) =
+          make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+    }
+    if (tid == 0) a.counters[c] = 0;          // ready for the next launch
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------- bf16 larger M at D > 512: two passes
+namespace tp {
+constexpr int kBN = 256;                  // N columns a block
+constexpr int kKC = 64;                   // K a chunk: one 128-byte row
+constexpr int kStages = 4;                // ring slots, 2 chunks ahead
+constexpr int kGroupM = 8;                // row tiles a raster group
+// the wrapper's pass_smem_bytes: kStages of these + 1024 to align atoms
+__host__ __device__ constexpr int stage_bytes(int bm) {
+  return bm * 128 + kKC * kBN * 2;
+}
+}  // namespace tp
+
+struct PassArgs {
+  const bf16* a;        // (M, K) row-major: x in pass 1, H in pass 2
+  const bf16* b0;       // (K, N) row-major: Wg in pass 1, Wd in pass 2
+  const bf16* b1;       // Wu in pass 1
+  bf16* c;              // (M, N): H in pass 1, the output in pass 2
+  int m, k, n, act, col_tiles;
+};
+
+// GATED (pass 1): the block's B is [Wg | Wu] over kBN / 2 F columns and
+// its epilogue writes H = act(G) * U; else (pass 2) B is kBN columns of
+// Wd and the epilogue writes the f32 sums rounded once.  A is K-major
+// and B N-major in shared memory, both 128-byte swizzled as in wg.
+template <int WGS, bool GATED>
+__global__ void __launch_bounds__(128 * WGS)
+    fused_ffn_pass_kernel(PassArgs a) {
+  constexpr int kBM = 64 * WGS, kThreads = 128 * WGS;
+  constexpr int kBN = tp::kBN, kKC = tp::kKC, kStages = tp::kStages;
+  constexpr int kStage = tp::stage_bytes(kBM);
+  constexpr int kCols = GATED ? kBN / 2 : kBN;     // of c a block writes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+
+  // grouped raster: kGroupM row tiles walk the column tiles together
+  const int row_tiles = (a.m + kBM - 1) / kBM;
+  const int per_group = tp::kGroupM * a.col_tiles;
+  const int first = blockIdx.x / per_group * tp::kGroupM;
+  const int rows_in = min(row_tiles - first, tp::kGroupM);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first + in_group % rows_in) * kBM;
+  const int n0 = in_group / rows_in * kCols;
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_k = (a.k + kKC - 1) / kKC;
+
+  auto issue = [&](int i) {
+    unsigned char* s = smem + (i % kStages) * kStage;
+    const int k0 = i * kKC;
+    for (int j = tid; j < kBM * 8; j += kThreads) {
+      const int r = j >> 3, c = j & 7;
+      const int row = m0 + r, col = k0 + c * 8;
+      const bool ok = row < a.m && col < a.k;
+      cp_async16(s + swz(r, c), a.a + (ok ? (long long)row * a.k + col : 0),
+                 ok);
+    }
+    // B: 64-column groups of kKC rows, 8 KB apart; pass 1 takes pieces
+    // 0..15 of a row from Wg and 16..31 from Wu, at the same F columns
+    unsigned char* sb = s + kBM * 128;
+    for (int j = tid; j < kKC * (kBN / 8); j += kThreads) {
+      const int r = j / (kBN / 8), nc = j % (kBN / 8);
+      const int col = n0 + 8 * (GATED ? nc % (kBN / 16) : nc);
+      const bf16* src = GATED && nc >= kBN / 16 ? a.b1 : a.b0;
+      const bool ok = k0 + r < a.k && col < a.n;
+      cp_async16(sb + (nc >> 3) * (kKC * 128) + swz(r, nc & 7),
+                 src + (ok ? (long long)(k0 + r) * a.n + col : 0), ok);
+    }
+  };
+
+  float acc[kBN / 2];                   // 64 x 256 f32 over a warpgroup
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kStages - 2; ++i) {
+    if (i < n_k) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_k; ++i) {
+    // chunk i has landed; every warpgroup's products of chunk i - 2 are
+    // done (those of i - 1 may run on), so its slot takes chunk i + 2
+    cp_async_wait<kStages - 3>();
+    fence_proxy_async();
+    wgmma_wait<1>();
+    __syncthreads();
+    if (i + kStages - 2 < n_k) issue(i + kStages - 2);
+    cp_async_commit();
+    const unsigned char* s = smem + (i % kStages) * kStage;
+    const unsigned char* sa = s + wgi * (64 * 128);
+    const unsigned char* sb = s + kBM * 128;
+    fence_regs(acc, kBN / 2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk)
+      wgmma_ss_n256(acc, wgmma_desc(sa + kk * 32, 16, 1024),
+                    wgmma_desc(sb + kk * 16 * 128, kKC * 128, 1024), 1);
+    wgmma_commit();
+  }
+  cp_async_wait<0>();
+  wgmma_wait<0>();
+  fence_regs(acc, kBN / 2);
+
+  const int row0 = m0 + wgi * 64 + warp * 16 + g, row1 = row0 + 8;
+  if (GATED) {
+    // n-block j of G and n-block j + 16 of U hold the same F columns
+#pragma unroll
+    for (int j = 0; j < kBN / 16; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (col >= a.n) continue;
+      float h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = activate_fast(acc[4 * j + e], a.act) *
+               acc[4 * (j + kBN / 16) + e];
+      if (row0 < a.m)
+        *reinterpret_cast<__nv_bfloat162*>(a.c + (long long)row0 * a.n +
+                                           col) =
+            __floats2bfloat162_rn(h[0], h[1]);
+      if (row1 < a.m)
+        *reinterpret_cast<__nv_bfloat162*>(a.c + (long long)row1 * a.n +
+                                           col) =
+            __floats2bfloat162_rn(h[2], h[3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (col >= a.n) continue;
+      if (row0 < a.m)
+        *reinterpret_cast<__nv_bfloat162*>(a.c + (long long)row0 * a.n +
+                                           col) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      if (row1 < a.m)
+        *reinterpret_cast<__nv_bfloat162*>(a.c + (long long)row1 * a.n +
+                                           col) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+template <int WGS>
+cudaError_t two_pass(const PassArgs& p1, const PassArgs& p2, int row_tiles,
+                     int smem_bytes, cudaStream_t stream) {
+  auto k1 = fused_ffn_pass_kernel<WGS, true>;
+  auto k2 = fused_ffn_pass_kernel<WGS, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        k2, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  k1<<<row_tiles * p1.col_tiles, 128 * WGS, smem_bytes, stream>>>(p1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k2<<<row_tiles * p2.col_tiles, 128 * WGS, smem_bytes, stream>>>(p2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fused_ffn(const void* x, const void* wg, const void* wu,
@@ -813,15 +1296,14 @@ extern "C" int fused_ffn(const void* x, const void* wg, const void* wu,
 extern "C" int fused_ffn_bf16_tiles(const void* x, const void* wg,
                                     const void* wu, const void* wd,
                                     void* out, int m, int d, int f, int act,
-                                    int x_resident, int row_tiles,
-                                    int col_tiles, void* stream) {
+                                    int row_tiles, int col_tiles,
+                                    void* stream) {
   if (m == 0 || d == 0) return cudaSuccess;
   TcArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
            static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
            static_cast<bf16*>(out), m, d, f, act};
-  const size_t bytes = wg::smem_bytes(d, x_resident != 0);
-  auto kernel = x_resident ? fused_ffn_wg_kernel<true>
-                           : fused_ffn_wg_kernel<false>;
+  const size_t bytes = wg::smem_bytes(d);
+  auto kernel = fused_ffn_wg_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -848,4 +1330,45 @@ extern "C" int fused_ffn_bf16_small(const void* x, const void* wg,
   fused_ffn_small_kernel<<<dim3(nsplit, nchunks), sm::kThreads, smem_bytes,
                            static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
+}
+
+extern "C" int fused_ffn_bf16_split(const void* x, const void* wg,
+                                    const void* wu, const void* wd,
+                                    void* out, void* ws, void* counters,
+                                    int m, int d, int f, int act, int nsplit,
+                                    int smem_bytes, void* stream) {
+  if (m == 0 || d == 0) return cudaSuccess;
+  SmallArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
+              static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
+              static_cast<bf16*>(out), static_cast<float*>(ws),
+              static_cast<int*>(counters), m, d, f, act, nsplit};
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ffn_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return err;
+  fused_ffn_split_kernel<<<nsplit, sf::kThreads, smem_bytes,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+// h: the (M, F) bf16 workspace between the passes; block_m 64 or 128
+extern "C" int fused_ffn_bf16_two_pass(const void* x, const void* wg,
+                                       const void* wu, const void* wd,
+                                       void* out, void* h, int m, int d,
+                                       int f, int act, int block_m,
+                                       int row_tiles, int f_tiles,
+                                       int d_tiles, int smem_bytes,
+                                       void* stream) {
+  if (m == 0 || d == 0) return cudaSuccess;
+  const PassArgs p1{static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
+                    static_cast<const bf16*>(wu), static_cast<bf16*>(h),
+                    m, d, f, act, f_tiles};
+  const PassArgs p2{static_cast<const bf16*>(h), static_cast<const bf16*>(wd),
+                    nullptr, static_cast<bf16*>(out), m, f, d, act, d_tiles};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (block_m) {
+    case 64: return two_pass<1>(p1, p2, row_tiles, smem_bytes, s);
+    case 128: return two_pass<2>(p1, p2, row_tiles, smem_bytes, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

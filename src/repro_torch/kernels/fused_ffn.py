@@ -6,15 +6,30 @@ Replaces the Pallas TPU kernel ``fused_ffn`` of the JAX package
 workspace); their plain version is
 :func:`repro_torch.kernels.ref.fused_ffn_ref`.
 
-:func:`ffn_plan` picks the route from the dtype and the shapes alone:
-bf16 runs on the tensor cores in 64-row tiles on ``wgmma``
-(``"tiles"``), or, for a decode step's few rows, in the one-launch
-F-split kernel on ``mma.sync`` (``"small_m"``); f32 runs on the CUDA
-cores (``"cuda_cores"``), since the tensor cores would round f32 to
-TF32.  The plan is the one place that sizes a bf16 launch: the kernels
-launch its grid and shared memory as given.  A tensor on the CPU takes the plain version.  A tensor on the card
-launches its route's kernel or raises — there is no fallback.  Each
-launch adds one to ``fused_ffn.launches``.
+:func:`ffn_plan` picks the route from the dtype and the shapes alone.
+bf16 runs on the tensor cores:
+
+- a decode step's few rows (M <= 64) take ``"small_m"`` where x and its
+  D x 16 weight slices fit in shared memory (every M <= 64 at D <= 512,
+  M <= 32 at D 1024): one launch on ``mma.sync`` that splits F and the
+  output columns;
+- otherwise, at D > 512, M <= 24 takes ``"split_f"``: one launch on
+  ``mma.sync`` whose blocks split F only, each reading its weight
+  slices once through a ring of D chunks, with an f32 workspace of one
+  (M, D) partial a slice (at most a quarter of the weight bytes) that
+  the last block at each output chunk adds in split order;
+- larger M takes 64-row tiles on ``wgmma`` that keep H on chip
+  (``"tiles"``) at D <= 512, and at D > 512 two launches on ``wgmma``
+  (``"two_pass"``): H = act(x Wg) (x Wu) once per row into an (M, F) bf16
+  workspace, then H Wd.
+
+f32 runs on the CUDA cores (``"cuda_cores"``), since the tensor cores
+would round f32 to TF32.  The plan is the one place that sizes a bf16
+launch: the kernels launch its grids (and, but for ``tiles``, its
+shared memory) as given, on the workspaces the wrapper allocates.  A tensor on the CPU takes the plain
+version.  A tensor on the card launches its route's kernel or raises —
+there is no fallback.  Each call adds one to ``fused_ffn.launches``
+(``two_pass``'s two kernels count as one call).
 
 Gradients: when autograd records (grad mode on and any input requiring
 grad), the launch runs inside a ``torch.autograd.Function`` that saves
@@ -41,14 +56,25 @@ BLOCK_M, BLOCK_D, BLOCK_F = 64, 256, 64
 # blocks wanted in flight: two per SM of an H100 (132 SMs)
 TARGET_BLOCKS = 264
 # the bf16 tile kernel (csrc/fused_ffn.cu, namespace wg): rows and
-# output columns a block; the largest D whose x tile stays in shared
-# memory
-TC_BLOCK_M, TC_BLOCK_D, TC_X_RESIDENT = 64, 256, 512
+# output columns a block; the largest D it takes (its x tile stays in
+# shared memory and H on chip)
+TC_BLOCK_M, TC_BLOCK_D, TC_MAX_D = 64, 256, 512
 # the bf16 small-M kernel (namespace sm): F columns and output columns a
 # block, its warps, the most rows it holds, and the shared memory it may
 # ask for
 SMALL_F, SMALL_D, SMALL_WARPS = 16, 64, 8
 SMALL_MAX_M, SMALL_SMEM = 64, 200 * 1024
+# the bf16 split-F kernel (namespace sf): F columns a block, D rows a ring
+# chunk, output columns a Wd chunk, ring slots; the largest share of the
+# weight bytes its f32 workspace may take (M <= 24)
+SPLIT_F, SPLIT_KC, SPLIT_DC, SPLIT_STAGES = 64, 64, 128, 4
+SPLIT_WS_SHARE = 0.25
+# the bf16 two-pass kernels (namespace tp): columns a block ([G | U] of
+# 128 F columns in pass 1, 256 output columns in pass 2), K a ring chunk,
+# ring slots
+PASS_N, PASS_KC, PASS_STAGES = 256, 64, 4
+# the most dynamic shared memory a block may have on the H100
+MAX_SMEM = 232448
 
 
 @dataclass(frozen=True)
@@ -56,14 +82,15 @@ class FfnPlan:
     """How one call runs: its route, its grid, and the f32 workspace and
     arrival counters it needs (``ws_floats`` f32 elements; ``counters``
     int32 entries, zero between launches)."""
-    route: str               # "cuda_cores" | "tiles" | "small_m"
-    grid: Tuple[int, int, int]
+    route: str   # "cuda_cores" | "tiles" | "small_m" | "split_f" | "two_pass"
+    grid: Tuple[int, int, int]   # two_pass: (row tiles, F tiles, D tiles)
     nsplit: int = 1          # F splits summed through the workspace
     per: int = 0             # cuda_cores: F tiles a split
     ws_floats: int = 0
     counters: int = 0
-    x_resident: bool = False   # tiles: x staged once, not per D chunk
-    smem: int = 0              # small_m: dynamic shared memory, bytes
+    smem: int = 0            # dynamic shared memory a block, bytes
+    h_elems: int = 0         # two_pass: the (M, F) bf16 H workspace
+    block_m: int = 0         # two_pass: rows a tile, 64 or 128
 
 
 def split_plan(m: int, d: int, f: int):
@@ -88,6 +115,24 @@ def small_smem_bytes(m: int, d: int) -> int:
             + 4 * (SMALL_WARPS * mp * SMALL_F * 2 + mp * SMALL_F))
 
 
+def split_smem_bytes(m: int) -> int:
+    """Shared memory of the split-F kernel, in its layout: the ring's
+    slots, each [Wg; Wu] (two chunks of 64 D rows, rows of 64 F columns
+    plus 8) with x (M padded to 16, rows of 64 plus 8) or 64 Wd rows of
+    128 columns plus 8, then H's bf16 hi and lo parts (rows of 64 + 8)."""
+    mp = -(-m // 16) * 16
+    slot = max(2 * SPLIT_KC * (SPLIT_F + 8) + mp * (SPLIT_KC + 8),
+               SPLIT_F * (SPLIT_DC + 8))
+    return 2 * (SPLIT_STAGES * slot + 2 * mp * (SPLIT_F + 8))
+
+
+def pass_smem_bytes(block_m: int) -> int:
+    """Shared memory of a two-pass kernel: the ring's slots, each an A
+    chunk (block_m rows of 128 bytes) and a B chunk (64 rows of 256
+    columns), plus 1024 bytes to align the swizzle atoms."""
+    return PASS_STAGES * (block_m * 128 + PASS_KC * PASS_N * 2) + 1024
+
+
 def ffn_plan(dtype: torch.dtype, m: int, d: int, f: int) -> FfnPlan:
     """The route and launch geometry for ``(M, D) x (D, F)`` in ``dtype``:
     a pure function of its arguments."""
@@ -103,8 +148,19 @@ def ffn_plan(dtype: torch.dtype, m: int, d: int, f: int) -> FfnPlan:
         nsplit, chunks = -(-f // SMALL_F), -(-d // SMALL_D)
         return FfnPlan("small_m", (nsplit, chunks, 1), nsplit,
                        ws_floats=nsplit * m * d, counters=chunks, smem=smem)
-    return FfnPlan("tiles", (-(-m // TC_BLOCK_M), -(-d // TC_BLOCK_D), 1),
-                   x_resident=d <= TC_X_RESIDENT)
+    if d <= TC_MAX_D:
+        return FfnPlan("tiles", (-(-m // TC_BLOCK_M), -(-d // TC_BLOCK_D),
+                                 1))
+    nsplit = -(-f // SPLIT_F)
+    if m <= SMALL_MAX_M and \
+            4 * nsplit * m * d <= SPLIT_WS_SHARE * 2 * 3 * d * f:
+        return FfnPlan("split_f", (nsplit, 1, 1), nsplit,
+                       ws_floats=nsplit * m * d,
+                       counters=-(-d // SPLIT_DC), smem=split_smem_bytes(m))
+    bm = 64 if m <= 64 else 128
+    return FfnPlan("two_pass", (-(-m // bm), -(-f // (PASS_N // 2)),
+                                -(-d // PASS_N)),
+                   smem=pass_smem_bytes(bm), h_elems=m * f, block_m=bm)
 
 
 def _fn(name: str, argtypes):
@@ -117,8 +173,12 @@ def _fn(name: str, argtypes):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fused_ffn": [_P] * 6 + [_I] * 7 + [_P],
-             "fused_ffn_bf16_tiles": [_P] * 5 + [_I] * 7 + [_P],
-             "fused_ffn_bf16_small": [_P] * 7 + [_I] * 7 + [_P]}
+             "fused_ffn_bf16_tiles": [_P] * 5 + [_I] * 6 + [_P],
+             "fused_ffn_bf16_small": [_P] * 7 + [_I] * 7 + [_P],
+             "fused_ffn_bf16_split": [_P] * 7 + [_I] * 6 + [_P],
+             "fused_ffn_bf16_two_pass": [_P] * 6 + [_I] * 9 + [_P]}
+
+
 def _check(x, w_gate, w_up, w_down, activation) -> None:
     for name, t in (("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)):
         if t.device != x.device:
@@ -190,14 +250,26 @@ def _launch(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
             plan.nsplit, plan.per, act, _DTYPE_CODES[x.dtype], stream)
     elif plan.route == "tiles":
         err = _fn("fused_ffn_bf16_tiles", _ARGTYPES["fused_ffn_bf16_tiles"])(
-            *ptrs, m, d, f, act, int(plan.x_resident), plan.grid[0],
-            plan.grid[1], stream)
+            *ptrs, m, d, f, act, plan.grid[0], plan.grid[1], stream)
+    elif plan.route == "two_pass":
+        h = torch.empty(plan.h_elems, dtype=torch.bfloat16, device=x.device)
+        err = _fn("fused_ffn_bf16_two_pass",
+                  _ARGTYPES["fused_ffn_bf16_two_pass"])(
+            *ptrs, h.data_ptr(), m, d, f, act, plan.block_m, *plan.grid,
+            plan.smem, stream)
     else:
         counters = _build.arrival_counters(x.device, stream,
                                             plan.counters)
-        err = _fn("fused_ffn_bf16_small", _ARGTYPES["fused_ffn_bf16_small"])(
-            *ptrs, ws.data_ptr(), counters.data_ptr(), m, d, f, act,
-            plan.nsplit, plan.grid[1], plan.smem, stream)
+        if plan.route == "small_m":
+            err = _fn("fused_ffn_bf16_small",
+                      _ARGTYPES["fused_ffn_bf16_small"])(
+                *ptrs, ws.data_ptr(), counters.data_ptr(), m, d, f, act,
+                plan.nsplit, plan.grid[1], plan.smem, stream)
+        else:
+            err = _fn("fused_ffn_bf16_split",
+                      _ARGTYPES["fused_ffn_bf16_split"])(
+                *ptrs, ws.data_ptr(), counters.data_ptr(), m, d, f, act,
+                plan.nsplit, plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"fused_ffn ({plan.route}) launch failed: CUDA "
                            f"error {err}")

@@ -111,6 +111,19 @@ def test_kernel_matches_plain_version(cuda, pool, q_dtype, kvh, group,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_group_6_at_hd_128(cuda, q_dtype):
+    """internvl2-26b's decode: 48 heads of 128 over 8 KV heads (group 6),
+    an int8 pool, mb 64."""
+    args, sc = _case(6, slots=8, kvh=8, group=6, hd=128, bs=16, mb=64,
+                     pool=torch.int8, q_dtype=q_dtype)
+    out = paged_decode_attention(*args, **sc)
+    torch.testing.assert_close(out, paged_decode_attn_ref(*args, **sc),
+                               **TOL[q_dtype])
+    assert torch.equal(out, paged_decode_attention(*args, **sc))
+
+
+@pytest.mark.gpu
 def test_kernel_pos_zero_returns_v_new(cuda):
     args, sc = _case(3, slots=4, kvh=2, group=4, hd=32, bs=16, mb=4,
                      pool=torch.int8, q_dtype=torch.float32)
@@ -489,17 +502,26 @@ def test_ffn_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,d,f", [(1, 256, 1024), (64, 256, 1000),
-                                   (65, 256, 1024), (127, 264, 200),
-                                   (8195, 256, 1024), (300, 512, 1032),
-                                   (200, 1024, 4096), (16, 1024, 4096)])
+@pytest.mark.parametrize("m,d,f", [
+    (1, 256, 1024), (64, 256, 1000), (65, 256, 1024), (127, 264, 200),
+    (8195, 256, 1024), (300, 512, 1032), (200, 1024, 4096),
+    (16, 1024, 4096),
+    # D > 512: split_f (M <= 24) and two_pass, ragged M and F
+    (1, 2048, 8192), (8, 2048, 8192), (63, 2048, 8192), (64, 2048, 8192),
+    (65, 2048, 8192), (2049, 2048, 8192), (8, 2048, 1000),
+    (65, 2048, 1032), (1, 6144, 16384), (8, 6144, 16384),
+    (64, 6144, 16384), (65, 6144, 2056), (2049, 6144, 16384)])
 def test_ffn_bf16_routes_ragged_and_wide(cuda, m, d, f):
-    """The bf16 routes (small M and tiles, x resident or streamed): ragged
-    M and F, D above 256 over several output tiles, and a repeat bit for
-    bit (no atomics; the small-M counters reset themselves)."""
+    """The bf16 routes (small_m and tiles up to D 512, split_f and
+    two_pass above): ragged M and F, D over several output tiles and
+    chunks, and a repeat bit for bit (no atomics; the arrival counters
+    reset themselves)."""
     x, wg, wu, wd = _ffn(m + f, m, d, f, torch.bfloat16)
     plan = ffn_plan(torch.bfloat16, m, d, f)
-    assert plan.route == ("small_m" if m <= 64 else "tiles")
+    if d <= 512:
+        assert plan.route == ("small_m" if m <= 64 else "tiles")
+    elif plan.route != "small_m":
+        assert plan.route == ("split_f" if m <= 24 else "two_pass")
     out = fused_ffn(x, wg, wu, wd, "gelu")
     ref = fused_ffn_ref(x, wg, wu, wd, "gelu")
     torch.testing.assert_close(out, ref, **FFN_TOL[torch.bfloat16])

@@ -321,6 +321,61 @@ def test_prefill_and_decode_steps_match_reference(name):
         assert bool(cache["cross_k"].any()) and bool(cache["cross_v"].any())
 
 
+def _vlm_structure_cfgs():
+    """internvl2-26b at depth 2 with its widths cut as far as its
+    structure allows: group 6 (6 heads of 128 over 1 KV head), hd 128,
+    d_model = heads x hd as published, F / D = 8 / 3 as published, and
+    256 patch positions (their width cut to 256, the vocabulary to
+    1024)."""
+    kw = dict(num_layers=2, d_model=768, num_heads=6, num_kv_heads=1,
+              head_dim=128, d_ff=2048, vocab_size=1024,
+              vision_embed_dim=256, **F32)
+    return tuple(get(VLM).with_updates(**kw)
+                 for get in (j_get_config, get_config))
+
+
+def test_vlm_at_internvl2_structure_matches_reference():
+    """The CPU twin of the card's full-width depth-2 check: a prefill of
+    2 prompts of 256 patch embeddings and 16 text tokens (f32 caches),
+    then four greedy decode steps; logits and the K/V cache after each,
+    and the greedy streams, equal the JAX package's."""
+    jcfg, tcfg = _vlm_structure_cfgs()
+    assert (tcfg.num_heads // tcfg.num_kv_heads, tcfg.resolved_head_dim,
+            tcfg.num_vision_tokens) == (6, 128, 256)
+    jp = jm.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    jo, to = JOpts(**F32_CACHE), RuntimeOptions(**F32_CACHE)
+    s, steps = tcfg.num_vision_tokens + 16, 4
+    toks, kw = _inputs(tcfg, 2, s, 11)
+
+    def j_steps(p, t, kw):
+        lg, cache = jm.prefill(p, jcfg, t, jm.init_cache(
+            jcfg, 2, s + steps, jo), jo, **kw)
+        out = [(lg[:, -1], cache["k"], cache["v"])]
+        tok = jnp.argmax(lg[:, -1, :jcfg.vocab_size], -1).astype(jnp.int32)
+        for _ in range(steps):
+            lg, cache = jm.decode_step(p, jcfg, cache, tok, jo)
+            out.append((lg, cache["k"], cache["v"]))
+            tok = jnp.argmax(lg[:, :jcfg.vocab_size], -1).astype(jnp.int32)
+        return out
+
+    j_out = jax.jit(j_steps)(jp, jnp.asarray(toks), _j(kw))
+    cache = tm.init_cache(tcfg, 2, s + steps, to, device="cpu")
+    lt, cache = tm.prefill(tp, tcfg, torch.from_numpy(toks), cache, to,
+                           **_t(kw))
+    lt = lt[:, -1]
+    for i, (lj, kj, vj) in enumerate(j_out):
+        if i:
+            lt, cache = tm.decode_step(tp, tcfg, cache, tok, to)
+        _close_rel(lt, lj, what=f"logits after step {i}")
+        _close_rel(cache["k"], kj, what=f"k after step {i}")
+        _close_rel(cache["v"], vj, what=f"v after step {i}")
+        tok = torch.argmax(lt[:, :tcfg.vocab_size], -1).to(torch.int32)
+        assert tok.tolist() == np.asarray(jnp.argmax(
+            lj[:, :jcfg.vocab_size], -1)).tolist()
+    assert int(cache["pos"]) == s + steps
+
+
 @pytest.mark.parametrize("name", [WHISPER, VLM])
 def test_train_step_grads_match_reference(name):
     """``lm_loss`` through ``forward`` with the stub inputs and its
