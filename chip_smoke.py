@@ -13,10 +13,13 @@ Phases (any failure exits non-zero):
 2. kernels — each kernel against its plain PyTorch version on the card
    (tolerances below): K1 paged decode attention at max_seq 512 and 2048
    tables and at its table split's edges (positions on and beside a
-   128-column split boundary, windows crossing one, full tables, mb 1),
-   each repeating bit for bit, K2 flash attention (bf16 on the tensor
-   cores, f32 on the CUDA cores) over its masks, dtypes, head dims
-   16..256, head groupings and lengths up to 2048, K3 fused gated FFN
+   128-column split boundary, windows crossing one, full tables, mb 1)
+   and at the dense families' shapes (hd 96, hd 256 at groups 1 and 2
+   with and without a window of 1024, group 7), each repeating bit for
+   bit, K2 flash attention (bf16 on the tensor cores, f32 on the CUDA
+   cores) over its masks, dtypes, head dims 16..256 (96 among them, also
+   at a ragged S of 1000), head groupings and lengths up to 2048, K3
+   fused gated FFN
    (bf16 small_m and tiles up to D 512, split_f and two_pass above; f32)
    over both activations, dtypes, ragged and large M, ragged F and
    widths up to 2048 (the large-D shapes are timed in 9.0, 11.0 and
@@ -129,9 +132,10 @@ Phases (any failure exits non-zero):
    configs' f32 shapes of 8b, K3 at llama4's shared expert, each against
    its plain version and repeating bit for bit; K1 and K2 at hd 128
    timed beside their bounds and SDPA.  8a, bf16: full-width olmoe-1b-7b
-   (6.8 B parameters, 64 experts top-8; weights from seed 0, the init
-   timed) served paged int8 (8 slots, max_seq 1024, block 16) in two
-   waves of 16 requests of 8-250 tokens x 64 new tokens: budgets, K1 16
+   (6.8 B parameters, 64 experts top-8; bf16 weights drawn on the card
+   from seed 0, the init timed) served paged int8 (8 slots, max_seq
+   1024, block 16) in two waves of 16 requests of 8-250 tokens x 64 new
+   tokens: budgets, K1 16
    per decode step and K2 16 per prefill call exactly, no K3 (no dense
    FFN), no new program on the second wave, TTFT per bucket; the MoE
    prefill block, the dense-dispatch decode block and a whole decode step
@@ -231,11 +235,35 @@ Phases (any failure exits non-zero):
    bit for bit, graph == eager on clones.  12c: card == CPU in f32 at
    every published width, depth 2 (1.37 B parameters drawn once on the
    host): prefill with patch embeddings and 16 greedy decode steps.
+13. dense families — gemma3-12b, phi3-mini, gemma-7b, yi-34b and
+   qwen1.5-32b at full width, nothing cut.  13.0: K1 at each one's paged
+   decode (int8 pool; hd 256 at groups 2 and 1, gemma3's local layers
+   under its window of 1024; hd 96 at group 1; hd 128 at group 7 and 1),
+   K2 at its prefill burst (hd 256 windowed and causal at 8 x 2048, hd
+   96, hd 128 at group 7 and MHA 40) and K3 at its FFN (five (D, F) pairs
+   at M 8 on split_f and at the prefill burst on two_pass), each against
+   its plain version and repeating bit for bit, timed beside its bound,
+   its plain version and SDPA or the unfused cuBLAS chain.  13a..13e:
+   each config's bf16 weights drawn on the card (its parameter count
+   asserted) and served paged int8 (8 slots; max_seq 2048 for gemma3-12b
+   with prompts of 8..1800 tokens, 1024 for phi3-mini, gemma-7b and
+   yi-34b with prompts of 8..500, and for qwen1.5-32b the largest that
+   the card's free memory holds beside its 68.8 GB of weights, prompts
+   of 8..120), two waves of 12 requests x 32 new tokens: budgets,
+   K1/K2/K3 ``num_layers`` a step or call,
+   no new program on wave 2, one capture, a step repeating bit for bit,
+   graph == eager on clones; the eager step's device split (K3, K1,
+   weight products, the rest) beside its byte bound, the graph step's
+   host and device ms and idle share, TTFT by bucket and tok/s, peak
+   memory.  13f: card == CPU in f32 at every published width, gemma3-12b
+   at depth 6 (its first global layer, layer 5, in) and the others at
+   depth 2: prefill of 2 prompts of 64 tokens and 8 greedy decode steps.
 
-The line before the last is a JSON object listing every kernel with its
-launches on its main path and its times (K4 and K5 as their four entry
-points: act_quant, act_dequant, act_quant4, act_dequant4); the last
-line is ``{"ok": true, "device": {...}}``.
+Before the last two lines, ``{"phase_seconds": {...}}`` gives each
+phase's seconds.  The line before the last is a JSON object listing
+every kernel with its launches on its main path and its times (K4 and K5
+as their four entry points: act_quant, act_dequant, act_quant4,
+act_dequant4); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -366,42 +394,54 @@ def cuda_ms(torch, fn, iters=200, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters=50, part="", tries=3):
+def device_ms(torch, fn, iters=50, part="", tries=6):
     """Device time of one call of ``fn`` in ms: the profiler's device time
-    over ``iters`` calls of the kernels whose name holds ``part`` (all of
-    them by default), divided by ``iters``.  Unlike a CUDA-event loop it
-    leaves out the host's time to issue each call.  A profile that
-    recorded no such kernel is taken again, up to ``tries`` times; then
-    the time is ``None`` (not measured), never 0."""
+    of the kernels whose name holds ``part`` (all of them by default) over
+    ``iters`` calls in a profiler window of its own, divided by
+    ``iters``.  Unlike a CUDA-event loop it leaves out the host's time to
+    issue each call.  A window may lose kernel events at random (on the
+    H100, from one event to all of them; PERF.md §6), and a window
+    that lost some can only read low.  So a window counts only when each
+    kernel's count is a whole multiple of ``iters``, at least three
+    windows are taken while any counts (up to ``tries``), and the largest
+    time is kept; with no window that counts the time is ``None`` (not
+    measured), never 0."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    best = None
+    for i in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and part in e.key)
-        if us > 0:
-            return us / 1e3 / iters
-    return None
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and part in e.key and e.count]
+        if hits and all(e.count % iters == 0 for e in hits):
+            ms = sum(e.self_device_time_total for e in hits) / 1e3 / iters
+            best = ms if best is None else max(best, ms)
+        if best is not None and i >= 2:
+            break
+    return best
 
 
 def fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def paged_bound_ms(args, scales):
+def paged_bound_ms(args, scales, window=0):
     """Least time for one call on the H100: each input byte the call needs
-    read once (only the pool rows that hold a valid column), the output
-    written once; the f32 work of the two products over those rows.
-    Returns ``(ms, "bytes" or "operations")``."""
+    read once (only the pool rows that hold a valid column, inside the
+    window when one is set), the output written once; the f32 work of
+    the two products over those rows.  Returns ``(ms, "bytes" or
+    "operations")``."""
     q, kb, vb, tables, pos, kn, vn = args
     slots, heads, hd = q.shape
     _, bs, kvh, _ = kb.shape
-    rows = [min(int(p), tables.shape[1] * bs) for p in pos.cpu()]
+    rows = [min(int(p), tables.shape[1] * bs)
+            - (max(0, int(p) - window + 1) if window else 0)
+            for p in pos.cpu()]
     row_bytes = 2 * kvh * hd * kb.element_size() + (8 if scales else 0)
     nbytes = (sum(rows) * row_bytes
               + 2 * q.numel() * q.element_size()
@@ -421,10 +461,11 @@ def bound(nbytes, flops, peak_flops):
                                        else "operations")
 
 
-def sdpa_yardstick(torch, args, scales):
+def sdpa_yardstick(torch, args, scales, window=0):
     """One library call computing the same attention: SDPA over the
     slot's KV gathered dense beforehand (dequantized, new token appended,
-    invalid columns masked).  Only the SDPA call is timed, by CUDA events
+    invalid columns, and those before a window, masked).  Only the SDPA
+    call is timed, by CUDA events
     and by the profiler's device time; the port never calls it."""
     import torch.nn.functional as F
     q, kb, vb, tables, pos, kn, vn = args
@@ -443,7 +484,10 @@ def sdpa_yardstick(torch, args, scales):
     kd = kf.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
     vd = vf.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
     cols = torch.arange(mb * bs + 1, device=q.device)
-    valid = (cols[None] < pos[:, None]) | (cols[None] == mb * bs)
+    valid = cols[None] < pos[:, None]
+    if window:
+        valid &= cols[None] > pos[:, None] - window
+    valid |= cols[None] == mb * bs
     mask = valid[:, None, None, :]
     q4 = q[:, :, None, :]
 
@@ -525,9 +569,30 @@ def phase_paged(torch):
                     f"kvh={kvh} pool={pool_dtype}")
                 max_err = max(max_err, err)
                 n_cases += 1
+    # the dense families' decode shapes at mb 128: hd 96 (phi3-mini), hd
+    # 256 at group 1 (gemma-7b) and 2 (gemma3-12b) with and without its
+    # window of 1024, group 7 (yi-34b); positions whose window starts on
+    # and beside a split boundary
+    for heads, kvh, hd, windows, pools in DENSE_K1_SHAPES:
+        for pool_dtype in pools:
+            args, sc = make_case(
+                torch, gen, slots=8, hd=hd, bs=16, mb=128, heads=heads,
+                kvh=kvh, pool_dtype=pool_dtype, q_dtype="bfloat16",
+                pos_kind="zero")
+            args[4].copy_(torch.tensor(DENSE_POS, dtype=torch.int32))
+            for window in windows:
+                out = k1_repeated(torch, args, sc, window)
+                ref = paged_decode_attn_ref(*args, window=window, **sc)
+                torch.cuda.synchronize()
+                max_err = max(max_err, check_close(
+                    "paged_decode_attention", out, ref, TOL["bfloat16"],
+                    f"dense family H={heads} kvh={kvh} hd={hd} "
+                    f"window={window} pool={pool_dtype}"))
+                n_cases += 1
+            del args, sc, out, ref
     log(f"paged_decode_attention == plain version on {n_cases} cases "
-        f"(mb 1, 32 and 128, split edges), each repeating bit for bit; "
-        f"max_abs_err {max_err:.3g}")
+        f"(mb 1, 32 and 128, split edges, hd 32/96/128/256, groups 1, 2, "
+        f"4 and 7), each repeating bit for bit; max_abs_err {max_err:.3g}")
 
     def timed(args, sc, what):
         """CUDA-event and device time of K1 beside its plain version, its
@@ -583,6 +648,20 @@ K1_EDGES = [
 ]
 
 
+# (heads, kv heads, hd, windows, pools): the dense families' decode
+# shapes held in phase 2
+DENSE_K1_SHAPES = [
+    (32, 32, 96, (0,), ("int8", "bfloat16")),       # phi3-mini
+    (16, 16, 256, (0, 1024), ("int8",)),            # gemma-7b
+    (16, 8, 256, (0, 1024), ("int8",)),             # gemma3-12b
+    (56, 8, 128, (0,), ("int8", "bfloat16")),       # yi-34b: group 7
+]
+# 8 decode positions at mb 128: under a window of 1024 the window's first
+# column falls on split boundary 128 (pos 1151), one before (1150) and
+# after (1152) it, and on 256 (1279); 129 crosses a boundary uncut
+DENSE_POS = [1, 129, 1023, 1150, 1151, 1152, 1279, 2048]
+
+
 def k1_repeated(torch, args, sc, window):
     """K1 twice on the same inputs: the two outputs must be bit for bit
     equal (the splits merge in a fixed order, no atomics on values)."""
@@ -634,13 +713,18 @@ def max_sm_clock_hz():
     return float(out.splitlines()[0]) * 1e6
 
 
+FLASH_HDS = (16, 32, 64, 96, 128, 256)
+
+
 def phase_flash(torch):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import attention_route, flash_attention
     gen = torch.Generator().manual_seed(4321)
     max_err = 0.0
     n_cases = 0
-    for s in (16, 1024, 2048):
+    # hd 96 (phi3-mini) also at a ragged S of 1000
+    for s, hds in ((16, FLASH_HDS), (1024, FLASH_HDS), (2048, FLASH_HDS),
+                   (1000, (96,))):
         b = 2 if s == 16 else 1
         masks = [dict(causal=True), dict(causal=True, window=1),
                  dict(causal=True, window=64),
@@ -650,7 +734,7 @@ def phase_flash(torch):
                  dict(causal=False)]
         for mask in masks:
             for dtype in ("bfloat16", "float32"):
-                for hd in (16, 32, 64, 128, 256):
+                for hd in hds:
                     for h, kvh in ((8, 8), (8, 2)):
                         q, k, v = flash_case(torch, gen, b, h, kvh, s, hd,
                                              dtype)
@@ -671,8 +755,9 @@ def phase_flash(torch):
                         max_err = max(max_err, err)
                         n_cases += 1
     log(f"flash_attention == plain version on {n_cases} cases (bf16 on the "
-        f"tensor cores, f32 on the CUDA cores, hd 16..256), each repeating "
-        f"bit for bit, max_abs_err {max_err:.3g}")
+        f"tensor cores, f32 on the CUDA cores, hd {FLASH_HDS}, S 16, 1000 "
+        f"(hd 96), 1024, 2048), each repeating bit for bit, max_abs_err "
+        f"{max_err:.3g}")
 
     # timing at the long wave's prefill bursts: 8 prompts x 8 heads x hd
     # 32, bf16, causal (the engine passes no kv_len)
@@ -3169,7 +3254,7 @@ def phase_experts(torch, smi):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    from repro_torch.models.layers import cast_params, tree_leaves
+    from repro_torch.models.layers import tree_leaves
     from repro_torch.models.runtime import RuntimeOptions
     from repro_torch.serving import CompileCache, ServingEngine
     t_phase = time.perf_counter()
@@ -3181,17 +3266,15 @@ def phase_experts(torch, smi):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    # drawn in f32 (the config's param dtype), cast once on the card to
-    # the bf16 the engines serve (the router stays f32), so that every
-    # engine below shares one 13.6 GB copy
-    params = cast_params(init_params(cfg, seed=0, device="cuda"),
-                         torch.bfloat16)
+    # drawn in the bf16 the engines serve straight on the card (the router
+    # in f32, as cast_params leaves it), so that every engine below shares
+    # one 13.6 GB copy; the host's f32 draw took ~50 s
+    params = card_params(torch, cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"olmoe-1b-7b: {n_params / 1e9:.3f} B parameters drawn from seed 0 "
-        f"on the host, moved to the card and cast to bf16 in {init_s:.1f} "
-        "s")
+    log(f"olmoe-1b-7b: {n_params / 1e9:.3f} B parameters drawn in bf16 on "
+        f"the card from seed 0 in {init_s:.1f} s")
     opts = RuntimeOptions(paged_kernel=True, kv_dtype="int8")
     cache = CompileCache()
 
@@ -3706,6 +3789,53 @@ def _time_kernel(torch, fn, plain, library, part, nbytes, flops, iters=50,
     return t
 
 
+def k1_times(torch, args, sc, window=0):
+    """The timing fields of one K1 problem: CUDA-event and device ms, its
+    plain version's ms, SDPA's over the K/V gathered beforehand, and its
+    bound."""
+    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
+    from repro_torch.kernels.ref import paged_decode_attn_ref
+
+    def k1():
+        return paged_decode_attention(*args, window=window, **sc)
+
+    t = dict(ms=cuda_ms(torch, k1),
+             device_ms=device_ms(torch, k1, part="paged_decode"),
+             plain_ms=cuda_ms(torch, lambda: paged_decode_attn_ref(
+                 *args, window=window, **sc), iters=20))
+    t["library_ms"], t["library_device_ms"] = sdpa_yardstick(torch, args, sc,
+                                                             window)
+    t["bound_ms"], t["bound_by"] = paged_bound_ms(args, sc, window)
+    return t
+
+
+def k3_times(torch, x, wg, wu, wd, activation):
+    """The timing fields of one K3 problem on its bf16 route: CUDA-event
+    and device ms, its plain version's ms, the unfused cuBLAS chain's, its
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_ffn
+    from repro_torch.kernels.fused_ffn import ffn_plan
+    from repro_torch.kernels.ref import fused_ffn_ref
+    act = (F.silu if activation == "silu"
+           else lambda t: F.gelu(t, approximate="tanh"))
+    (m, d), f = x.shape, wg.shape[1]
+
+    def chain():
+        return (act(x @ wg) * (x @ wu)) @ wd
+
+    iters = 100 if m == 8 else 10
+    t = _time_kernel(
+        torch, lambda: fused_ffn(x, wg, wu, wd, activation),
+        lambda: fused_ffn_ref(x, wg, wu, wd, activation), None, "fused_ffn",
+        (2 * x.numel() + 3 * wg.numel()) * 2, 6 * m * d * f, iters=iters,
+        plain_iters=3)
+    t.update(route=ffn_plan(x.dtype, m, d, f).route,
+             chain_ms=cuda_ms(torch, chain, iters=iters),
+             chain_device_ms=device_ms(torch, chain, iters=10))
+    return t
+
+
 def encdec_kernels_alone(torch):
     """10.0: K2 at whisper-small's encoder self-attention (8 x 1500
     frames, 12 heads of 64, non-causal) and its cross-attention (8 x 16
@@ -3716,7 +3846,6 @@ def encdec_kernels_alone(torch):
     fields for the kernels line, by kernel name."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
     from repro_torch.kernels.ref import paged_decode_attn_ref
     gen = torch.Generator().manual_seed(2300)
     times = {}
@@ -3768,16 +3897,7 @@ def encdec_kernels_alone(torch):
             "paged_decode_attention", k1_repeated(torch, args, sc, 0),
             paged_decode_attn_ref(*args, **sc), TOL["bfloat16"],
             f"whisper decode, pos {pos_kind}"))
-    k1 = dict(ms=cuda_ms(torch, lambda: paged_decode_attention(*args, **sc)),
-              device_ms=device_ms(torch, lambda: paged_decode_attention(
-                  *args, **sc), part="paged_decode"),
-              plain_ms=cuda_ms(torch, lambda: paged_decode_attn_ref(
-                  *args, **sc), iters=20),
-              max_abs_err=err)
-    k1["library_ms"], k1["library_device_ms"] = sdpa_yardstick(torch, args,
-                                                               sc)
-    k1["bound_ms"], k1["bound_by"] = paged_bound_ms(args, sc)
-    times["k1"] = k1
+    times["k1"] = dict(k1_times(torch, args, sc), max_abs_err=err)
     labels = {"encoder": "K2, whisper encoder (8 x 1500, 12 heads of 64, "
                          "non-causal)",
               "cross16": "K2, whisper cross-attention (8 x 16 over 1500)",
@@ -4905,7 +5025,6 @@ def vlm_kernels_alone(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, fused_ffn
     from repro_torch.kernels.fused_ffn import ffn_plan
-    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
     from repro_torch.kernels.ref import fused_ffn_ref, paged_decode_attn_ref
     gen = torch.Generator().manual_seed(2600)
     times = {}
@@ -4919,16 +5038,7 @@ def vlm_kernels_alone(torch):
             "paged_decode_attention", k1_repeated(torch, args, sc, 0),
             paged_decode_attn_ref(*args, **sc), TOL["bfloat16"],
             f"internvl2 decode, group 6, pos {pos_kind}"))
-    k1 = dict(ms=cuda_ms(torch, lambda: paged_decode_attention(*args, **sc)),
-              device_ms=device_ms(torch, lambda: paged_decode_attention(
-                  *args, **sc), part="paged_decode"),
-              plain_ms=cuda_ms(torch, lambda: paged_decode_attn_ref(
-                  *args, **sc), iters=20),
-              max_abs_err=err)
-    k1["library_ms"], k1["library_device_ms"] = sdpa_yardstick(torch, args,
-                                                               sc)
-    k1["bound_ms"], k1["bound_by"] = paged_bound_ms(args, sc)
-    times["k1"] = k1
+    times["k1"] = dict(k1_times(torch, args, sc), max_abs_err=err)
     del args, sc
     # K2 at the prefill bucket: 8 x 512, 48 heads over 8 KV heads
     q, k, v = flash_case(torch, gen, 8, 48, 8, VLM_BUCKET, 128, "bfloat16")
@@ -4959,20 +5069,8 @@ def vlm_kernels_alone(torch):
         if not torch.equal(out, fused_ffn(x, wg, wu, wd)):
             raise AssertionError(f"fused_ffn does not repeat at M {m}, "
                                  "D 6144")
-
-        def chain():
-            return (F.silu(x @ wg) * (x @ wu)) @ wd
-
-        iters = 100 if m == 8 else 10
-        t = _time_kernel(
-            torch, lambda: fused_ffn(x, wg, wu, wd),
-            lambda: fused_ffn_ref(x, wg, wu, wd), None, "fused_ffn",
-            (2 * x.numel() + 3 * wg.numel()) * 2, 6 * m * 6144 * 16384,
-            iters=iters, plain_iters=3)
-        t.update(route=route, max_abs_err=err,
-                 chain_ms=cuda_ms(torch, chain, iters=iters),
-                 chain_device_ms=device_ms(torch, chain, iters=10))
-        times[f"ffn{m}"] = t
+        times[f"ffn{m}"] = dict(k3_times(torch, x, wg, wu, wd, "silu"),
+                                max_abs_err=err)
         del x, wg, wu, wd, out
     log_times(times, {
         "k1": "K1, internvl2-26b paged decode (8 slots x 48 heads of 128 "
@@ -4999,19 +5097,22 @@ def vlm_kernels_alone(torch):
     return extra
 
 
-def vlm_params(torch, cfg):
-    """internvl2-26b's weight tree drawn straight into bf16 on the card,
-    leaf by leaf in ``init_params``'s order, from a CUDA generator seeded
-    0: the f32 tree (77 GB) would not fit the card beside its cast."""
+def card_params(torch, cfg, dtype=None):
+    """``cfg``'s weight tree drawn straight onto the card, leaf by leaf in
+    ``init_params``'s order, from a CUDA generator seeded 0, in ``dtype``
+    (bf16 by default): the host's f32 draw of a full-width tree (77 GB
+    for internvl2-26b, 136 GB for qwen1.5-32b) would not fit the card
+    beside its cast, and takes minutes on the host."""
     from repro_torch.models.transformer import param_tree
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def normal(shape, std, dt=torch.bfloat16):
+    def normal(shape, std, dt=dtype):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=dt).mul_(std)
 
     def zeros(shape):
-        return torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+        return torch.zeros(shape, dtype=dtype, device="cuda")
 
     return param_tree(cfg, normal, zeros)
 
@@ -5118,14 +5219,50 @@ def vlm_prefill_decode(torch, smi, params, cfg):
     return {k: c for k, c in counts.items() if c}
 
 
-def vlm_served(torch, smi, params, cfg):
-    """12b: internvl2-26b served as the JAX engine serves it (text only:
-    the engine passes no patch embeddings): paged, ``paged_kernel=True``,
-    ``kv_dtype="int8"``, 8 slots, max_seq 1024, block 16, two waves of 12
-    requests of 8-500 tokens x 64 new tokens.  Exact K1 (48 a step), K2
-    (48 a prefill call) and K3 (48 a call and a step) launches, replays
-    included; no new program on the second wave; the step captured once;
-    a whole step repeats bit for bit; graph == eager on clones.  Returns
+def paged_split(torch, step, reps=8):
+    """Device time of an eager paged decode step split into K3 (the
+    ``fused_ffn`` kernels), K1 (``paged_decode``), the weight products
+    (top-level ``aten::matmul``/``aten::mm``: the attention projections
+    and the tied LM head) and the rest, from one profile.  Returns
+    ``(busy, k3, k1, matmuls)`` in ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    matmuls = sum(ev.device_time_total for ev in prof.events()
+                  if ev.cpu_parent is None
+                  and ev.name in ("aten::matmul", "aten::mm")) / 1e3 / reps
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ms(part):
+        return sum(ev.self_device_time_total for ev in kernels
+                   if part in ev.key) / 1e3 / reps
+
+    busy, k3, k1 = ms(""), ms("fused_ffn"), ms("paged_decode")
+    if min(k3, k1, matmuls) <= 0:
+        raise RuntimeError(f"the paged step's split found K3 {k3}, K1 {k1}, "
+                           f"products {matmuls} ms")
+    return busy, k3, k1, matmuls
+
+
+def served_paged(torch, smi, params, cfg, *, what, max_seq, lo, hi, seed,
+                 rid, n=12, new_tokens=64, pool_blocks=None, steps=16):
+    """``cfg`` served as the JAX engine serves it: paged,
+    ``paged_kernel=True``, ``kv_dtype="int8"``, 8 slots, block 16, two
+    waves of ``n`` requests of ``lo``..``hi`` tokens x ``new_tokens`` new
+    tokens, through a pool of ``pool_blocks`` blocks (the engine's default,
+    8 slots' tables, when None).  Exact K1 (``num_layers`` a step), K2 (a
+    prefill call) and K3
+    (a call and a step) launches, replays included; no new program on the
+    second wave; the step captured once; a whole step repeating bit for
+    bit, whose eager device time is split (:func:`paged_split`) beside
+    its byte bound (:func:`step_bytes` at 8 busy slots); graph == eager
+    on clones, timed and profiled over ``steps`` steps each.  Returns
     ``{kernel name: launches}``."""
     from repro_torch.models.runtime import RuntimeOptions
     from repro_torch.serving import CompileCache, ServingEngine
@@ -5133,31 +5270,31 @@ def vlm_served(torch, smi, params, cfg):
     cache = CompileCache()
 
     def engine():
-        return ServingEngine(cfg, params, slots=8, max_seq=1024,
+        return ServingEngine(cfg, params, slots=8, max_seq=max_seq,
                              block_size=16, opts=opts, decode_mode="paged",
-                             compile_cache=cache, device="cuda")
+                             compile_cache=cache, device="cuda",
+                             pool_blocks=pool_blocks)
 
     eng = engine()
     zero_counts()
     waves = []
     for wave in range(2):
         waves.append(serve_wave(torch, eng, _tight_prompts(
-            120 + wave, cfg.vocab_size, n=12, lo=8, hi=500),
-            26000 + 100 * wave, 64))
+            seed + wave, cfg.vocab_size, n=n, lo=lo, hi=hi),
+            rid + 100 * wave, new_tokens))
         if wave == 0:
             warm = eng.stats.recompiles
-    counts = check_counts([eng], "internvl2-26b paged int8, two waves")
+    counts = check_counts([eng], f"{what} paged int8, two waves")
     if set(counts) != {"paged_decode_attention", "flash_attention",
                        "fused_ffn"}:
-        raise AssertionError(f"internvl2 launched {sorted(counts)}")
+        raise AssertionError(f"{what} launched {sorted(counts)}")
     if eng.stats.recompiles != warm:
-        raise AssertionError(f"the second internvl2 wave built "
+        raise AssertionError(f"the second {what} wave built "
                              f"{eng.stats.recompiles - warm} new programs")
     if captures(eng) != 1:
-        raise AssertionError("the internvl2 paged step was not captured "
-                             "once")
+        raise AssertionError(f"the {what} paged step was not captured once")
     for wave, (tps, ms, reqs) in enumerate(waves):
-        log(f"internvl2-26b paged int8 on {smi}, wave {wave + 1}: "
+        log(f"{what} paged int8 on {smi}, wave {wave + 1}: "
             f"{tps:.1f} tok/s, {ms:.3f} ms/decode step; TTFT by bucket "
             + "; ".join(f"{b}: mean {mean:.1f} ms, max {mx:.1f} ms over {n}"
                         for b, (mean, mx, n) in ttft_by_bucket(
@@ -5166,46 +5303,78 @@ def vlm_served(torch, smi, params, cfg):
         f"{eng.stats.prefill_calls}, programs built {warm}, graph captures "
         f"{captures(eng)}")
     del eng
-    step_repeats(torch, engine(), "internvl2-26b paged int8")
-    graph_vs_eager(torch, engine(), "internvl2-26b paged int8 step", smi)
+    busy_eng = engine()
+    step = step_repeats(torch, busy_eng, f"{what} paged int8")
+    weights, kv = step_bytes(params, busy_eng)
+    busy, k3, k1, mm = paged_split(torch, step, reps=max(4, steps // 2))
+    del busy_eng, step
+    torch.cuda.empty_cache()
+    graph_ms, _, g_busy, _ = graph_vs_eager(
+        torch, engine(), f"{what} paged int8 step", smi, steps=steps)
+    bound_ms = 1e3 * (weights + kv) / H100_BYTES_PER_S
+    log(f"{what} decode step on {smi}: eager device {busy:.3f} ms = K3 "
+        f"{k3:.3f} + K1 {k1:.3f} + weight products {mm:.3f} + the rest "
+        f"{busy - k3 - k1 - mm:.3f}; graph-replayed {graph_ms:.3f} ms host "
+        f"(device {g_busy:.3f} ms, idle share {1 - g_busy / graph_ms:.3f}); "
+        f"byte bound {bound_ms:.3f} ms ({weights / 1e9:.2f} GB of weights, "
+        f"{kv / 1e6:.1f} MB of KV at 8 busy slots, at "
+        f"{H100_BYTES_PER_S / 1e12:.2f} TB/s): the graph step's device time "
+        f"at {bound_ms / g_busy:.3f} of the bound")
     return counts
 
 
 def vlm_card_vs_cpu(torch):
-    """12c: card == CPU in f32 at every published width, depth cut to 2
-    layers (1.37 B parameters, 5.5 GB a side, drawn once on the CPU and
-    copied to the card): the model-level prefill of 2 prompts of 256
-    patch embeddings and 16 text tokens, then 16 greedy decode steps.
-    The greedy streams must be equal and the last prefill logits within
-    ``LOGITS_TOL``; K2 2 a prefill call and K3 2 a call and a step, on
-    their f32 routes.  Returns ``{kernel name: launches}``."""
-    import numpy as np
+    """12c: card == CPU in f32 at every published width of internvl2-26b,
+    depth cut to 2 layers (1.37 B parameters, 5.5 GB a side, drawn once
+    on the CPU and copied to the card): :func:`depth_card_vs_cpu` over 2
+    prompts of 256 patch embeddings and 16 text tokens, 16 greedy decode
+    steps."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+    cfg = get_config("internvl2-26b").with_updates(
+        num_layers=2, param_dtype="float32", activation_dtype="float32")
+    t0 = time.perf_counter()
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    card = tree_to(cpu_params, "cuda")
+    return depth_card_vs_cpu(
+        torch, cfg, cpu_params, card, text_len=16, steps=16, seed=121,
+        what="internvl2-26b, 2 layers at full width, f32, patch embeddings",
+        drawn=f"drawn on the host and copied to the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def depth_card_vs_cpu(torch, cfg, cpu_params, card_tree, *, text_len,
+                      steps, seed, what, drawn, b=2):
+    """Card == CPU in f32 at ``cfg``'s published widths and cut depth:
+    the model-level prefill of ``b`` prompts of ``text_len`` tokens (after
+    the stub patch embeddings of a VLM), then ``steps`` greedy decode
+    steps over the dense cache.  The greedy streams must be equal and the
+    last prefill logits within ``LOGITS_TOL``; K2 ``num_layers`` a
+    prefill call and K3 ``num_layers`` a call and a step, on their f32
+    routes.  ``card_tree`` (the same weights on the card) is emptied
+    before the CPU side runs.  Returns
+    ``{kernel name: launches}``."""
+    import numpy as np
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import decode_step, init_cache, prefill
     from repro_torch.models.runtime import RuntimeOptions
-    cfg = get_config("internvl2-26b").with_updates(
-        num_layers=2, param_dtype="float32", activation_dtype="float32")
     f32 = RuntimeOptions(kv_cache_dtype="float32")
-    b, steps = 2, 16
-    s = cfg.num_vision_tokens + 16
-    rng = np.random.default_rng(121)
+    n = cfg.num_layers
+    s = cfg.num_vision_tokens + text_len
+    rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
         np.int32))
-    vis = torch.from_numpy((rng.standard_normal(
-        (b, cfg.num_vision_tokens, cfg.vision_embed_dim)) * 0.1).astype(
-            np.float32))
-    t0 = time.perf_counter()
-    cpu_params = init_params(cfg, seed=0, device="cpu")
-    card_params = tree_to(cpu_params, "cuda")
+    stub = {}
+    if cfg.vision_embed_dim:
+        stub["vision_embeds"] = torch.from_numpy((rng.standard_normal(
+            (b, cfg.num_vision_tokens, cfg.vision_embed_dim)) * 0.1).astype(
+                np.float32))
     n_params = sum(t.numel() for t in tree_leaves(cpu_params))
-    init_s = time.perf_counter() - t0
 
     def streams(params, device):
         cache = init_cache(cfg, b, s + steps, f32, device=device)
         logits, cache = prefill(params, cfg, toks.to(device), cache, f32,
-                                vision_embeds=vis.to(device))
+                                **{k: v.to(device) for k, v in stub.items()})
         tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1).to(
             torch.int32)
         out = [tok]
@@ -5216,28 +5385,25 @@ def vlm_card_vs_cpu(torch):
         return torch.stack(out, 1).cpu(), logits[:, -1].float().cpu()
 
     zero_counts()
-    card, card_lg = streams(card_params, "cuda")
+    card, card_lg = streams(card_tree, "cuda")
     counts = {name: fn.launches for name, fn in _kernel_fns().items()}
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention=2, fused_ffn=2 * (1 + steps))
+    want.update(flash_attention=n, fused_ffn=n * (1 + steps))
     if counts != want:
-        raise AssertionError(f"internvl2 2 layers f32: launches {counts}, "
-                             f"expected {want}")
-    del card_params
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    card_tree.clear()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     cpu, cpu_lg = streams(cpu_params, "cpu")
     cpu_s = time.perf_counter() - t1
-    what = "internvl2-26b, 2 layers at full width, f32, patch embeddings"
     err = check_close("prefill logits", card_lg, cpu_lg, LOGITS_TOL, what)
     if not torch.equal(card, cpu):
         raise AssertionError(f"{what}: card and CPU greedy streams differ:"
                              f"\ncuda {card.tolist()}\ncpu  {cpu.tolist()}")
-    log(f"{what} ({n_params / 1e9:.3f} B parameters drawn on the host and "
-        f"copied to the card in {init_s:.1f} s): card == CPU greedy streams "
-        f"{tuple(card.shape)}, last prefill logits max_abs_err {err:.3g} "
-        f"(atol {LOGITS_TOL['atol']}, rtol {LOGITS_TOL['rtol']}); the CPU "
-        f"side took {cpu_s:.1f} s; launches "
+    log(f"{what} ({n_params / 1e9:.3f} B parameters {drawn}): card == CPU "
+        f"greedy streams {tuple(card.shape)}, last prefill logits "
+        f"max_abs_err {err:.3g} (atol {LOGITS_TOL['atol']}, rtol "
+        f"{LOGITS_TOL['rtol']}); the CPU side took {cpu_s:.1f} s; launches "
         f"{ {k: c for k, c in counts.items() if c} }")
     return {k: c for k, c in counts.items() if c}
 
@@ -5269,7 +5435,7 @@ def phase_vlm(torch, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = vlm_params(torch, cfg)
+    params = card_params(torch, cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -5282,7 +5448,8 @@ def phase_vlm(torch, smi):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     add(vlm_prefill_decode(torch, smi, params, cfg))
     torch.cuda.empty_cache()
-    add(vlm_served(torch, smi, params, cfg))
+    add(served_paged(torch, smi, params, cfg, what="internvl2-26b",
+                     max_seq=1024, lo=8, hi=500, seed=120, rid=26000))
     log(f"  phase 12 max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del params
@@ -5292,26 +5459,286 @@ def phase_vlm(torch, smi):
     return totals, extra
 
 
+# ---------------------------------------------------------------- phase 13
+# 13a..13e in this order: (config, max_seq asked, least max_seq taken,
+# prompt lengths lo..hi, prompt seed).  gemma3-12b's prompts reach bucket
+# 2048, so its local layers' window of 1024 masks real columns in K2 and
+# K1; qwen1.5-32b's stay in bucket 128, since a burst of 8 prompts of
+# bucket 256 (~13 GB of K/V and int8 temporaries) does not fit beside its
+# 68.8 GB of weights.  max_seq 512 is the least that holds step_repeats'
+# 8 requests of 24..136 tokens (a bucket of max_seq admits none)
+DENSE_FAMILIES = (
+    ("gemma3-12b", 2048, 2048, 8, 1800, 130),
+    ("phi3-mini", 1024, 1024, 8, 500, 132),
+    ("gemma-7b", 1024, 1024, 8, 500, 134),
+    ("yi-34b", 1024, 1024, 8, 500, 136),
+    ("qwen1.5-32b", 1024, 512, 8, 120, 138),
+)
+# parameter counts of the full-width trees, billions
+DENSE_PARAMS_B = {"gemma3-12b": 11.77, "phi3-mini": 3.72, "gemma-7b": 8.54,
+                  "yi-34b": 33.93, "qwen1.5-32b": 34.42}
+# 13f's depths: gemma3-12b's layer 5 is its first global layer
+DENSE_DEPTHS = {"gemma3-12b": 6, "phi3-mini": 2, "gemma-7b": 2, "yi-34b": 2,
+                "qwen1.5-32b": 2}
+
+
+def prompt_bucket(n):
+    """The engine's prompt bucket of an ``n``-token prompt (uncapped)."""
+    b = 16
+    while b < n:
+        b *= 2
+    return b
+
+
+def fit_max_seq(torch, cfg, want, least, lens):
+    """The largest max_seq from ``want`` down to ``least`` (halving) whose
+    paged int8 pool fits the card's free memory beside what serving it
+    needs at once.  The pool holds 8 slots' tables and room for one wave
+    of prompts of ``lens`` tokens whose blocks the prefix cache keeps, so
+    that the second wave admits its bursts as the first did.  Needed at
+    once: three pools (the engine's and the two clones of
+    :func:`step_repeats`), or one pool beside the largest prefill burst
+    (8 prompts of the longest prompt's bucket: ~5x their bf16 K/V, the
+    stacked, padded and block-ordered copies and the f32 temporaries of
+    the int8 quantization, and two copies of their bf16 logits), with 2
+    GiB kept free.  Raises when ``least`` does not fit; logs the choice.
+    Returns ``(max_seq, pool blocks)``."""
+    free = torch.cuda.mem_get_info()[0]
+    n, kvh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    token = 2 * n * (kvh * hd + 4)          # int8 K and V, f32 row scales
+    max_seq = want
+    while max_seq >= least:
+        bucket = min(prompt_bucket(max(lens)), max_seq)
+        blocks = 8 * max_seq // 16 + 1 + sum(
+            min(prompt_bucket(m), max_seq) // 16 for m in lens)
+        pool = 16 * blocks * token
+        burst = 5 * 2 * n * 8 * bucket * kvh * hd * 2 \
+            + 2 * 8 * bucket * cfg.padded_vocab * 2
+        need = max(3 * pool, pool + burst) + 2 * 2 ** 30
+        if need <= free:
+            log(f"{cfg.name}: max_seq {max_seq} (asked {want}): a pool of "
+                f"{blocks} blocks, {pool / 1e9:.2f} GB ({token} B a token), "
+                f"the bucket-{bucket} burst ~{burst / 1e9:.2f} GB, need "
+                f"{need / 1e9:.2f} GB of the {free / 1e9:.2f} GB free")
+            return max_seq, blocks
+        max_seq //= 2
+    raise RuntimeError(f"{cfg.name}: no max_seq >= {least} fits the "
+                       f"{free / 1e9:.2f} GB free")
+
+
+def dense_kernels_alone(torch, shapes):
+    """13.0: K1, K2 and K3 at each dense family's served shapes, each held
+    against its plain version and repeating bit for bit, then timed by
+    CUDA events and by the profiler's device time (a window of its own
+    for each measured call) beside its bound, its plain version and SDPA
+    (K1, K2) or the unfused cuBLAS chain (K3).  ``shapes``: ``(cfg,
+    max_seq, bucket)`` each.  K1: 8 slots over the config's heads, an int8
+    pool of mb ``max_seq / 16``, ragged positions, under gemma3-12b's
+    window on its local layers; K2: 8 prompts of ``bucket`` tokens,
+    causal, and windowed for the local layers; K3: M 8 (a decode step) and
+    M 8 x ``bucket`` (a prefill burst).  Returns the timing fields for
+    the kernels line, by kernel name."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.kernels.ref import fused_ffn_ref, paged_decode_attn_ref
+    gen = torch.Generator().manual_seed(2613)
+    extra = {"paged_decode_attention": {}, "flash_attention": {},
+             "fused_ffn": {}}
+    times, labels, names = {}, {}, {}
+    for cfg, max_seq, bucket in shapes:
+        tag = cfg.name.replace("-", "_").replace(".", "_")
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        heads = f"{h}/{kvh} heads of {hd}"
+        windows = (0, cfg.sliding_window) if cfg.local_global_ratio else (0,)
+        # K1 at the decode step
+        args, sc = make_case(torch, gen, slots=8, heads=h, kvh=kvh, hd=hd,
+                             bs=16, mb=max_seq // 16, pool_dtype="int8",
+                             q_dtype="bfloat16", pos_kind="ragged")
+        args[4].copy_(torch.randint(max_seq // 2, max_seq + 1, (8,),
+                                    generator=gen, dtype=torch.int32))
+        for w in windows:
+            out = k1_repeated(torch, args, sc, w)
+            err = check_close("paged_decode_attention", out,
+                              paged_decode_attn_ref(*args, window=w, **sc),
+                              TOL["bfloat16"], f"{cfg.name} decode, window "
+                              f"{w}")
+            key = f"k1_{tag}" + ("_local" if w else "")
+            times[key] = dict(k1_times(torch, args, sc, w), max_abs_err=err)
+            names[key] = "paged_decode_attention"
+            labels[key] = (f"K1, {cfg.name} decode (8 slots x {heads}, "
+                           f"int8, mb {max_seq // 16}, positions "
+                           f"{max_seq // 2}..{max_seq}"
+                           + (f", window {w})" if w else ")"))
+        del args, sc, out
+        # K2 at the prefill burst
+        q, k, v = flash_case(torch, gen, 8, h, kvh, bucket, hd, "bfloat16")
+        kr, vr = (t.repeat_interleave(h // kvh, 1) for t in (k, v))
+        for w in windows:
+            mask = dict(causal=True, window=w)
+            out = flash_attention(q, k, v, **mask)
+            err = check_close("flash_attention", out, flash_plain(q, k, v,
+                                                                  **mask),
+                              TOL["bfloat16"], f"{cfg.name} prefill 8 x "
+                              f"{bucket}, window {w}")
+            if not torch.equal(out, flash_attention(q, k, v, **mask)):
+                raise AssertionError(f"flash_attention does not repeat at "
+                                     f"{cfg.name}'s prefill")
+            if w:
+                rows = torch.arange(bucket, device=q.device)
+                keep = (rows[None] <= rows[:, None]) \
+                    & (rows[None] > rows[:, None] - w)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(q, kr, vr,
+                                                          attn_mask=keep)
+            else:
+                def sdpa():
+                    return F.scaled_dot_product_attention(q, kr, vr,
+                                                          is_causal=True)
+            pairs = flash_pairs(bucket, True, w, None) * 8 * h
+            key = f"k2_{tag}" + ("_local" if w else "")
+            t = _time_kernel(
+                torch, lambda: flash_attention(q, k, v, **mask),
+                lambda: flash_plain(q, k, v, **mask), sdpa, "flash_attn",
+                (2 * q.numel() + 2 * k.numel()) * 2, 4 * hd * pairs,
+                plain_iters=3)
+            t["max_abs_err"] = err
+            times[key], names[key] = t, "flash_attention"
+            labels[key] = (f"K2, {cfg.name} prefill (8 x {bucket}, {heads}, "
+                           + (f"window {w})" if w else "causal)"))
+        del q, k, v, kr, vr, out
+        # K3 at a decode step and at the prefill burst
+        d, f = cfg.d_model, cfg.d_ff
+        for m in (8, 8 * bucket):
+            x, wg, wu, wd = ffn_case(torch, gen, m, d, f, "bfloat16")
+            out = fused_ffn(x, wg, wu, wd, cfg.activation)
+            err = check_close("fused_ffn", out, fused_ffn_ref(
+                x, wg, wu, wd, cfg.activation), FFN_TOL["bfloat16"],
+                f"{cfg.name} M {m}, D {d}, F {f}")
+            if not torch.equal(out, fused_ffn(x, wg, wu, wd,
+                                              cfg.activation)):
+                raise AssertionError(f"fused_ffn does not repeat at "
+                                     f"{cfg.name}'s M {m}")
+            key = f"k3_{tag}_m{m}"
+            times[key] = dict(k3_times(torch, x, wg, wu, wd, cfg.activation),
+                              max_abs_err=err)
+            names[key] = "fused_ffn"
+            labels[key] = (f"K3, {cfg.name} FFN ({cfg.activation}, M {m}, "
+                           f"D {d}, F {f})")
+            del x, wg, wu, wd, out
+    log_times(times, labels)
+    log("phase 13 shapes: K1 (hd 96, 256 with and without window 1024, "
+        "group 7), K2 (hd 96, 256 windowed and causal, 128 at group 7 and "
+        "MHA 40) and K3 (five (D, F) pairs at M 8 and the prefill bursts) "
+        "== plain versions, each repeating bit for bit")
+    for key, t in times.items():
+        suffix = key[key.index("_"):]
+        extra[names[key]].update({f"{k}{suffix}": v for k, v in t.items()})
+    return extra
+
+
+def phase_dense(torch, smi):
+    """The dense families at full width on the card, nothing cut: 13.0
+    the kernels at their shapes; 13a..13e gemma3-12b, phi3-mini,
+    gemma-7b, yi-34b and qwen1.5-32b, each drawn in bf16 on the card
+    (its parameter count asserted) and served paged int8 by
+    :func:`served_paged`; 13f card == CPU in f32 at published widths,
+    gemma3-12b at depth 6 (its first global layer in) and the others at
+    depth 2.  Returns ``({kernel name: launches}, {kernel name: timing
+    fields})``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import tree_leaves
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    extra = dense_kernels_alone(torch, [
+        (get_config(name), want, prompt_bucket(hi))
+        for name, want, _, _, hi, _ in DENSE_FAMILIES])
+    totals = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    total_mem = torch.cuda.mem_get_info()[1]
+    for i, (name, want, least, lo, hi, seed) in enumerate(DENSE_FAMILIES):
+        t_cfg = time.perf_counter()
+        cfg = get_config(name)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = card_params(torch, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        if round(n_params / 1e9, 2) != DENSE_PARAMS_B[name]:
+            raise AssertionError(f"{name} has {n_params} parameters, not "
+                                 f"{DENSE_PARAMS_B[name]} B")
+        log(f"13{'abcde'[i]} {name}: {n_params / 1e9:.3f} B parameters "
+            f"({tree_bytes(params) / 1e9:.2f} GB) drawn in bf16 on the card "
+            f"from seed 0 in {init_s:.1f} s")
+        lens = [len(p) for p in _tight_prompts(seed, cfg.vocab_size, n=12,
+                                                lo=lo, hi=hi)]
+        max_seq, blocks = fit_max_seq(torch, cfg, want, least, lens)
+        add(served_paged(torch, smi, params, cfg, what=name, max_seq=max_seq,
+                         lo=lo, hi=hi, seed=seed, rid=27000 + 1000 * i,
+                         pool_blocks=blocks, new_tokens=32, steps=8))
+        log(f"  {name}: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of the card's "
+            f"{total_mem / 1e9:.2f} GB; {time.perf_counter() - t_cfg:.1f} s")
+        del params
+    torch.cuda.empty_cache()
+    for name, depth in DENSE_DEPTHS.items():
+        cfg = get_config(name).with_updates(
+            num_layers=depth, param_dtype="float32",
+            activation_dtype="float32")
+        t0 = time.perf_counter()
+        card = card_params(torch, cfg, torch.float32)
+        cpu = tree_to(card, "cpu")
+        drawn = (f"drawn in f32 on the card and copied to the host in "
+                 f"{time.perf_counter() - t0:.1f} s")
+        add(depth_card_vs_cpu(
+            torch, cfg, cpu, card, text_len=64, steps=8, seed=139,
+            what=f"13f {name}, {depth} layers at full width, f32",
+            drawn=drawn))
+        del card, cpu
+    log(f"dense phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals, extra
+
+
 def main() -> int:
     import torch
-    smi, idle_w = phase_device(torch)
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t, 1)
+        return out
+
+    smi, idle_w = timed("1 device", phase_device, torch)
     name = torch.cuda.get_device_name(0)
-    kernels = [phase_paged(torch), phase_flash(torch), phase_ffn(torch),
-               phase_ssd(torch)] + phase_act_quant(torch)
-    launches = phase_serving(torch, smi)
-    for k, n in phase_modes(torch, smi).items():
+    kernels = timed("2 kernels", lambda: [
+        phase_paged(torch), phase_flash(torch), phase_ffn(torch),
+        phase_ssd(torch)] + phase_act_quant(torch))
+    launches = timed("3 serving", phase_serving, torch, smi)
+    for k, n in timed("3 modes", phase_modes, torch, smi).items():
         launches[k] = launches.get(k, 0) + n
-    launches.update(phase_batched(torch, smi))
-    launches.update(phase_engine(torch, smi))
-    phase_card_vs_cpu(torch)
-    for k, n in phase_adapt(torch, smi, idle_w).items():
+    launches.update(timed("3 batched", phase_batched, torch, smi))
+    launches.update(timed("4 engine", phase_engine, torch, smi))
+    timed("5 card vs cpu", phase_card_vs_cpu, torch)
+    for k, n in timed("6 adapt", phase_adapt, torch, smi, idle_w).items():
         launches[k] = launches.get(k, 0) + n
-    for k, n in phase_crowd(torch, smi).items():
+    for k, n in timed("7 crowd", phase_crowd, torch, smi).items():
         launches[k] = launches.get(k, 0) + n
     extras = []
-    for phase in (phase_experts, phase_hybrid, phase_encdec,
-                  phase_trainer, phase_vlm):
-        counts, extra = phase(torch, smi)
+    for label, phase in (("8 experts", phase_experts),
+                         ("9 hybrid", phase_hybrid),
+                         ("10 encdec", phase_encdec),
+                         ("11 trainer", phase_trainer),
+                         ("12 vlm", phase_vlm), ("13 dense", phase_dense)):
+        counts, extra = timed(label, phase, torch, smi)
         extras.append(extra)
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
@@ -5319,6 +5746,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         for extra in extras:
             k.update(extra.get(k["name"], {}))
+    seconds["total"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -21,7 +21,8 @@
 // place through their strides, so the model's (B, S, H, hd) and
 // (B, S, K, hd) tensors after rotary need no transpose, and grouped KV
 // heads are read as kv head = h / (H / K) with no broadcast copy.  Any
-// S_q and S_k: the ragged last query and key tiles are masked.  Head dims 16, 32, 64, 128, 256.
+// S_q and S_k: the ragged last query and key tiles are masked.  Head
+// dims 16, 32, 64, 96 (phi3-mini), 128 and 256.
 //
 // Bound on the H100: operations at the served shapes.  A causal prefill
 // at S = 1024..2048 and hd 32 does 2 * 2 * hd flops per valid (row,
@@ -54,9 +55,15 @@
 // and the block skips the tiles outside the window.  Rows past S and keys
 // past S are zero-filled by the copies, so nothing undefined enters a
 // product.  At hd <= 64 the kernel is held to 96 registers so five
-// blocks share an SM.  What limits it at hd 32 is the issue of the
-// softmax's instructions (two per weight plus the max) and their
-// latencies: it runs at about three times the ex2 floor above.
+// blocks share an SM.  At hd 96 a row is 12 16-byte chunks, so a pass of
+// the block's 128 threads copies 10 whole rows and 8 threads idle; the
+// 208-byte smem row (104 bf16) puts the 8 rows of an ldmatrix phase at
+// word offsets 52 r mod 32 = {0, 20, 8, 28, 16, 4, 24, 12}: four banks
+// each, all distinct, so ldmatrix stays free of conflicts.  Shared
+// memory: (64 + 2 x 2 x 64) x 104 x 2 = 66,560 bytes (f32 route:
+// 90,880).  What limits it at hd 32 is the issue of the softmax's
+// instructions (two per weight plus the max) and their latencies: it
+// runs at about three times the ex2 floor above.
 //
 // f32 route (flash_attn_kernel), kept from the first version: the
 // tensor cores would compute f32 as TF32 (about three decimal digits),
@@ -256,6 +263,7 @@ cudaError_t dispatch_hd(int hd, const Args& a, int blocks,
     case 16: return launch<T, 16>(a, blocks, stream);
     case 32: return launch<T, 32>(a, blocks, stream);
     case 64: return launch<T, 64>(a, blocks, stream);
+    case 96: return launch<T, 96>(a, blocks, stream);
     case 128: return launch<T, 128>(a, blocks, stream);
     case 256: return launch<T, 256>(a, blocks, stream);
     default: return cudaErrorInvalidValue;
@@ -395,9 +403,14 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
                qb + (long long)(ok ? row : 0) * a.q_ss + c * 8, ok);
   }
   // each thread copies the same 16-byte column chunk of rows r0, r0 +
-  // kRowStep, ... of every K and V tile
+  // kRowStep, ... of every K and V tile.  When kChunks does not divide
+  // the block (hd 96: 12 chunks, 10 rows a pass) the threads past the
+  // last whole row idle, and a pass may end past the tile's last row.
   constexpr int kRowStep = C::kThreads / C::kChunks;
-  const int r0 = tid / C::kChunks, c8 = (tid % C::kChunks) * 8;
+  constexpr bool kRagged = kBK % kRowStep != 0 ||
+                           kRowStep * C::kChunks != C::kThreads;
+  const int r0 = tid < kRowStep * C::kChunks ? tid / C::kChunks : kBK;
+  const int c8 = (tid % C::kChunks) * 8;
   const bf16* kp = kb + (long long)r0 * a.k_ss + c8;
   const bf16* vp = vb + (long long)r0 * a.v_ss + c8;
   auto load_kv = [&](int tile) {
@@ -407,7 +420,7 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
     const int c0 = tile * kBK;
 #pragma unroll
     for (int r = 0; r < kBK; r += kRowStep) {
-      if (kRowStep > kBK && r0 >= kBK) break;       // more threads than rows
+      if (kRagged && r0 + r >= kBK) break;
       const bool ok = c0 + r0 + r < Sk;
       const long long off = ok ? (long long)(c0 + r) : -(long long)r0;
       cp_async16(ks + r * kStride, kp + off * a.k_ss, ok);
@@ -599,6 +612,7 @@ cudaError_t dispatch_tc(int hd, const Args& a, int batch,
     case 16: return launch_tc<16>(a, batch, stream);
     case 32: return launch_tc<32>(a, batch, stream);
     case 64: return launch_tc<64>(a, batch, stream);
+    case 96: return launch_tc<96>(a, batch, stream);
     case 128: return launch_tc<128>(a, batch, stream);
     case 256: return launch_tc<256>(a, batch, stream);
     default: return cudaErrorInvalidValue;

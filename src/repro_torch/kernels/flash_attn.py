@@ -31,7 +31,7 @@ from . import _build
 from .ref import flash_attn_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 
 

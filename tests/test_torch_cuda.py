@@ -449,6 +449,63 @@ def test_flash_kernel_cross_lengths(cuda, dtype, sq, sk, kv_len):
             flash_attention(q, k, v, **bad)
 
 
+HD96_MASKS = [dict(causal=True), dict(causal=True, window=100),
+              dict(causal=True, kv_len=150), dict(causal=True, window=1,
+                                                  kv_len=37),
+              dict(causal=False, kv_len=0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", HD96_MASKS,
+                         ids=["-".join(f"{k}{v}" for k, v in m.items())
+                              for m in HD96_MASKS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,s", [(4, 4, 16), (4, 2, 1000), (2, 2, 257)])
+def test_flash_kernel_head_dim_96(cuda, mask, dtype, h, kvh, s):
+    """hd 96 (phi3-mini) on both routes: 12 16-byte chunks a row, so the
+    bf16 route's K/V copies leave threads idle and a pass ends past the
+    tile; MHA and GQA, ragged S; equal to the plain version and
+    repeating bit for bit."""
+    q, k, v = _qkv(96 + s + h, 2, h, kvh, s, 96, dtype)
+    out = flash_attention(q, k, v, **mask)
+    ref = flash_attn_ref(q, k.repeat_interleave(h // kvh, 1),
+                         v.repeat_interleave(h // kvh, 1), **mask)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+    assert torch.equal(out, flash_attention(q, k, v, **mask))
+    if mask.get("kv_len") == 0:
+        assert bool((out == 0).all())
+
+
+# 8 decode positions at mb 128 (max_seq 2048): with window 1024 the
+# window's first column lands on, before and after the 128-column split
+# boundaries 128 and 256; 129 crosses a boundary with no window cut
+DENSE_FAMILY_POS = [1, 129, 1023, 1150, 1151, 1152, 1279, 2048]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvh,group,hd,window", [
+    (32, 1, 96, 0),          # phi3-mini
+    (16, 1, 256, 0),         # gemma-7b
+    (8, 2, 256, 0),          # gemma3-12b, global layers
+    (8, 2, 256, 1024),       # gemma3-12b, local layers
+    (16, 1, 256, 1024),
+    (8, 7, 128, 0),          # yi-34b
+])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_dense_family_shapes(cuda, kvh, group, hd, window, q_dtype):
+    """K1 at the dense families' decode shapes: hd 96 (48 columns a lane
+    in a score, 3 output columns a lane), hd 256 with and without the
+    1024-column window, group 7; an int8 pool, mb 128; equal to the
+    plain version and repeating bit for bit."""
+    args, sc = _case(hd + group + window, slots=8, kvh=kvh, group=group,
+                     hd=hd, bs=16, mb=128, pool=torch.int8,
+                     q_dtype=q_dtype, layers=2)
+    args[4].copy_(torch.tensor(DENSE_FAMILY_POS, dtype=torch.int32))
+    out = _k1_repeats(args, sc, window)
+    ref = paged_decode_attn_ref(*args, **sc, window=window)
+    torch.testing.assert_close(out, ref, **TOL[q_dtype])
+
+
 @pytest.mark.gpu
 def test_flash_tensor_core_route_rejects_misaligned_rows(cuda):
     q, k, v = _qkv(3, 1, 4, 4, 64, 32, torch.bfloat16)

@@ -356,8 +356,8 @@ def test_flash_route_is_chosen_by_dtype():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_checks_accept_head_dim_256_and_reject_48(dtype):
     """The wrapper's checks (run before any launch on the card) take hd
-    16..256 on both routes and refuse hd 48; the bf16 route also refuses
-    rows that are not 16-byte aligned."""
+    16..256 on both routes, phi3-mini's 96 among them, and refuse hd 48;
+    the bf16 route also refuses rows that are not 16-byte aligned."""
     from repro_torch.kernels import flash_attn
 
     def qkv(hd, s=8):
@@ -365,7 +365,7 @@ def test_flash_checks_accept_head_dim_256_and_reject_48(dtype):
                 torch.zeros(1, s, 2, hd, dtype=dtype).transpose(1, 2),
                 torch.zeros(1, s, 2, hd, dtype=dtype).transpose(1, 2))
 
-    for hd in (16, 32, 64, 128, 256):
+    for hd in (16, 32, 64, 96, 128, 256):
         flash_attn._check(*qkv(hd), 0, None)
     with pytest.raises(ValueError, match="head_dim 48"):
         flash_attn._check(*qkv(48), 0, None)
