@@ -259,6 +259,28 @@ Phases (any failure exits non-zero):
    at depth 6 (its first global layer, layer 5, in) and the others at
    depth 2: prefill of 2 prompts of 64 tokens and 8 greedy decode steps.
 
+14. remat — the trainer's memory behaviour: the recomputation ladder
+   ``RuntimeOptions.remat`` (none / dots / full: each pattern period a
+   checkpoint region, ``dots`` keeping the projections' and K3's
+   outputs) and the donated AdamW update.  14a: full-width zamba2-1.2b
+   (f32 weights drawn on the card, bf16 activations) at 4 x 1024 tokens,
+   one train step's gradients under each rung, equal bit for bit, with
+   exact launches (K6 / K2 / K3: 38 / 6 / 6, dots 74 / 12 / 6, full
+   74 / 12 / 12), each rung's peak and activation part (the peak less
+   what was resident before the forward, ordered none > dots > full)
+   beside ``engine.remat.activation_bytes`` times the ladder's keep; then
+   one donated ``make_train_step`` call a rung (exact launches, equal loss
+   and gradient norm).  14b: full-width phi3-mini (3.723 B parameters,
+   nothing cut) with f32 weights drawn on the card: one step's gradients
+   at 1 x 256 and 1 x 512 tokens under each rung (equal bit for bit at
+   512, K2 / K3 32 / 32, 64 / 32, 64 / 64), each rung's reckoned need at
+   4 x 1024; then ``train_loop`` for 6 donated steps at 4 x 1024 under
+   ``full`` (finite losses, positive gradient norms, 64 K2 and 64 K3 a
+   step), host ms a step, a further step's device split by CUDA events,
+   and the peak beside ``dryrun.memory_bytes``.  14c: 11c's reduced
+   configs in f32, gradients under ``full`` on the card == ``none`` on
+   the CPU.  Phase 11 runs ``remat="none"`` throughout.
+
 Before the last two lines, ``{"phase_seconds": {...}}`` gives each
 phase's seconds.  The line before the last is a JSON object listing
 every kernel with its launches on its main path and its times (K4 and K5
@@ -4839,7 +4861,8 @@ def train_card_vs_cpu(torch):
              .with_updates(activation_dtype="float32")))
     lr = adamw.AdamWConfig().lr
     for what, cfg in cfgs:
-        step = make_train_step(cfg, options_for(cfg, shape))
+        step = make_train_step(cfg, options_for(cfg, shape,
+                                                {"remat": "none"}))
         data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len, 2))
         p_cpu = init_params(cfg, seed=0, device="cpu")
         p_card = tree_map(lambda t: t.cuda(), p_cpu)
@@ -5114,7 +5137,8 @@ def card_params(torch, cfg, dtype=None):
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype, device="cuda")
 
-    return param_tree(cfg, normal, zeros)
+    # a Mamba stack's constant leaves (a_log, d_skip) are made on the host
+    return tree_to(param_tree(cfg, normal, zeros), "cuda")
 
 
 def tree_bytes(tree):
@@ -5706,6 +5730,404 @@ def phase_dense(torch, smi):
     return totals, extra
 
 
+# --------------------------------------------------------------- phase 14
+REMAT_POLICIES = ("none", "dots", "full")
+PHI3_PARAMS_B = 3.723            # phi3-mini, nothing cut (PERF.md §4)
+
+
+def ladder_keep(policy):
+    """The share of the activation bytes a rung of the engine's ladder
+    (``engine.remat.POLICY_LADDER``) keeps."""
+    from repro_torch.engine.remat import POLICY_LADDER
+    return {name: keep for name, keep, _ in POLICY_LADDER}[policy]
+
+
+def remat_counts(cfg, remat, steps=1):
+    """K6, K2 and K3 launches of ``steps`` train steps of ``cfg`` under
+    ``remat``: a forward runs each Mamba layer's K6 and each attention
+    layer's and shared site's K2 and K3 (a dense gated FFN); the backward
+    launches again those of the recomputation regions (the full periods
+    and the shared sites; not the leftover layers), K3 not under
+    ``dots``."""
+    from repro_torch.models.model import _n_shared_sites
+    from repro_torch.models.transformer import _pattern_period
+    period = len(_pattern_period(cfg)[0])
+    n, sites = cfg.num_layers, _n_shared_sites(cfg)
+    mamba = cfg.arch_type in ("ssm", "hybrid")
+    attn = sites if mamba else n
+    fwd = {"ssd_scan": n if mamba else 0, "flash_attention": attn,
+           "fused_ffn": attn if cfg.gated_ffn else 0}
+    in_regions = n // period * period
+    again = {"ssd_scan": in_regions if mamba else 0,
+             "flash_attention": sites if mamba else in_regions}
+    again["fused_ffn"] = again["flash_attention"] if cfg.gated_ffn else 0
+    if remat == "none":
+        again = {}
+    elif remat == "dots":
+        again["fused_ffn"] = 0
+    return {k: steps * (fwd[k] + again.get(k, 0)) for k in fwd
+            if fwd[k] + again.get(k, 0)}
+
+
+def measured_grads(torch, cfg, remat, params, batch, what):
+    """One train step's loss and gradients (``launch.steps.
+    loss_and_grads``) under ``remat``, with its exact launches, its peak
+    memory and its activation part (the peak less the bytes resident
+    before the forward)."""
+    from repro_torch.launch.steps import loss_and_grads, options_for
+    from repro_torch.models.configs import InputShape
+    b, s = batch["tokens"].shape
+    opts = options_for(cfg, InputShape("cli", s, b, "train"),
+                       {"remat": remat})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(params, cfg, opts, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = exact_counts(remat_counts(cfg, remat), f"{what}, {remat}")
+    peak = torch.cuda.max_memory_allocated()
+    return loss, grads, counts, {"peak": peak, "act": peak - before,
+                                 "s": secs}
+
+
+def rungs(torch, cfg, params, sizes, what, check=None,
+          policies=REMAT_POLICIES):
+    """One train step's gradients under each rung of ``policies`` at each
+    ``(batch, seq)`` of ``sizes`` (``measured_grads``), those at
+    ``check`` held bit for bit to the first rung's.  Returns ``({size:
+    {rung: memory}}, {kernel name: launches})``."""
+    from repro_torch.models.layers import tree_leaves
+    mem, totals = {}, {}
+    for size in sizes:
+        b, s = size
+        batch = place_on_card(cfg, b, s)
+        ref = None
+        for remat in policies:
+            loss, grads, counts, m = measured_grads(
+                torch, cfg, remat, params, batch,
+                f"{what}, {b} x {s}")
+            mem.setdefault(size, {})[remat] = m
+            for k, n in counts.items():
+                totals[k] = totals.get(k, 0) + n
+            if size != check:
+                del grads
+            elif ref is None:
+                ref = (loss, grads)
+            else:
+                if not (torch.equal(loss, ref[0])
+                        and same_bits(grads, ref[1])):
+                    raise AssertionError(
+                        f"{what} {b} x {s}: the loss or gradients under "
+                        f"{remat} differ from {policies[0]}'s")
+                del grads
+        if ref is not None:
+            log(f"{what} {b} x {s}: loss {float(ref[0]):.6f} and all "
+                f"{len(list(tree_leaves(ref[1])))} gradient leaves equal bit "
+                f"for bit under {', '.join(policies)}")
+        del ref, batch
+    return mem, totals
+
+
+def place_on_card(cfg, b, s, index=0):
+    from repro_torch.data import DataConfig, SyntheticLM, place_batch
+    return place_batch(SyntheticLM(DataConfig(cfg.vocab_size, s, b))
+                       .batch(index), "cuda")
+
+
+def log_rungs(cfg, mem, smi, what):
+    """Each rung's peak and activation part at the larger size beside the
+    ladder's ``activation_bytes x keep``, and its bytes a token between
+    the two sizes beside the ladder's."""
+    from repro_torch.engine.remat import activation_bytes
+    (b0, s0), (b1, s1) = sorted(mem, key=lambda bs: bs[0] * bs[1])
+    base = activation_bytes(cfg, b1, s1)
+    per_token = activation_bytes(cfg, 1, 1)
+    dt = b1 * s1 - b0 * s0
+    for remat in REMAT_POLICIES:
+        m, m0 = mem[(b1, s1)][remat], mem[(b0, s0)][remat]
+        keep = ladder_keep(remat)
+        slope = (m["act"] - m0["act"]) / dt
+        log(f"{what} {remat} on {smi}: at {b1} x {s1} max_memory_allocated "
+            f"{m['peak'] / 1e9:.3f} GB, activation part "
+            f"{m['act'] / 1e9:.3f} GB beside the ladder's "
+            f"{base * keep / 1e9:.3f} GB (activation_bytes "
+            f"{base / 1e9:.3f} GB x keep {keep}); {slope / 1e6:.4f} MB a "
+            f"token from {b0} x {s0} beside the ladder's "
+            f"{per_token * keep / 1e6:.4f}; forward + backward "
+            f"{1e3 * m['s']:.1f} ms (host clock, {b0} x {s0}: "
+            f"{1e3 * m0['s']:.1f})")
+
+
+def zamba2_ladder(torch, smi):
+    """14a: full-width zamba2-1.2b (f32 weights drawn on the card, bf16
+    activations): one train step's gradients under each rung at 4 x 512
+    and 4 x 1024 tokens (bit for bit equal at 4 x 1024), with exact
+    launches, each rung's peak and activation part, ordered none > dots >
+    full; then one donated ``make_train_step`` call under each rung at
+    4 x 1024 from a clone of the same weights and a fresh AdamW state
+    (exact launches, equal loss and gradient norm).  Returns ``{kernel
+    name: launches}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, options_for
+    from repro_torch.models.configs import InputShape
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import adamw
+    cfg = get_config("zamba2-1.2b")
+    bsz, s = TRAIN_SHAPE
+    params = card_params(torch, cfg, torch.float32)
+    mem, totals = rungs(torch, cfg, params, ((bsz, s // 2), (bsz, s)),
+                        "14a zamba2-1.2b", check=(bsz, s))
+    log_rungs(cfg, mem, smi, "14a zamba2-1.2b")
+    acts = [mem[(bsz, s)][r]["act"] for r in REMAT_POLICIES]
+    if not acts[0] > acts[1] > acts[2]:
+        raise AssertionError(f"14a: activation parts {acts} not ordered "
+                             "none > dots > full")
+    batch = place_on_card(cfg, bsz, s)
+    metrics = {}
+    for remat in REMAT_POLICIES:
+        opts = options_for(cfg, InputShape("cli", s, bsz, "train"),
+                           {"remat": remat})
+        p = tree_map(lambda t: t.clone(), params)
+        state = adamw.init(p)
+        zero_counts()
+        p2, state2, m = make_train_step(cfg, opts, donate=True)(p, state,
+                                                                batch)
+        torch.cuda.synchronize()
+        for k, n in exact_counts(
+                remat_counts(cfg, remat),
+                f"14a one donated make_train_step call, {remat}").items():
+            totals[k] = totals.get(k, 0) + n
+        if p2 is not p or state2.m is not state.m or int(state2.step) != 1:
+            raise AssertionError("14a: the donated step did not return "
+                                 "the donated tensors")
+        metrics[remat] = (m["loss"], m["grad_norm"])
+        del p, p2, state, state2
+    for remat in ("dots", "full"):
+        if not all(torch.equal(a, b) for a, b in zip(metrics[remat],
+                                                     metrics["none"])):
+            raise AssertionError(f"14a: the step's loss / grad norm under "
+                                 f"{remat} differ from none's")
+    log(f"14a: one donated make_train_step call a rung: loss "
+        f"{float(metrics['none'][0]):.6f}, grad norm "
+        f"{float(metrics['none'][1]):.6f}, equal bit for bit")
+    del params, batch
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phi3_step_split(torch, cfg, opts, params, state, batch):
+    """Device ms of one donated train step's forward, backward (with the
+    recomputation) and AdamW update by CUDA events, mirroring
+    ``make_train_step``."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import forward, lm_loss
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import warmup_cosine
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    p = tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()),
+                 params)
+    logits, aux = forward(p, cfg, batch["tokens"], opts)
+    loss = lm_loss(logits, batch["labels"]) + cfg.router_aux_weight * aux
+    del logits, aux
+    ev[1].record()
+    leaves = [t for t in tree_leaves(p) if t.requires_grad]
+    grads = iter(torch.autograd.grad(loss, leaves))
+    grads = tree_map(lambda t: next(grads), p)
+    ev[2].record()
+    with torch.no_grad():
+        adamw.apply_(grads, params, state,
+                     lr_scale=warmup_cosine(state.step))
+    ev[3].record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+
+def phi3_trained(torch, smi):
+    """14b: full-width phi3-mini (3.723 B parameters, nothing cut), f32
+    weights drawn on the card from seed 0, bf16 activations: one train
+    step's gradients under each rung at 1 x 256 and 1 x 512 tokens (bit
+    for bit equal at 512, exact launches, peak and activation part beside
+    the ladder), whose bytes a token reckon each rung's need at 4 x 1024
+    beside the AdamW state; the rungs reckoned to fit are then measured
+    at 4 x 1024 (gradients bit for bit equal again).  Then ``train_loop``
+    for 6 donated steps at 4 x 1024 under ``full``: finite losses,
+    positive gradient norms, exact launches, host ms a step, a further
+    step's device split, and the peak beside the planner's figure.
+    Returns ``{kernel name: launches}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.remat import activation_bytes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import options_for
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.configs import InputShape
+    from repro_torch.models.layers import tree_leaves
+    cfg = get_config("phi3-mini")
+    params = card_params(torch, cfg, torch.float32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if abs(n_params / 1e9 - PHI3_PARAMS_B) > 0.001:
+        raise AssertionError(f"phi3-mini: {n_params} parameters")
+    mem, totals = rungs(torch, cfg, params, ((1, 256), (1, 512)),
+                        f"14b phi3-mini ({n_params / 1e9:.3f} B)",
+                        check=(1, 512))
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    log_rungs(cfg, mem, smi, "14b phi3-mini")
+    shape = InputShape("cli", 1024, 4, "train")
+    card = torch.cuda.get_device_properties(0).total_memory
+    tokens = shape.global_batch * shape.seq_len
+    moments = 2 * tree_bytes(params)              # AdamW's f32 m and v
+    fits = []
+    for remat in REMAT_POLICIES:
+        # the weights and moments, then the 1 x 512 step's activation
+        # part grown by its bytes a token from 256 to 512 tokens
+        m, m0 = mem[(1, 512)][remat], mem[(1, 256)][remat]
+        slope = (m["act"] - m0["act"]) / 256
+        need = tree_bytes(params) + moments + m["act"] + slope * (
+            tokens - 512)
+        if need < 0.9 * card:
+            fits.append(remat)
+        log(f"14b phi3-mini under {remat}: reckoned need of a train step "
+            f"at 4 x 1024 {need / 1e9:.1f} GB of the card's "
+            f"{card / 1e9:.2f} GB (the ladder's activations there "
+            f"{activation_bytes(cfg, 4, 1024) * ladder_keep(remat) / 1e9:.2f}"
+            f" GB); {'run' if remat in fits else 'not run'} at 4 x 1024")
+    big, counts = rungs(torch, cfg, params, ((4, 1024),), "14b phi3-mini",
+                        check=(4, 1024), policies=tuple(fits))
+    add(counts)
+    for remat, m in big.get((4, 1024), {}).items():
+        log(f"14b phi3-mini {remat} at 4 x 1024 (no AdamW state): "
+            f"activation part {m['act'] / 1e9:.3f} GB; with the weights "
+            f"and the moments a train step's need is "
+            f"{(tree_bytes(params) + m['act'] + moments) / 1e9:.3f} GB; "
+            f"forward + backward {1e3 * m['s']:.1f} ms (host clock)")
+    del params
+    torch.cuda.empty_cache()
+
+    rec = {"t": [], "loss": [], "gnorm": []}
+
+    def callback(i, params, opt_state, metrics):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["loss"].append(float(metrics["loss"]))
+        rec["gnorm"].append(float(metrics["grad_norm"]))
+        rec["state"] = opt_state
+        return params, opt_state
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = 6
+    zero_counts()
+    t0 = time.perf_counter()
+    out = train_loop(cfg, shape, steps, log_every=1, remat="full",
+                     callback=callback)
+    add(exact_counts(remat_counts(cfg, "full", steps),
+                     f"14b phi3-mini train_loop, {steps} steps, full"))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, rec["loss"] + rec["gnorm"])) or \
+            min(rec["gnorm"]) <= 0:
+        raise AssertionError(f"14b: losses {rec['loss']}, grad norms "
+                             f"{rec['gnorm']}")
+    plan = dryrun.memory_bytes(cfg, shape, options_for(cfg, shape))
+    step_s = [b - a for a, b in zip(rec["t"], rec["t"][1:])]
+    log(f"14b phi3-mini trained on {smi}: {steps} donated steps of 4 x "
+        f"1024 tokens under full; losses "
+        + ", ".join(f"{x:.4f}" for x in rec["loss"]) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in rec["gnorm"])
+        + f"; init + first step {rec['t'][0] - t0:.1f} s, then host "
+        f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)} ms a step; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB beside the planner's "
+        f"{plan['total'] / 1e9:.3f} GB (params, grads, AdamW state and "
+        f"inputs; dryrun.memory_bytes) of the card's {card / 1e9:.2f} GB")
+    batch = place_on_card(cfg, 4, 1024, steps)
+    zero_counts()
+    f_ms, b_ms, o_ms = phi3_step_split(
+        torch, cfg, options_for(cfg, shape, {"remat": "full"}),
+        out["params"], rec.pop("state"), batch)
+    add(exact_counts(remat_counts(cfg, "full"),
+                     "14b phi3-mini, the split step"))
+    log(f"14b phi3-mini train step device split on {smi} (CUDA events): "
+        f"forward {f_ms:.1f} ms, backward with the recomputation "
+        f"{b_ms:.1f} ms, AdamW in place {o_ms:.1f} ms; device "
+        f"{f_ms + b_ms + o_ms:.1f} ms against a host step of "
+        f"{1e3 * min(step_s):.1f}–{1e3 * max(step_s):.1f} ms")
+    del out, batch
+    torch.cuda.empty_cache()
+    return totals
+
+
+def remat_card_vs_cpu(torch):
+    """14c: 11c's reduced configs in f32, one train step's gradients under
+    ``full`` on the card against ``none`` on the CPU (the loss within
+    rtol 1e-5, each leaf within GRAD_REL_TOL of its largest gradient),
+    with exact launches.  Returns ``{kernel name: launches}``."""
+    from repro_torch.checkpoint import flatten_with_keys
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM, place_batch
+    from repro_torch.launch.steps import loss_and_grads, options_for
+    from repro_torch.models import init_params
+    from repro_torch.models.configs import InputShape
+    from repro_torch.models.layers import tree_map
+    totals = {}
+    shape = InputShape("t", 300, 2, "train")
+    cfgs = (("zamba2 reduced (d 256, 5 layers, period 2)",
+             get_config("zamba2-1.2b").reduced(num_layers=5).with_updates(
+                 shared_attn_period=2, activation_dtype="float32")),
+            ("mamba2-370m reduced", get_config("mamba2-370m").reduced()
+             .with_updates(activation_dtype="float32")))
+    for what, cfg in cfgs:
+        p_cpu = init_params(cfg, seed=0, device="cpu")
+        p_card = tree_map(lambda t: t.cuda(), p_cpu)
+        b = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len, 2)).batch(0)
+        zero_counts()
+        loss, g_card = loss_and_grads(
+            p_card, cfg, options_for(cfg, shape, {"remat": "full"}),
+            place_batch(b, "cuda"))
+        torch.cuda.synchronize()
+        for k, n in exact_counts(remat_counts(cfg, "full"),
+                                 f"14c {what}, full").items():
+            totals[k] = totals.get(k, 0) + n
+        loss_cpu, g_cpu = loss_and_grads(
+            p_cpu, cfg, options_for(cfg, shape, {"remat": "none"}),
+            place_batch(b, "cpu"))
+        if abs(float(loss) - float(loss_cpu)) > 1e-5 * abs(float(loss_cpu)):
+            raise AssertionError(f"14c {what}: loss {float(loss)} card, "
+                                 f"{float(loss_cpu)} CPU")
+        cpu = dict(flatten_with_keys(g_cpu))
+        worst = 0.0
+        for key, g in flatten_with_keys(g_card):
+            scale = float(cpu[key].abs().max())
+            err = float((g.cpu() - cpu[key]).abs().max())
+            if err > GRAD_REL_TOL * scale + 1e-12:
+                raise AssertionError(f"14c {what}: gradient of {key} max "
+                                     f"err {err} of max {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+        log(f"14c {what}: gradients under full on the card == none on the "
+            f"CPU in f32 ({len(cpu)} leaves, worst error {worst:.3g} of the "
+            f"leaf's largest, tolerance {GRAD_REL_TOL})")
+    return totals
+
+
+def phase_remat(torch, smi):
+    """The recomputation ladder and the donated update on the card: 14a
+    zamba2-1.2b under each rung, 14b phi3-mini trained at full width,
+    14c card == CPU.  Returns ``({kernel name: launches}, {})``."""
+    t_phase = time.perf_counter()
+    totals = {}
+    for part in (zamba2_ladder(torch, smi), phi3_trained(torch, smi),
+                 remat_card_vs_cpu(torch)):
+        for k, n in part.items():
+            totals[k] = totals.get(k, 0) + n
+    log(f"remat phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals, {}
+
+
 def main() -> int:
     import torch
     seconds = {}
@@ -5737,7 +6159,8 @@ def main() -> int:
                          ("9 hybrid", phase_hybrid),
                          ("10 encdec", phase_encdec),
                          ("11 trainer", phase_trainer),
-                         ("12 vlm", phase_vlm), ("13 dense", phase_dense)):
+                         ("12 vlm", phase_vlm), ("13 dense", phase_dense),
+                         ("14 remat", phase_remat)):
         counts, extra = timed(label, phase, torch, smi)
         extras.append(extra)
         for k, n in counts.items():

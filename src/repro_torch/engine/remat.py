@@ -1,10 +1,12 @@
 """Progressive recomputation (paper §III-C2 ❺/❻ for TTA workloads).
 
-In PyTorch, recomputation is ``torch.utils.checkpoint.checkpoint`` around
-each block, with a selective policy (``create_selective_checkpoint_contexts``
-keeping the matmul outputs) for "dots"; the port's model has no training
-step yet, so the ladder and its byte/FLOP arithmetic below are analytic,
-as in the JAX package.  The engine exposes a *progressive* ladder of
+The policies run in ``models/transformer.apply_stack``: a non-reentrant
+``torch.utils.checkpoint.checkpoint`` around each pattern period, with a
+selective policy (``create_selective_checkpoint_contexts`` keeping the
+projections' and the fused FFN's outputs) for "dots".  The ladder's
+byte and FLOP figures below are analytic, as in the JAX package, and
+``chip_smoke.py`` prints them beside what the card measures.  The engine
+exposes a *progressive* ladder of
 policies ordered by activation memory vs recompute FLOPs; given a live
 memory budget it walks down the ladder until the analytic activation
 footprint fits — the paper's "proactively discards tensors when memory

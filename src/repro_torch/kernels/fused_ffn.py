@@ -32,10 +32,14 @@ there is no fallback.  Each call adds one to ``fused_ffn.launches``
 (``two_pass``'s two kernels count as one call).
 
 Gradients: when autograd records (grad mode on and any input requiring
-grad), the launch runs inside a ``torch.autograd.Function`` that saves
-its inputs, and whose backward is :func:`fused_ffn_backward`, the
-analytic gradient in PyTorch ops (the JAX package has no backward
-kernel either).
+grad), the call goes through the custom operator
+``torch.ops.repro_torch.fused_ffn``, which saves its inputs and whose
+backward is :func:`fused_ffn_backward`, the analytic gradient in PyTorch
+ops (the JAX package has no backward kernel either).  The operator runs
+the kernel on the card and the plain version on the CPU.  Being one
+operator to the dispatcher, it is what a selective checkpoint policy
+sees, so the ``dots`` recomputation policy can keep its output
+(``models/transformer.py``) as the JAX policy keeps the FFN's products.
 """
 from __future__ import annotations
 
@@ -222,14 +226,20 @@ def fused_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     contiguous and of x's dtype (f32 or bf16).  ``activation`` is silu
     or tanh-gelu.  Sums are f32 across all of F, rounded once to x's
     dtype.  Returns (M, D)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_gate, w_up, w_down)):
+        return fused_ffn_op(x, w_gate, w_up, w_down, activation)
+    return _forward(x, w_gate, w_up, w_down, activation)
+
+
+def _forward(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
+    """The plain version for a tensor on the CPU, the kernel's launch for
+    one on the card."""
     if x.device.type == "cpu":
         return fused_ffn_ref(x, w_gate, w_up, w_down, activation)
     if x.device.type != "cuda":
         raise ValueError(f"no fused FFN kernel for device {x.device}")
     _check(x, w_gate, w_up, w_down, activation)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w_gate, w_up, w_down)):
-        return _FusedFfn.apply(x, w_gate, w_up, w_down, activation)
     return _launch(x, w_gate, w_up, w_down, activation)
 
 
@@ -280,20 +290,26 @@ def _launch(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
 fused_ffn.launches = 0
 
 
-class _FusedFfn(torch.autograd.Function):
-    """The kernel's launch, differentiable: the forward launches it, the
-    backward is :func:`fused_ffn_backward`."""
+@torch.library.custom_op("repro_torch::fused_ffn", mutates_args=())
+def fused_ffn_op(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor, activation: str) -> torch.Tensor:
+    """:func:`fused_ffn` as one differentiable operator: the kernel's
+    launch on the card, the plain version on the CPU; its backward is
+    :func:`fused_ffn_backward`."""
+    return _forward(x, w_gate, w_up, w_down, activation)
 
-    @staticmethod
-    def forward(ctx, x, w_gate, w_up, w_down, activation):
-        ctx.save_for_backward(x, w_gate, w_up, w_down)
-        ctx.activation = activation
-        return _launch(x, w_gate, w_up, w_down, activation)
 
-    @staticmethod
-    def backward(ctx, dy):
-        grads = fused_ffn_backward(*ctx.saved_tensors, dy, ctx.activation)
-        return (*grads, None)
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:4])
+    ctx.activation = inputs[4]
+
+
+def _op_backward(ctx, dy):
+    return (*fused_ffn_backward(*ctx.saved_tensors, dy, ctx.activation),
+            None)
+
+
+fused_ffn_op.register_autograd(_op_backward, setup_context=_save_inputs)
 
 
 def _act_and_slope(name: str, g: torch.Tensor):

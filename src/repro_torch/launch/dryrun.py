@@ -8,8 +8,10 @@ planner records, per (arch × shape), from meta-device structs and the
 profiler's analytic model alone:
 
 * parameter, optimizer-state (train), gradient (train), cache (prefill /
-  decode) and input bytes, and whether they fit the card's 80 GB
-  (activations are not counted);
+  decode) and input bytes (:func:`memory_bytes`), and whether they fit
+  the card's 80 GB (activations are not counted; the train step's AdamW
+  update is donated, so new parameters and moments take no room beside
+  the old);
 * ``analytic_step_costs`` (scan-trip-exact flops and bytes),
   ``model_flops_estimate`` and the roofline terms on ``H100_SXM``;
 * ``scan_trips`` and a collective total of 0 (one device).
@@ -34,8 +36,9 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.core.profiler import (H100_SXM, analytic_step_costs,
                                        model_flops_estimate, roofline_terms,
                                        scan_trip_count)
-from repro_torch.models.configs import INPUT_SHAPES
+from repro_torch.models.configs import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.models.layers import tree_leaves
+from repro_torch.models.runtime import RuntimeOptions
 from repro_torch.optim import adamw
 
 from .steps import (cache_spec_struct, input_specs, options_for,
@@ -54,6 +57,23 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def memory_bytes(cfg: ModelConfig, shape: InputShape,
+                 opts: RuntimeOptions) -> dict:
+    """The bytes a step of ``shape`` keeps resident, activations aside:
+    parameters and inputs, and gradients and AdamW state (a train step,
+    whose update is donated) or the cache; ``"total"`` sums them."""
+    pstruct = params_spec_struct(cfg)
+    mem = {"params": _nbytes(pstruct),
+           "inputs": _nbytes(input_specs(cfg, shape, opts))}
+    if shape.kind == "train":
+        mem["grads"] = mem["params"]
+        mem["opt_state"] = _nbytes(adamw.init(pstruct))
+    else:
+        mem["cache"] = _nbytes(cache_spec_struct(cfg, shape, opts))
+    mem["total"] = sum(mem.values())
+    return mem
+
+
 def run_one(arch: str, shape_name: str, out_dir: Path,
             verbose: bool = True) -> dict:
     cfg = get_config(arch)
@@ -64,15 +84,7 @@ def run_one(arch: str, shape_name: str, out_dir: Path,
            "left_out": LEFT_OUT}
     t0 = time.time()
     try:
-        pstruct = params_spec_struct(cfg)
-        mem = {"params": _nbytes(pstruct),
-               "inputs": _nbytes(input_specs(cfg, shape, opts))}
-        if shape.kind == "train":
-            mem["grads"] = mem["params"]
-            mem["opt_state"] = _nbytes(adamw.init(pstruct))
-        else:
-            mem["cache"] = _nbytes(cache_spec_struct(cfg, shape, opts))
-        mem["total"] = sum(mem.values())
+        mem = memory_bytes(cfg, shape, opts)
         rec["memory_bytes"] = mem
         rec["fits"] = mem["total"] <= H100_SXM.hbm_bytes
         trips = scan_trip_count(cfg)

@@ -25,8 +25,9 @@ from repro_torch.optim.schedule import warmup_cosine
 
 def options_for(cfg: ModelConfig, shape: InputShape,
                 overrides: Optional[Dict[str, Any]] = None) -> RuntimeOptions:
-    """Engine defaults per workload (the middleware's θ_s baseline).  The
-    port's layer walk ignores ``remat`` (``apply_stack``)."""
+    """Engine defaults per workload (the middleware's θ_s baseline): a
+    train step recomputes each pattern period in its backward
+    (``remat="full"``, ``transformer.apply_stack``)."""
     kw: Dict[str, Any] = {}
     if shape.kind == "train":
         kw.update(remat="full", attn_impl="auto", q_chunk=512, k_chunk=1024)
@@ -91,37 +92,50 @@ def params_spec_struct(cfg: ModelConfig) -> Params:
 
 
 # ------------------------------------------------------------- the steps ---
+def loss_and_grads(params: Params, cfg: ModelConfig, opts: RuntimeOptions,
+                   batch: Dict[str, torch.Tensor]):
+    """``(loss, grads)`` of one train batch: the loss through ``forward``
+    and ``lm_loss`` plus ``router_aux_weight`` times the aux loss,
+    gradients by autograd (on the card through the kernels' backwards,
+    and each recomputation region's forward again under ``opts.remat``).
+    A floating leaf that the loss does not reach gets a zero gradient, as
+    under ``jax.grad``."""
+    p = tree_map(lambda t: t.detach().requires_grad_(
+        t.is_floating_point()), params)
+    logits, aux = forward(
+        p, cfg, batch["tokens"], opts,
+        encoder_frames=batch.get("encoder_frames"),
+        vision_embeds=batch.get("vision_embeds"))
+    loss = lm_loss(logits, batch["labels"]) + cfg.router_aux_weight * aux
+    del logits, aux
+    leaves = [t for t in tree_leaves(p) if t.requires_grad]
+    flat = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+    def grad_of(t):
+        g = next(flat) if t.requires_grad else None
+        return torch.zeros_like(t) if g is None else g
+
+    return loss.detach(), tree_map(grad_of, p)
+
+
 def make_train_step(cfg: ModelConfig, opts: RuntimeOptions,
-                    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig()
-                    ) -> Callable:
+                    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                    donate: bool = False) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm"})``: the loss through ``forward`` and
-    ``lm_loss`` plus ``router_aux_weight`` times the aux loss, gradients
-    by autograd (on the card through the kernels' backwards), then one
-    AdamW step at ``warmup_cosine(step)``.  A floating leaf that the loss
-    does not reach gets a zero gradient, as under ``jax.grad``."""
+    {"loss", "grad_norm"})``: :func:`loss_and_grads`, then one AdamW step
+    at ``warmup_cosine(step)``.  With ``donate`` the step writes the new
+    parameters and moments over the ones it is given and returns those
+    tensors (``adamw.apply_``), as ``jax.jit(..., donate_argnums=(0, 1))``
+    lets XLA do; without it the inputs are not modified."""
+    update = adamw.apply_ if donate else adamw.apply
+
     def train_step(params, opt_state, batch):
-        p = tree_map(lambda t: t.detach().requires_grad_(
-            t.is_floating_point()), params)
-        logits, aux = forward(
-            p, cfg, batch["tokens"], opts,
-            encoder_frames=batch.get("encoder_frames"),
-            vision_embeds=batch.get("vision_embeds"))
-        loss = lm_loss(logits, batch["labels"]) + cfg.router_aux_weight * aux
-        leaves = [t for t in tree_leaves(p) if t.requires_grad]
-        flat = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-
-        def grad_of(t):
-            g = next(flat) if t.requires_grad else None
-            return torch.zeros_like(t) if g is None else g
-
-        grads = tree_map(grad_of, p)
+        loss, grads = loss_and_grads(params, cfg, opts, batch)
         with torch.no_grad():
             lr = warmup_cosine(opt_state.step)
-            new_params, new_state = adamw.apply(grads, params, opt_state,
-                                                opt_cfg, lr_scale=lr)
-            metrics = {"loss": loss.detach(),
-                       "grad_norm": adamw.global_norm(grads)}
+            metrics = {"loss": loss, "grad_norm": adamw.global_norm(grads)}
+            new_params, new_state = update(grads, params, opt_state,
+                                           opt_cfg, lr_scale=lr)
         return new_params, new_state, metrics
     return train_step
 

@@ -30,13 +30,15 @@ def train_loop(cfg: ModelConfig, shape: InputShape, steps: int,
     the synthetic stream of ``seed``; the loss and gradient norm are read
     back to the host every ``log_every`` steps and at the last.  With
     ``checkpoint_dir`` the final parameters are saved under
-    ``step_{steps:06d}``.  ``remat`` is kept in the options but the
-    port's layer walk ignores it.  Returns ``{"losses": [(step, loss)],
-    "params", "seconds"}``."""
+    ``step_{steps:06d}``.  ``remat`` ("none", "dots" or "full") is the
+    backward's recomputation policy (``transformer.apply_stack``).  The
+    parameters and AdamW state are donated to each step, which updates
+    them in place.  Returns ``{"losses": [(step, loss)], "params",
+    "seconds"}``."""
     opts = options_for(cfg, shape, {"remat": remat})
     params = init_params(cfg, seed, device)
     opt_state = adamw.init(params)
-    step_fn = make_train_step(cfg, opts)
+    step_fn = make_train_step(cfg, opts, donate=True)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=shape.seq_len,
                                   batch_size=shape.global_batch, seed=seed))

@@ -22,18 +22,22 @@ kernel (through ``ssm.mamba_forward``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from ..kernels.fused_ffn import fused_ffn_op  # noqa: F401  (K3's op)
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .configs import ATTN, LOCAL, MAMBA, ModelConfig
 from .layers import (Params, cast_params, dtype_of, embed_lookup,
                      ffn_apply, layer_slice, mask_padded_logits_raw,
-                     matmul_w, rms_norm, unembed)
+                     matmul_w, rms_norm, tree_leaves, unembed)
 from .runtime import DEFAULT_OPTIONS, RuntimeOptions
 
 
@@ -279,6 +283,39 @@ def _shared_site(cfg: ModelConfig, j: int) -> int:
 
 
 # -------------------------------------------------------------- the stack --
+# the products the ``dots`` policy keeps, as the JAX policy
+# ``dots_with_no_batch_dims_saveable`` keeps the dots without batch
+# dimensions: the projections (``x @ W`` reaches autograd as ``aten.mm``)
+# and the fused FFN's output; the batched products (attention on the CPU,
+# the MoE experts' ``bmm``), the flash attention and SSD scan launches,
+# norms, rotary and elementwise work are recomputed
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.repro_torch.fused_ffn.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, opts: RuntimeOptions, *args):
+    """``fn(*args)`` as a recomputation region, as the JAX
+    ``_remat_wrap`` reads ``opts.remat``: ``"dots"`` keeps
+    ``_DOTS_SAVED``'s outputs and recomputes the rest in the backward,
+    any other value all of it (``nothing_saveable``)."""
+    kw = {}
+    if opts.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _records_grad(*trees) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for tree in trees for t in tree_leaves(tree))
+
+
 def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
                 opts: RuntimeOptions, *, shared: Optional[Params] = None,
                 causal: bool = True,
@@ -289,35 +326,59 @@ def apply_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig,
 
     ``num_layers`` < full depth realizes the elastic depth-scaling
     operator η5: only the first n layers' stacked weights are used.  The
-    layers run as a Python loop over ``layer_slice``, in pattern order
-    (a period's kinds, then the leftover layers of a partial period);
-    the JAX package's ``scan_layers`` and ``remat`` options have no
-    counterpart here (no trace to keep small, and autograd keeps what a
-    backward needs).
+    layers run as a Python loop over ``layer_slice`` (the JAX package's
+    ``scan_layers`` has no counterpart: there is no trace to keep small),
+    one pattern period at a time (a period's kinds, then the leftover
+    layers of a partial period).
+
+    ``opts.remat`` is the JAX package's: when autograd records, each full
+    period (with a hybrid's shared block after it) is one recomputation
+    region, ``"dots"`` keeping the projections' and the fused FFN's
+    outputs and ``"full"`` only the region's inputs; the leftover layers
+    run outside any region.  Under ``torch.no_grad`` (inference, prefill,
+    decode) every policy runs the same plain walk.
 
     A hybrid stack runs the ``shared`` attention layer after each FULL
     period of the first n layers; the leftover layers of a partial
     period run without it (zamba2: 38 = 6 x 6 + 2, so 6 sites).  With
     ``cross_src`` (an encoder-decoder's encoder output) each layer that
     has a ``cross`` block attends over it after its self-attention."""
-    kinds, _ = _pattern_period(cfg)
+    kinds, shared_after = _pattern_period(cfg)
+    period = len(kinds)
     total = _stack_depth(stack)
     n = total if num_layers is None else min(num_layers, total)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for j in range(n):
+    n_full = (n // period) * period
+
+    def one_layer(j, x, aux, cross_src):
         layer = layer_slice(stack, j)
-        kind = kinds[j % len(kinds)]
+        kind = kinds[j % period]
         if kind == MAMBA:
-            x = mamba_block(layer, x, cfg)
-        else:
-            window = cfg.sliding_window if kind == LOCAL else 0
-            x, a = transformer_block(layer, x, cfg, opts, window=window,
-                                     causal=causal, cross_src=cross_src)
-            aux = aux + a
-        if shared is not None and _shared_site(cfg, j) >= 0:
+            return mamba_block(layer, x, cfg), aux
+        window = cfg.sliding_window if kind == LOCAL else 0
+        x, a = transformer_block(layer, x, cfg, opts, window=window,
+                                 causal=causal, cross_src=cross_src)
+        return x, aux + a
+
+    def period_body(i, x, aux, cross_src):
+        for j in range(i * period, (i + 1) * period):
+            x, aux = one_layer(j, x, aux, cross_src)
+        if shared_after and shared is not None:
             x, a = transformer_block(shared, x, cfg, opts, window=0,
                                      causal=causal)
             aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = opts.remat != "none" and _records_grad(stack, shared, x,
+                                                   cross_src)
+    for i in range(n_full // period):
+        body = functools.partial(period_body, i)
+        if remat:
+            x, aux = _remat(body, opts, x, aux, cross_src)
+        else:
+            x, aux = body(x, aux, cross_src)
+    for j in range(n_full, n):
+        x, aux = one_layer(j, x, aux, cross_src)
     return x, aux
 
 

@@ -31,7 +31,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.act_quant import kv_quant_rows
 from repro_torch.kernels.flash_attn import attention_route, flash_attention
-from repro_torch.kernels.fused_ffn import ffn_plan, fused_ffn
+from repro_torch.kernels.fused_ffn import (ffn_plan, fused_ffn,
+                                          fused_ffn_backward)
 from repro_torch.kernels.paged_decode_attn import paged_decode_attention
 from repro_torch.kernels.ref import (flash_attn_ref, fused_ffn_ref,
                                      paged_decode_attn_ref,
@@ -1008,6 +1009,70 @@ def test_fused_ffn_gradients_on_card(cuda, dtype, activation):
         rel = 1e-4 if dtype == torch.float32 else 3e-2
         torch.testing.assert_close(a.cpu().float(), w, atol=rel * scale,
                                    rtol=rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_op_on_card(cuda, dtype):
+    """K3's custom operator ``repro_torch::fused_ffn`` on the card: one
+    launch, the plain version's output within FFN_TOL, and the gradients
+    of ``fused_ffn_backward`` on the same inputs, bit for bit."""
+    x, wg, wu, wd = (t.detach().requires_grad_()
+                     for t in _ffn(13, 128, 256, 1024, dtype))
+    dy = torch.randn(128, 256, generator=torch.Generator().manual_seed(2)
+                     ).to(dtype).cuda()
+    before = fused_ffn.launches
+    y = torch.ops.repro_torch.fused_ffn(x, wg, wu, wd, "gelu")
+    assert fused_ffn.launches == before + 1 and y.requires_grad
+    torch.testing.assert_close(
+        y.detach().float(),
+        fused_ffn_ref(x.detach(), wg.detach(), wu.detach(), wd.detach(),
+                      "gelu").float(), **FFN_TOL[dtype])
+    got = torch.autograd.grad(y, (x, wg, wu, wd), dy)
+    want = fused_ffn_backward(x.detach(), wg.detach(), wu.detach(),
+                              wd.detach(), dy, "gelu")
+    assert fused_ffn.launches == before + 1
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+@pytest.mark.gpu
+def test_recomputation_gradients_on_card(cuda):
+    """The reduced hybrid (5 layers, period 2: two periods closed by the
+    shared block, one leftover layer) in bf16 activations over f32
+    weights: one train step's loss and gradients under ``dots`` and
+    ``full`` equal ``none``'s bit for bit, and each backward relaunches
+    the regions' K6 and K2, and K3 under ``full`` only."""
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = get_config("zamba2-1.2b").reduced(num_layers=5).with_updates(
+        shared_attn_period=2)
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
+    batch = {"tokens": toks.cuda(), "labels": toks.roll(-1, 1).cuda()}
+    fwd = (5, 2, 2)                  # K6, K2, K3 a forward
+    extra = {"none": (0, 0, 0), "dots": (4, 2, 0), "full": (4, 2, 2)}
+    kernels = (ssd_scan, flash_attention, fused_ffn)
+    out = {}
+    for remat, more in extra.items():
+        before = [k.launches for k in kernels]
+        out[remat] = loss_and_grads(params, cfg, RuntimeOptions(remat=remat),
+                                    batch)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [
+            a + b for a, b in zip(fwd, more)], remat
+    for remat in ("dots", "full"):
+        assert torch.equal(out[remat][0], out["none"][0]), remat
+        for (k, a), (_, b) in zip(_flat(out[remat][1]),
+                                  _flat(out["none"][1])):
+            assert torch.equal(a, b), (remat, k)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _flat(v, f"{prefix}{k}/")]
+    return [(prefix, tree)]
 
 
 @pytest.mark.gpu
