@@ -695,13 +695,15 @@ def k1_repeated(torch, args, sc, window):
     return out
 
 
-def flash_case(torch, gen, b, h, kvh, s, hd, dtype):
-    """q (B,S,H,hd), k/v (B,S,K,hd) on the card as the model holds them
-    after rotary, passed as (B,H,S,hd) / (B,K,S,hd) views."""
+def flash_case(torch, gen, b, h, kvh, s, hd, dtype, sk=None):
+    """q (B,S,H,hd), k/v (B,S_k,K,hd) on the card as the model holds them
+    after rotary, passed as (B,H,S,hd) / (B,K,S_k,hd) views; S_k = S
+    unless ``sk`` is given (a decoder's cross-attention)."""
     dt = getattr(torch, dtype)
+    sk = s if sk is None else sk
     q = torch.randn(b, s, h, hd, generator=gen).to(dt).cuda()
-    k = torch.randn(b, s, kvh, hd, generator=gen).to(dt).cuda()
-    v = torch.randn(b, s, kvh, hd, generator=gen).to(dt).cuda()
+    k = torch.randn(b, sk, kvh, hd, generator=gen).to(dt).cuda()
+    v = torch.randn(b, sk, kvh, hd, generator=gen).to(dt).cuda()
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
@@ -712,18 +714,44 @@ def flash_plain(q, k, v, **mask):
                           v.repeat_interleave(g, 1), **mask)
 
 
-def flash_pairs(s, causal, window, kv_len):
+def flash_pairs(s, causal, window, kv_len, sk=None):
     """Valid (row, col) pairs of one head: the work the data needs."""
     import numpy as np
+    sk = s if sk is None else sk
     rows = np.arange(s)[:, None]
-    cols = np.arange(s)[None, :]
-    valid = np.broadcast_to(cols < (s if kv_len is None else kv_len),
-                            (s, s)).copy()
+    cols = np.arange(sk)[None, :]
+    valid = np.broadcast_to(cols < (sk if kv_len is None else kv_len),
+                            (s, sk)).copy()
     if causal:
         valid &= cols <= rows
     if window:
         valid &= cols > rows - window
     return int(valid.sum())
+
+
+def flash_checked(torch, q, k, v, mask, what):
+    """One K2 call held to its plain version within ``TOL``: exactly one
+    launch on the route its plan names, 0 where ``kv_len`` is 0, and a
+    repeat equal bit for bit.  Returns ``(max_abs_err, route)``."""
+    from repro_torch.kernels.flash_attn import flash_attention, flash_plan
+    plan = flash_plan(q.dtype, q.shape[3], q.shape[2], k.shape[2],
+                      q.shape[1], k.shape[1])
+    what = f"{what} ({plan.route})"
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **mask)
+    if flash_attention.launches != before + 1:
+        raise AssertionError(f"flash_attention launched "
+                             f"{flash_attention.launches - before} times: "
+                             f"{what}")
+    ref = flash_plain(q, k, v, **mask)
+    torch.cuda.synchronize()
+    err = check_close("flash_attention", out, ref,
+                      TOL[str(q.dtype).split(".")[-1]], what)
+    if mask.get("kv_len") == 0 and not bool((out == 0).all()):
+        raise AssertionError("kv_len 0 must give 0: " + what)
+    if not torch.equal(out, flash_attention(q, k, v, **mask)):
+        raise AssertionError("flash_attention does not repeat: " + what)
+    return err, plan.route
 
 
 def max_sm_clock_hz():
@@ -736,14 +764,94 @@ def max_sm_clock_hz():
 
 
 FLASH_HDS = (16, 32, 64, 96, 128, 256)
+# K2 at the served prefill shapes of hd >= 64: (label, B, S, S_k, H, K,
+# hd, mask), the configs' prompt buckets as phases 8.0-13.0 run them
+K2_SERVED = (
+    ("gemma3-12b", 8, 2048, 2048, 16, 8, 256, dict(causal=True)),
+    ("gemma3-12b window", 8, 2048, 2048, 16, 8, 256,
+     dict(causal=True, window=1024)),
+    ("olmoe-1b-7b", 8, 1024, 1024, 16, 16, 128, dict(causal=True)),
+    ("internvl2-26b", 8, 512, 512, 48, 8, 128, dict(causal=True)),
+    ("yi-34b", 8, 512, 512, 56, 8, 128, dict(causal=True)),
+    ("qwen1.5-32b", 8, 128, 128, 40, 40, 128, dict(causal=True)),
+    ("phi3-mini", 8, 512, 512, 32, 32, 96, dict(causal=True)),
+    ("gemma-7b", 8, 512, 512, 16, 16, 256, dict(causal=True)),
+    ("zamba2-1.2b", 8, 1024, 1024, 32, 32, 64, dict(causal=True)),
+    ("whisper-small encoder", 8, 1500, 1500, 12, 12, 64,
+     dict(causal=False)),
+    ("whisper-small cross 448", 8, 448, 1500, 12, 12, 64,
+     dict(causal=False)),
+    ("whisper-small cross 16", 8, 16, 1500, 12, 12, 64,
+     dict(causal=False)),
+)
+
+
+def flash_served_times(torch, gen):
+    """K2 at ``K2_SERVED``: each shape held to its plain version (route,
+    one launch, a repeat bit for bit), then timed by CUDA events and by
+    the profiler's device time beside SDPA (``enable_gqa`` where the
+    installed torch has it, else K/V repeated to H before the timed
+    region; the window's rows by a boolean mask) and the bound
+    (operations of the valid pairs, bytes of q, k, v and out once).
+    Returns ``{label: fields}``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+    table = {}
+    for label, b, s, sk, h, kvh, hd, mask in K2_SERVED:
+        q, k, v = flash_case(torch, gen, b, h, kvh, s, hd, "bfloat16", sk)
+        err, route = flash_checked(torch, q, k, v, mask, label)
+        sdpa_kw = {}
+        if mask.get("window"):
+            rows = torch.arange(s, device=q.device)
+            sdpa_kw["attn_mask"] = (rows[None] <= rows[:, None]) \
+                & (rows[None] > rows[:, None] - mask["window"])
+        else:
+            sdpa_kw["is_causal"] = mask["causal"]
+        if h == kvh:
+            kd, vd, how = k, v, "MHA"
+        elif gqa:
+            kd, vd, how = k, v, "enable_gqa"
+            sdpa_kw["enable_gqa"] = True
+        else:
+            kd, vd = (t.repeat_interleave(h // kvh, 1) for t in (k, v))
+            how = "K/V repeated"
+
+        def run():
+            return fa.flash_attention(q, k, v, **mask)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, kd, vd, **sdpa_kw)
+
+        pairs = flash_pairs(s, mask["causal"], mask.get("window", 0), None,
+                            sk) * b * h
+        t = dict(route=route, max_abs_err=err,
+                 ms=cuda_ms(torch, run, iters=50),
+                 device_ms=device_ms(torch, run, part="flash_attn"))
+        t["library_ms"] = cuda_ms(torch, sdpa, iters=50)
+        t["library_device_ms"] = device_ms(torch, sdpa)
+        t["bound_ms"], t["bound_by"] = bound(
+            (2 * q.numel() + 2 * k.numel()) * 2, 4 * hd * pairs,
+            H100_BF16_FLOPS)
+        sizes = f"{b} x {s}" + (f" over {sk} keys" if sk != s else "")
+        log(f"K2 {label} ({sizes}, {h}/{kvh} heads of {hd}, {mask}): "
+            f"{route} {t['ms']:.4f} ms, device {fmt(t['device_ms'])}"
+            f"; SDPA ({how}) {t['library_ms']:.4f} ms, device "
+            f"{fmt(t['library_device_ms'])}; bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); max_abs_err {err:.3g}")
+        table[label] = t
+        del q, k, v, kd, vd
+    return table
 
 
 def phase_flash(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn import attention_route, flash_attention
+    from repro_torch.kernels.flash_attn import (attention_route,
+                                                flash_attention)
     gen = torch.Generator().manual_seed(4321)
     max_err = 0.0
     n_cases = 0
+    routes = {}
     # hd 96 (phi3-mini) also at a ragged S of 1000
     for s, hds in ((16, FLASH_HDS), (1024, FLASH_HDS), (2048, FLASH_HDS),
                    (1000, (96,))):
@@ -753,6 +861,10 @@ def phase_flash(torch):
                  dict(causal=True, window=s + 7),
                  dict(causal=True, kv_len=0),
                  dict(causal=True, kv_len=s * 2 // 3 + 5),
+                 # a window past kv_len: a tile's second 64 rows see
+                 # no key tile that its first 64 see
+                 dict(causal=True, window=64, kv_len=100),
+                 dict(causal=True, window=300, kv_len=500),
                  dict(causal=False)]
         for mask in masks:
             for dtype in ("bfloat16", "float32"):
@@ -760,26 +872,47 @@ def phase_flash(torch):
                     for h, kvh in ((8, 8), (8, 2)):
                         q, k, v = flash_case(torch, gen, b, h, kvh, s, hd,
                                              dtype)
-                        out = flash_attention(q, k, v, **mask)
-                        ref = flash_plain(q, k, v, **mask)
-                        torch.cuda.synchronize()
                         what = (f"S={s} hd={hd} H={h} kvh={kvh} {dtype} "
                                 f"({attention_route(q.dtype)}) {mask}")
-                        err = check_close("flash_attention", out, ref,
-                                          TOL[dtype], what)
-                        if mask.get("kv_len") == 0 \
-                                and not bool((out == 0).all()):
-                            raise AssertionError("kv_len 0 must give 0")
-                        if not torch.equal(out, flash_attention(q, k, v,
-                                                                **mask)):
-                            raise AssertionError("flash_attention does not "
-                                                 "repeat: " + what)
+                        err, route = flash_checked(torch, q, k, v, mask,
+                                                   what)
+                        # the route each dtype and hd ran on: one each
+                        if routes.setdefault(f"{dtype} hd {hd}",
+                                             route) != route:
+                            raise AssertionError(f"two routes at {what}")
                         max_err = max(max_err, err)
                         n_cases += 1
-    log(f"flash_attention == plain version on {n_cases} cases (bf16 on the "
-        f"tensor cores, f32 on the CUDA cores, hd {FLASH_HDS}, S 16, 1000 "
-        f"(hd 96), 1024, 2048), each repeating bit for bit, max_abs_err "
-        f"{max_err:.3g}")
+    # the wgmma route at groups 6 and 7 (internvl2-26b, yi-34b) over a
+    # ragged S, and at cross-attention lengths: 16 and 448 queries over
+    # 1500 keys (whisper-small), with and without kv_len
+    for hd in (64, 96, 128, 256):
+        for h, kvh in ((48, 8), (56, 8)):
+            q, k, v = flash_case(torch, gen, 1, h, kvh, 1000, hd,
+                                 "bfloat16")
+            for mask in (dict(causal=True), dict(causal=True, window=300),
+                         dict(causal=True, kv_len=601),
+                         dict(causal=True, window=300, kv_len=500),
+                         dict(causal=False, kv_len=0)):
+                err, _ = flash_checked(torch, q, k, v, mask,
+                                       f"S=1000 hd={hd} H={h} kvh={kvh} "
+                                       f"{mask}")
+                max_err = max(max_err, err)
+                n_cases += 1
+        for sq in (16, 448):
+            q, k, v = flash_case(torch, gen, 2, 8, 2, sq, hd, "bfloat16",
+                                 1500)
+            for mask in (dict(causal=False), dict(causal=False, kv_len=999),
+                         dict(causal=False, kv_len=0)):
+                err, _ = flash_checked(torch, q, k, v, mask,
+                                       f"{sq} queries over 1500 keys "
+                                       f"hd={hd} {mask}")
+                max_err = max(max_err, err)
+                n_cases += 1
+    log(f"flash_attention == plain version on {n_cases} cases (routes "
+        f"{routes}; hd {FLASH_HDS}, S 16, 1000, 1024, 2048, groups 1, 4, 6 "
+        f"and 7, 16 and 448 queries over 1500 keys), each one launch "
+        f"repeating bit for bit, max_abs_err {max_err:.3g}")
+    served = flash_served_times(torch, gen)
 
     # timing at the long wave's prefill bursts: 8 prompts x 8 heads x hd
     # 32, bf16, causal (the engine passes no kv_len)
@@ -823,7 +956,9 @@ def phase_flash(torch):
             "device_ms_8x1024": timed[1024][6],
             "library_device_ms_8x1024": timed[1024][7],
             "shape": "8 x 2048 tokens, 8 heads, hd 32, bf16, causal "
-                     "(tensor cores)"}
+                     "(tensor cores)",
+            "routes": routes,
+            "served": served}
 
 
 def ffn_case(torch, gen, m, d, f, dtype):

@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` file is one shared library with a plain C interface,
 compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
 the checkout (git-ignored) on first use.  The library name carries a hash
-of its source and flags, so an edited source is rebuilt and a built one
-is loaded as it is.  One ``nvcc`` process per source, all started
+of its source, of every ``csrc/*.cuh`` header and of the flags, so an
+edited source or header is rebuilt and a built one is loaded as it is.  One ``nvcc`` process per source, all started
 together.  Nothing here runs at import time.  The arrival counters that
 some kernels' last blocks use are kept here too, one set per stream.
 """
@@ -41,7 +41,8 @@ def nvcc_path() -> str:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 

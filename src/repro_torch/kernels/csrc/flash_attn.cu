@@ -1,5 +1,8 @@
 // Flash attention for prefill (causal / windowed / kv_len-masked) for
-// Hopper (sm_90a), in two routes picked by dtype.
+// Hopper (sm_90a), in three routes picked by dtype and head dim (the
+// wrapper's flash_plan in kernels/flash_attn.py): bf16 at hd 64..256 on
+// wgmma with TMA and a producer warp, bf16 at hd 16 and 32 on mma.sync,
+// f32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention` in
 // src/repro/kernels/flash_attn.py (pallas_call at line 96, kernel body
@@ -24,46 +27,88 @@
 // S_q and S_k: the ragged last query and key tiles are masked.  Head
 // dims 16, 32, 64, 96 (phi3-mini), 128 and 256.
 //
-// Bound on the H100: operations at the served shapes.  A causal prefill
-// at S = 1024..2048 and hd 32 does 2 * 2 * hd flops per valid (row,
-// col) pair against 4 * hd * 2 bytes of q/k/v/out per row: hundreds of
-// flops per byte, above the bf16 ridge of 295 flop/byte for S >~ 600.
-// At hd 32 the exponentials cost as much as the products: one ex2 per
-// valid pair at 16 a clock per SM is a floor of ~0.03 ms at 8 x 2048 x
-// 8 heads, above the 0.0174 ms of the products at the bf16 peak.
+// Bound on the H100.  A causal prefill does 2 * 2 * hd flops per valid
+// (row, col) pair against 4 * hd * 2 bytes of q/k/v/out per row, so its
+// operations per byte grow with the keys a row sees: at the served
+// shapes the call is bound by operations (gemma3-12b's 8 x 2048 tokens
+// at hd 256: 275 GFLOP, 0.278 ms at 989 TFLOP/s, against 402 MB, 0.120
+// ms; whisper-small's encoder, 1500 keys a row) or sits just below the
+// bf16 ridge of ~295 flop/byte (8 x 512..1024 causal tokens at hd
+// 64..128, where the bytes bound it by 15-35 %).  The exponentials add a
+// floor:
+// one ex2 a valid pair at 16 a clock per SM, which at hd 32 costs as
+// much as the products and at hd 64 about half as much.
 //
-// bf16 route (flash_attn_tc_kernel), FlashAttention-2 on mma.sync
-// m16n8k16 (bf16 in, f32 accumulate): one block of 4 warps per
+// bf16 at hd 64, 96, 128 and 256 (flash_attn_wg_kernel), in the shape
+// of FlashAttention-3, built for the operation bound:
+// - products on wgmma, the only way to the tensor cores' full rate:
+//   S = Q K^T is m64nBKk16 with both operands read from shared memory
+//   (K's rows K-major), and O += P V is m64n{hd}k16 with P, the S
+//   accumulator rounded to bf16, as the register A operand and V the
+//   N-major B operand through the descriptor's transpose bit.  Q, K and
+//   V lie in shared memory in the 128-byte swizzled layout that TMA
+//   writes (CU_TENSOR_MAP_SWIZZLE_128B, 64-column boxes), so neither the
+//   copies nor the tensor cores' reads conflict in banks;
+// - a block of 384 threads: a producer warpgroup, of which one thread
+//   issues every TMA load (setmaxnreg gives its registers to the
+//   consumers: 24 against 240), and two consumer warpgroups of 64 query
+//   rows each, so one group's softmax runs beside the other's products;
+// - the loads are TMA tile copies into a ring of K/V stages (4 at hd 64,
+//   2 above) with a full and an empty mbarrier each, and Q loads once a
+//   tile into one of two slots (one at hd 256, where two do not fit
+//   beside the ring), so the next tile's Q and first K/V land while
+//   this tile computes.  TMA reads the strided (B, H, S, hd) views
+//   through 4-d tensor maps encoded on the host each launch
+//   (cuTensorMapEncodeTiled, found at run time) and fills rows past S,
+//   keys past S_k and hd 96's columns 96..127 with zeros;
+// - persistent: one block an SM takes tiles of 128 query rows from a
+//   counter (any block may take any tile; each tile is computed whole by
+//   one block in a fixed order, so the output repeats bit for bit, with
+//   no atomics on values).  Tiles are numbered by KV group (batch, kv
+//   head), within a group the heaviest causal tiles first and the
+//   group's heads side by side, so the tiles running at once read a few
+//   groups' K/V from L2 and the light tiles fill the tail;
+// - tiles of 128 keys (64 at hd 256, whose O alone takes 128 registers
+//   a thread); hd 96 runs in hd 128's layout (its S products stop at
+//   column 96, its P V products run at n 128 on zero columns);
+// - the online softmax stays in registers as on the mma.sync route (a
+//   quad-lane row max, one FFMA and one ex2 a weight, f32 row sums a
+//   lane, added across the quad once at the end).  Masks are evaluated
+//   only on tiles that cross the causal diagonal, the window's edge,
+//   kv_len or S_k; a group skips the key tiles its 64 rows cannot see,
+//   the block the tiles none of its rows can;
+// - at hd 64 each tile's S runs beside the last tile's O += P V (one
+//   product phase a tile); above hd 64 a tile's S, softmax and P V run
+//   in turn, since O, S and P live at once cost more registers than the
+//   overlap gains (measured: chip_smoke.py phase 2, PERF.md).
+// The consumers' loop tests for the end of the walk at its top: with
+// the test after the wait inside the loop, ptxas spilled at hd 256.
+//
+// bf16 at hd 16 and 32 (flash_attn_tc_kernel), FlashAttention-2 on
+// mma.sync m16n8k16 (bf16 in, f32 accumulate): one block of 4 warps per
 // (batch*head, 64-row query tile); each warp owns 16 query rows.  The
 // grid starts the heaviest causal tiles of every (batch, head) first, so
-// the light ones fill the tail.  Q is staged once (cp.async) and read as
-// A fragments with ldmatrix (kept in registers for hd <= 64).  64-key
-// tiles of K and V (32 at hd 256) are staged in bf16 with cp.async
-// 16-byte copies into a two-slot ring, one barrier a tile, so the next
-// tile loads while this one computes; each thread's copy addresses are
-// computed once; rows are padded by 16 bytes so ldmatrix is free of
-// bank conflicts.  S = Q K^T runs on the tensor cores with K's rows as
-// the B operand.  The online softmax stays in registers: the row max
-// goes through the four lanes of a quad, and each weight is one FFMA and
-// one ex2.approx (the f32 scores scaled by scale * log2(e) in the same
-// FFMA).  P is rounded to bf16 in registers and is the A operand of O +=
-// P V directly (the C fragment of one m16n8k16 is the A fragment of the
-// next); V is the B operand through ldmatrix.trans, and the row sums of
-// P come from one more mma against a fragment of ones.  Masks are
-// evaluated only on tiles that cross the causal diagonal, the window's
-// edge, kv_len or S; a warp skips a tile that no row of its own can see,
-// and the block skips the tiles outside the window.  Rows past S and keys
-// past S are zero-filled by the copies, so nothing undefined enters a
-// product.  At hd <= 64 the kernel is held to 96 registers so five
-// blocks share an SM.  At hd 96 a row is 12 16-byte chunks, so a pass of
-// the block's 128 threads copies 10 whole rows and 8 threads idle; the
-// 208-byte smem row (104 bf16) puts the 8 rows of an ldmatrix phase at
-// word offsets 52 r mod 32 = {0, 20, 8, 28, 16, 4, 24, 12}: four banks
-// each, all distinct, so ldmatrix stays free of conflicts.  Shared
-// memory: (64 + 2 x 2 x 64) x 104 x 2 = 66,560 bytes (f32 route:
-// 90,880).  What limits it at hd 32 is the issue of the softmax's
-// instructions (two per weight plus the max) and their latencies: it
-// runs at about three times the ex2 floor above.
+// the light ones fill the tail.  Q is staged once (cp.async) and kept in
+// registers as A fragments (ldmatrix).  64-key tiles of K and V are
+// staged in bf16 with cp.async 16-byte copies into a two-slot ring, one
+// barrier a tile, so the next tile loads while this one computes; each
+// thread's copy addresses are computed once; rows are padded by 16 bytes
+// so ldmatrix is free of bank conflicts.  S = Q K^T runs on the tensor
+// cores with K's rows as the B operand.  The online softmax stays in
+// registers: the row max goes through the four lanes of a quad, and each
+// weight is one FFMA and one ex2.approx (the f32 scores scaled by scale
+// * log2(e) in the same FFMA).  P is rounded to bf16 in registers and is
+// the A operand of O += P V directly (the C fragment of one m16n8k16 is
+// the A fragment of the next); V is the B operand through
+// ldmatrix.trans, and the row sums of P come from one more mma against a
+// fragment of ones.  Masks are evaluated only on tiles that cross the
+// causal diagonal, the window's edge, kv_len or S; a warp skips a tile
+// that no row of its own can see, and the block skips the tiles outside
+// the window.  Rows past S and keys past S are zero-filled by the
+// copies, so nothing undefined enters a product.  The kernel is held to
+// 96 registers so five blocks share an SM.  What limits it at hd 32 is
+// the issue of the softmax's instructions (two per weight plus the max)
+// and their latencies: it runs at about three times the ex2 floor.
 //
 // f32 route (flash_attn_kernel), kept from the first version: the
 // tensor cores would compute f32 as TF32 (about three decimal digits),
@@ -74,14 +119,21 @@
 // shared memory, hd/4 output columns of the row per thread.
 //
 // Interface: plain C, bound with ctypes; returns cudaGetLastError() of
-// the launch.  It launches on the caller's stream and allocates nothing.
-// The bf16 route needs 16-byte aligned rows (the wrapper checks).
+// the launch.  It launches on the caller's stream and allocates nothing:
+// the wrapper passes the tile counter (_build.arrival_counters, zero
+// between launches).  The bf16 routes need 16-byte aligned rows and
+// strides (the wrapper checks; TMA's rules in tma_map).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 64;                  // query rows per block
@@ -271,77 +323,17 @@ cudaError_t dispatch_hd(int hd, const Args& a, int blocks,
 }
 
 // ------------------------------------------------ bf16 tensor-core route --
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x in one MUFU op; results below 2^-126 flush to 0 (a softmax weight
-// that small is 0 beside the row's largest, which is 1)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Tile shapes of the tensor-core route.
+// Tile shapes of the mma.sync route (hd 16 and 32).
 template <int HD>
 struct TcTile {
-  static constexpr bool kSmallHd = HD <= 64;
+  static_assert(HD == 16 || HD == 32, "hd 64..256 run on wgmma");
   static constexpr int kWarps = 4;                  // 16 rows each
   static constexpr int kBQ = 16 * kWarps;           // query rows a block
-  static constexpr int kBK = HD <= 128 ? 64 : 32;   // keys a tile
+  static constexpr int kBK = 64;                    // keys a tile
   static constexpr int kStages = 2;                 // K/V ring slots
-  static constexpr int kMinBlocks = kSmallHd ? 5 : 1;  // a SM
+  static constexpr int kMinBlocks = 5;              // a SM
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kStride = HD + 8;            // smem row, in bf16
-  static constexpr bool kQRegs = kSmallHd;          // Q fragments kept
   static constexpr int kNB = kBK / 8;               // S n-blocks
   static constexpr int kKD = HD / 16;               // k-steps of Q K^T
   static constexpr int kND = HD / 8;                // O n-blocks
@@ -403,13 +395,9 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
                qb + (long long)(ok ? row : 0) * a.q_ss + c * 8, ok);
   }
   // each thread copies the same 16-byte column chunk of rows r0, r0 +
-  // kRowStep, ... of every K and V tile.  When kChunks does not divide
-  // the block (hd 96: 12 chunks, 10 rows a pass) the threads past the
-  // last whole row idle, and a pass may end past the tile's last row.
+  // kRowStep, ... of every K and V tile
   constexpr int kRowStep = C::kThreads / C::kChunks;
-  constexpr bool kRagged = kBK % kRowStep != 0 ||
-                           kRowStep * C::kChunks != C::kThreads;
-  const int r0 = tid < kRowStep * C::kChunks ? tid / C::kChunks : kBK;
+  const int r0 = tid / C::kChunks;
   const int c8 = (tid % C::kChunks) * 8;
   const bf16* kp = kb + (long long)r0 * a.k_ss + c8;
   const bf16* vp = vb + (long long)r0 * a.v_ss + c8;
@@ -420,7 +408,6 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
     const int c0 = tile * kBK;
 #pragma unroll
     for (int r = 0; r < kBK; r += kRowStep) {
-      if (kRagged && r0 + r >= kBK) break;
       const bool ok = c0 + r0 + r < Sk;
       const long long off = ok ? (long long)(c0 + r) : -(long long)r0;
       cp_async16(ks + r * kStride, kp + off * a.k_ss, ok);
@@ -447,7 +434,7 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
   for (int n = 0; n < C::kND; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  uint32_t qf[C::kQRegs ? C::kKD : 1][4];
+  uint32_t qf[C::kKD][4];                            // Q's A fragments
 
   for (int it = t_begin; it < t_end; ++it) {
     // tile `it` has landed; every warp is done with tile it - 1, whose
@@ -458,12 +445,10 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
     cp_async_commit();
     const bf16* ks = kv_s + ((it - t_begin) % kStages) * 2 * kBK * kStride;
     const bf16* vs = ks + kBK * kStride;
-    if constexpr (C::kQRegs) {
-      if (it == t_begin) {
+    if (it == t_begin) {
 #pragma unroll
-        for (int kk = 0; kk < C::kKD; ++kk)
-          ldmatrix_x4(qf[kk], q_frag + 16 * kk);
-      }
+      for (int kk = 0; kk < C::kKD; ++kk)
+        ldmatrix_x4(qf[kk], q_frag + 16 * kk);
     }
     const int c0 = it * kBK;
     const bool skip = r_lo >= S || (a.causal && c0 > r_hi) ||
@@ -478,12 +463,8 @@ __global__ void __launch_bounds__(TcTile<HD>::kThreads,
 #pragma unroll
     for (int kk = 0; kk < C::kKD; ++kk) {
       uint32_t af[4];
-      if constexpr (C::kQRegs) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) af[e] = qf[kk][e];
-      } else {
-        ldmatrix_x4(af, q_frag + 16 * kk);
-      }
+      for (int e = 0; e < 4; ++e) af[e] = qf[kk][e];
 #pragma unroll
       for (int j = 0; j < C::kNB; j += 2) {
         uint32_t bf[4];
@@ -611,35 +592,572 @@ cudaError_t dispatch_tc(int hd, const Args& a, int batch,
   switch (hd) {
     case 16: return launch_tc<16>(a, batch, stream);
     case 32: return launch_tc<32>(a, batch, stream);
-    case 64: return launch_tc<64>(a, batch, stream);
-    case 96: return launch_tc<96>(a, batch, stream);
-    case 128: return launch_tc<128>(a, batch, stream);
-    case 256: return launch_tc<256>(a, batch, stream);
+    default: return cudaErrorInvalidValue;       // 64..256: wgmma
+  }
+}
+
+
+// ------------------------------------------------- bf16 route on wgmma --
+// Tile shapes of the wgmma route (hd 96 rides hd 128's layout: TMA fills
+// columns 96..127 with zeros).  flash_plan in kernels/flash_attn.py
+// mirrors these numbers and passes them in; the entry refuses a plan
+// that differs.
+template <int HD>
+struct WgTile {
+  static constexpr int kHDP = HD == 96 ? 128 : HD;   // shared columns
+  static constexpr int kColBlocks = kHDP / 64;        // 128-byte boxes
+  static constexpr int kBQ = 128;                     // 64 a consumer
+  static constexpr int kBK = HD == 256 ? 64 : 128;    // keys a tile
+  // two Q slots where they fit beside the ring: the next tile's Q loads
+  // while this one computes
+  static constexpr int kQSlots = HD == 256 ? 1 : 2;
+  static constexpr int kStages = HD == 64 ? 4 : 2;    // K/V ring slots
+  // hd 64 overlaps each tile's S with the last tile's O += P V (one
+  // product phase a tile); above it the registers of O, S and P at once
+  // cost more than the overlap gains (measured)
+  static constexpr bool kOverlap = HD == 64;
+  static constexpr int kThreads = 384;                // producer + 2
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kQBytes = kBQ * kHDP * 2;
+  static constexpr int kTileBytes = kBK * kHDP * 2;   // K or V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // + 1024: the swizzle atoms need a 1024-byte aligned base
+  // + the barriers (full, empty a stage and a Q slot) and the tile
+  // indices
+  static constexpr size_t kSmem = 1024 + (size_t)kQSlots * kQBytes +
+                                  (size_t)kStages * kStageBytes +
+                                  8 * (2 * kStages + 2 * kQSlots) + 16;
+};
+
+struct WgArgs {
+  bf16* out;
+  int* counter;       // the tile counter: 0 before and after each launch
+  int heads, kv_heads, seq, seq_k, q_tiles, tiles;
+  long long o_sb, o_sh, o_ss;
+  int causal, window, kv_len;
+  float scale;
+};
+
+// One output tile: 128 query rows of one (batch, head) and the key tiles
+// [t_begin, t_end) any of its rows can see.  Tiles are numbered by KV
+// group (batch, kv head), and within a group the heaviest causal tiles
+// first, the group's heads side by side: the tiles running at once share
+// a few groups' K/V in L2.
+struct WgWork {
+  int b, h, kh, q0, t_begin, t_end;
+};
+
+template <int BQ, int BK>
+__device__ __forceinline__ WgWork wg_work(const WgArgs& a, int tile) {
+  const int hpg = a.heads / a.kv_heads;
+  const int group = tile / (hpg * a.q_tiles);
+  const int r = tile % (hpg * a.q_tiles);
+  WgWork w;
+  w.b = group / a.kv_heads;
+  w.kh = group % a.kv_heads;
+  w.h = w.kh * hpg + r % hpg;
+  w.q0 = (a.q_tiles - 1 - r / hpg) * BQ;
+  const int row_hi = min(w.q0 + BQ, a.seq) - 1;
+  int col_end = a.seq_k;
+  if (a.causal) col_end = min(col_end, row_hi + 1);
+  if (a.kv_len >= 0) col_end = min(col_end, a.kv_len);
+  const int col_begin = a.window > 0 ? max(0, w.q0 - a.window + 1) : 0;
+  w.t_begin = col_begin / BK;
+  w.t_end = col_end > 0 ? (col_end + BK - 1) / BK : 0;
+  return w;
+}
+
+// The online softmax of one S tile of the wgmma route in registers
+// (n-block j of the accumulator holds keys c0 + 8 j + 2 t, + 1 of rows
+// row0 and row1): masks where the tile needs them, the running max
+// through the quad's four lanes, each weight one FFMA and one ex2 (the
+// scores scaled by scale * log2(e) in the FFMA), P rounded to bf16 as
+// the A fragments of O += P V (n-blocks 2 kk and 2 kk + 1 make k-step
+// kk), and this lane's share of the row sums in f32.  A row that has
+// seen no valid key keeps the -1e30 sentinel and is shifted by 0, so its
+// weights are exp2(-huge) == 0.  Returns the rows' rescale of O.
+template <int BK>
+__device__ __forceinline__ float2 wg_softmax(
+    float* sc, uint32_t (*pf)[4], float& m0, float& m1, float& l0,
+    float& l1, const WgArgs& a, int c0, int row0, int row1, int r_lo,
+    int r_hi, int t, float sl2) {
+  const bool need_mask = c0 + BK > a.seq_k ||
+                         (a.causal && c0 + BK - 1 > r_lo) ||
+                         (a.window > 0 && c0 <= r_hi - a.window) ||
+                         (a.kv_len >= 0 && c0 + BK > a.kv_len);
+  if (need_mask) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row0 : row1;
+        const int col = c0 + 8 * j + 2 * t + (e & 1);
+        bool valid = col < a.seq_k;
+        if (a.causal) valid = valid && col <= row;
+        if (a.window > 0) valid = valid && col > row - a.window;
+        if (a.kv_len >= 0) valid = valid && col < a.kv_len;
+        if (!valid) sc[4 * j + e] = kNegInf;
+      }
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float sh0 = mn0 == kNegInf ? 0.f : -mn0 * sl2;
+  const float sh1 = mn1 == kNegInf ? 0.f : -mn1 * sl2;
+  // exactly 1 where the row's max stands, so O's rescale can be skipped
+  const float2 corr =
+      make_float2(mn0 == m0 ? 1.f : ex2(fmaf(m0, sl2, sh0)),
+                  mn1 == m1 ? 1.f : ex2(fmaf(m1, sl2, sh1)));
+  m0 = mn0;
+  m1 = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float p0 = ex2(fmaf(sc[4 * j], sl2, sh0));
+    const float p1 = ex2(fmaf(sc[4 * j + 1], sl2, sh0));
+    const float p2 = ex2(fmaf(sc[4 * j + 2], sl2, sh1));
+    const float p3 = ex2(fmaf(sc[4 * j + 3], sl2, sh1));
+    ps0 += p0 + p1;
+    ps1 += p2 + p3;
+    pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+  l0 = fmaf(l0, corr.x, ps0);
+  l1 = fmaf(l1, corr.y, ps1);
+  return corr;
+}
+
+// Persistent: one block an SM.  Its producer takes the next tile from
+// the counter (any block may take any tile; each tile is computed whole
+// by one block in a fixed order, so the output repeats bit for bit),
+// runs ahead into that tile's Q and K/V while the consumers finish the
+// last one, and hands them the tile's index beside Q.
+template <int HD>
+__global__ void __launch_bounds__(WgTile<HD>::kThreads, 1)
+    flash_attn_wg_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         WgArgs a) {
+  using C = WgTile<HD>;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK, kHDP = C::kHDP;
+  constexpr int kStages = C::kStages;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // the Q slots, each kColBlocks boxes of kBQ rows x 128 bytes; then
+  // the ring, each stage K's boxes (kBK rows x 128 bytes each) and V's;
+  // then barriers and the tile index that rides with each Q
+  unsigned char* q_s = smem;
+  unsigned char* kv_s = smem + C::kQSlots * C::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s +
+                                               kStages * C::kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+  uint64_t* q_empty = q_full + C::kQSlots;
+  volatile int* tile_s =
+      reinterpret_cast<volatile int*>(q_empty + C::kQSlots);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);            // one arrival a consumer warp
+    }
+    for (int s = 0; s < C::kQSlots; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread takes the tiles and issues
+    // every TMA load.  A fresh barrier's previous phase counts as
+    // complete, so each first wait on an empty slot passes.
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (tid == 0) {
+      tma_prefetch(&tm_q);
+      tma_prefetch(&tm_k);
+      tma_prefetch(&tm_v);
+      int i = 0;                           // ring loads
+      for (int n = 0;; ++n) {              // tiles of this block
+        const int tile = atomicAdd(a.counter, 1);
+        const int qn = n % C::kQSlots;
+        const uint32_t q_phase = (n / C::kQSlots) & 1;
+        if (tile >= a.tiles) {
+          // each block's last take overshoots once: the launch's last
+          // take of all resets the counter for the next launch
+          if (tile == a.tiles + (int)gridDim.x - 1) *a.counter = 0;
+          mbar_wait(&q_empty[qn], q_phase ^ 1);
+          tile_s[qn] = -1;
+          mbar_arrive(&q_full[qn]);
+          break;
+        }
+        const WgWork w = wg_work<kBQ, kBK>(a, tile);
+        // Q (after the first K/V tile) into its slot, once the consumers
+        // have released the slot's last tile
+        auto load_q = [&]() {
+          mbar_wait(&q_empty[qn], q_phase ^ 1);
+          tile_s[qn] = tile;
+          mbar_expect_tx(&q_full[qn], C::kQBytes);
+          unsigned char* qs = q_s + qn * C::kQBytes;
+#pragma unroll
+          for (int cb = 0; cb < C::kColBlocks; ++cb)
+            tma_load_4d(qs + cb * (kBQ * 128), &tm_q, &q_full[qn], cb * 64,
+                        w.q0, w.h, w.b);
+        };
+        for (int it = w.t_begin; it < w.t_end; ++it, ++i) {
+          const int s = i % kStages;
+          mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], C::kStageBytes);
+          unsigned char* ks = kv_s + s * C::kStageBytes;
+          unsigned char* vs = ks + C::kTileBytes;
+#pragma unroll
+          for (int cb = 0; cb < C::kColBlocks; ++cb) {
+            tma_load_4d(ks + cb * (kBK * 128), &tm_k, &full[s], cb * 64,
+                        it * kBK, w.kh, w.b);
+            tma_load_4d(vs + cb * (kBK * 128), &tm_v, &full[s], cb * 64,
+                        it * kBK, w.kh, w.b);
+          }
+          if (it == w.t_begin) load_q();
+        }
+        if (w.t_begin >= w.t_end) load_q();   // no key to see: Q alone
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows of each tile each
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int cw = tid / 128 - 1;
+    const int warp = (tid / 32) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int S = a.seq;
+    const float sl2 = a.scale * kLog2e;
+    // descriptors: the start address field takes byte offsets / 16
+    const uint64_t dq = wgmma_desc(q_s + cw * (64 * 128), 16, 1024);
+    const uint64_t dkv = wgmma_desc(kv_s, 16, 1024);
+    const uint64_t dvv = wgmma_desc(kv_s + C::kTileBytes, kBK * 128, 1024);
+
+    // S = Q K^T from ring slot s_: both operands K-major in shared
+    // memory; a k-step is 32 bytes into the 128-byte rows of a column
+    // block
+    auto qk = [&](float* sc_, uint64_t dqn_, int s_) {
+      const uint64_t dk_ = dkv + ((s_ * C::kStageBytes) >> 4);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<kBK, 0>(
+            sc_, dqn_ + (((kk >> 2) * (kBQ * 128) + (kk & 3) * 32) >> 4),
+            dk_ + (((kk >> 2) * (kBK * 128) + (kk & 3) * 32) >> 4), kk > 0);
+    };
+    // O += P V from slot s_: V is B N-major (its rows hold hd columns),
+    // in 64-column groups kBK * 128 bytes apart; a k-step is 16 rows
+    auto pv = [&](float* o_, uint32_t (*pf_)[4], int s_) {
+      const uint64_t dv_ = dvv + ((s_ * C::kStageBytes) >> 4);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs<kHDP, 1>(o_, pf_[kk], dv_ + ((kk * 16 * 128) >> 4), 1);
+    };
+    // O's rescale to a row's new max, skipped by a warp whose 16 rows all
+    // kept theirs
+    auto rescale = [&](float* o_, float2 corr) {
+      if (!__any_sync(0xffffffffu, corr.x != 1.f || corr.y != 1.f)) return;
+#pragma unroll
+      for (int j = 0; j < kHDP / 8; ++j) {
+        o_[4 * j] *= corr.x;
+        o_[4 * j + 1] *= corr.x;
+        o_[4 * j + 2] *= corr.y;
+        o_[4 * j + 3] *= corr.y;
+      }
+    };
+    // this warp is done with slot s_ (its products have completed)
+    auto release = [&](int s_) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s_]);
+    };
+
+    int i = 0;                               // ring tiles
+    // tile n of this block rides in Q slot n % kQSlots; -1 ends the walk
+    // (the loop's test at its top keeps the consumers' register budget:
+    // a break after the wait spills at hd 256)
+    mbar_wait(&q_full[0], 0);
+    int n = 0;
+    for (int tile = tile_s[0]; tile >= 0;
+         mbar_wait(&q_full[n % C::kQSlots], (n / C::kQSlots) & 1),
+             tile = tile_s[n % C::kQSlots]) {
+      const int qn = n % C::kQSlots;
+      ++n;
+      const uint64_t dqn = dq + ((qn * C::kQBytes) >> 4);
+      const WgWork w = wg_work<kBQ, kBK>(a, tile);
+      const int r_lo = w.q0 + 64 * cw, r_hi = r_lo + 63;  // this group's
+      const int row0 = r_lo + 16 * warp + g, row1 = row0 + 8;
+      // the key tiles this group's rows see: [wb, we) of [t_begin, t_end),
+      // the tiles the producer loaded (a window past kv_len can start
+      // beyond t_end: then wb = we = t_end and every loaded tile is
+      // skipped)
+      int wb = w.t_begin, we = w.t_end;
+      if (r_lo >= S) {
+        we = wb;
+      } else {
+        if (a.window > 0)
+          wb = min(max(wb, max(0, r_lo - a.window + 1) / kBK), w.t_end);
+        if (a.causal) we = min(we, min(r_hi, S - 1) / kBK + 1);
+        we = max(we, wb);
+      }
+
+      float o[kHDP / 2];
+#pragma unroll
+      for (int j = 0; j < kHDP / 2; ++j) o[j] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+      int it = w.t_begin;
+      for (; it < wb; ++it, ++i) {           // tiles no row here sees
+        mbar_wait(&full[i % kStages], (i / kStages) & 1);
+        release(i % kStages);
+      }
+      if constexpr (!C::kOverlap) {
+        // each tile: S, its softmax, then O += P V
+        for (; it < we; ++it, ++i) {
+          const int s = i % kStages;
+          mbar_wait(&full[s], (i / kStages) & 1);
+          float sc[kBK / 2];
+          uint32_t pf[kBK / 16][4];
+          wgmma_fence();
+          qk(sc, dqn, s);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc, kBK / 2);
+          rescale(o, wg_softmax<kBK>(sc, pf, m0, m1, l0, l1, a, it * kBK,
+                                     row0, row1, r_lo, r_hi, t, sl2));
+          fence_regs(o, kHDP / 2);
+          wgmma_fence();
+          pv(o, pf, s);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o, kHDP / 2);
+          release(s);
+        }
+      } else if (wb < we) {
+        // one product phase a tile: the last tile's O += P V beside this
+        // tile's S, then this tile's softmax; a last phase for the last
+        // P V.  O, S and P are live at once.
+        float sc[kBK / 2];
+        uint32_t pf[kBK / 16][4];
+        int sp = i % kStages;
+        mbar_wait(&full[sp], (i / kStages) & 1);
+        wgmma_fence();
+        qk(sc, dqn, sp);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc, kBK / 2);
+        wg_softmax<kBK>(sc, pf, m0, m1, l0, l1, a, it * kBK, row0, row1,
+                        r_lo, r_hi, t, sl2);
+        ++it, ++i;
+        for (; it < we; ++it, ++i) {
+          const int s = i % kStages;
+          mbar_wait(&full[s], (i / kStages) & 1);
+          fence_regs(o, kHDP / 2);
+          wgmma_fence();
+          pv(o, pf, sp);
+          qk(sc, dqn, s);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o, kHDP / 2);
+          fence_regs(sc, kBK / 2);
+          release(sp);
+          rescale(o, wg_softmax<kBK>(sc, pf, m0, m1, l0, l1, a, it * kBK,
+                                     row0, row1, r_lo, r_hi, t, sl2));
+          sp = s;
+        }
+        fence_regs(o, kHDP / 2);
+        wgmma_fence();
+        pv(o, pf, sp);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o, kHDP / 2);
+        release(sp);
+      }
+      for (; it < w.t_end; ++it, ++i) {      // tiles past this group's
+        mbar_wait(&full[i % kStages], (i / kStages) & 1);
+        release(i % kStages);
+      }
+      // ... and with Q and the tile index: the slot may take the next
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty[qn]);
+
+      // the quad's four lanes hold a row's partial sums
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+      bf16* ob = a.out + w.b * a.o_sb + w.h * a.o_sh;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (row0 < S)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * a.o_ss +
+                                             col) =
+              __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        if (row1 < S)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * a.o_ss +
+                                             col) =
+              __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// One 4-d map (hd, S, heads, batch) of a bf16 view from the wrapper's
+// numbers (tma_map in kernels/flash_attn.py): 4 dims, the byte strides
+// of S, heads and batch, the box (64 columns, rows); 128-byte swizzle,
+// out-of-bounds boxes filled with zeros.
+bool encode_map(CUtensorMap* map, const void* base, const long long* p) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4] = {(cuuint32_t)p[7], (cuuint32_t)p[8], 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)p[i];
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)p[4 + i];
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the card's SMs, the persistent grid's size
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+// plan: block_q, block_k, stages, threads, smem bytes (flash_plan)
+template <int HD>
+cudaError_t launch_wg(const void* q, const void* k, const void* v,
+                      WgArgs a, int batch, const int* plan,
+                      const long long* maps, cudaStream_t stream) {
+  using C = WgTile<HD>;
+  if (plan[0] != C::kBQ || plan[1] != C::kBK || plan[2] != C::kStages ||
+      plan[3] != C::kThreads || plan[4] != (int)C::kSmem ||
+      maps[8] != C::kBQ || maps[17] != C::kBK || maps[26] != C::kBK)
+    return cudaErrorInvalidValue;
+  a.q_tiles = (a.seq + C::kBQ - 1) / C::kBQ;
+  const long long tiles = (long long)batch * a.heads * a.q_tiles;
+  const int sms = sm_count();
+  if (tiles > 0x7fffffffLL || sms == 0) return cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, maps) || !encode_map(&tk, k, maps + 9) ||
+      !encode_map(&tv, v, maps + 18))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attn_wg_kernel<HD>;
+  // the shared memory attribute, once a device: it holds for later
+  // launches
+  static unsigned long long attr_set = 0;   // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(attr_set & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+    if (err != cudaSuccess) return err;
+    attr_set |= bit;
+  }
+  const int grid = tiles < sms ? (int)tiles : sms;
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_wg(int hd, const void* q, const void* k, const void* v,
+                        const WgArgs& a, int batch, const int* plan,
+                        const long long* maps, cudaStream_t stream) {
+  switch (hd) {
+    case 64: return launch_wg<64>(q, k, v, a, batch, plan, maps, stream);
+    case 96: return launch_wg<96>(q, k, v, a, batch, plan, maps, stream);
+    case 128: return launch_wg<128>(q, k, v, a, batch, plan, maps, stream);
+    case 256: return launch_wg<256>(q, k, v, a, batch, plan, maps, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+enum Route { kCudaCores = 0, kMmaSync = 1, kWgmma = 2 };
+
+// route: the plan's (flash_plan); plan: block_q, block_k, stages,
+// threads, smem bytes; maps: the wgmma route's tensor maps of q, k and v,
+// 9 numbers each (tma_map); counter: one int, 0, that the wgmma route
+// counts its tiles on and leaves at 0.  The other routes read none.
 extern "C" int flash_attn(
     const void* q, const void* k, const void* v, void* out, int batch,
     int heads, int kv_heads, int seq, int seq_k, int head_dim,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-    int causal, int window,
-    int kv_len, float scale, int dtype, void* stream) {
+    int causal, int window, int kv_len, float scale, int dtype, int route,
+    const int* plan, const long long* maps, void* counter, void* stream) {
   if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kWgmma) {
+    if (dtype != kBF16 || plan[0] <= 0) return cudaErrorInvalidValue;
+    const WgArgs wa{static_cast<bf16*>(out), static_cast<int*>(counter),
+                    heads, kv_heads, seq, seq_k, 0, 0, o_sb, o_sh, o_ss,
+                    causal, window, kv_len, scale};
+    return dispatch_wg(head_dim, q, k, v, wa, batch, plan, maps, s);
+  }
   const int q_tiles = (seq + kBQ - 1) / kBQ;
   Args a{q, k, v, out, heads, kv_heads, seq, seq_k, q_tiles,
          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
          o_sb, o_sh, o_ss, causal, window, kv_len, scale};
   const long long blocks = (long long)batch * heads * q_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return dispatch_hd<float>(head_dim, a, (int)blocks, s);
-    case kBF16: return dispatch_tc(head_dim, a, batch, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (route == kCudaCores && dtype == kF32)
+    return dispatch_hd<float>(head_dim, a, (int)blocks, s);
+  if (route == kMmaSync && dtype == kBF16)
+    return dispatch_tc(head_dim, a, batch, s);
+  return cudaErrorInvalidValue;
 }

@@ -5,11 +5,15 @@ Replaces the Pallas TPU kernel ``flash_attention`` of the JAX package
 (its header notes the design and the bound on the H100); its plain
 version is :func:`repro_torch.kernels.ref.flash_attn_ref`.
 
-:func:`attention_route` picks the route from q's dtype: bf16 runs on
-the tensor cores (``mma.sync``), f32 on the CUDA cores, since the
-tensor cores would round f32 to TF32.  A tensor on the CPU takes the
-plain version.  A tensor on the card launches its route's kernel or
-raises — there is no fallback.  Each launch adds one to
+:func:`attention_route` names the unit q's dtype runs on: bf16 on the
+tensor cores, f32 on the CUDA cores, since the tensor cores would round
+f32 to TF32.  :func:`flash_plan` picks the kernel and its tiles: bf16 at
+hd 64..256 on ``wgmma`` (TMA loads issued by a producer warpgroup, two
+consumer warpgroups), bf16 at hd 16 and 32 on ``mma.sync``, f32 on the
+CUDA cores.  :func:`tma_map` gives the tensor maps the ``wgmma`` route reads
+q, k and v through, and refuses a view that TMA cannot read.  A tensor
+on the CPU takes the plain version.  A tensor on the card launches its
+plan's kernel or raises — there is no fallback.  Each launch adds one to
 ``flash_attention.launches``.
 
 Gradients: when autograd records (grad mode on and q, k or v requiring
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,14 +37,129 @@ from .ref import flash_attn_ref
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+# the C entry's route codes
+_ROUTE_CODES = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2}
+# bf16 head dims on the wgmma route; the rest of HEAD_DIMS on mma.sync
+WGMMA_HEAD_DIMS = (64, 96, 128, 256)
+# the wgmma route's register budget a thread (setmaxnreg): the producer
+# warpgroup's and each of the two consumer warpgroups'
+PRODUCER_REGS, CONSUMER_REGS = 24, 240
+TMA_BOX_COLS = 64              # a 128-byte swizzle row of bf16
+TMA_SWIZZLE_BYTES = 128
+
+
+class FlashPlan(NamedTuple):
+    """One launch of K2: the route, the query rows and keys of a tile,
+    the K/V ring's stages, threads, shared memory and registers of a
+    block, and the query tiles of a head."""
+    route: str
+    block_q: int
+    block_k: int
+    stages: int
+    threads: int
+    smem: int
+    regs: int
+    q_tiles: int
+
+
+class TmaMap(NamedTuple):
+    """A 4-d TMA tensor map of a (B, H, S, hd) bf16 view: ``dims``
+    innermost first (hd, S, H, B), the byte ``strides`` of S, H and B,
+    the ``box`` (columns, rows) one load copies, the swizzle span."""
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int]
+    swizzle: int
 
 
 def attention_route(dtype: torch.dtype) -> str:
-    """The kernel route for q's dtype: ``"tensor_cores"`` (bf16) or
+    """The unit q's dtype runs on: ``"tensor_cores"`` (bf16) or
     ``"cuda_cores"`` (f32)."""
     if dtype not in _ROUTES:
         raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
     return _ROUTES[dtype]
+
+
+def flash_plan(dtype: torch.dtype, hd: int, seq: int, seq_k: int,
+               heads: int, kv_heads: int) -> FlashPlan:
+    """The route and launch geometry of one K2 call: a pure function of
+    its arguments, mirroring the kernels' constants (``WgTile``,
+    ``TcTile``, the f32 kernel's); the C entry refuses a ``wgmma`` plan
+    that differs from ``WgTile``."""
+    attention_route(dtype)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if seq <= 0 or seq_k <= 0 or kv_heads <= 0 or heads % kv_heads:
+        raise ValueError(f"no plan for S {seq}, S_k {seq_k}, {heads} heads "
+                         f"over {kv_heads}")
+    if dtype == torch.float32:
+        bq = bk = 64
+        smem = 4 * (bq * (hd + 1) + bk * (hd + 1) + bk * hd + bq * (bk + 1))
+        return FlashPlan("cuda_cores", bq, bk, 1, 256, smem, 256 * 255,
+                         -(-seq // bq))
+    if hd in WGMMA_HEAD_DIMS:
+        hdp = 128 if hd == 96 else hd        # hd 96 in hd 128's layout
+        bq, bk = 128, 64 if hd == 256 else 128
+        q_slots, stages = (1, 2) if hd == 256 else (2, 4 if hd == 64 else 2)
+        smem = 1024 + q_slots * 2 * bq * hdp + stages * 2 * 2 * bk * hdp \
+            + 8 * (2 * stages + 2 * q_slots) + 16
+        return FlashPlan("wgmma", bq, bk, stages, 384, smem,
+                         128 * PRODUCER_REGS + 256 * CONSUMER_REGS,
+                         -(-seq // bq))
+    # the mma.sync route (TcTile): 64 query rows of 4 warps, 64-key
+    # tiles in a two-slot cp.async ring, 16-byte padded rows, five
+    # blocks an SM at 96 registers a thread
+    bq = bk = 64
+    return FlashPlan("mma_sync", bq, bk, 2, 128,
+                     2 * (bq + 2 * 2 * bk) * (hd + 8), 128 * 96,
+                     -(-seq // bq))
+
+
+def tma_map(t: torch.Tensor, box_rows: int) -> TmaMap:
+    """The tensor map through which the ``wgmma`` route reads a (B, H, S,
+    hd) bf16 view in place: dims (hd, S, H, B), the views' own strides
+    in bytes, boxes of 64 columns (128 bytes, the swizzle span) by
+    ``box_rows`` rows.  A dim of extent 1 is never stepped along, so its
+    stride is taken as the span of the dims inside it.  Raises
+    ``ValueError`` where TMA cannot read the view: a base not 16-byte
+    aligned, a stride not a positive multiple of 16 bytes or not below
+    2**40, a last dim that is not dense."""
+    shape, stride = t.shape, t.stride()
+    if len(shape) != 4 or t.dtype != torch.bfloat16:
+        raise ValueError(f"tma_map takes a 4-d bf16 view, got "
+                         f"{tuple(shape)} {t.dtype}")
+    if not 0 < box_rows <= 256:
+        raise ValueError(f"TMA boxes hold 1..256 rows, not {box_rows}")
+    if stride[3] != 1:
+        raise ValueError("TMA needs the last dim dense")
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base, got "
+                         f"{t.data_ptr() % 16} bytes off")
+    b, h, s, hd = shape
+    span = 2 * hd
+    strides = []
+    for n, st in ((s, 2 * stride[2]), (h, 2 * stride[1]), (b, 2 * stride[0])):
+        if n == 1:
+            st = max(span, 16)
+        if st <= 0 or st % 16 or st >= 1 << 40:
+            raise ValueError(f"TMA needs each stride a positive multiple "
+                             f"of 16 bytes below 2**40, got {st} bytes "
+                             f"in {tuple(shape)} with strides {stride}")
+        strides.append(st)
+        span = max(span, st * n)
+    return TmaMap((hd, s, h, b), tuple(strides), (TMA_BOX_COLS, box_rows),
+                  TMA_SWIZZLE_BYTES)
+
+
+def tma_numbers(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                plan: FlashPlan) -> list:
+    """The 27 numbers the C entry encodes its tensor maps from: for q
+    (boxes of ``block_q`` rows), k and v (``block_k`` rows) in turn, the
+    4 dims, the 3 byte strides and the box (columns, rows)."""
+    return [x for t, rows in ((q, plan.block_q), (k, plan.block_k),
+                              (v, plan.block_k))
+            for m in (tma_map(t, rows),)
+            for x in (*m.dims, *m.strides, *m.box)]
 
 
 def _kernel_fn():
@@ -48,7 +167,7 @@ def _kernel_fn():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([p] * 4 + [i] * 6 + [ll] * 12
-                       + [i, i, i, ctypes.c_float, i, p])
+                       + [i, i, i, ctypes.c_float, i, i, p, p, p, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -81,7 +200,7 @@ def _check(q, k, v, window, kv_len, causal=False) -> None:
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be dense in its last dim")
     if attention_route(q.dtype) == "tensor_cores":
-        # the tensor-core route copies 16-byte row segments
+        # both bf16 routes copy 16-byte row segments (cp.async or TMA)
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)
                                         if t.shape[i] > 1):
@@ -123,18 +242,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(q, k, v, causal, window, kv_len)
 
 
+class _LaunchNumbers(NamedTuple):
+    """What the C entry takes besides the base pointers and the masks,
+    for one layout of q, k and v."""
+    plan: FlashPlan
+    strides: Tuple[int, ...]     # B, H and S strides of q, k, v and out
+    plan_arr: ctypes.Array       # block_q, block_k, stages, threads, smem
+    maps_arr: ctypes.Array       # tma_numbers (zeros off the wgmma route)
+
+
+# _LaunchNumbers by q's dtype and the shapes and strides of q, k and v:
+# a prefill repeats a few layouts once a layer, so the plan and tensor
+# map numbers are worked out and validated once a layout, not each
+# launch.  They depend on nothing else: the bases' alignment, all that
+# changes from call to call, is checked by _check on every call.
+_LAYOUTS: dict = {}
+_LAYOUTS_MAX = 256
+
+
+def _launch_numbers(q, k, v, out) -> _LaunchNumbers:
+    key = (q.dtype, q.shape, q.stride(), k.shape, k.stride(), v.stride())
+    nums = _LAYOUTS.get(key)
+    if nums is None:
+        b, h, s, hd = q.shape
+        plan = flash_plan(q.dtype, hd, s, k.shape[2], h, k.shape[1])
+        maps = (tma_numbers(q, k, v, plan) if plan.route == "wgmma"
+                else [0] * 27)
+        nums = _LaunchNumbers(
+            plan, tuple(t.stride(i) for t in (q, k, v, out)
+                        for i in range(3)),
+            (ctypes.c_int * 5)(plan.block_q, plan.block_k, plan.stages,
+                               plan.threads, plan.smem),
+            (ctypes.c_longlong * 27)(*maps))
+        if len(_LAYOUTS) >= _LAYOUTS_MAX:
+            _LAYOUTS.clear()
+        _LAYOUTS[key] = nums
+    return nums
+
+
 def _launch(q, k, v, causal, window, kv_len) -> torch.Tensor:
     b, h, s, hd = q.shape
+    # empty_like's strides follow q's layout, which is in the key
     out = torch.empty_like(q)
+    nums = _launch_numbers(q, k, v, out)
+    plan = nums.plan
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+    counter = (_build.arrival_counters(q.device, stream, 1).data_ptr()
+               if plan.route == "wgmma" else None)
     err = _kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, k.shape[1], s, k.shape[2], hd, *strides, int(causal),
+        b, h, k.shape[1], s, k.shape[2], hd, *nums.strides, int(causal),
         window, -1 if kv_len is None else kv_len, 1.0 / math.sqrt(hd),
-        _DTYPE_CODES[q.dtype], stream)
+        _DTYPE_CODES[q.dtype], _ROUTE_CODES[plan.route], nums.plan_arr,
+        nums.maps_arr, counter, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attn launch failed ({plan.route}): CUDA "
+                           f"error {err}")
     flash_attention.launches += 1
     return out
 

@@ -30,7 +30,8 @@ from repro_torch.kernels import (act_dequant, act_dequant4, act_quant,
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.act_quant import kv_quant_rows
-from repro_torch.kernels.flash_attn import attention_route, flash_attention
+from repro_torch.kernels.flash_attn import (attention_route, flash_attention,
+                                            flash_plan)
 from repro_torch.kernels.fused_ffn import (ffn_plan, fused_ffn,
                                           fused_ffn_backward)
 from repro_torch.kernels.paged_decode_attn import paged_decode_attention
@@ -505,6 +506,59 @@ def test_kernel_dense_family_shapes(cuda, kvh, group, hd, window, q_dtype):
     out = _k1_repeats(args, sc, window)
     ref = paged_decode_attn_ref(*args, **sc, window=window)
     torch.testing.assert_close(out, ref, **TOL[q_dtype])
+
+
+WG_MASKS = [dict(causal=True), dict(causal=True, window=1),
+            dict(causal=True, window=64), dict(causal=True, window=1007),
+            dict(causal=True, kv_len=0), dict(causal=True, kv_len=671),
+            dict(causal=True, window=64, kv_len=100),
+            dict(causal=True, window=300, kv_len=500),
+            dict(causal=False)]
+
+
+def _wgmma_case(q, k, v, mask):
+    """One bf16 call on the wgmma route: its plan, exactly one launch,
+    the plain version within TOL, 0 where kv_len is 0, and a repeat
+    equal bit for bit."""
+    plan = flash_plan(q.dtype, q.shape[3], q.shape[2], k.shape[2],
+                      q.shape[1], k.shape[1])
+    assert plan.route == "wgmma"
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **mask)
+    assert flash_attention.launches == before + 1
+    g = q.shape[1] // k.shape[1]
+    ref = flash_attn_ref(q, k.repeat_interleave(g, 1),
+                         v.repeat_interleave(g, 1), **mask)
+    torch.testing.assert_close(out, ref, **TOL[torch.bfloat16])
+    if mask.get("kv_len") == 0:
+        assert bool((out == 0).all())
+    assert torch.equal(out, flash_attention(q, k, v, **mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh", [(8, 8), (8, 4), (48, 8), (56, 8)],
+                         ids=["group1", "group2", "group6", "group7"])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+def test_flash_wgmma_route(cuda, hd, h, kvh):
+    """K2's wgmma route (hd 64..256) at a ragged S of 1000 over every mask
+    of chip_smoke's phase 2, at groups 1, 2, 6 (internvl2-26b) and 7
+    (yi-34b)."""
+    q, k, v = _qkv(hd + h, 1, h, kvh, 1000, hd, torch.bfloat16)
+    for mask in WG_MASKS:
+        _wgmma_case(q, k, v, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [16, 448])
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+def test_flash_wgmma_route_cross_lengths(cuda, hd, sq):
+    """16 and 448 queries over 1500 keys (whisper-small's
+    cross-attention) on the wgmma route, with and without kv_len."""
+    q, _, _ = _qkv(sq + hd, 2, 8, 2, sq, hd, torch.bfloat16)
+    _, k, v = _qkv(1500 + hd, 2, 8, 2, 1500, hd, torch.bfloat16)
+    for mask in (dict(causal=False), dict(causal=False, kv_len=999),
+                 dict(causal=False, kv_len=0)):
+        _wgmma_case(q, k, v, mask)
 
 
 @pytest.mark.gpu

@@ -3,10 +3,11 @@ qwen1.5-32b) held against the JAX package at the structures that their
 full widths give the kernels.
 
 * Every config with attention has a plan for each kernel its serving
-  path runs: its head dim among K2's (``flash_attn.HEAD_DIMS``), K1's
-  ``decode_plan`` for int8 and bf16 pools at 8 slots and mb 128 within
-  the H100's shared memory, K3's ``ffn_plan`` at M 8 and M 4096 within
-  the same.  These are the host-side functions that size each launch on
+  path runs: its head dim among K2's (``flash_attn.HEAD_DIMS``) and K2's
+  ``flash_plan`` at 8 x 2048 on its bf16 route within the H100's shared
+  memory and registers, K1's ``decode_plan`` for int8 and bf16 pools at
+  8 slots and mb 128 within the H100's shared memory, K3's ``ffn_plan``
+  at M 8 and M 4096 within the same.  These are the host-side functions that size each launch on
   the card, so a config they refuse cannot serve there.
 * K2's plain version at hd 96 (phi3-mini) against the JAX oracle and the
   Pallas kernel in interpret mode, as ``test_torch_kernels.py`` holds
@@ -59,6 +60,11 @@ def test_every_config_has_kernel_plans(arch):
     cfg = get_config(arch)
     hd = cfg.resolved_head_dim
     assert hd in flash_attn.HEAD_DIMS, f"{arch}: K2 has no hd {hd}"
+    plan = flash_attn.flash_plan(torch.bfloat16, hd, 2048, 2048,
+                                 cfg.num_heads, cfg.num_kv_heads)
+    assert plan.route == ("wgmma" if hd in flash_attn.WGMMA_HEAD_DIMS
+                          else "mma_sync")
+    assert 0 < plan.smem <= H100_SMEM and plan.regs <= 65536
     for pool in (torch.int8, torch.bfloat16):
         plan = decode_plan(8, cfg.num_heads, cfg.num_kv_heads, hd, 16, 128,
                            pool)
