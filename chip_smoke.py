@@ -20,10 +20,14 @@ Phases (any failure exits non-zero):
    cores) over its masks, dtypes, head dims 16..256 (96 among them, also
    at a ragged S of 1000), head groupings and lengths up to 2048, K3
    fused gated FFN
-   (bf16 small_m and tiles up to D 512, split_f and two_pass above; f32)
+   (bf16 small_m and tiles up to D 512, stream and two_pass above; f32)
    over both activations, dtypes, ragged and large M, ragged F and
-   widths up to 2048 (the large-D shapes are timed in 9.0, 11.0 and
-   12.0), each repeating bit for bit, K6 SSD scan over ragged and multi-chunk lengths, groups,
+   widths up to 7168 (stream at MP 8, 16 and 24, a D that is no multiple
+   of 64), each repeating bit for bit, then K3 at every served decode
+   shape (M 8: the dense families', internvl2-26b's and zamba2-1.2b's
+   FFNs) held to its plain version, repeating, and timed beside the
+   unfused cuBLAS chain and its byte bound (the prefill shapes are timed
+   in 9.0, 11.0, 12.0 and 13.0), K6 SSD scan over ragged and multi-chunk lengths, groups,
    head/state widths, dtypes and both layouts, and its chunk split's
    edges (S 255, 256, 257, 4096, with and without an initial state),
    each repeating bit for bit, K4/K5 activation quantization (int8 and
@@ -218,7 +222,7 @@ Phases (any failure exits non-zero):
 12. VLM — internvl2-26b at full width (19.3 B parameters, nothing cut).
    12.0: K1 at its paged decode (48 heads of 128 over 8: group 6; int8
    pool, mb 64), K2 at its prefill (8 x 512, 48/8 heads of 128, causal)
-   and K3 at its FFN (silu, D 6144, F 16384: M 8 on split_f, M 2048 and
+   and K3 at its FFN (silu, D 6144, F 16384: M 8 on stream, M 2048 and
    4096 on two_pass), each against its plain version and repeating bit
    for bit, timed beside its bound, plain version and SDPA or the
    unfused cuBLAS chain.  The weights are drawn in bf16 straight on the
@@ -241,7 +245,7 @@ Phases (any failure exits non-zero):
    under its window of 1024; hd 96 at group 1; hd 128 at group 7 and 1),
    K2 at its prefill burst (hd 256 windowed and causal at 8 x 2048, hd
    96, hd 128 at group 7 and MHA 40) and K3 at its FFN (five (D, F) pairs
-   at M 8 on split_f and at the prefill burst on two_pass), each against
+   at M 8 on stream and at the prefill burst on two_pass), each against
    its plain version and repeating bit for bit, timed beside its bound,
    its plain version and SDPA or the unfused cuBLAS chain.  13a..13e:
    each config's bf16 weights drawn on the card (its parameter count
@@ -282,10 +286,13 @@ Phases (any failure exits non-zero):
    the CPU.  Phase 11 runs ``remat="none"`` throughout.
 
 Before the last two lines, ``{"phase_seconds": {...}}`` gives each
-phase's seconds.  The line before the last is a JSON object listing
-every kernel with its launches on its main path and its times (K4 and K5
-as their four entry points: act_quant, act_dequant, act_quant4,
-act_dequant4); the last line is ``{"ok": true, "device": {...}}``.
+phase's seconds.  ``python3 chip_smoke.py --stamp`` also begins each
+log line with the seconds since the start, to find where a phase's
+time goes (the card's name line is then stamped too).  The line before
+the last is a JSON object listing every kernel with its launches on its
+main path and its times (K4 and K5 as their four entry points:
+act_quant, act_dequant, act_quant4, act_dequant4); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -319,7 +326,12 @@ SSD_TOL = {"float32": dict(atol=1e-3, rtol=1e-4),
 STATE_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+STAMP_T0 = None                # the start, under --stamp
+
+
 def log(msg: str) -> None:
+    if STAMP_T0 is not None:
+        msg = f"[{time.perf_counter() - STAMP_T0:7.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -962,11 +974,68 @@ def phase_flash(torch):
 
 
 def ffn_case(torch, gen, m, d, f, dtype):
+    """x (m, d), Wg and Wu (d, f), Wd (f, d) in ``dtype``, drawn on the
+    card from a CUDA generator that the host generator ``gen`` seeds: a
+    host draw of a 34 B model's three FFN weights takes seconds."""
     dt = getattr(torch, dtype)
-    return (torch.randn(m, d, generator=gen).to(dt).cuda(),
-            (torch.randn(d, f, generator=gen) * d ** -0.5).to(dt).cuda(),
-            (torch.randn(d, f, generator=gen) * d ** -0.5).to(dt).cuda(),
-            (torch.randn(f, d, generator=gen) * f ** -0.5).to(dt).cuda())
+    card = torch.Generator(device="cuda").manual_seed(int(torch.randint(
+        0, 2 ** 62, (1,), generator=gen)))
+
+    def normal(rows, cols, std=1.0):
+        return torch.randn(rows, cols, generator=card,
+                           device="cuda").mul_(std).to(dt)
+
+    return (normal(m, d), normal(d, f, d ** -0.5), normal(d, f, d ** -0.5),
+            normal(f, d, f ** -0.5))
+
+
+# K3 at the served decode shapes (M 8, bf16): (label, D, F, activation),
+# the dense families' FFNs and zamba2-1.2b's shared one
+K3_SERVED = (("yi-34b", 7168, 20480, "silu"),
+             ("qwen1.5-32b", 5120, 27392, "silu"),
+             ("internvl2-26b", 6144, 16384, "silu"),
+             ("gemma-7b", 3072, 24576, "gelu"),
+             ("gemma3-12b", 3840, 15360, "gelu"),
+             ("phi3-mini", 3072, 8192, "silu"),
+             ("zamba2-1.2b", 2048, 8192, "gelu"))
+
+
+def ffn_served_times(torch, gen):
+    """K3 at ``K3_SERVED``: each shape held to its plain version (one
+    launch, a repeat bit for bit), then timed by ``k3_times`` (CUDA events
+    and the profiler's device time beside the plain version, the unfused
+    cuBLAS chain and the byte bound).  Three profiler windows at most a
+    time: this early in a run the profiler often loses events (PERF.md
+    §6), and 12.0, 13.0 and 9.0 time the same shapes again later.
+    Returns ``{label: fields}``, each with the route that ran."""
+    from repro_torch.kernels.fused_ffn import fused_ffn
+    from repro_torch.kernels.ref import fused_ffn_ref
+    table = {}
+    for label, d, f, act in K3_SERVED:
+        x, wg, wu, wd = ffn_case(torch, gen, 8, d, f, "bfloat16")
+        before = fused_ffn.launches
+        out = fused_ffn(x, wg, wu, wd, act)
+        if fused_ffn.launches != before + 1:
+            raise AssertionError(f"fused_ffn counted "
+                                 f"{fused_ffn.launches - before} launches "
+                                 f"for one call at {label}")
+        err = check_close("fused_ffn", out, fused_ffn_ref(x, wg, wu, wd, act),
+                          FFN_TOL["bfloat16"], f"{label} M 8, D {d}, F {f}")
+        if not torch.equal(out, fused_ffn(x, wg, wu, wd, act)):
+            raise AssertionError(f"fused_ffn does not repeat at {label}")
+        t = dict(k3_times(torch, x, wg, wu, wd, act, tries=3),
+                 max_abs_err=err)
+        mb = 3 * d * f * 2 / 1e6
+        log(f"K3 {label} (M 8, D {d}, F {f}, {act}): {t['route']} "
+            f"{t['ms']:.4f} ms, device {fmt(t['device_ms'])}; chain "
+            f"{t['chain_ms']:.4f} ms, device {fmt(t['chain_device_ms'])}; "
+            f"plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); "
+            f"{1e3 * (t['device_ms'] or t['ms']) / mb:.4f} us a weight MB; "
+            f"max_abs_err {err:.3g}")
+        table[label] = t
+        del x, wg, wu, wd, out
+    return table
 
 
 def phase_ffn(torch):
@@ -979,21 +1048,24 @@ def phase_ffn(torch):
     cases = [(m, d, f, dtype) for d, f in ((256, 1024), (1024, 4096))
              for m in (8, 100, 8192) for dtype in ("bfloat16", "float32")]
     # the bf16 routes at their edges: ragged M and F, D over several
-    # output tiles, small M at D 1024; above D 512 split_f up to M 24 and
-    # two_pass beyond (64-row tiles up to M 64), ragged F and D chunks
+    # output tiles, small M at D 1024; above D 512 stream up to M 24 (MP
+    # 8, 16 and 24; a ragged output tile and D chunk at D 1544; ragged
+    # units and F chunks; tiles split between blocks in both passes) and
+    # two_pass beyond (64-row tiles up to M 64)
     cases += [(m, d, f, "bfloat16") for m, d, f in (
         (1, 256, 1024), (64, 256, 1000), (65, 256, 1024), (8195, 256, 1024),
         (127, 264, 200), (300, 512, 1032), (16, 1024, 4096),
         (1, 2048, 1000), (24, 2048, 1032), (25, 2048, 1032),
-        (65, 2048, 200), (130, 1544, 1032))]
+        (65, 2048, 200), (130, 1544, 1032), (17, 1544, 1032),
+        (9, 2056, 1000), (8, 7168, 1032), (24, 5120, 1000), (2, 3072, 200))]
     routes = {}
     for m, d, f, dtype in cases:
         for act in ("silu", "gelu"):
             args = ffn_case(torch, gen, m, d, f, dtype)
             out = fused_ffn(*args, act)
+            route = fused_ffn.last_route
             ref = fused_ffn_ref(*args, act)
             torch.cuda.synchronize()
-            route = ffn_plan(args[0].dtype, m, d, f).route
             err = check_close("fused_ffn", out, ref, FFN_TOL[dtype],
                               f"M={m} D={d} F={f} {dtype} {act} ({route})")
             if not torch.equal(out, fused_ffn(*args, act)):
@@ -1004,6 +1076,7 @@ def phase_ffn(torch):
             n_cases += 1
     log(f"fused_ffn == plain version on {n_cases} cases (by route "
         f"{routes}), each repeating bit for bit, max_abs_err {max_err:.3g}")
+    served = ffn_served_times(torch, gen)
 
     # timing at paper-backbone's widths (D 256, F 1024, bf16, silu): a
     # decode step (M 8) and a prefill burst of 8 x 2048 tokens
@@ -1054,8 +1127,11 @@ def phase_ffn(torch):
             "chain_ms_m16384": big[4], "device_ms_m16384": big[5],
             "chain_device_ms_m16384": big[6],
             "ms_m16384_gelu": gelu_ms, "device_ms_m16384_gelu": gelu_dev_ms,
+            "routes": routes, "served": served,
             "shape": "M 8 (a decode step; small-M route), D 256, F 1024, "
-                     "bf16, silu; *_m16384: M 8 x 2048 (tile route)"}
+                     "bf16, silu; *_m16384: M 8 x 2048 (tile route); "
+                     "routes: the routes the sweep ran, by cases; served: "
+                     "M 8 at the served FFNs"}
 
 
 def ssd_case(torch, gen, b, s, h, g, p, n, dtype):
@@ -1646,9 +1722,10 @@ def graph_vs_eager(torch, eng, what, smi, steps=16):
     tokens.  Then ``steps`` engine steps (graph replays) and ``steps``
     eager steps on the clones (each ending in the same device->host copy
     of the tokens) are timed on the host clock, and each is profiled for
-    its device time and idle share; one graph replay is also timed alone
-    by CUDA events.  The engine is not used afterwards (the lone replays
-    advance its state past its bookkeeping).  Returns the graph-replayed
+    its device time and idle share (over at most ``PROFILE_STEPS``
+    steps); one graph replay is also timed alone by CUDA events.  The
+    engine is not used afterwards (the lone replays advance its state
+    past its bookkeeping).  Returns the graph-replayed
     and eager host ms a step and their device ms."""
     fill_slots(eng, 4 * steps + 16)
     eager_step, _ = eager_on_clones(torch, eng)
@@ -1667,10 +1744,11 @@ def graph_vs_eager(torch, eng, what, smi, steps=16):
     for _ in range(steps):
         eager_step()
     eager_ms = 1e3 * (time.perf_counter() - t0) / steps
-    g_busy, g_ops = device_profile(torch, eng.step, steps, graph_ms,
+    reps = min(steps, PROFILE_STEPS)
+    g_busy, g_ops = device_profile(torch, eng.step, reps, graph_ms,
                                    f"{what}, replayed as a CUDA graph, "
                                    "per step")
-    e_busy, e_ops = device_profile(torch, eager_step, steps, eager_ms,
+    e_busy, e_ops = device_profile(torch, eager_step, reps, eager_ms,
                                    f"{what}, eager on clones, per step")
     graph = next(iter(eng._graphs.values()))._graph
     replay_ms = cuda_ms(torch, graph.replay, iters=50, warmup=5)
@@ -1905,6 +1983,11 @@ def phase_batched(torch, name):
     return counts
 
 
+# calls a whole-step profile covers: its cost on the host grows with the
+# events it keeps, and the device time a step varies little from step to
+# step (graph_vs_eager's profiles and the *_split helpers)
+PROFILE_STEPS = 4
+SPLIT_REPS = 3
 # the port's kernels by a part of their CUDA function names
 PROFILED_KERNELS = {"K1": "paged_decode", "K2": "flash_attn",
                     "K3": "fused_ffn", "K6": "ssd_scan"}
@@ -1914,11 +1997,12 @@ def device_profile(torch, fn, reps, wall_ms, what):
     """``torch.profiler`` over ``reps`` calls of ``fn``: device time per
     call by kernel, each of the port's kernels (K1, K2, K3, K6) summed
     over its routes and, against the unprofiled wall time ``wall_ms`` of
-    one call, the device's idle share."""
+    one call, the device's idle share.  Only device activity is recorded:
+    the profiler's cost on the host grows with every event it keeps, and
+    the host ops would add nothing read here."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -3258,7 +3342,7 @@ def moe_repeats(torch, eng, params, cfg):
     return step_a
 
 
-def expert_split(torch, step, cfg, reps=8):
+def expert_split(torch, step, cfg, reps=SPLIT_REPS):
     """Device time of an eager decode step split into the expert products
     (the ``matmul``s over stacked expert weights: (T, D) x (E, D, F) and
     (T, E*F) x (E*F, D)), K1 and the rest, from one profile with shapes
@@ -3684,7 +3768,7 @@ def _zamba_prompts(seed, vocab):
     return [rng.integers(0, vocab, n).astype(np.int32) for n in ZAMBA_LENS]
 
 
-def hybrid_split(torch, step, cfg, reps=8):
+def hybrid_split(torch, step, cfg, reps=SPLIT_REPS):
     """Device time of an eager hybrid decode step split into K3 (the
     shared block's FFN at its sites), K2 (none: decode attention is
     plain), the Mamba blocks' products (the in_proj and out_proj
@@ -3929,12 +4013,13 @@ WHISPER_MAX_SEQ = 512        # the served wave's max_seq (10b): mb 32
 
 
 def _time_kernel(torch, fn, plain, library, part, nbytes, flops, iters=50,
-                 plain_iters=5):
-    """The timing fields of one kernel call: CUDA-event and device ms,
-    its plain version's and a library call's ms, its bound."""
+                 plain_iters=5, tries=6):
+    """The timing fields of one kernel call: CUDA-event and device ms
+    (``device_ms`` with up to ``tries`` profiler windows), its plain
+    version's and a library call's ms, its bound."""
     t = dict(ms=cuda_ms(torch, fn, iters=iters),
              device_ms=device_ms(torch, fn, iters=min(iters, 50),
-                                 part=part),
+                                 part=part, tries=tries),
              plain_ms=cuda_ms(torch, plain, iters=plain_iters, warmup=1))
     if library is not None:
         t["library_ms"] = cuda_ms(torch, library, iters=iters)
@@ -3966,13 +4051,12 @@ def k1_times(torch, args, sc, window=0):
     return t
 
 
-def k3_times(torch, x, wg, wu, wd, activation):
-    """The timing fields of one K3 problem on its bf16 route: CUDA-event
-    and device ms, its plain version's ms, the unfused cuBLAS chain's, its
-    bound."""
+def k3_times(torch, x, wg, wu, wd, activation, tries=6):
+    """The timing fields of one K3 problem on its bf16 route: the route
+    that ran (the wrapper's ``last_route``), CUDA-event and device ms, its
+    plain version's ms, the unfused cuBLAS chain's, its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import fused_ffn
-    from repro_torch.kernels.fused_ffn import ffn_plan
     from repro_torch.kernels.ref import fused_ffn_ref
     act = (F.silu if activation == "silu"
            else lambda t: F.gelu(t, approximate="tanh"))
@@ -3982,14 +4066,16 @@ def k3_times(torch, x, wg, wu, wd, activation):
         return (act(x @ wg) * (x @ wu)) @ wd
 
     iters = 100 if m == 8 else 10
+    fused_ffn(x, wg, wu, wd, activation)
+    route = fused_ffn.last_route
     t = _time_kernel(
         torch, lambda: fused_ffn(x, wg, wu, wd, activation),
         lambda: fused_ffn_ref(x, wg, wu, wd, activation), None, "fused_ffn",
         (2 * x.numel() + 3 * wg.numel()) * 2, 6 * m * d * f, iters=iters,
-        plain_iters=3)
-    t.update(route=ffn_plan(x.dtype, m, d, f).route,
-             chain_ms=cuda_ms(torch, chain, iters=iters),
-             chain_device_ms=device_ms(torch, chain, iters=10))
+        plain_iters=3, tries=tries)
+    t.update(route=route, chain_ms=cuda_ms(torch, chain, iters=iters),
+             chain_device_ms=device_ms(torch, chain, iters=10,
+                                       tries=tries))
     return t
 
 
@@ -4101,7 +4187,7 @@ def whisper_frames(torch, cfg, batch, seed):
         (batch, cfg.encoder_seq_len, cfg.d_model)) * 0.1).astype(np.float32))
 
 
-def decode_split(torch, step, se, max_seq, reps=8):
+def decode_split(torch, step, se, max_seq, reps=SPLIT_REPS):
     """Device time of an eager model-level decode step split into the
     cross-attention over an encoder-decoder's cached encoder K/V (the
     top-level ops one of whose inputs, or their children's, spans the
@@ -4226,14 +4312,15 @@ def whisper_transcribe(torch, smi, params, cfg):
     enc_ms = cuda_ms(torch, lambda: encode(params, cfg, frames,
                                            DEFAULT_OPTIONS), 10, 2)
     enc_dev = device_ms(torch, lambda: encode(params, cfg, frames,
-                                              DEFAULT_OPTIONS), iters=10)
+                                              DEFAULT_OPTIONS), iters=10,
+                        tries=3)
 
     def run_prefill():
         return prefill(params, cfg, tokens, init_cache(cfg, b, max_seq),
                        encoder_frames=frames)
 
     pre_ms = cuda_ms(torch, run_prefill, 10, 2)
-    pre_dev = device_ms(torch, run_prefill, iters=10)
+    pre_dev = device_ms(torch, run_prefill, iters=10, tries=3)
     log(f"  encoder (12 layers over 8 x 1500 frames): {enc_ms:.3f} ms, "
         f"device {fmt(enc_dev)}; prefill (encoder + 12 decoder layers "
         f"with cross K/V captured): {pre_ms:.3f} ms (CUDA events), device "
@@ -5352,7 +5439,7 @@ def vlm_prefill_decode(torch, smi, params, cfg):
         f"{len(set(toks[:, 1:].flatten().tolist()))} distinct tokens")
     del logits2, toks2
     pre_ms = cuda_ms(torch, run_prefill, 3, 1)
-    pre_dev = device_ms(torch, run_prefill, iters=3)
+    pre_dev = device_ms(torch, run_prefill, iters=3, tries=3)
     pos_t = cache["pos"].clone()
     tok = toks[:, -1].contiguous()
 
@@ -5378,7 +5465,7 @@ def vlm_prefill_decode(torch, smi, params, cfg):
     return {k: c for k, c in counts.items() if c}
 
 
-def paged_split(torch, step, reps=8):
+def paged_split(torch, step, reps=SPLIT_REPS):
     """Device time of an eager paged decode step split into K3 (the
     ``fused_ffn`` kernels), K1 (``paged_decode``), the weight products
     (top-level ``aten::matmul``/``aten::mm``: the attention projections
@@ -5421,7 +5508,7 @@ def served_paged(torch, smi, params, cfg, *, what, max_seq, lo, hi, seed,
     second wave; the step captured once; a whole step repeating bit for
     bit, whose eager device time is split (:func:`paged_split`) beside
     its byte bound (:func:`step_bytes` at 8 busy slots); graph == eager
-    on clones, timed and profiled over ``steps`` steps each.  Returns
+    on clones, timed over ``steps`` steps each.  Returns
     ``{kernel name: launches}``."""
     from repro_torch.models.runtime import RuntimeOptions
     from repro_torch.serving import CompileCache, ServingEngine
@@ -5465,7 +5552,7 @@ def served_paged(torch, smi, params, cfg, *, what, max_seq, lo, hi, seed,
     busy_eng = engine()
     step = step_repeats(torch, busy_eng, f"{what} paged int8")
     weights, kv = step_bytes(params, busy_eng)
-    busy, k3, k1, mm = paged_split(torch, step, reps=max(4, steps // 2))
+    busy, k3, k1, mm = paged_split(torch, step)
     del busy_eng, step
     torch.cuda.empty_cache()
     graph_ms, _, g_busy, _ = graph_vs_eager(
@@ -6264,9 +6351,12 @@ def phase_remat(torch, smi):
 
 
 def main() -> int:
+    global STAMP_T0
     import torch
     seconds = {}
     t0 = time.perf_counter()
+    if "--stamp" in sys.argv[1:]:
+        STAMP_T0 = t0
 
     def timed(phase, fn, *args):
         t = time.perf_counter()

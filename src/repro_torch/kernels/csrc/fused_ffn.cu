@@ -66,24 +66,46 @@
 // 2048, 24 at D 6144, on 132 SMs), each streaming all of Wg and Wu, and
 // the gate and up products are done D/256 times.
 //
-// bf16, D > 512, small M ("split_f", fused_ffn_split_kernel; M <= 64
-// while the workspace stays within a quarter of the weight bytes, which
-// is M <= 24): bound by the weight bytes, so every weight byte is read
-// once.  The grid splits F only, into 64-column slices: 128 blocks at F
-// 8192, 256 at F 16384 (one or two an SM).  A block streams x and its
-// slices of Wg/Wu through a four-stage cp.async ring of 64-row D chunks,
-// so its shared memory does not grow with D (88 KB at M 8: two blocks an
-// SM); G and U are computed once over all of D on mma.sync (each warp
-// owns 8 columns of G and the same 8 of U, so no partials are added
-// across warps).  H = act(G) * U is formed in f32 and split into bf16
-// hi + lo parts, so the product with the bf16 Wd rows on mma.sync keeps
-// H to ~2^-17 relative.  The block then streams its 64 Wd rows through
-// the same ring in 128-column chunks, starting at its own chunk (split
-// mod chunks) so the last arrivals spread over the blocks, and writes
-// each chunk's f32 partial to the workspace (nsplit x M x D: 8.4 MB at
-// M 8, D 2048; 50 MB at D 6144).  The last block to arrive at a chunk
-// adds its nsplit partials in split order (8 float4 loads in flight a
-// thread), rounds once and resets the chunk's counter.
+// bf16, D > 512, small M ("stream", fused_ffn_stream_gate_kernel and
+// fused_ffn_stream_down_kernel: M <= 24 where small_m does not fit).
+// Bound by the weight bytes, 3 D F 2: 881 MB at yi-34b (D 7168, F 20480:
+// 0.263 ms), 604 MB at internvl2-26b (0.180 ms), 101 MB at D 2048, F
+// 8192 (0.030 ms).  Two persistent launches of at most one block an SM,
+// each block a producer warp whose one thread streams the weights by TMA
+// through a four-slot ring (a full and an empty mbarrier a slot; no
+// consumer thread issues a copy or waits at a block-wide barrier a
+// chunk) and a consumer warpgroup on wgmma with the weight tile as the
+// 64-row operand (A, MN-major: the row-major weight read transposed) and
+// x or H on the N side (N = 8, 16, 24 for M <= 24), so no tensor work is
+// spent on padding rows:
+// - pass 1, H = act(x Wg) (x Wu) once per row: units of 64 F columns
+//   over all of D, a ring slot Wg's and Wu's 64-row tiles (128-byte rows)
+//   and x's 64 columns, two products a k-step (G and U), so a thread
+//   holds G and U of the same element and forms H in registers.  The
+//   first (units / blocks) blocks' worth run whole, unit u on block u mod
+//   blocks (neighbouring SMs stream neighbouring 128-byte pieces of the
+//   same rows), and the (unit, D chunk) steps of the rest are cut into
+//   one even run a block, a unit split between blocks summed from its f32
+//   partials in block order before the activation.  H is formed in f32
+//   and written as bf16 hi + lo rows of a (2 MP, F) workspace (655 KB at
+//   yi-34b, held in L2), keeping H to ~2^-17 relative;
+// - pass 2, y = H Wd: the (64-column output tile, 128-row F chunk) steps
+//   are cut into one even run a block (stream-K); B = [H_hi; H_lo]^T (N
+//   = 2 MP), so one product a k-step takes both parts.  A tile one block
+//   runs whole is rounded and written by it; a tile split between blocks
+//   (at most two a block) is summed from its f32 partials in block order
+//   by the last to arrive (__threadfence, a counter it resets) and
+//   rounded once.  Wd is read once, H from L2.
+// It replaced split_f (one mma.sync launch of ceil(F / 64) blocks, each
+// a 64-column F slice through a cp.async ring, 38-54 % of this bound)
+// and answers its three losses: every SM streams the same weight bytes
+// to a ring chunk (split_f: 320 blocks on 264 slots at yi-34b, a second
+// wave of 56; 128 at phi3-mini, half the slots empty); the workspace is
+// two slots of 64 x MP f32 partials a block (1 MB at M 8), not one (M,
+// D) partial an F slice (M / 48 of the weight bytes more traffic, 147 MB
+// at yi-34b, merged by one block a chunk); and the loads are TMA boxes
+// issued by one thread, so the consumers spend no registers, address
+// arithmetic or block barriers on them.
 //
 // bf16, D > 512, larger M ("two_pass", fused_ffn_pass_kernel): two
 // launches on wgmma, each a 4-stage cp.async ring of 64-deep K chunks in
@@ -663,232 +685,376 @@ __global__ void __launch_bounds__(sm::kThreads)
   if (tid == 0) a.counters[blockIdx.y] = 0;          // ready for the next
 }
 
-// ------------------------------------ bf16 small M at any D: split F only
-namespace sf {
-constexpr int kFS = 64;                   // F columns a block
-constexpr int kKC = 64;                   // D rows of a Wg/Wu/x chunk
-constexpr int kDC = 128;                  // output columns of a Wd chunk
-constexpr int kStages = 4;                // ring slots
-constexpr int kThreads = 256;
-constexpr int kMaxM = 64;
-constexpr int kWR = kFS + 8;              // Wg/Wu and H rows, in bf16
-constexpr int kXR = kKC + 8;              // x rows
-constexpr int kDR = kDC + 8;              // Wd rows
-constexpr int kInFlight = 8;              // float4 loads a thread, merge
-__device__ inline int m_pad(int m) {
-  return (m + 15) / 16 * 16;
+// ------------------------- bf16 small M at D > 512: TMA weight streaming
+// Two launches, each persistent (at most one block an SM), each block a
+// consumer warpgroup (warps 0-3) and a producer warp (warp 4) whose one
+// thread keeps TMA loads in flight into a ring of kStages slots, with a
+// full and an empty mbarrier a slot.  The products put the weight tile on
+// wgmma's 64-row side (A, MN-major: the row-major weight read transposed)
+// and the few rows of activations on its N side (B, K-major), so no
+// tensor work is spent on padding rows beyond N = 8, 16 or 24.
+namespace st {
+constexpr int kUnitF = 64;        // F columns of a pass-1 unit
+constexpr int kKC = 64;           // D rows of a pass-1 ring slot
+constexpr int kTileD = 64;        // output columns of a pass-2 tile
+constexpr int kFC = 128;          // F rows of a pass-2 ring slot
+constexpr int kStages = 4;        // ring slots
+constexpr int kThreads = 160;     // a consumer warpgroup + a producer warp
+// a pass-1 slot: Wg's and Wu's kKC x 64 tiles (128-byte rows), then x's
+// kKC / 64 blocks of MP rows x 128 bytes
+__host__ __device__ constexpr int stage1_bytes(int mp) {
+  return 2 * kKC * kUnitF * 2 + (kKC / 64) * mp * 128;
 }
-// a ring slot holds [Wg; Wu] (2 kKC rows) and x (mp rows), or Wd
-__device__ inline int slot_elems(int mp) {
-  const int a = 2 * kKC * kWR + mp * kXR, b = kFS * kDR;
-  return a > b ? a : b;
+// a pass-2 slot: Wd's kFC x 64 tile (128-byte rows), then H's kFC / 64
+// blocks of 2 MP rows (hi, then lo) x 128 bytes
+__host__ __device__ constexpr int stage2_bytes(int mp) {
+  return kFC * kTileD * 2 + (kFC / 64) * 2 * mp * 128;
 }
-}  // namespace sf
+// + 1024 to align the swizzle atoms, 16 bytes of barriers a slot
+__host__ __device__ constexpr int smem1_bytes(int mp) {
+  return 1024 + kStages * (stage1_bytes(mp) + 16);
+}
+__host__ __device__ constexpr int smem2_bytes(int mp) {
+  return 1024 + kStages * (stage2_bytes(mp) + 16);
+}
+}  // namespace st
 
-__global__ void __launch_bounds__(sf::kThreads, 2)
-    fused_ffn_split_kernel(SmallArgs a) {
-  constexpr int kFS = sf::kFS, kKC = sf::kKC, kDC = sf::kDC;
-  constexpr int kStages = sf::kStages, kThreads = sf::kThreads;
-  constexpr int kMT = sf::kMaxM / 16;
-  constexpr int kWR = sf::kWR, kXR = sf::kXR, kDR = sf::kDR;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int M = a.m, D = a.d, F = a.f;
-  // the layout that the wrapper's split_smem_bytes sizes
-  const int mp = sf::m_pad(M), slot = sf::slot_elems(mp);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  bf16* h_hi = ring + kStages * slot;                 // mp x kWR
-  bf16* h_lo = h_hi + mp * kWR;                       // mp x kWR
+struct StreamArgs {
+  bf16* h;             // (2 MP, F): H's bf16 hi rows, then its lo rows
+  bf16* out;           // (M, D)
+  float* ws;           // two slots of f32 partials a block
+  int* counters;       // one a split item, 0 between launches
+  int m, d, f, act;
+  int units;           // pass 1: ceil(F / 64)
+  int chunks;          // pass 2: F chunks a tile, ceil(F / kFC)
+  long long steps;     // pass 2: tiles x chunks
+};
 
-  const int split = blockIdx.x, f0 = split * kFS;
+// the first step of block b's run when `total` steps are cut into one
+// even run a block
+__device__ __forceinline__ long long run_begin(long long b, long long total) {
+  return b * total / gridDim.x;
+}
+// the block whose run holds `step`: the largest b with run_begin(b) <=
+// step (a block whose run is empty never holds one)
+__device__ __forceinline__ int run_block(long long step, long long total) {
+  return (int)(((step + 1) * gridDim.x - 1) / total);
+}
+
+// The fixup of an item (a pass-1 unit or a pass-2 tile: steps [item
+// chunks, (item + 1) chunks) of the `total` cut into runs) that more than
+// one block ran part of: this block's f32 share v (NT tiles of 64 x MP,
+// MP / 2 values a thread and tile: rows 16 warp + g and + 8, columns
+// 8 j + 2 t and + 1) goes to its workspace slot (0 for the block's first
+// item, 1 for its last); the last contributor to arrive gets the item's
+// sum in block order in v, resets the item's counter and returns true.
+// No float atomics: the sum repeats bit for bit.
+template <int MP, int NT>
+__device__ __forceinline__ bool stream_fixup(float* v, float* ws,
+                                             int* counter, long long item,
+                                             long long chunks,
+                                             long long total, int* last) {
+  constexpr int kTile = 64 * MP;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;
-  const int n_k = (D + kKC - 1) / kKC, n_c = (D + kDC - 1) / kDC;
-  const int n = n_k + n_c;
-  auto chunk_of = [&](int j) { return (j + split) % n_c; };
+  auto slot = [&](int b) -> float* {
+    const int s = run_begin(b, total) / chunks == item ? 0 : 1;
+    return ws + ((long long)b * 2 + s) * (NT * kTile);
+  };
+  auto at = [&](int k, int j, int e) {
+    return k * kTile + (16 * warp + g + 8 * (e >> 1)) * MP + 8 * j + 2 * t +
+           (e & 1);
+  };
+  float* mine = slot(blockIdx.x);
+#pragma unroll
+  for (int k = 0; k < NT; ++k)
+#pragma unroll
+    for (int j = 0; j < MP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mine[at(k, j, e)] = v[k * (MP / 2) + 4 * j + e];
+  __threadfence();
+  named_bar_sync(1, 128);
+  const int b_lo = run_block(item * chunks, total);
+  const int b_hi = run_block((item + 1) * chunks - 1, total);
+  if (tid == 0) {
+    int n = 0;
+    for (int b = b_lo; b <= b_hi; ++b)
+      n += run_begin(b, total) < run_begin(b + 1, total);
+    *last = atomicAdd(counter, 1) == n - 1;
+  }
+  named_bar_sync(1, 128);
+  if (!*last) return false;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < NT * (MP / 2); ++i) v[i] = 0.f;
+  for (int b = b_lo; b <= b_hi; ++b) {
+    if (run_begin(b, total) == run_begin(b + 1, total)) continue;
+    const float* p = slot(b);
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int j = 0; j < MP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[k * (MP / 2) + 4 * j + e] += __ldcg(p + at(k, j, e));
+  }
+  if (tid == 0) *counter = 0;                // ready for the next launch
+  return true;
+}
 
-  // chunk i of the sequence: D chunks of [Wg; Wu] and x, then this
-  // block's Wd rows in column chunks, starting at its own
-  auto issue = [&](int i) {
-    bf16* s = ring + (i % kStages) * slot;
-    if (i < n_k) {
-      const int k0 = i * kKC;
-      for (int j = tid; j < kKC * (kFS / 8); j += kThreads) {
-        const int r = j / (kFS / 8), c = (j % (kFS / 8)) * 8;
-        const bool ok = k0 + r < D && f0 + c < F;
-        const long long off = ok ? (long long)(k0 + r) * F + f0 + c : 0;
-        cp_async16(s + r * kWR + c, a.wg + off, ok);
-        cp_async16(s + (kKC + r) * kWR + c, a.wu + off, ok);
-      }
-      bf16* xs = s + 2 * kKC * kWR;
-      for (int j = tid; j < mp * (kKC / 8); j += kThreads) {
-        const int r = j / (kKC / 8), c = (j % (kKC / 8)) * 8;
-        const bool ok = r < M && k0 + c < D;
-        cp_async16(xs + r * kXR + c,
-                   a.x + (ok ? (long long)r * D + k0 + c : 0), ok);
-      }
-    } else {
-      const int d0 = chunk_of(i - n_k) * kDC;
-      for (int j = tid; j < kFS * (kDC / 8); j += kThreads) {
-        const int r = j / (kDC / 8), c = (j % (kDC / 8)) * 8;
-        const bool ok = f0 + r < F && d0 + c < D;
-        cp_async16(s + r * kDR + c,
-                   a.wd + (ok ? (long long)(f0 + r) * D + d0 + c : 0), ok);
-      }
+// the slot's release by one consumer warp, once its products are done
+__device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// Pass 1: H = act(x Wg) * (x Wu) in units of 64 F columns over all of D.
+// The first (units / blocks) * blocks units run whole, unit u on block u
+// mod blocks (neighbouring blocks stream neighbouring 128-byte pieces of
+// the same weight rows); the (unit, D chunk) steps of the rest are cut
+// into one even run a block, a unit split between blocks summed by
+// stream_fixup before its activation, so every block streams the same
+// weight bytes to a chunk.  A k-step is two products: G^T += Wg^T x^T and
+// U^T += Wu^T x^T (A: Wg's or Wu's 64 x kKC tile, 128-byte swizzled,
+// MN-major; B: x^T), so a thread holds G and U of the same (column, row)
+// and forms H in registers.
+template <int MP>
+__global__ void __launch_bounds__(st::kThreads, 1)
+    fused_ffn_stream_gate_kernel(const __grid_constant__ CUtensorMap tm_x,
+                                 const __grid_constant__ CUtensorMap tm_wg,
+                                 const __grid_constant__ CUtensorMap tm_wu,
+                                 StreamArgs a) {
+  constexpr int kS = st::kStages, kKC = st::kKC, kUF = st::kUnitF;
+  constexpr int kStage = st::stage1_bytes(MP);
+  constexpr int kTile = kKC * kUF * 2;           // one of Wg's, Wu's tiles
+  constexpr int kV = MP / 2;                     // values a tile and thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kS * kStage);
+  uint64_t* empty = full + kS;
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int nk = (a.d + kKC - 1) / kKC;
+  const int rounds = a.units / gridDim.x;        // whole units a block
+  const int tail0 = rounds * gridDim.x;          // the first split unit
+  const long long tail = (long long)(a.units - tail0) * nk;
+  const long long t_begin = run_begin(blockIdx.x, tail);
+  const long long t_end = run_begin(blockIdx.x + 1, tail);
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);             // one arrival a consumer warp
     }
-  };
-  // waits for chunk i and frees the slot of chunk i - 1 for chunk i + 3
-  auto advance = [&](int i) -> const bf16* {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (i + kStages - 1 < n) issue(i + kStages - 1);
-    cp_async_commit();
-    return ring + (i % kStages) * slot;
-  };
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < n) issue(i);
-    cp_async_commit();
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ---- producer: one thread issues every load.  A fresh barrier's
+    // previous phase counts as complete, so each first wait passes.
+    if (tid == 128) {
+      tma_prefetch(&tm_x);
+      tma_prefetch(&tm_wg);
+      tma_prefetch(&tm_wu);
+      int i = 0;
+      auto load = [&](int u, int c) {
+        const int s = i % kS;
+        mbar_wait(&empty[s], ((i / kS) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStage);
+        unsigned char* sp = smem + s * kStage;
+        tma_load_2d(sp, &tm_wg, &full[s], u * kUF, c * kKC);
+        tma_load_2d(sp + kTile, &tm_wu, &full[s], u * kUF, c * kKC);
+#pragma unroll
+        for (int cb = 0; cb < kKC / 64; ++cb)
+          tma_load_2d(sp + 2 * kTile + cb * (MP * 128), &tm_x, &full[s],
+                      c * kKC + 64 * cb, 0);
+        ++i;
+      };
+      for (int r = 0; r < rounds; ++r)
+        for (int c = 0; c < nk; ++c) load(blockIdx.x + r * gridDim.x, c);
+      for (long long q = t_begin; q < t_end; ++q)
+        load(tail0 + (int)(q / nk), (int)(q % nk));
+    }
+    return;
   }
 
-  // ---- G, U over all of D: warp w owns columns 8w..8w+7 of both
-  {
-    float gacc[kMT][4], uacc[kMT][4];
+  // ---- consumers: G^T and U^T (64 x MP each) of each unit or part of
+  // one, in acc[0, kV) and acc[kV, 2 kV)
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int i = 0;
+  float acc[2 * kV];
+  // acc over D chunks [c0, c1)
+  auto run = [&](int c0, int c1) {
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) gacc[i][e] = uacc[i][e] = 0.f;
-    for (int i = 0; i < n_k; ++i) {
-      const bf16* s = advance(i);
-      const bf16* xs = s + 2 * kKC * kWR;
+    for (int j = 0; j < 2 * kV; ++j) acc[j] = 0.f;
+    for (int c = c0; c < c1; ++c, ++i) {
+      const int s = i % kS;
+      mbar_wait(&full[s], (i / kS) & 1);
+      const unsigned char* sp = smem + s * kStage;
+      // A: kKC rows of 64 F columns, MN-major; a k-step is 16 rows of
+      // 128 bytes.  B: x's rows K-major, 128-byte rows of 64 k; a k-step
+      // is 32 bytes.
+      const uint64_t dg = wgmma_desc(sp, 16, 1024);
+      const uint64_t du = wgmma_desc(sp + kTile, 16, 1024);
+      const uint64_t db = wgmma_desc(sp + 2 * kTile, 16, 1024);
+      fence_regs(acc, 2 * kV);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKC / 16; ++kk) {
-        // the four matrices: Wg k 0-7, Wg k 8-15, Wu k 0-7, Wu k 8-15
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, s + ((mi >> 1) * kKC + 16 * kk + (mi & 1) * 8 +
-                                  mr) * kWR + 8 * warp);
+        const uint64_t bk =
+            db + (((kk >> 2) * (MP * 128) + (kk & 3) * 32) >> 4);
+        wgmma_mn<MP>(acc, dg + ((kk * 16 * 128) >> 4), bk, 1);
+        wgmma_mn<MP>(acc + kV, du + ((kk * 16 * 128) >> 4), bk, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc, 2 * kV);
+      release_slot(&empty[s], lane);
+    }
+  };
+  // H = act(G) U of unit u: A row r = 16 warp + g (+ 8) is F column
+  // u * 64 + r; n-block j of each holds x rows 8 j + 2 t and + 1
+  auto gate_out = [&](int u) {
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          if (16 * mt < mp) {
-            uint32_t af[4];
-            ldmatrix_x4(af, xs + (16 * mt + (mi & 1) * 8 + mr) * kXR +
-                                16 * kk + (mi >> 1) * 8);
-            mma_bf16(gacc[mt], af, b[0], b[1]);
-            mma_bf16(uacc[mt], af, b[2], b[3]);
-          }
+    for (int j = 0; j < MP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = u * kUF + 16 * warp + g + 8 * (e >> 1);
+        const int n = 8 * j + 2 * t + (e & 1);
+        const float hv = activate_fast(acc[4 * j + e], a.act) *
+                         acc[kV + 4 * j + e];
+        const bf16 hi = __float2bfloat16(hv);
+        if (col < a.f) {
+          a.h[(long long)n * a.f + col] = hi;
+          a.h[(long long)(MP + n) * a.f + col] =
+              __float2bfloat16(hv - __bfloat162float(hi));
         }
       }
+  };
+  for (int r = 0; r < rounds; ++r) {
+    run(0, nk);
+    gate_out(blockIdx.x + r * gridDim.x);
+  }
+  for (long long q = t_begin; q < t_end;) {
+    const long long item = q / nk, u0 = item * nk;
+    const long long q_end = t_end < u0 + nk ? t_end : u0 + nk;
+    run((int)(q - u0), (int)(q_end - u0));
+    const bool whole = q == u0 && q_end == u0 + nk;
+    q = q_end;
+    if (!whole && !stream_fixup<MP, 2>(acc, a.ws, a.counters + item, item,
+                                       nk, tail, &last))
+      continue;
+    gate_out(tail0 + (int)item);
+  }
+}
+
+// Pass 2: y = H Wd, stream-K: the (64-column output tile, F chunk) steps,
+// tile-major, cut into one even run a block.  A = Wd^T (64 x kFC,
+// 128-byte swizzled), B = [H_hi; H_lo]^T (N = 2 MP), so the accumulator's
+// first MP columns hold H's hi part's products and the next MP its lo
+// part's, added in the epilogue.  A tile one block runs whole is rounded
+// and written by it; a tile split between blocks is summed by
+// stream_fixup and rounded once.
+template <int MP>
+__global__ void __launch_bounds__(st::kThreads, 1)
+    fused_ffn_stream_down_kernel(const __grid_constant__ CUtensorMap tm_wd,
+                                 const __grid_constant__ CUtensorMap tm_h,
+                                 StreamArgs a) {
+  constexpr int kS = st::kStages, kFC = st::kFC, kN = 2 * MP;
+  constexpr int kStage = st::stage2_bytes(MP);
+  constexpr int kTile = kFC * st::kTileD * 2;    // Wd's
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kS * kStage);
+  uint64_t* empty = full + kS;
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const long long s_begin = run_begin(blockIdx.x, a.steps);
+  const long long s_end = run_begin(blockIdx.x + 1, a.steps);
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
     }
-    // H = act(G) U in f32, kept as bf16 hi + lo for the Wd product
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    if (tid == 128) {
+      tma_prefetch(&tm_wd);
+      tma_prefetch(&tm_h);
+      int i = 0;
+      for (long long q = s_begin; q < s_end; ++q, ++i) {
+        const int tile = (int)(q / a.chunks), c = (int)(q % a.chunks);
+        const int s = i % kS;
+        mbar_wait(&empty[s], ((i / kS) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStage);
+        unsigned char* sp = smem + s * kStage;
+        tma_load_2d(sp, &tm_wd, &full[s], tile * st::kTileD, c * kFC);
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      if (16 * mt < mp) {
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const float h0 = activate_fast(gacc[mt][2 * hf], a.act) *
-                           uacc[mt][2 * hf];
-          const float h1 = activate_fast(gacc[mt][2 * hf + 1], a.act) *
-                           uacc[mt][2 * hf + 1];
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(h0, h1);
-          const __nv_bfloat162 lo =
-              __floats2bfloat162_rn(h0 - __low2float(hi),
-                                    h1 - __high2float(hi));
-          const int off = (16 * mt + g + 8 * hf) * kWR + 8 * warp + 2 * t;
-          *reinterpret_cast<__nv_bfloat162*>(h_hi + off) = hi;
-          *reinterpret_cast<__nv_bfloat162*>(h_lo + off) = lo;
-        }
+        for (int cb = 0; cb < kFC / 64; ++cb)
+          tma_load_2d(sp + kTile + cb * (kN * 128), &tm_h, &full[s],
+                      c * kFC + 64 * cb, 0);
       }
     }
+    return;
   }
 
-  // ---- this slice's f32 partial of every output chunk: warp w owns
-  // columns 16w..16w+15 of a chunk
-  __shared__ int last;
-  const long long step = (long long)M * D;
-  for (int j = 0; j < n_c; ++j) {
-    const bf16* s = advance(n_k + j);       // its barrier orders H too
-    const int c = chunk_of(j), d0 = c * kDC;
-    float acc[kMT][2][4];
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int i = 0;
+  for (long long q = s_begin; q < s_end;) {
+    const long long tile = q / a.chunks, t0 = tile * a.chunks;
+    const long long q_end = s_end < t0 + a.chunks ? s_end : t0 + a.chunks;
+    const bool whole = q == t0 && q_end == t0 + a.chunks;
+    float acc[kN / 2];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+    for (int j = 0; j < kN / 2; ++j) acc[j] = 0.f;
+    for (; q < q_end; ++q, ++i) {
+      const int s = i % kS;
+      mbar_wait(&full[s], (i / kS) & 1);
+      const unsigned char* sp = smem + s * kStage;
+      // A: Wd's kFC rows of 64 output columns, MN-major; a k-step is 16
+      // rows of 128 bytes.  B: H's 2 MP rows K-major.
+      const uint64_t da = wgmma_desc(sp, 16, 1024);
+      const uint64_t db = wgmma_desc(sp + kTile, 16, 1024);
+      fence_regs(acc, kN / 2);
+      wgmma_fence();
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kFS / 16; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, s + (16 * kk + (mi & 1) * 8 + mr) * kDR +
-                               16 * warp + (mi >> 1) * 8);
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        if (16 * mt < mp) {
-          const int off = (16 * mt + (mi & 1) * 8 + mr) * kWR + 16 * kk +
-                          (mi >> 1) * 8;
-          uint32_t ah[4], al[4];
-          ldmatrix_x4(ah, h_hi + off);
-          ldmatrix_x4(al, h_lo + off);
-          mma_bf16(acc[mt][0], ah, b[0], b[1]);
-          mma_bf16(acc[mt][0], al, b[0], b[1]);
-          mma_bf16(acc[mt][1], ah, b[2], b[3]);
-          mma_bf16(acc[mt][1], al, b[2], b[3]);
-        }
-      }
+      for (int kk = 0; kk < kFC / 16; ++kk)
+        wgmma_mn<kN>(acc, da + ((kk * 16 * 128) >> 4),
+                     db + (((kk >> 2) * (kN * 128) + (kk & 3) * 32) >> 4), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc, kN / 2);
+      release_slot(&empty[s], lane);
     }
+    // y^T rows d0 + 16 warp + g (+ 8), x rows 8 j + 2 t (+ 1): hi + lo
+    float y[MP / 2];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      if (16 * mt < mp) {
+    for (int j = 0; j < MP / 8; ++j)
 #pragma unroll
-        for (int nb = 0; nb < 2; ++nb)
+      for (int e = 0; e < 4; ++e)
+        y[4 * j + e] = acc[4 * j + e] + acc[4 * (j + MP / 8) + e];
+    if (!whole && !stream_fixup<MP, 1>(y, a.ws, a.counters + tile, tile,
+                                       a.chunks, a.steps, &last))
+      continue;
+    const int d0 = (int)tile * st::kTileD;
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = 16 * mt + g + 8 * hf;
-            const int col = d0 + 16 * warp + 8 * nb + 2 * t;
-            if (row < M && col < D)
-              *reinterpret_cast<float2*>(a.ws + split * step +
-                                         (long long)row * D + col) =
-                  make_float2(acc[mt][nb][2 * hf], acc[mt][nb][2 * hf + 1]);
-          }
+    for (int j = 0; j < MP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = d0 + 16 * warp + g + 8 * (e >> 1);
+        const int n = 8 * j + 2 * t + (e & 1);
+        if (d < a.d && n < a.m)
+          a.out[(long long)n * a.d + d] = __float2bfloat16(y[4 * j + e]);
       }
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) last = atomicAdd(a.counters + c, 1) == a.nsplit - 1;
-    __syncthreads();
-    if (!last) continue;
-    // ---- the last block at chunk c adds the splits in order
-    __threadfence();
-    for (int q = tid; q < M * (kDC / 4); q += kThreads) {
-      const int row = q / (kDC / 4), col = d0 + (q % (kDC / 4)) * 4;
-      if (col >= D) continue;
-      const float* p = a.ws + (long long)row * D + col;
-      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-      int sp = 0;
-      for (; sp + sf::kInFlight <= a.nsplit; sp += sf::kInFlight) {
-        float4 v[sf::kInFlight];
-#pragma unroll
-        for (int r = 0; r < sf::kInFlight; ++r)
-          v[r] = __ldcg(reinterpret_cast<const float4*>(p + (sp + r) * step));
-#pragma unroll
-        for (int r = 0; r < sf::kInFlight; ++r) {
-          sum.x += v[r].x;
-          sum.y += v[r].y;
-          sum.z += v[r].z;
-          sum.w += v[r].w;
-        }
-      }
-      for (; sp < a.nsplit; ++sp) {
-        const float4 v = __ldcg(reinterpret_cast<const float4*>(p + sp * step));
-        sum.x += v.x;
-        sum.y += v.y;
-        sum.z += v.z;
-        sum.w += v.w;
-      }
-      *reinterpret_cast<uint2*>(a.out + (long long)row * D + col) =
-          make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
-    }
-    if (tid == 0) a.counters[c] = 0;          // ready for the next launch
   }
-  cp_async_wait<0>();
 }
 
 // ---------------------------------- bf16 larger M at D > 512: two passes
@@ -1049,6 +1215,76 @@ cudaError_t two_pass(const PassArgs& p1, const PassArgs& p2, int row_tiles,
   return cudaGetLastError();
 }
 
+// One 2-d map of a bf16 row-major matrix from the wrapper's numbers
+// (ffn_tma_map in kernels/fused_ffn.py): the dims (columns, rows), the
+// row stride in bytes, the box (columns, rows) and the swizzle span in
+// bytes (128: the box's row, also the L2 fetch size); out-of-bounds boxes
+// filled with zeros.
+bool encode_map_2d(CUtensorMap* map, const void* base, const long long* p) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || p[5] != 128 || p[3] * 2 != 128) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)p[0], (cuuint64_t)p[1]};
+  const cuuint64_t strides[1] = {(cuuint64_t)p[2]};
+  const cuuint32_t box[2] = {(cuuint32_t)p[3], (cuuint32_t)p[4]};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the dynamic shared memory attribute of a kernel, set once a device
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, unsigned long long* set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (*set & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *set |= bit;
+  return err;
+}
+
+// plan: rows (MP), unit columns, pass-1 chunk, tile columns, pass-2
+// chunk, stages, pass-1 blocks, pass-2 blocks, pass-1 and pass-2 shared
+// memory (stream_plan); maps: x, Wg, Wu, Wd, H, 6 numbers each
+template <int MP>
+cudaError_t launch_stream(const void* x, const void* wg, const void* wu,
+                          const void* wd, StreamArgs a, const int* plan,
+                          const long long* maps, cudaStream_t stream) {
+  constexpr int kSmem1 = st::smem1_bytes(MP), kSmem2 = st::smem2_bytes(MP);
+  if (plan[1] != st::kUnitF || plan[2] != st::kKC ||
+      plan[3] != st::kTileD || plan[4] != st::kFC ||
+      plan[5] != st::kStages || plan[8] != kSmem1 || plan[9] != kSmem2 ||
+      plan[6] <= 0 || plan[7] <= 0 ||
+      maps[3] != 64 || maps[4] != MP ||                       // x
+      maps[9] != st::kUnitF || maps[10] != st::kKC ||         // Wg
+      maps[15] != st::kUnitF || maps[16] != st::kKC ||        // Wu
+      maps[21] != st::kTileD || maps[22] != st::kFC ||        // Wd
+      maps[27] != 64 || maps[28] != 2 * MP)                   // H
+    return cudaErrorInvalidValue;
+  CUtensorMap tx, tg, tu, td, th;
+  if (!encode_map_2d(&tx, x, maps) || !encode_map_2d(&tg, wg, maps + 6) ||
+      !encode_map_2d(&tu, wu, maps + 12) ||
+      !encode_map_2d(&td, wd, maps + 18) ||
+      !encode_map_2d(&th, a.h, maps + 24))
+    return cudaErrorInvalidValue;
+  auto k1 = fused_ffn_stream_gate_kernel<MP>;
+  auto k2 = fused_ffn_stream_down_kernel<MP>;
+  static unsigned long long set1 = 0, set2 = 0;
+  cudaError_t err = allow_smem(k1, kSmem1, &set1);
+  if (err == cudaSuccess) err = allow_smem(k2, kSmem2, &set2);
+  if (err != cudaSuccess) return err;
+  k1<<<plan[6], st::kThreads, kSmem1, stream>>>(tx, tg, tu, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k2<<<plan[7], st::kThreads, kSmem2, stream>>>(td, th, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fused_ffn(const void* x, const void* wg, const void* wu,
@@ -1106,23 +1342,32 @@ extern "C" int fused_ffn_bf16_small(const void* x, const void* wg,
   return cudaGetLastError();
 }
 
-extern "C" int fused_ffn_bf16_split(const void* x, const void* wg,
-                                    const void* wu, const void* wd,
-                                    void* out, void* ws, void* counters,
-                                    int m, int d, int f, int act, int nsplit,
-                                    int smem_bytes, void* stream) {
+// h: the (2 MP, F) bf16 H workspace between the passes; ws: two 64 x MP
+// f32 partials a pass-2 block; counters: one int a 64-column output tile,
+// 0 before and after each launch
+extern "C" int fused_ffn_bf16_stream(const void* x, const void* wg,
+                                     const void* wu, const void* wd,
+                                     void* out, void* h, void* ws,
+                                     void* counters, int m, int d, int f,
+                                     int act, const int* plan,
+                                     const long long* maps, void* stream) {
   if (m == 0 || d == 0) return cudaSuccess;
-  SmallArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
-              static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
-              static_cast<bf16*>(out), static_cast<float*>(ws),
-              static_cast<int*>(counters), m, d, f, act, nsplit};
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ffn_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return err;
-  fused_ffn_split_kernel<<<nsplit, sf::kThreads, smem_bytes,
-                           static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  const int chunks = (f + st::kFC - 1) / st::kFC;
+  const long long tiles = (d + st::kTileD - 1) / st::kTileD;
+  StreamArgs a{static_cast<bf16*>(h), static_cast<bf16*>(out),
+               static_cast<float*>(ws), static_cast<int*>(counters),
+               m, d, f, act, (f + st::kUnitF - 1) / st::kUnitF, chunks,
+               tiles * chunks};
+  const long long nk = (d + st::kKC - 1) / st::kKC;
+  if (plan[7] > a.steps || plan[6] > a.units * nk)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (plan[0]) {
+    case 8: return launch_stream<8>(x, wg, wu, wd, a, plan, maps, s);
+    case 16: return launch_stream<16>(x, wg, wu, wd, a, plan, maps, s);
+    case 24: return launch_stream<24>(x, wg, wu, wd, a, plan, maps, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // h: the (M, F) bf16 workspace between the passes; block_m 64 or 128

@@ -4,22 +4,26 @@
 // - cp.async copies, ldmatrix and mma.sync m16n8k16 (bf16 in, f32
 //   accumulate), the older warp-level route;
 // - wgmma: the shared-memory descriptor of the 128-byte swizzled layout,
-//   the fence / commit / wait of the asynchronous products, and the
-//   products m64nNk16 for N = 64, 96, 128, 256 with A from shared memory
-//   (ss) or from registers (rs); TRANS_B = 1 reads B N-major (its rows
-//   hold N contiguous values of one k, as a row-major weight or V lies
-//   in memory), 0 K-major (as the keys of Q K^T lie);
+//   the fence / commit / wait of the asynchronous
+//   products, and the products m64nNk16 for N = 64, 96, 128, 256 with A
+//   from shared memory (ss) or from registers (rs); TRANS_B = 1 reads B
+//   N-major (its rows hold N contiguous values of one k, as a row-major
+//   weight or V lies in memory), 0 K-major (as the keys of Q K^T lie);
+//   and, for a few rows on the N side (the FFN's decode route), the ss
+//   products m64nNk16 for N = 8, 16, 24, 32, 48 with A MN-major (a
+//   row-major weight read transposed: its 64 rows are the weight's
+//   columns) and B K-major;
 // - mbarriers (init, arrive, arrive with an expected byte count, a
-//   parity wait), TMA tile loads of a 4-d tensor map, and setmaxnreg.
-//
-// Device code only, apart from the CUtensorMap type, which the host
-// fills in through the driver's cuTensorMapEncodeTiled (found at run
-// time with cudaGetDriverEntryPoint, so no driver library is linked).
+//   parity wait), TMA tile loads of a 2-d and a 4-d tensor map, a named
+//   barrier of a warpgroup, and setmaxnreg;
+// - on the host, the driver's cuTensorMapEncodeTiled, found at run time
+//   with cudaGetDriverEntryPoint, so no driver library is linked.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -465,6 +469,133 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t a[4],
   Wgmma<N, TRANS_B>::rs(d, a, b, accumulate);
 }
 
+// d (64 x N f32 over the warpgroup, laid out as in Wgmma) (+)= a (64 x
+// 16) * b (16 x N), both from shared memory: a MN-major through its
+// descriptor (imm-trans-a 1: its rows in memory hold 64 m of one k), b
+// K-major (imm-trans-b 0).  PTX: wgmma.mma_async.sync.aligned.m64nNk16
+// .f32.bf16.bf16 d, a-desc, b-desc, p, 1, 1, 1, 0 for N = 8, 16, 24, 32,
+// 48: a weight tile as the 64-row operand beside a few rows of
+// activations.
+template <int N>
+struct WgmmaMN;
+
+template <>
+struct WgmmaMN<8> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, "
+      "%4, %5, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaMN<16> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "%8, %9, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaMN<24> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11"
+      "}, "
+      "%12, %13, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaMN<32> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaMN<48> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, "
+      "%24, %25, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_mn(float* d, uint64_t a, uint64_t b,
+                                         int accumulate) {
+  WgmmaMN<N>::ss(d, a, b, accumulate);
+}
+
 // ---------------------------------------------------- mbarriers and TMA --
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -516,6 +647,19 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
                    reinterpret_cast<uint64_t>(map))
                : "memory");
 }
+// the box at coordinates (c0 innermost, c1) of a 2-d tensor map into
+// shared memory, completing `bytes` of `bar`'s transfers; coordinates
+// past the tensor's extent read as zeros.  PTX:
+// cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 // the box at coordinates (c0 innermost .. c3) of a 4-d tensor map into
 // shared memory, completing `bytes` of `bar`'s transfers; coordinates
 // past the tensor's extent read as zeros
@@ -539,6 +683,39 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// a barrier of `threads` threads (a multiple of 32) under id `id` (1..15;
+// 0 is __syncthreads'), e.g. one warpgroup beside a producer warp.  PTX:
+// bar.sync id, threads
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------ host side --
+// cuTensorMapEncodeTiled from the driver, found at run time
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
 }
 
 }  // namespace hopper

@@ -13,11 +13,14 @@ bf16 runs on the tensor cores:
   D x 16 weight slices fit in shared memory (every M <= 64 at D <= 512,
   M <= 32 at D 1024): one launch on ``mma.sync`` that splits F and the
   output columns;
-- otherwise, at D > 512, M <= 24 takes ``"split_f"``: one launch on
-  ``mma.sync`` whose blocks split F only, each reading its weight
-  slices once through a ring of D chunks, with an f32 workspace of one
-  (M, D) partial a slice (at most a quarter of the weight bytes) that
-  the last block at each output chunk adds in split order;
+- otherwise, at D > 512, M <= 24 takes ``"stream"``: two persistent
+  launches on ``wgmma`` (at most one block an SM), each block a producer
+  warp streaming the weights by TMA through a ring and a consumer
+  warpgroup; pass 1 forms H = act(x Wg) (x Wu) in units of 64 F columns
+  over all of D into an (2 MP, F) bf16 hi + lo workspace, pass 2 splits
+  the (output tile, F chunk) steps of H Wd evenly over the blocks
+  (stream-K), tiles split between blocks summed in block order from
+  two f32 partials a block (:func:`stream_plan`, :func:`ffn_tma_map`);
 - larger M takes 64-row tiles on ``wgmma`` that keep H on chip
   (``"tiles"``) at D <= 512, and at D > 512 two launches on ``wgmma``
   (``"two_pass"``): H = act(x Wg) (x Wu) once per row into an (M, F) bf16
@@ -26,10 +29,11 @@ bf16 runs on the tensor cores:
 f32 runs on the CUDA cores (``"cuda_cores"``), since the tensor cores
 would round f32 to TF32.  The plan is the one place that sizes a bf16
 launch: the kernels launch its grids (and, but for ``tiles``, its
-shared memory) as given, on the workspaces the wrapper allocates.  A tensor on the CPU takes the plain
-version.  A tensor on the card launches its route's kernel or raises —
-there is no fallback.  Each call adds one to ``fused_ffn.launches``
-(``two_pass``'s two kernels count as one call).
+shared memory) as given, on the workspaces the wrapper allocates.  A
+tensor on the CPU takes the plain version.  A tensor on the card
+launches its route's kernel or raises — there is no fallback.  Each call
+adds one to ``fused_ffn.launches`` (the two kernels of ``two_pass`` and
+of ``stream`` count as one call).
 
 Gradients: when autograd records (grad mode on and any input requiring
 grad), the call goes through the custom operator
@@ -46,11 +50,13 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
+# TMA boxes of 64 bf16 columns, one 128-byte swizzle row, as K2's
+from .flash_attn import TMA_BOX_COLS, TMA_SWIZZLE_BYTES
 from .ref import fused_ffn_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,17 +74,43 @@ TC_BLOCK_M, TC_BLOCK_D, TC_MAX_D = 64, 256, 512
 # ask for
 SMALL_F, SMALL_D, SMALL_WARPS = 16, 64, 8
 SMALL_MAX_M, SMALL_SMEM = 64, 200 * 1024
-# the bf16 split-F kernel (namespace sf): F columns a block, D rows a ring
-# chunk, output columns a Wd chunk, ring slots; the largest share of the
-# weight bytes its f32 workspace may take (M <= 24)
-SPLIT_F, SPLIT_KC, SPLIT_DC, SPLIT_STAGES = 64, 64, 128, 4
-SPLIT_WS_SHARE = 0.25
 # the bf16 two-pass kernels (namespace tp): columns a block ([G | U] of
 # 128 F columns in pass 1, 256 output columns in pass 2), K a ring chunk,
 # ring slots
 PASS_N, PASS_KC, PASS_STAGES = 256, 64, 4
+# the bf16 stream kernels (namespace st): F columns of a pass-1 unit, D
+# rows of its ring chunk, output columns of a pass-2 tile, F rows of its
+# ring chunk, ring slots, the most rows the route takes, and the H100's
+# SMs (at most one block each)
+STREAM_UNIT_F, STREAM_KC, STREAM_TILE_D, STREAM_FC = 64, 64, 64, 128
+STREAM_STAGES, STREAM_MAX_M, H100_SMS = 4, 24, 132
 # the most dynamic shared memory a block may have on the H100
 MAX_SMEM = 232448
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """The two launches of the ``stream`` route.  ``rows``: M padded to
+    8, wgmma's N in pass 1 (twice it in pass 2: H's hi and lo rows).
+    Pass 1 has ``units`` of ``STREAM_UNIT_F`` F columns over all of D in
+    ``nk`` chunks of ``STREAM_KC`` rows: the first ``rounds * blocks[0]``
+    run whole, unit u on block u mod ``blocks[0]``, and the ``tail``
+    (unit, chunk) steps of the rest are cut into one even run a block
+    (block b runs ``[b tail / blocks[0], (b + 1) tail / blocks[0])``).
+    Pass 2 has ``steps`` (``STREAM_TILE_D``-column output tile,
+    ``STREAM_FC``-row F chunk) steps, tile-major, ``chunks`` a tile, cut
+    the same way over ``blocks[1]``.  ``smem``: each pass's dynamic
+    shared memory a block."""
+    rows: int
+    units: int
+    nk: int
+    rounds: int
+    tail: int
+    steps: int
+    chunks: int
+    blocks: Tuple[int, int]
+    smem: Tuple[int, int]
+    stages: int
 
 
 @dataclass(frozen=True)
@@ -86,15 +118,17 @@ class FfnPlan:
     """How one call runs: its route, its grid, and the f32 workspace and
     arrival counters it needs (``ws_floats`` f32 elements; ``counters``
     int32 entries, zero between launches)."""
-    route: str   # "cuda_cores" | "tiles" | "small_m" | "split_f" | "two_pass"
-    grid: Tuple[int, int, int]   # two_pass: (row tiles, F tiles, D tiles)
+    route: str   # "cuda_cores" | "tiles" | "small_m" | "stream" | "two_pass"
+    grid: Tuple[int, int, int]   # two_pass: (row tiles, F tiles, D tiles);
+    #                              stream: (pass-1 blocks, pass-2 blocks, 1)
     nsplit: int = 1          # F splits summed through the workspace
     per: int = 0             # cuda_cores: F tiles a split
     ws_floats: int = 0
     counters: int = 0
     smem: int = 0            # dynamic shared memory a block, bytes
-    h_elems: int = 0         # two_pass: the (M, F) bf16 H workspace
+    h_elems: int = 0         # two_pass, stream: the bf16 H workspace
     block_m: int = 0         # two_pass: rows a tile, 64 or 128
+    stream: Optional[StreamPlan] = None
 
 
 def split_plan(m: int, d: int, f: int):
@@ -119,22 +153,156 @@ def small_smem_bytes(m: int, d: int) -> int:
             + 4 * (SMALL_WARPS * mp * SMALL_F * 2 + mp * SMALL_F))
 
 
-def split_smem_bytes(m: int) -> int:
-    """Shared memory of the split-F kernel, in its layout: the ring's
-    slots, each [Wg; Wu] (two chunks of 64 D rows, rows of 64 F columns
-    plus 8) with x (M padded to 16, rows of 64 plus 8) or 64 Wd rows of
-    128 columns plus 8, then H's bf16 hi and lo parts (rows of 64 + 8)."""
-    mp = -(-m // 16) * 16
-    slot = max(2 * SPLIT_KC * (SPLIT_F + 8) + mp * (SPLIT_KC + 8),
-               SPLIT_F * (SPLIT_DC + 8))
-    return 2 * (SPLIT_STAGES * slot + 2 * mp * (SPLIT_F + 8))
-
-
 def pass_smem_bytes(block_m: int) -> int:
     """Shared memory of a two-pass kernel: the ring's slots, each an A
     chunk (block_m rows of 128 bytes) and a B chunk (64 rows of 256
     columns), plus 1024 bytes to align the swizzle atoms."""
     return PASS_STAGES * (block_m * 128 + PASS_KC * PASS_N * 2) + 1024
+
+
+def stream_plan(m: int, d: int, f: int) -> FfnPlan:
+    """The ``stream`` route's plan for M <= 24 rows at D > 512: grids of
+    at most one block an SM, the (2 MP, F) bf16 H workspace, two slots of
+    f32 partials a block for the items split between blocks (pass 1: G
+    and U, two 64 x MP tiles a slot; pass 2: one) and one arrival counter
+    a split item (a tail unit in pass 1, a 64-column output tile in pass
+    2).  Shared memory, in the kernels' layout: 1024 bytes to align the
+    swizzle atoms, then the ring's slots (pass 1: Wg's and Wu's 64 x 64
+    tiles and x's 64 columns of MP rows; pass 2: Wd's 128 x 64 tile and
+    H's 128 columns of 2 MP rows) with 16 bytes of barriers each."""
+    if not 0 < m <= STREAM_MAX_M:
+        raise ValueError(f"the stream route takes 1..{STREAM_MAX_M} rows, "
+                         f"not {m}")
+    mp = -(-m // 8) * 8
+    units, nk = -(-f // STREAM_UNIT_F), -(-d // STREAM_KC)
+    chunks, tiles = -(-f // STREAM_FC), -(-d // STREAM_TILE_D)
+    steps = tiles * chunks
+    blocks = (min(H100_SMS, units * nk), min(H100_SMS, steps))
+    rounds = units // blocks[0]
+    tail = (units - rounds * blocks[0]) * nk
+    stage1 = 2 * STREAM_KC * STREAM_UNIT_F * 2 + STREAM_KC // 64 * mp * 128
+    stage2 = STREAM_FC * STREAM_TILE_D * 2 + STREAM_FC // 64 * 2 * mp * 128
+    smem = (1024 + STREAM_STAGES * (stage1 + 16),
+            1024 + STREAM_STAGES * (stage2 + 16))
+    return FfnPlan("stream", (*blocks, 1),
+                   ws_floats=max(2 * blocks[0], blocks[1]) * 2 * 64 * mp,
+                   counters=max(tiles, units - rounds * blocks[0]),
+                   smem=max(smem), h_elems=2 * mp * f,
+                   stream=StreamPlan(mp, units, nk, rounds, tail, steps,
+                                     chunks, blocks, smem, STREAM_STAGES))
+
+
+def stream_shares(plan: FfnPlan, d: int, f: int):
+    """The weight bytes each block of a ``stream`` plan reads, per pass:
+    ``(pass 1 list, pass 2 list)``, ragged edges counted as read (the
+    tensor maps fetch nothing past D or F)."""
+    sp = plan.stream
+    nb1, nb2 = sp.blocks
+    tail0 = sp.rounds * nb1
+
+    def unit_bytes(u, c0=0, c1=None):
+        rows = min(d, (sp.nk if c1 is None else c1) * STREAM_KC) \
+            - c0 * STREAM_KC
+        return 2 * rows * min(STREAM_UNIT_F, f - u * STREAM_UNIT_F) * 2
+
+    def step_bytes(q):
+        tile, c = divmod(q, sp.chunks)
+        return (min(STREAM_TILE_D, d - tile * STREAM_TILE_D)
+                * min(STREAM_FC, f - c * STREAM_FC) * 2)
+
+    one = [sum(unit_bytes(b + r * nb1) for r in range(sp.rounds))
+           + sum(unit_bytes(tail0 + q // sp.nk, q % sp.nk, q % sp.nk + 1)
+                 for q in range(b * sp.tail // nb1,
+                                (b + 1) * sp.tail // nb1))
+           for b in range(nb1)]
+    two = [sum(step_bytes(q) for q in range(b * sp.steps // nb2,
+                                            (b + 1) * sp.steps // nb2))
+           for b in range(nb2)]
+    return one, two
+
+
+class TmaMap2d(NamedTuple):
+    """A 2-d TMA tensor map of a row-major bf16 matrix: ``dims``
+    (columns, rows), the row ``stride`` in bytes, the ``box`` (columns,
+    rows) one load copies, the ``swizzle`` span in bytes (the box's row,
+    128)."""
+    dims: Tuple[int, int]
+    stride: int
+    box: Tuple[int, int]
+    swizzle: int
+
+
+def ffn_tma_map(t: torch.Tensor, box: Tuple[int, int]) -> TmaMap2d:
+    """The tensor map through which the ``stream`` route reads a 2-d bf16
+    matrix in place, boxes of ``box`` (columns, rows) swizzled over the
+    box's row (128 bytes).  Raises ``ValueError`` where TMA cannot read
+    it: a base not 16-byte aligned, a row stride not a positive multiple
+    of 16 bytes or not below 2**40, rows that are not dense, a box TMA
+    does not take."""
+    if t.dim() != 2 or t.dtype != torch.bfloat16:
+        raise ValueError(f"ffn_tma_map takes a 2-d bf16 matrix, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    cols, rows = box
+    if cols != TMA_BOX_COLS or not 0 < rows <= 256:
+        raise ValueError(f"TMA boxes here are {TMA_BOX_COLS} columns by "
+                         f"1..256 rows, not {box}")
+    if t.stride(1) != 1:
+        raise ValueError("TMA needs the rows dense")
+    if t.data_ptr() % 16:
+        raise ValueError(f"TMA needs a 16-byte aligned base, got "
+                         f"{t.data_ptr() % 16} bytes off")
+    stride = 2 * t.stride(0) if t.shape[0] > 1 else max(2 * t.shape[1], 16)
+    if stride <= 0 or stride % 16 or stride >= 1 << 40:
+        raise ValueError(f"TMA needs the row stride a positive multiple of "
+                         f"16 bytes below 2**40, got {stride} bytes")
+    return TmaMap2d((t.shape[1], t.shape[0]), stride, box,
+                    TMA_SWIZZLE_BYTES)
+
+
+class _StreamNumbers(NamedTuple):
+    """What the ``stream`` entry takes besides the pointers: the plan's
+    10 numbers and the 5 maps' 6 numbers each (x, Wg, Wu, Wd, H)."""
+    plan_arr: ctypes.Array
+    maps_arr: ctypes.Array
+
+
+def stream_numbers(x, w_gate, w_up, w_down, h, plan: FfnPlan) -> list:
+    """The 30 numbers the ``stream`` entry encodes its tensor maps from:
+    for x (boxes of 64 columns by MP rows), Wg and Wu (64 by 64), Wd (64
+    by 128) and the (2 MP, F) H workspace (64 by 2 MP) in turn, the dims,
+    the row stride, the box and the swizzle span."""
+    mp = plan.stream.rows
+    return [v for t, box in ((x, (64, mp)), (w_gate, (STREAM_UNIT_F,
+                                                       STREAM_KC)),
+                             (w_up, (STREAM_UNIT_F, STREAM_KC)),
+                             (w_down, (STREAM_TILE_D, STREAM_FC)),
+                             (h, (64, 2 * mp)))
+            for tm in (ffn_tma_map(t, box),)
+            for v in (*tm.dims, tm.stride, *tm.box, tm.swizzle)]
+
+
+# _StreamNumbers by (M, D, F): the operands are contiguous (``_check``),
+# so the plan and map numbers depend on the shapes alone and are worked
+# out once a shape; the bases' alignment is checked on every call
+_STREAM_SHAPES: dict = {}
+_STREAM_SHAPES_MAX = 256
+
+
+def _stream_numbers(x, w_gate, w_up, w_down, h, plan) -> _StreamNumbers:
+    key = (x.shape[0], x.shape[1], w_up.shape[1])
+    nums = _STREAM_SHAPES.get(key)
+    if nums is None:
+        sp = plan.stream
+        nums = _StreamNumbers(
+            (ctypes.c_int * 10)(
+                sp.rows, STREAM_UNIT_F, STREAM_KC, STREAM_TILE_D, STREAM_FC,
+                sp.stages, *sp.blocks, *sp.smem),
+            (ctypes.c_longlong * 30)(*stream_numbers(x, w_gate, w_up,
+                                                     w_down, h, plan)))
+        if len(_STREAM_SHAPES) >= _STREAM_SHAPES_MAX:
+            _STREAM_SHAPES.clear()
+        _STREAM_SHAPES[key] = nums
+    return nums
 
 
 def ffn_plan(dtype: torch.dtype, m: int, d: int, f: int) -> FfnPlan:
@@ -155,12 +323,8 @@ def ffn_plan(dtype: torch.dtype, m: int, d: int, f: int) -> FfnPlan:
     if d <= TC_MAX_D:
         return FfnPlan("tiles", (-(-m // TC_BLOCK_M), -(-d // TC_BLOCK_D),
                                  1))
-    nsplit = -(-f // SPLIT_F)
-    if m <= SMALL_MAX_M and \
-            4 * nsplit * m * d <= SPLIT_WS_SHARE * 2 * 3 * d * f:
-        return FfnPlan("split_f", (nsplit, 1, 1), nsplit,
-                       ws_floats=nsplit * m * d,
-                       counters=-(-d // SPLIT_DC), smem=split_smem_bytes(m))
+    if m <= STREAM_MAX_M:
+        return stream_plan(m, d, f)
     bm = 64 if m <= 64 else 128
     return FfnPlan("two_pass", (-(-m // bm), -(-f // (PASS_N // 2)),
                                 -(-d // PASS_N)),
@@ -179,7 +343,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fused_ffn": [_P] * 6 + [_I] * 7 + [_P],
              "fused_ffn_bf16_tiles": [_P] * 5 + [_I] * 6 + [_P],
              "fused_ffn_bf16_small": [_P] * 7 + [_I] * 7 + [_P],
-             "fused_ffn_bf16_split": [_P] * 7 + [_I] * 6 + [_P],
+             "fused_ffn_bf16_stream": [_P] * 8 + [_I] * 4 + [_P] * 3,
              "fused_ffn_bf16_two_pass": [_P] * 6 + [_I] * 9 + [_P]}
 
 
@@ -261,6 +425,16 @@ def _launch(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
     elif plan.route == "tiles":
         err = _fn("fused_ffn_bf16_tiles", _ARGTYPES["fused_ffn_bf16_tiles"])(
             *ptrs, m, d, f, act, plan.grid[0], plan.grid[1], stream)
+    elif plan.route == "stream":
+        h = torch.empty(2 * plan.stream.rows, f, dtype=torch.bfloat16,
+                        device=x.device)
+        nums = _stream_numbers(x, w_gate, w_up, w_down, h, plan)
+        counters = _build.arrival_counters(x.device, stream,
+                                            plan.counters)
+        err = _fn("fused_ffn_bf16_stream",
+                  _ARGTYPES["fused_ffn_bf16_stream"])(
+            *ptrs, h.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, d, f,
+            act, nums.plan_arr, nums.maps_arr, stream)
     elif plan.route == "two_pass":
         h = torch.empty(plan.h_elems, dtype=torch.bfloat16, device=x.device)
         err = _fn("fused_ffn_bf16_two_pass",
@@ -270,24 +444,19 @@ def _launch(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
     else:
         counters = _build.arrival_counters(x.device, stream,
                                             plan.counters)
-        if plan.route == "small_m":
-            err = _fn("fused_ffn_bf16_small",
-                      _ARGTYPES["fused_ffn_bf16_small"])(
-                *ptrs, ws.data_ptr(), counters.data_ptr(), m, d, f, act,
-                plan.nsplit, plan.grid[1], plan.smem, stream)
-        else:
-            err = _fn("fused_ffn_bf16_split",
-                      _ARGTYPES["fused_ffn_bf16_split"])(
-                *ptrs, ws.data_ptr(), counters.data_ptr(), m, d, f, act,
-                plan.nsplit, plan.smem, stream)
+        err = _fn("fused_ffn_bf16_small", _ARGTYPES["fused_ffn_bf16_small"])(
+            *ptrs, ws.data_ptr(), counters.data_ptr(), m, d, f, act,
+            plan.nsplit, plan.grid[1], plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"fused_ffn ({plan.route}) launch failed: CUDA "
                            f"error {err}")
     fused_ffn.launches += 1
+    fused_ffn.last_route = plan.route
     return out
 
 
 fused_ffn.launches = 0
+fused_ffn.last_route = None     # the route of the last launch on the card
 
 
 @torch.library.custom_op("repro_torch::fused_ffn", mutates_args=())

@@ -618,13 +618,13 @@ def test_ffn_kernel_rejects_what_it_does_not_take(cuda):
     (1, 256, 1024), (64, 256, 1000), (65, 256, 1024), (127, 264, 200),
     (8195, 256, 1024), (300, 512, 1032), (200, 1024, 4096),
     (16, 1024, 4096),
-    # D > 512: split_f (M <= 24) and two_pass, ragged M and F
+    # D > 512: stream (M <= 24) and two_pass, ragged M and F
     (1, 2048, 8192), (8, 2048, 8192), (63, 2048, 8192), (64, 2048, 8192),
     (65, 2048, 8192), (2049, 2048, 8192), (8, 2048, 1000),
     (65, 2048, 1032), (1, 6144, 16384), (8, 6144, 16384),
     (64, 6144, 16384), (65, 6144, 2056), (2049, 6144, 16384)])
 def test_ffn_bf16_routes_ragged_and_wide(cuda, m, d, f):
-    """The bf16 routes (small_m and tiles up to D 512, split_f and
+    """The bf16 routes (small_m and tiles up to D 512, stream and
     two_pass above): ragged M and F, D over several output tiles and
     chunks, and a repeat bit for bit (no atomics; the arrival counters
     reset themselves)."""
@@ -633,12 +633,60 @@ def test_ffn_bf16_routes_ragged_and_wide(cuda, m, d, f):
     if d <= 512:
         assert plan.route == ("small_m" if m <= 64 else "tiles")
     elif plan.route != "small_m":
-        assert plan.route == ("split_f" if m <= 24 else "two_pass")
+        assert plan.route == ("stream" if m <= 24 else "two_pass")
     out = fused_ffn(x, wg, wu, wd, "gelu")
     ref = fused_ffn_ref(x, wg, wu, wd, "gelu")
     torch.testing.assert_close(out, ref, **FFN_TOL[torch.bfloat16])
     for _ in range(2):
         assert torch.equal(out, fused_ffn(x, wg, wu, wd, "gelu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+@pytest.mark.parametrize("f", [1000, 1032])
+@pytest.mark.parametrize("d", [2048, 3072, 5120, 6144, 7168, 1544])
+@pytest.mark.parametrize("m", [1, 8, 24])
+def test_ffn_stream_route(cuda, m, d, f, activation):
+    """The stream route (M <= 24 at D > 512) against the plain version:
+    each served D, one that is a multiple of 8 but not of 64 (1544: a
+    ragged output tile and D chunk), ragged F (1000: a ragged unit and F
+    chunk; 1032: a unit and a chunk of 8), both activations; one count a
+    call (its two launches count once) and a repeat bit for bit (the
+    split items' partials are added in block order; the counters reset
+    themselves)."""
+    x, wg, wu, wd = _ffn(m * d + f, m, d, f, torch.bfloat16)
+    assert ffn_plan(torch.bfloat16, m, d, f).route == "stream"
+    before = fused_ffn.launches
+    out = fused_ffn(x, wg, wu, wd, activation)
+    torch.cuda.synchronize()
+    assert fused_ffn.launches == before + 1
+    assert fused_ffn.last_route == "stream"
+    torch.testing.assert_close(out, fused_ffn_ref(x, wg, wu, wd, activation),
+                               **FFN_TOL[torch.bfloat16])
+    for _ in range(2):
+        assert torch.equal(out, fused_ffn(x, wg, wu, wd, activation))
+
+
+@pytest.mark.gpu
+def test_ffn_stream_route_in_a_cuda_graph(cuda):
+    """The stream route captured in a CUDA graph (its workspaces from the
+    graph's pool, its tensor maps encoded at capture) and replayed twice
+    on new inputs copied in place: each replay equals the eager call on
+    the same inputs, bit for bit, so the arrival counters are back at
+    zero after every replay."""
+    m, d, f = 8, 2048, 8192
+    x, wg, wu, wd = _ffn(5, m, d, f, torch.bfloat16)
+    fused_ffn(x, wg, wu, wd)                       # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = fused_ffn(x, wg, wu, wd)
+    for seed in (6, 7):
+        fresh = _ffn(seed, m, d, f, torch.bfloat16)[0]
+        x.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, fused_ffn(fresh, wg, wu, wd))
 
 
 @pytest.mark.gpu

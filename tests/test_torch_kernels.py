@@ -386,21 +386,21 @@ def test_flash_checks_accept_head_dim_256_and_reject_48(dtype):
     (16384, 256, 1024, "tiles", (256, 1, 1)),     # the prefill burst
     # D > 512 and M > 64: two passes
     (100, 1024, 4096, "two_pass", (1, 32, 4)),
-    # x too wide for small M, workspace too large for split_f: two passes
+    # x too wide for small M, M above the stream route's 24: two passes
     # in 64-row tiles
     (64, 1024, 4096, "two_pass", (1, 32, 4)),
     (16, 1024, 4096, "small_m", (256, 16, 1)),
     # zamba2-1.2b's FFN (D 2048, F 8192): decode, prefill, train, burst
-    (8, 2048, 8192, "split_f", (128, 1, 1)),
+    (8, 2048, 8192, "stream", (132, 132, 1)),
     (2048, 2048, 8192, "two_pass", (16, 64, 8)),
     (4096, 2048, 8192, "two_pass", (32, 64, 8)),
     (8192, 2048, 8192, "two_pass", (64, 64, 8)),
-    # the split-F workspace boundary: a quarter of the weight bytes
-    (24, 2048, 8192, "split_f", (128, 1, 1)),
+    # the stream route's boundary: M 24
+    (24, 2048, 8192, "stream", (132, 132, 1)),
     (25, 2048, 8192, "two_pass", (1, 64, 8)),
     # internvl2-26b's FFN (D 6144, F 16384)
-    (1, 6144, 16384, "split_f", (256, 1, 1)),
-    (8, 6144, 16384, "split_f", (256, 1, 1)),
+    (1, 6144, 16384, "stream", (132, 132, 1)),
+    (8, 6144, 16384, "stream", (132, 132, 1)),
     (64, 6144, 16384, "two_pass", (1, 128, 24)),
     (65, 6144, 16384, "two_pass", (1, 128, 24)),
     (2048, 6144, 16384, "two_pass", (16, 128, 24)),
@@ -413,18 +413,18 @@ def test_ffn_plan_bf16(m, d, f, route, grid):
     workspace of one (M, D) partial a slice, one counter a chunk and the
     shared memory the kernel lays out (it takes M up to 64 while that
     fits in 200 KiB); larger M takes 64-row tiles at D <= 512.  Above
-    D 512 small M splits F only into 64-column slices (one (M, D) f32
-    partial a slice, one counter a 128-column output chunk) while that
-    workspace stays within a quarter of the weight bytes, and the rest
-    takes two passes in 128-row tiles (64 rows for M <= 64) with an
-    (M, F) bf16 H workspace.  Every block fits the H100's 232,448 bytes
-    of shared memory."""
+    D 512, M <= 24 takes the stream route (two persistent launches of at
+    most one block an SM, an (2 MP, F) bf16 H workspace, two 64 x MP f32
+    partials a block, one counter a split item), and the rest takes two
+    passes in 128-row tiles (64 rows for M <= 64) with an (M, F) bf16 H
+    workspace.  Every block fits the H100's 232,448 bytes of shared
+    memory."""
     from repro_torch.kernels.fused_ffn import (MAX_SMEM, SMALL_SMEM,
                                                ffn_plan)
     plan = ffn_plan(torch.bfloat16, m, d, f)
     assert (plan.route, plan.grid) == (route, grid)
     assert plan.smem <= MAX_SMEM == 232448
-    if route in ("small_m", "split_f"):
+    if route == "small_m":
         assert plan.nsplit == grid[0]
         assert plan.ws_floats == grid[0] * m * d and plan.h_elems == 0
     if route == "small_m":
@@ -436,16 +436,22 @@ def test_ffn_plan_bf16(m, d, f, route, grid):
             # rows of 24, a 16 x 64 Wd block; f32 partials of 8 warps, H
             assert plan.smem == 2 * (16 * 264 + 2 * 256 * 24 + 16 * 64) \
                 + 4 * (8 * 16 * 16 * 2 + 16 * 16)
-    elif route == "split_f":
-        assert d > 512 and grid[0] == -(-f // 64)
-        assert plan.counters == -(-d // 128)
-        assert 4 * plan.ws_floats <= 0.25 * 3 * 2 * d * f
-        # four ring slots of [Wg; Wu] (2 x 64 rows of 64 + 8) and x (M
-        # padded to 16, rows of 64 + 8), then H's hi and lo parts
-        mp = -(-m // 16) * 16
-        assert plan.smem == 2 * (4 * (2 * 64 * 72 + mp * 72) + 2 * mp * 72)
-        if d >= 2048:
-            assert 128 <= grid[0] <= 264       # one or two blocks an SM
+    elif route == "stream":
+        sp, mp = plan.stream, -(-m // 8) * 8
+        assert d > 512 and m <= 24 and sp.rows == mp
+        assert (sp.units, sp.nk) == (-(-f // 64), -(-d // 64))
+        assert (sp.steps, sp.chunks) == (-(-d // 64) * -(-f // 128),
+                                         -(-f // 128))
+        assert sp.blocks == grid[:2] and max(grid) <= 132   # one an SM
+        assert plan.h_elems == 2 * mp * f
+        # two slots a block: G's and U's 64 x MP partials (pass 1)
+        assert plan.ws_floats == 2 * 2 * 64 * mp * max(grid)
+        # four ring slots of Wg's and Wu's 64 x 64 tiles and x's 64
+        # columns of MP rows (pass 1), Wd's 128 x 64 tile and H's 128
+        # columns of 2 MP rows (pass 2); barriers, + 1024 to align
+        assert sp.smem == (1024 + 4 * (2 * 64 * 128 + mp * 128 + 16),
+                           1024 + 4 * (128 * 128 + 2 * 2 * mp * 128 + 16))
+        assert plan.smem == max(sp.smem)
     elif route == "two_pass":
         bm = 64 if m <= 64 else 128
         assert d > 512 and plan.block_m == bm
@@ -469,10 +475,14 @@ K3_ROWS = ((8, 256, 1024), (1024, 256, 1024), (16384, 256, 1024),
 
 def test_ffn_plan_large_d_workspace_and_small_d_unchanged():
     """At every shape of PERF.md's K3 rows: a decode step above D 512
-    takes split_f, whose f32 workspace stays within a quarter of the
-    weight bytes (M/96 of them at F a multiple of 64: 8.4 MB of 100.7 MB
-    at D 2048, 50 MB of 604 MB at D 6144); larger M takes two_pass; and
-    the plans at D <= 512 are unchanged (small_m at M 8, tiles above)."""
+    takes the stream route, whose f32 workspace is two slots of G's and
+    U's 64 x 8 partials a block whatever D and F (1,081,344 bytes at M 8,
+    against split_f's 8.4 MB at D 2048 and 50 MB at D 6144) beside the
+    (16, F) bf16 H
+    workspace (2 MP F bf16: 256 KB at F 8192, 512 KB at F 16384),
+    together at most 2 % of the weight bytes (1.3 % at D 2048, F 8192);
+    larger M takes two_pass; and the
+    plans at D <= 512 are unchanged (small_m at M 8, tiles above)."""
     from repro_torch.kernels.fused_ffn import FfnPlan, ffn_plan
     d256 = {(8, 256, 1024): FfnPlan("small_m", (64, 4, 1), 64,
                                     ws_floats=64 * 8 * 256, counters=4,
@@ -488,14 +498,16 @@ def test_ffn_plan_large_d_workspace_and_small_d_unchanged():
             continue
         weight_bytes = 3 * d * f * 2
         if m <= 64:
-            assert plan.route == "split_f"
-            assert 4 * plan.ws_floats <= 0.25 * weight_bytes
-            assert 4 * plan.ws_floats == pytest.approx(weight_bytes * m / 96)
+            assert plan.route == "stream"
+            assert 4 * plan.ws_floats == 2 * 2 * 132 * 64 * 8 * 4
+            assert 2 * plan.h_elems == 16 * f * 2        # (16, F) bf16
+            assert 4 * plan.ws_floats + 2 * plan.h_elems \
+                <= 0.02 * weight_bytes
         else:
             assert plan.route == "two_pass" and plan.ws_floats == 0
-    assert 4 * ffn_plan(torch.bfloat16, 8, 2048, 8192).ws_floats == 8388608
+    assert 4 * ffn_plan(torch.bfloat16, 8, 2048, 8192).ws_floats == 1081344
     assert 4 * ffn_plan(torch.bfloat16, 8, 6144, 16384).ws_floats \
-        == 50331648
+        == 1081344
 
 
 def test_ffn_plan_f32_keeps_the_cuda_core_split():
