@@ -20,10 +20,12 @@ Phases (any failure exits non-zero):
    cores) over its masks, dtypes, head dims 16..256 (96 among them, also
    at a ragged S of 1000), head groupings and lengths up to 2048, K3
    fused gated FFN
-   (bf16 small_m and tiles up to D 512, stream and two_pass above; f32)
-   over both activations, dtypes, ragged and large M, ragged F and
-   widths up to 7168 (stream at MP 8, 16 and 24, a D that is no multiple
-   of 64), each repeating bit for bit, then K3 at every served decode
+   (bf16 small_m for a few rows at D <= 512, stream for M <= 24 above,
+   two_pass for the rest; f32) over both activations, dtypes, ragged and
+   large M, ragged F and widths up to 7168 (stream at MP 8, 16 and 24, a
+   D that is no multiple of 64; two_pass at M 25..300 over D 1544 and
+   2048 with ragged F, with a last wave cut into K parts, and at M 4096,
+   D 6144), each repeating bit for bit, then K3 at every served decode
    shape (M 8: the dense families', internvl2-26b's and zamba2-1.2b's
    FFNs) held to its plain version, repeating, and timed beside the
    unfused cuBLAS chain and its byte bound (the prefill shapes are timed
@@ -1051,13 +1053,20 @@ def phase_ffn(torch):
     # output tiles, small M at D 1024; above D 512 stream up to M 24 (MP
     # 8, 16 and 24; a ragged output tile and D chunk at D 1544; ragged
     # units and F chunks; tiles split between blocks in both passes) and
-    # two_pass beyond (64-row tiles up to M 64)
+    # two_pass beyond: rows past M in the last 128-row tile (M 25, 65,
+    # 129, 300), boxes partly or wholly past D (1544) and F (1000, 1032),
+    # a last wave cut into K parts (pass 2 at M 129, F 8192; both passes
+    # at M 300, D 1544, F 4104) and internvl2-26b's prefill (M 4096)
     cases += [(m, d, f, "bfloat16") for m, d, f in (
         (1, 256, 1024), (64, 256, 1000), (65, 256, 1024), (8195, 256, 1024),
         (127, 264, 200), (300, 512, 1032), (16, 1024, 4096),
         (1, 2048, 1000), (24, 2048, 1032), (25, 2048, 1032),
         (65, 2048, 200), (130, 1544, 1032), (17, 1544, 1032),
         (9, 2056, 1000), (8, 7168, 1032), (24, 5120, 1000), (2, 3072, 200))]
+    cases += [(m, d, f, "bfloat16") for m in (25, 65, 129, 300)
+              for d in (2048, 1544) for f in (1000, 1032)]
+    cases += [(129, 2048, 8192, "bfloat16"), (300, 1544, 4104, "bfloat16"),
+              (4096, 6144, 16384, "bfloat16")]
     routes = {}
     for m, d, f, dtype in cases:
         for act in ("silu", "gelu"):
@@ -1076,6 +1085,24 @@ def phase_ffn(torch):
             n_cases += 1
     log(f"fused_ffn == plain version on {n_cases} cases (by route "
         f"{routes}), each repeating bit for bit, max_abs_err {max_err:.3g}")
+    # two_pass where a last column tile stores fewer boxes than it holds
+    # (D mod 256 = 8 in pass 2, F mod 128 = 8 in pass 1), several tiles a
+    # block: the staging boxes' reuse waits on the right store, so many
+    # calls repeat the first bit for bit
+    for m, d, f in ((2048, 1544, 4104), (4096, 2056, 1032)):
+        args = ffn_case(torch, gen, m, d, f, "bfloat16")
+        out = fused_ffn(*args, "silu")
+        if fused_ffn.last_route != "two_pass":
+            raise AssertionError(f"fused_ffn M={m} D={d} F={f}: route "
+                                 f"{fused_ffn.last_route}, not two_pass")
+        check_close("fused_ffn", out, fused_ffn_ref(*args, "silu"),
+                    FFN_TOL["bfloat16"], f"M={m} D={d} F={f} bfloat16 silu")
+        for _ in range(30):
+            if not torch.equal(out, fused_ffn(*args, "silu")):
+                raise AssertionError(f"fused_ffn does not repeat: M={m} "
+                                     f"D={d} F={f} (two_pass)")
+    log("fused_ffn two_pass at a ragged last column tile (M 2048, D 1544, "
+        "F 4104; M 4096, D 2056, F 1032): 30 repeats bit for bit")
     served = ffn_served_times(torch, gen)
 
     # timing at paper-backbone's widths (D 256, F 1024, bf16, silu): a
@@ -1104,7 +1131,7 @@ def phase_ffn(torch):
             f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}); "
             f"unfused bf16 cuBLAS chain {chain_ms:.4f} ms; device time "
             f"kernel {fmt(dev_ms)}, chain {fmt(chain_dev_ms)}")
-    # gelu (the gemma configs') on the tile route, beside silu above
+    # gelu (the gemma configs') on the two_pass route, beside silu above
     x, wg, wu, wd = ffn_case(torch, gen, 8 * 2048, 256, 1024, "bfloat16")
     gelu_ms = cuda_ms(torch, lambda: fused_ffn(x, wg, wu, wd, "gelu"),
                       iters=50)
@@ -1129,7 +1156,7 @@ def phase_ffn(torch):
             "ms_m16384_gelu": gelu_ms, "device_ms_m16384_gelu": gelu_dev_ms,
             "routes": routes, "served": served,
             "shape": "M 8 (a decode step; small-M route), D 256, F 1024, "
-                     "bf16, silu; *_m16384: M 8 x 2048 (tile route); "
+                     "bf16, silu; *_m16384: M 8 x 2048 (two_pass); "
                      "routes: the routes the sweep ran, by cases; served: "
                      "M 8 at the served FFNs"}
 

@@ -1,6 +1,7 @@
 // Fused gated FFN, y = (act(x @ Wg) * (x @ Wu)) @ Wd, for Hopper (sm_90a),
-// in five routes: four for bf16 (two for D <= 512, two for larger D) and
-// the f32 CUDA-core kernel.  The wrapper's plan (ffn_plan in
+// in four routes: three for bf16 (small_m for a few rows where x fits
+// beside the weight slices, stream for the other M <= 24, two_pass for
+// the rest) and the f32 CUDA-core kernel.  The wrapper's plan (ffn_plan in
 // kernels/fused_ffn.py) picks the route and sizes its launch.
 //
 // Replaces the Pallas TPU kernel `fused_ffn` in
@@ -26,26 +27,6 @@
 //   M 8192, D 2048, F 8192 (0.834 ms); 1.24 TFLOP at M 2048, D 6144,
 //   F 16384 (1.251 ms).
 //
-// bf16, D <= 512, large M ("tiles", fused_ffn_wg_kernel), on wgmma: one
-// warpgroup (4 warps) per 64-row tile of x and 256-column tile of the
-// output (blockIdx.y, D > 256 only).  The x tile is staged in shared
-// memory once.  The loop runs over 32-wide F tiles; each F tile is a
-// sequence of chunks, D/256 chunks of [Wg | Wu] (256 x 64) and one chunk
-// of Wd (32 x 256), staged with cp.async 16-byte copies into a two-slot
-// ring (one barrier a chunk) so the next chunk loads while this one
-// computes.  [G | U] = x [Wg | Wu] is one wgmma m64n64k16 a k-step, both
-// operands read by the tensor cores from shared memory; H = act(G) * U
-// is computed in f32 in registers (fast intrinsics), rounded to bf16 and
-// is the register A operand of O += H Wd[f-tile, :], a wgmma m64n256k16
-// (the accumulator fragment of one is the A fragment of the next).  O
-// (64 x 256 over the warpgroup) stays in f32 registers across all of F
-// and is rounded once.  H never goes to device memory.  The operands use
-// the 128-byte swizzled layout (each 16-byte chunk of a 128-byte row
-// XORed with the row's index in its 8-row atom): without it the tensor
-// cores' reads conflict in shared memory.  Rounding H to bf16 adds ~2^-9
-// relative per term of the last sum; the output's own bf16 rounding is
-// the same size.
-//
 // bf16, small M ("small_m", fused_ffn_small_kernel: M <= 64 while x and
 // the slices fit in 200 KiB, so every M <= 64 at D <= 512): bound
 // by the weight bytes, so the grid splits F into 16-column slices and the
@@ -59,12 +40,9 @@
 // at a time, rounds once and resets the counter: one launch, no float
 // atomics.
 //
-// Why neither carries to D 2048 or 6144: small_m holds x and D x 16
+// Why small_m does not carry to D 2048 or 6144: it holds x and D x 16
 // slices whole (282 KB at D 2048, above the 227 KB a block may have) and
-// reads Wg/Wu once per 64-column output chunk; tiles gives each block
-// one 256-column output tile, so at M 8 only D/256 blocks run (8 at D
-// 2048, 24 at D 6144, on 132 SMs), each streaming all of Wg and Wu, and
-// the gate and up products are done D/256 times.
+// reads Wg/Wu once per 64-column output chunk.
 //
 // bf16, D > 512, small M ("stream", fused_ffn_stream_gate_kernel and
 // fused_ffn_stream_down_kernel: M <= 24 where small_m does not fit).
@@ -107,26 +85,54 @@
 // issued by one thread, so the consumers spend no registers, address
 // arithmetic or block barriers on them.
 //
-// bf16, D > 512, larger M ("two_pass", fused_ffn_pass_kernel): two
-// launches on wgmma, each a 4-stage cp.async ring of 64-deep K chunks in
-// the 128-byte swizzled layout, tiles of 128 rows (two warpgroups
-// sharing B; 64 rows, one warpgroup, for M <= 64) by 256 columns, the
-// blocks rastered in groups of 8 row tiles so that concurrent blocks
-// share x / H rows and weight columns in L2.  Pass 1: [G | U] = x [Wg |
-// Wu] over all of D for 128 F columns (one m64n256k16 a k-step and
-// warpgroup), H = act(G) * U in f32 registers, rounded to bf16 into the
-// (M, F) workspace: the gate and up products are done once per row.
-// Pass 2: y = H Wd, f32 over all of F, rounded once.  Why H leaves the
-// chip here: fused, a block that owns an output tile must hold (or
-// recompute) H for all of F; at D 256 that is one 256-column tile and
-// H's 64 x 32 pieces live in registers, but at D > 512 the output has
-// D/256 tiles and either each recomputes [G | U] (the old tiles route:
-// D/256 times the gate and up products) or one block holds the tile's
-// 64 x D f32 output (96 KB of registers at D 6144).  The round trip costs
-// 2 M F 2 bytes (268 MB at M 8192, F 8192: ~0.08 ms against the 0.834 ms
-// operation bound), and H is rounded to bf16 exactly where the tiles
-// route rounds it.
-//
+// bf16, larger M ("two_pass", fused_ffn_two_pass_kernel: M > 24 at D >
+// 512, M > 64 below).  Bound by the 6 M D F operations; H's round trip
+// through device memory, 2 M F 2 bytes, is 268 MB at M 8192, F 8192
+// (~0.08 ms against the 0.834 ms operation bound).  Two launches of one
+// persistent kernel, C = A B, at most one block an SM.  A block is a
+// producer warpgroup whose one thread issues every TMA load (64 x 64
+// boxes in the 128-byte swizzle: A's 128 rows of a 64-deep K chunk
+// K-major, B's four 64-column groups N-major, as wgmma's descriptors read
+// them) into a 4-slot ring with a full and an empty mbarrier a slot, and
+// two consumer warpgroups of 64 rows on wgmma m64n256k16 (setmaxnreg: 24
+// registers a producer thread, 240 a consumer's), which wait only on the
+// full barrier of the slot they read and free it by one arrival a warp
+// once its products are done; no block-wide barrier in the K loop.
+// - pass 1: B = [Wg | Wu] over 128 F columns, so a thread holds G and U
+//   of the same element: H = act(G) * U in f32, rounded once to bf16
+//   into the (M, F) workspace; the gate and up products are done once a
+//   row;
+// - pass 2: y = H Wd over 256 output columns, f32 over all of F, rounded
+//   once.
+// The 128 x 256 tiles are handed out statically (block b: tiles b, b +
+// grid, ...), rastered in groups of 8 row tiles, so the blocks running at
+// once share rows of x / H and weight columns in L2.  The tiles of a last
+// wave that would leave at least half the SMs idle are cut into K parts
+// (at most 8, one a block; the blocks of a part read the same K range):
+// each part's f32 share goes to the workspace and the last of the tile's
+// blocks to arrive (a counter it resets) sums them in part order and
+// rounds once.  qwen1.5-32b's pass 2 at M 1024 runs 132 whole tiles, then
+// 28 in 4 parts; a 32-row decode step's at yi-34b 28 tiles in 4 parts on
+// 112 SMs.  The epilogue stages the rounded tile in 64 x 64 boxes in
+// shared memory (two a consumer, in turn) and writes each by a TMA store,
+// which drops rows past M and columns past N, while the producer already
+// fills the next tile's slots.  A consumer waits for its products at the
+// end of each chunk (wgmma_wait<0>): the other warpgroup's keep the
+// tensor cores busy, and leaving them in flight across the next chunk's
+// wait held each slot a chunk longer (slower on the H100 at every shape
+// tried).  ptxas
+// gives the kernel 168 registers (the launch bound's share of 384
+// threads) without spills; the 128 f32 accumulators of a consumer's 64 x
+// 256 share leave no room to hold one tile while the next one's products
+// start, so the epilogue is not hidden behind the tensor cores.  Why H
+// leaves the chip: fused, a block that owns an output tile must hold (or
+// recompute) H for all of F; at D > 512 the output has D/256 tiles and
+// either each recomputes [G | U] (D/256 times the gate and up products)
+// or one block holds the tile's 64 x D f32 output (96 KB of registers at
+// D 6144).  At D 256, where one tile could keep H on chip, two_pass was
+// still faster on the H100 than such a kernel (64-row tiles holding H in
+// registers), which it replaced (PERF.md).
+
 // f32 (fused_ffn_kernel), kept from the first version: the tensor cores
 // would compute f32 as TF32.  Grid (64-row tile, 256-column output tile,
 // F split); phase A computes the (64, 64) hidden tile into shared memory
@@ -350,175 +356,6 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 __device__ __forceinline__ float activate_fast(float g, int act) {
   if (act == kSilu) return __fdividef(g, 1.f + __expf(-g));
   return activate(g, act);
-}
-
-struct TcArgs {
-  const bf16* x;
-  const bf16* wg;
-  const bf16* wu;
-  const bf16* wd;
-  bf16* out;
-  int m, d, f, act;
-};
-
-// ------------------------------------------------- bf16 large M on wgmma
-// The operands use hopper.cuh's 128-byte swizzled layout.  x is K-major
-// (a row holds 64 k of one row of x); Wg, Wu and Wd stay N-major as they
-// lie in device memory (a row holds 64 n of one k; the products read B
-// transposed), so each 16-byte cp.async lands one chunk.
-namespace wg {
-constexpr int kBM = 64;                   // rows a block: one warpgroup
-constexpr int kBF = 32;                   // F columns a tile
-constexpr int kBD = 256;                  // output columns a block
-constexpr int kKD = 256;                  // D rows of a Wg/Wu chunk
-constexpr int kThreads = 128;
-constexpr int kSlotA = 2 * kKD * kBF;     // [Wg | Wu], in bf16
-constexpr int kSlotB = kBF * kBD;         // Wd
-constexpr int kSlot = kSlotA > kSlotB ? kSlotA : kSlotB;
-__host__ __device__ inline int d_pad(int d) {
-  return (d + kKD - 1) / kKD * kKD;
-}
-__host__ __device__ inline size_t smem_bytes(int d) {
-  // + 1024: the atoms need a 1024-byte aligned base
-  return sizeof(bf16) * ((size_t)kBM * d_pad(d) + 2 * (size_t)kSlot) + 1024;
-}
-}  // namespace wg
-
-__global__ void __launch_bounds__(wg::kThreads)
-    fused_ffn_wg_kernel(TcArgs a) {
-  constexpr int kBM = wg::kBM, kBF = wg::kBF, kBD = wg::kBD, kKD = wg::kKD;
-  constexpr int kThreads = wg::kThreads, kSlot = wg::kSlot;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int M = a.m, D = a.d, F = a.f;
-  const int dp = wg::d_pad(D);
-  unsigned char* smem =
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  // x, resident: blocks of 64 k, each 64 rows x 128 bytes
-  unsigned char* x_s = smem;
-  unsigned char* slots = smem + kBM * dp * 2;
-
-  const int m0 = blockIdx.x * kBM;
-  const int d0 = blockIdx.y * kBD;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_a = dp / kKD;                         // Wg/Wu chunks a tile
-  const int n_chunks = (F + kBF - 1) / kBF * (n_a + 1);
-
-  // rows r of x, 16-byte chunks kc: block kc / 8, chunk kc % 8 of row r
-  for (int i = tid; i < kBM * (dp / 8); i += kThreads) {
-    const int r = i / (dp / 8), kc = i % (dp / 8);
-    const int row = m0 + r, col = kc * 8;
-    const bool ok = row < M && col < D;
-    cp_async16(x_s + (kc >> 3) * (kBM * 128) + swz(r, kc & 7),
-               a.x + (ok ? (long long)row * D + col : 0), ok);
-  }
-  auto issue = [&](int i, int slot) {
-    unsigned char* base = slots + slot * kSlot * 2;
-    const int ft = i / (n_a + 1), c = i % (n_a + 1);
-    const int f0 = ft * kBF;
-    if (c < n_a) {
-      // [Wg | Wu] as one 64-wide B: row k holds Wg's 32 columns of the
-      // tile in chunks 0..3 and Wu's in chunks 4..7
-      const int k0 = c * kKD;
-      for (int j = tid; j < kKD * (kBF / 8); j += kThreads) {
-        const int r = j / (kBF / 8), nc = j % (kBF / 8);
-        const int kr = k0 + r, col = f0 + nc * 8;
-        const bool ok = kr < D && col < F;
-        const long long off = ok ? (long long)kr * F + col : 0;
-        cp_async16(base + swz(r, nc), a.wg + off, ok);
-        cp_async16(base + swz(r, kBF / 8 + nc), a.wu + off, ok);
-      }
-    } else {
-      // Wd rows f0 + r, columns d0 + 8 nc: 64-column atoms of 32 rows,
-      // 4096 bytes apart
-      for (int j = tid; j < kBF * (kBD / 8); j += kThreads) {
-        const int r = j / (kBD / 8), nc = j % (kBD / 8);
-        const int fr = f0 + r, col = d0 + nc * 8;
-        const bool ok = fr < F && col < D;
-        cp_async16(base + (nc >> 3) * (kBF * 128) + swz(r, nc & 7),
-                   a.wd + (ok ? (long long)fr * D + col : 0), ok);
-      }
-    }
-  };
-
-  float o[kBD / 2];                     // 64 x 256 f32 over the warpgroup
-  float gu[kBF];                        // [G | U], 64 x 64 f32
-#pragma unroll
-  for (int i = 0; i < kBD / 2; ++i) o[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kBF; ++i) gu[i] = 0.f;
-
-  issue(0, 0);
-  cp_async_commit();
-  for (int i = 0; i < n_chunks; ++i) {
-    // chunk i has landed; the products of chunk i - 1 (the last group in
-    // flight) are done, so its slot is free for the copy issued below
-    cp_async_wait<0>();
-    fence_proxy_async();
-    wgmma_wait<0>();
-    __syncthreads();
-    if (i + 1 < n_chunks) issue(i + 1, (i + 1) & 1);
-    cp_async_commit();
-    const unsigned char* base = slots + (i & 1) * kSlot * 2;
-    const int c = i % (n_a + 1);
-    if (c < n_a) {
-      // ---- [G | U] += x[:, k-chunk] @ [Wg | Wu][k-chunk, f-tile]; a
-      // k-step is 32 bytes into x's 128-byte rows and 16 rows of [Wg|Wu]
-      fence_regs(gu, kBF);
-      wgmma_fence();
-#pragma unroll 4
-      for (int kk = 0; kk < kKD / 16; ++kk) {
-        const int k = c * kKD + 16 * kk;
-        wgmma_ss<64, 1>(
-            gu, wgmma_desc(x_s + (k >> 6) * (kBM * 128) + (k & 63) * 2, 16,
-                           1024),
-            wgmma_desc(base + kk * 16 * 128, 16, 1024), 1);
-      }
-      wgmma_commit();
-    } else {
-      // ---- H = act(G) * U as bf16 A fragments, O += H @ Wd[f-tile, :]
-      fence_regs(gu, kBF);
-      uint32_t hf[kBF / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBF / 16; ++kk)
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {
-          const int n = 2 * kk + h2;            // n-block n of G, 4 + n of U
-          float hv[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            hv[e] = activate_fast(gu[4 * n + e], a.act) *
-                    gu[kBF / 2 + 4 * n + e];
-          hf[kk][2 * h2] = pack_bf16(hv[0], hv[1]);
-          hf[kk][2 * h2 + 1] = pack_bf16(hv[2], hv[3]);
-        }
-#pragma unroll
-      for (int i2 = 0; i2 < kBF; ++i2) gu[i2] = 0.f;
-      fence_regs(o, kBD / 2);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBF / 16; ++kk)
-        wgmma_rs<256, 1>(o, hf[kk],
-                         wgmma_desc(base + kk * 16 * 128, kBF * 128, 1024), 1);
-      wgmma_commit();
-    }
-  }
-  cp_async_wait<0>();
-  wgmma_wait<0>();
-  fence_regs(o, kBD / 2);
-
-  const int row0 = m0 + warp * 16 + g, row1 = row0 + 8;
-#pragma unroll
-  for (int n = 0; n < kBD / 8; ++n) {
-    const int col = d0 + 8 * n + 2 * t;
-    if (col >= D) continue;
-    if (row0 < M)
-      *reinterpret_cast<__nv_bfloat162*>(a.out + (long long)row0 * D + col) =
-          __floats2bfloat162_rn(o[4 * n], o[4 * n + 1]);
-    if (row1 < M)
-      *reinterpret_cast<__nv_bfloat162*>(a.out + (long long)row1 * D + col) =
-          __floats2bfloat162_rn(o[4 * n + 2], o[4 * n + 3]);
-  }
 }
 
 namespace sm {
@@ -1058,161 +895,298 @@ __global__ void __launch_bounds__(st::kThreads, 1)
 }
 
 // ---------------------------------- bf16 larger M at D > 512: two passes
+// Two persistent launches of one warp-specialised kernel, C = A B: pass 1
+// A = x, B = [Wg | Wu], C = H (its epilogue forms act(G) * U); pass 2 A =
+// H, B = Wd, C = y.  A block is a producer warpgroup (one thread issues
+// every TMA load into a ring of kStages slots, each with a full and an
+// empty mbarrier) and two consumer warpgroups of 64 rows each on wgmma
+// m64n256k16; at most one block an SM.  The plan (two_pass_plan in
+// kernels/fused_ffn.py) mirrors these numbers and passes them in; the
+// entry refuses a plan or map that differs.
 namespace tp {
-constexpr int kBN = 256;                  // N columns a block
-constexpr int kKC = 64;                   // K a chunk: one 128-byte row
-constexpr int kStages = 4;                // ring slots, 2 chunks ahead
-constexpr int kGroupM = 8;                // row tiles a raster group
-// the wrapper's pass_smem_bytes: kStages of these + 1024 to align atoms
-__host__ __device__ constexpr int stage_bytes(int bm) {
-  return bm * 128 + kKC * kBN * 2;
-}
+constexpr int kBM = 128;            // rows a tile: 64 a consumer warpgroup
+constexpr int kBN = 256;            // N columns a tile
+constexpr int kKC = 64;             // K a ring slot: one 128-byte row
+constexpr int kBox = 64;            // TMA boxes: 64 columns by 64 rows
+constexpr int kStages = 4;          // ring slots
+constexpr int kGroupM = 8;          // row tiles a raster group
+constexpr int kThreads = 384;       // a producer + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// a slot: A's two 64-row boxes (128-byte rows), then B's four boxes of
+// kKC rows
+constexpr int kStageBytes = kBM * 128 + kKC * kBN * 2;
+constexpr int kOutBytes = 4 * kBox * 128;   // two 64 x 64 boxes a consumer
+// + 1024 to align the swizzle atoms, the epilogue's boxes, 16 bytes of
+// barriers a slot, two flags
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kOutBytes +
+                           16 * kStages + 16;
+// f32 values of one consumer warpgroup's share of a tile (64 x 256)
+constexpr int kShare = 64 * kBN;
 }  // namespace tp
 
-struct PassArgs {
-  const bf16* a;        // (M, K) row-major: x in pass 1, H in pass 2
-  const bf16* b0;       // (K, N) row-major: Wg in pass 1, Wd in pass 2
-  const bf16* b1;       // Wu in pass 1
-  bf16* c;              // (M, N): H in pass 1, the output in pass 2
-  int m, k, n, act, col_tiles;
+struct TwoPassArgs {
+  int m, n, k, act;           // rows, C's columns (F, D), K (D, F)
+  int row_tiles, col_tiles;   // tiles of kBM rows and of the N columns
+  int tiles, parts;           // parts: K parts of the last wave's tiles
+  float* ws;                  // parts > 1: a 64 x 256 f32 share a block
+                              // and consumer warpgroup
+  int* counters;              // parts > 1: one a (last-wave tile,
+                              // warpgroup), 0 between launches
 };
 
-// GATED (pass 1): the block's B is [Wg | Wu] over kBN / 2 F columns and
-// its epilogue writes H = act(G) * U; else (pass 2) B is kBN columns of
-// Wd and the epilogue writes the f32 sums rounded once.  A is K-major
-// and B N-major in shared memory, both 128-byte swizzled as in wg.
-template <int WGS, bool GATED>
-__global__ void __launch_bounds__(128 * WGS)
-    fused_ffn_pass_kernel(PassArgs a) {
-  constexpr int kBM = 64 * WGS, kThreads = 128 * WGS;
-  constexpr int kBN = tp::kBN, kKC = tp::kKC, kStages = tp::kStages;
-  constexpr int kStage = tp::stage_bytes(kBM);
-  constexpr int kCols = GATED ? kBN / 2 : kBN;     // of c a block writes
+// tile -> (row tile, column tile): groups of kGroupM row tiles walk the
+// column tiles together, the rows fastest, so the blocks running at once
+// share a few A rows and B columns in L2
+__device__ __forceinline__ void tp_tile(int tile, int row_tiles,
+                                        int col_tiles, int* rt, int* ct) {
+  const int per_group = tp::kGroupM * col_tiles;
+  const int first = tile / per_group * tp::kGroupM;
+  const int rows_in = min(row_tiles - first, tp::kGroupM);
+  const int in_group = tile - first * col_tiles;
+  *rt = first + in_group % rows_in;
+  *ct = in_group / rows_in;
+}
+
+// A block's segments, each a tile and its K chunks [c0, c1): first the
+// whole waves, tiles blockIdx.x, blockIdx.x + gridDim.x, ... below
+// full = gridDim.x * (tiles / gridDim.x); then the last wave's rem tiles,
+// each cut into `parts` K parts (split-K; 1: whole): block j < rem *
+// parts runs part j / rem of tile full + j % rem, so the blocks running
+// a part at once read the same K range of their rows and columns.
+struct TpSegments {
+  int t, full, rem, nk, parts;
+  bool tail;                   // the last wave's segment is still to run
+  __device__ TpSegments(const TwoPassArgs& a, int nk_)
+      : t(blockIdx.x), nk(nk_), parts(a.parts) {
+    full = a.tiles / gridDim.x * gridDim.x;
+    rem = a.tiles - full;
+    tail = (int)blockIdx.x < rem * parts;
+  }
+  __device__ __forceinline__ bool next(int* tile, int* c0, int* c1) {
+    if (t < full) {
+      *tile = t;
+      *c0 = 0;
+      *c1 = nk;
+      t += gridDim.x;
+      return true;
+    }
+    if (!tail) return false;
+    tail = false;
+    const int p = blockIdx.x / rem;
+    *tile = full + blockIdx.x % rem;
+    *c0 = p * nk / parts;
+    *c1 = (p + 1) * nk / parts;
+    return true;
+  }
+};
+
+// The fixup of a tile cut into K parts, one consumer warpgroup's 64 rows:
+// its f32 share acc (value j of thread ctid at j * 128 + ctid) goes to
+// this block's slot; the last of the tile's blocks to arrive gets the sum
+// in part order in acc, resets the counter and returns true.  No float
+// atomics: the sum repeats bit for bit.
+__device__ __forceinline__ bool tp_fixup(float* acc, const TwoPassArgs& a,
+                                         int r, int rem, int cw, int ctid,
+                                         volatile int* last) {
+  auto slot = [&](int b) -> float* {
+    return a.ws + (long long)(b * 2 + cw) * tp::kShare;
+  };
+  float* mine = slot(blockIdx.x);
+#pragma unroll
+  for (int j = 0; j < tp::kBN / 2; ++j) mine[j * 128 + ctid] = acc[j];
+  __threadfence();
+  named_bar_sync(1 + cw, 128);
+  int* counter = a.counters + 2 * r + cw;
+  if (ctid == 0) *last = atomicAdd(counter, 1) == a.parts - 1;
+  named_bar_sync(1 + cw, 128);
+  if (!*last) return false;
+  __threadfence();
+#pragma unroll
+  for (int j = 0; j < tp::kBN / 2; ++j) acc[j] = 0.f;
+  for (int p = 0; p < a.parts; ++p) {
+    const float* src = slot(r + p * rem);
+#pragma unroll
+    for (int j = 0; j < tp::kBN / 2; ++j)
+      acc[j] += __ldcg(src + j * 128 + ctid);
+  }
+  if (ctid == 0) *counter = 0;               // ready for the next launch
+  return true;
+}
+
+// GATED (pass 1): a tile's B is [Wg | Wu] over 128 F columns (N column n
+// < 128 is Wg's column n0 + n, the rest Wu's at the same F columns), so a
+// thread holds G and U of the same element and its epilogue writes H =
+// act(G) * U; else (pass 2) B is 256 columns of Wd and the epilogue
+// writes the f32 sums.  Both round to bf16 once, stage the tile in 64 x
+// 64 boxes in shared memory (the 128-byte swizzle, two boxes a warpgroup
+// in turn) and write each by a TMA store, which drops the rows past M and
+// columns past N; a box of C wholly past N is neither staged nor stored.
+// A box of A or B that lies wholly past M or N is not
+// loaded (its products are never stored); K's ragged chunk is zero-filled
+// by TMA.  tm_a: A's map (boxes of 64 columns by 64 rows, K-major);
+// tm_b0, tm_b1: B's (64 by 64, N-major; tm_b1 is Wu, pass 2 passes Wd
+// twice); tm_c: C's (64 by 64).
+template <bool GATED>
+__global__ void __launch_bounds__(tp::kThreads, 1)
+    fused_ffn_two_pass_kernel(const __grid_constant__ CUtensorMap tm_a,
+                              const __grid_constant__ CUtensorMap tm_b0,
+                              const __grid_constant__ CUtensorMap tm_b1,
+                              const __grid_constant__ CUtensorMap tm_c,
+                              TwoPassArgs a) {
+  constexpr int kS = tp::kStages, kStage = tp::kStageBytes;
+  constexpr int kKC = tp::kKC, kBN = tp::kBN, kBoxBytes = tp::kBox * 128;
+  constexpr int kA = tp::kBM * 128;             // A's bytes in a slot
+  constexpr int kCols = GATED ? kBN / 2 : kBN;  // C columns a tile
+  constexpr int kV = kBN / 2;                   // accumulators a thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* out_s = smem + kS * kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_s + tp::kOutBytes);
+  uint64_t* empty = full + kS;
+  volatile int* last = reinterpret_cast<volatile int*>(empty + kS);
+  const int tid = threadIdx.x;
+  const int nk = (a.k + kKC - 1) / kKC;
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);             // one arrival a consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  TpSegments seg(a, nk);
+  int tile, c0, c1;
 
-  // grouped raster: kGroupM row tiles walk the column tiles together
-  const int row_tiles = (a.m + kBM - 1) / kBM;
-  const int per_group = tp::kGroupM * a.col_tiles;
-  const int first = blockIdx.x / per_group * tp::kGroupM;
-  const int rows_in = min(row_tiles - first, tp::kGroupM);
-  const int in_group = blockIdx.x % per_group;
-  const int m0 = (first + in_group % rows_in) * kBM;
-  const int n0 = in_group / rows_in * kCols;
-  const int tid = threadIdx.x, wgi = tid >> 7;
-  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread issues every load, the ring's
+    // parity following the block's running chunk count across tiles.  A
+    // fresh barrier's previous phase counts as complete, so each first
+    // wait on an empty slot passes.
+    setmaxnreg_dec<tp::kProducerRegs>();
+    if (tid == 0) {
+      tma_prefetch(&tm_a);
+      tma_prefetch(&tm_b0);
+      tma_prefetch(&tm_b1);
+      int i = 0;
+      while (seg.next(&tile, &c0, &c1)) {
+        int rt, ct;
+        tp_tile(tile, a.row_tiles, a.col_tiles, &rt, &ct);
+        const int m0 = rt * tp::kBM, n0 = ct * kCols;
+        // B box q's first column (of Wg for q < 2, else of Wu, in pass 1)
+        auto col = [&](int q) { return n0 + 64 * (GATED ? q & 1 : q); };
+        const bool rows2 = m0 + 64 < a.m;
+        uint32_t bytes = (rows2 ? 2 : 1) * kBoxBytes;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (col(q) < a.n) bytes += kBoxBytes;
+        for (int c = c0; c < c1; ++c, ++i) {
+          const int s = i % kS;
+          mbar_wait(&empty[s], ((i / kS) & 1) ^ 1);
+          mbar_expect_tx(&full[s], bytes);
+          unsigned char* sp = smem + s * kStage;
+          tma_load_2d(sp, &tm_a, &full[s], c * kKC, m0);
+          if (rows2)
+            tma_load_2d(sp + kBoxBytes, &tm_a, &full[s], c * kKC, m0 + 64);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (col(q) < a.n)
+              tma_load_2d(sp + kA + q * kBoxBytes,
+                          GATED && q >= 2 ? &tm_b1 : &tm_b0, &full[s],
+                          col(q), c * kKC);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: rows [m0, m0 + 64) of each tile each
+  setmaxnreg_inc<tp::kConsumerRegs>();
+  const int cw = tid / 128 - 1, ctid = tid & 127;
+  const int warp = ctid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int n_k = (a.k + kKC - 1) / kKC;
-
-  auto issue = [&](int i) {
-    unsigned char* s = smem + (i % kStages) * kStage;
-    const int k0 = i * kKC;
-    for (int j = tid; j < kBM * 8; j += kThreads) {
-      const int r = j >> 3, c = j & 7;
-      const int row = m0 + r, col = k0 + c * 8;
-      const bool ok = row < a.m && col < a.k;
-      cp_async16(s + swz(r, c), a.a + (ok ? (long long)row * a.k + col : 0),
-                 ok);
+  unsigned char* boxes = out_s + cw * 2 * kBoxBytes;
+  int i = 0, stored = 0;
+  while (seg.next(&tile, &c0, &c1)) {
+    int rt, ct;
+    tp_tile(tile, a.row_tiles, a.col_tiles, &rt, &ct);
+    const int m0 = rt * tp::kBM + 64 * cw, n0 = ct * kCols;
+    // a warpgroup whose rows all lie past M (M <= 64) frees its slots
+    // and skips the products, the fixup and the epilogue
+    const bool live = m0 < a.m;
+    float acc[kV];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) acc[j] = 0.f;
+    for (int c = c0; c < c1; ++c, ++i) {
+      const int s = i % kS;
+      mbar_wait(&full[s], (i / kS) & 1);
+      if (live) {
+        // A: this warpgroup's 64 rows, K-major, a k-step 32 bytes into
+        // the 128-byte rows.  B: N-major, 64-column groups kKC * 128
+        // bytes apart, a k-step 16 rows (2048 bytes).
+        const unsigned char* sp = smem + s * kStage;
+        const uint64_t da = wgmma_desc(sp + cw * kBoxBytes, 16, 1024);
+        const uint64_t db = wgmma_desc(sp + kA, kKC * 128, 1024);
+        fence_regs(acc, kV);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk)
+          wgmma_ss<kBN, 1>(acc, da + ((kk * 32) >> 4),
+                           db + ((kk * 16 * 128) >> 4), 1);
+        wgmma_commit();
+        // the slot is free once its products are done.  The other
+        // warpgroup's products keep the tensor cores busy meanwhile;
+        // leaving a chunk's products in flight across the next chunk's
+        // wait (wgmma_wait<1>) holds each slot a chunk longer and was
+        // slower on the H100
+        wgmma_wait<0>();
+        fence_regs(acc, kV);
+      }
+      release_slot(&empty[s], lane);
     }
-    // B: 64-column groups of kKC rows, 8 KB apart; pass 1 takes pieces
-    // 0..15 of a row from Wg and 16..31 from Wu, at the same F columns
-    unsigned char* sb = s + kBM * 128;
-    for (int j = tid; j < kKC * (kBN / 8); j += kThreads) {
-      const int r = j / (kBN / 8), nc = j % (kBN / 8);
-      const int col = n0 + 8 * (GATED ? nc % (kBN / 16) : nc);
-      const bf16* src = GATED && nc >= kBN / 16 ? a.b1 : a.b0;
-      const bool ok = k0 + r < a.k && col < a.n;
-      cp_async16(sb + (nc >> 3) * (kKC * 128) + swz(r, nc & 7),
-                 src + (ok ? (long long)(k0 + r) * a.n + col : 0), ok);
-    }
-  };
-
-  float acc[kBN / 2];                   // 64 x 256 f32 over a warpgroup
+    if (!live) continue;
+    if ((c0 > 0 || c1 < nk) &&
+        !tp_fixup(acc, a, tile - seg.full, seg.rem, cw, ctid, last + cw))
+      continue;
+    // ---- epilogue: the producer is already filling the next tile's
+    // slots.  Box p holds C columns n0 + 64 p .. + 63 (n-blocks 8 p ..
+    // 8 p + 7 of the accumulator; of G, beside U's at + 16, in pass 1);
+    // thread (warp, g, t) writes rows 16 warp + g and + 8, columns 8 j +
+    // 2 t and + 1 of it, conflict-free in the swizzled layout.  The boxes
+    // go in increasing column order and the loop ends at the first box
+    // wholly past N, so every box written is stored and `stored` counts
+    // the bulk groups issued.
 #pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
-  for (int i = 0; i < kStages - 2; ++i) {
-    if (i < n_k) issue(i);
-    cp_async_commit();
-  }
-  for (int i = 0; i < n_k; ++i) {
-    // chunk i has landed; every warpgroup's products of chunk i - 2 are
-    // done (those of i - 1 may run on), so its slot takes chunk i + 2
-    cp_async_wait<kStages - 3>();
-    fence_proxy_async();
-    wgmma_wait<1>();
-    __syncthreads();
-    if (i + kStages - 2 < n_k) issue(i + kStages - 2);
-    cp_async_commit();
-    const unsigned char* s = smem + (i % kStages) * kStage;
-    const unsigned char* sa = s + wgi * (64 * 128);
-    const unsigned char* sb = s + kBM * 128;
-    fence_regs(acc, kBN / 2);
-    wgmma_fence();
+    for (int p = 0; p < kCols / 64 && n0 + 64 * p < a.n; ++p, ++stored) {
+      unsigned char* box = boxes + (stored & 1) * kBoxBytes;
+      // the store issued from this box two stores ago is done reading it
+      if (ctid == 0) tma_store_wait_read<1>();
+      named_bar_sync(1 + cw, 128);
+      const int r0 = 16 * warp + g;
 #pragma unroll
-    for (int kk = 0; kk < kKC / 16; ++kk)
-      wgmma_ss<256, 1>(acc, wgmma_desc(sa + kk * 32, 16, 1024),
-                       wgmma_desc(sb + kk * 16 * 128, kKC * 128, 1024), 1);
-    wgmma_commit();
-  }
-  cp_async_wait<0>();
-  wgmma_wait<0>();
-  fence_regs(acc, kBN / 2);
-
-  const int row0 = m0 + wgi * 64 + warp * 16 + g, row1 = row0 + 8;
-  if (GATED) {
-    // n-block j of G and n-block j + 16 of U hold the same F columns
+      for (int j = 0; j < 8; ++j) {
+        const int nb = 8 * p + j;
+        float v[4];
 #pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) {
-      const int col = n0 + 8 * j + 2 * t;
-      if (col >= a.n) continue;
-      float h[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        h[e] = activate_fast(acc[4 * j + e], a.act) *
-               acc[4 * (j + kBN / 16) + e];
-      if (row0 < a.m)
-        *reinterpret_cast<__nv_bfloat162*>(a.c + (long long)row0 * a.n +
-                                           col) =
-            __floats2bfloat162_rn(h[0], h[1]);
-      if (row1 < a.m)
-        *reinterpret_cast<__nv_bfloat162*>(a.c + (long long)row1 * a.n +
-                                           col) =
-            __floats2bfloat162_rn(h[2], h[3]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * t;
-      if (col >= a.n) continue;
-      if (row0 < a.m)
-        *reinterpret_cast<__nv_bfloat162*>(a.c + (long long)row0 * a.n +
-                                           col) =
-            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-      if (row1 < a.m)
-        *reinterpret_cast<__nv_bfloat162*>(a.c + (long long)row1 * a.n +
-                                           col) =
-            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        for (int e = 0; e < 4; ++e)
+          v[e] = GATED ? activate_fast(acc[4 * nb + e], a.act) *
+                             acc[4 * (nb + 16) + e]
+                       : acc[4 * nb + e];
+        *reinterpret_cast<uint32_t*>(box + swz(r0, j) + 4 * t) =
+            pack_bf16(v[0], v[1]);
+        *reinterpret_cast<uint32_t*>(box + swz(r0 + 8, j) + 4 * t) =
+            pack_bf16(v[2], v[3]);
+      }
+      fence_proxy_async();                  // visible to the TMA store
+      named_bar_sync(1 + cw, 128);
+      if (ctid == 0) {
+        tma_store_2d(&tm_c, box, n0 + 64 * p, m0);
+        tma_store_commit();
+      }
     }
   }
-}
-
-template <int WGS>
-cudaError_t two_pass(const PassArgs& p1, const PassArgs& p2, int row_tiles,
-                     int smem_bytes, cudaStream_t stream) {
-  auto k1 = fused_ffn_pass_kernel<WGS, true>;
-  auto k2 = fused_ffn_pass_kernel<WGS, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      k1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        k2, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return err;
-  k1<<<row_tiles * p1.col_tiles, 128 * WGS, smem_bytes, stream>>>(p1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  k2<<<row_tiles * p2.col_tiles, 128 * WGS, smem_bytes, stream>>>(p2);
-  return cudaGetLastError();
+  if (ctid == 0) tma_store_wait<0>();
 }
 
 // One 2-d map of a bf16 row-major matrix from the wrapper's numbers
@@ -1285,6 +1259,27 @@ cudaError_t launch_stream(const void* x, const void* wg, const void* wu,
   return cudaGetLastError();
 }
 
+// plan: rows, columns and K of a tile, ring slots, shared memory, the
+// two passes' blocks and K parts (two_pass_plan); tm: the maps of x,
+// Wg, Wu, Wd, H and y
+cudaError_t launch_two_pass(const CUtensorMap* tm, const TwoPassArgs& a1,
+                            const TwoPassArgs& a2, const int* plan,
+                            cudaStream_t stream) {
+  auto k1 = fused_ffn_two_pass_kernel<true>;
+  auto k2 = fused_ffn_two_pass_kernel<false>;
+  static unsigned long long set1 = 0, set2 = 0;
+  cudaError_t err = allow_smem(k1, tp::kSmemBytes, &set1);
+  if (err == cudaSuccess) err = allow_smem(k2, tp::kSmemBytes, &set2);
+  if (err != cudaSuccess) return err;
+  k1<<<plan[5], tp::kThreads, tp::kSmemBytes, stream>>>(tm[0], tm[1], tm[2],
+                                                         tm[4], a1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k2<<<plan[6], tp::kThreads, tp::kSmemBytes, stream>>>(tm[4], tm[3], tm[3],
+                                                         tm[5], a2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fused_ffn(const void* x, const void* wg, const void* wu,
@@ -1303,25 +1298,6 @@ extern "C" int fused_ffn(const void* x, const void* wg, const void* wu,
 
 // The bf16 entries launch the grid of the wrapper's plan (ffn_plan in
 // kernels/fused_ffn.py) as given.
-extern "C" int fused_ffn_bf16_tiles(const void* x, const void* wg,
-                                    const void* wu, const void* wd,
-                                    void* out, int m, int d, int f, int act,
-                                    int row_tiles, int col_tiles,
-                                    void* stream) {
-  if (m == 0 || d == 0) return cudaSuccess;
-  TcArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
-           static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
-           static_cast<bf16*>(out), m, d, f, act};
-  const size_t bytes = wg::smem_bytes(d);
-  auto kernel = fused_ffn_wg_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(row_tiles, col_tiles);
-  kernel<<<grid, wg::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
-}
-
 extern "C" int fused_ffn_bf16_small(const void* x, const void* wg,
                                     const void* wu, const void* wd,
                                     void* out, void* ws, void* counters,
@@ -1370,24 +1346,49 @@ extern "C" int fused_ffn_bf16_stream(const void* x, const void* wg,
   }
 }
 
-// h: the (M, F) bf16 workspace between the passes; block_m 64 or 128
+// h: the (M, F) bf16 workspace between the passes; ws: two 64 x 256 f32
+// shares a block, for a pass whose last wave is cut into K parts;
+// counters: two a tile of that wave, 0 before and after each launch;
+// plan and maps as in launch_two_pass (maps: 6 numbers each).  Pass 1 has
+// row tiles x ceil(F / 128) tiles, pass 2 row tiles x ceil(D / 256).
 extern "C" int fused_ffn_bf16_two_pass(const void* x, const void* wg,
                                        const void* wu, const void* wd,
-                                       void* out, void* h, int m, int d,
-                                       int f, int act, int block_m,
-                                       int row_tiles, int f_tiles,
-                                       int d_tiles, int smem_bytes,
-                                       void* stream) {
+                                       void* out, void* h, void* ws,
+                                       void* counters, int m, int d, int f,
+                                       int act, const int* plan,
+                                       const long long* maps, void* stream) {
   if (m == 0 || d == 0) return cudaSuccess;
-  const PassArgs p1{static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
-                    static_cast<const bf16*>(wu), static_cast<bf16*>(h),
-                    m, d, f, act, f_tiles};
-  const PassArgs p2{static_cast<const bf16*>(h), static_cast<const bf16*>(wd),
-                    nullptr, static_cast<bf16*>(out), m, f, d, act, d_tiles};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (block_m) {
-    case 64: return two_pass<1>(p1, p2, row_tiles, smem_bytes, s);
-    case 128: return two_pass<2>(p1, p2, row_tiles, smem_bytes, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (plan[0] != tp::kBM || plan[1] != tp::kBN || plan[2] != tp::kKC ||
+      plan[3] != tp::kStages || plan[4] != tp::kSmemBytes || plan[5] <= 0 ||
+      plan[6] <= 0 || plan[7] <= 0 || plan[8] <= 0 ||
+      ((plan[7] > 1 || plan[8] > 1) && (!ws || !counters)))
+    return cudaErrorInvalidValue;
+  for (int j = 0; j < 6; ++j)
+    if (maps[6 * j + 3] != tp::kBox || maps[6 * j + 4] != tp::kBox)
+      return cudaErrorInvalidValue;
+  const void* bases[6] = {x, wg, wu, wd, h, out};
+  CUtensorMap tm[6];
+  for (int j = 0; j < 6; ++j)
+    if (!encode_map_2d(&tm[j], bases[j], maps + 6 * j))
+      return cudaErrorInvalidValue;
+  const int row_tiles = (m + tp::kBM - 1) / tp::kBM;
+  const int ct1 = (f + tp::kBN / 2 - 1) / (tp::kBN / 2);
+  const int ct2 = (d + tp::kBN - 1) / tp::kBN;
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(counters);
+  const TwoPassArgs a1{m, f, d, act, row_tiles, ct1, row_tiles * ct1,
+                       plan[7], w, c};
+  const TwoPassArgs a2{m, d, f, act, row_tiles, ct2, row_tiles * ct2,
+                       plan[8], w, c};
+  // no block without work; the last wave's parts one a block, each at
+  // least one K chunk
+  const int nk1 = (d + tp::kKC - 1) / tp::kKC;
+  const int nk2 = (f + tp::kKC - 1) / tp::kKC;
+  if (plan[5] > a1.tiles * a1.parts || plan[6] > a2.tiles * a2.parts ||
+      a1.parts > nk1 ||
+      a2.parts > nk2 || (a1.tiles % plan[5]) * a1.parts > plan[5] ||
+      (a2.tiles % plan[6]) * a2.parts > plan[6])
+    return cudaErrorInvalidValue;
+  return launch_two_pass(tm, a1, a2, plan, static_cast<cudaStream_t>(stream));
 }
+

@@ -14,8 +14,9 @@
 //   row-major weight read transposed: its 64 rows are the weight's
 //   columns) and B K-major;
 // - mbarriers (init, arrive, arrive with an expected byte count, a
-//   parity wait), TMA tile loads of a 2-d and a 4-d tensor map, a named
-//   barrier of a warpgroup, and setmaxnreg;
+//   parity wait), TMA tile loads of a 2-d and a 4-d tensor map, TMA
+//   stores of a 2-d one with their commit and waits, a named barrier of
+//   a warpgroup, and setmaxnreg;
 // - on the host, the driver's cuTensorMapEncodeTiled, found at run time
 //   with cudaGetDriverEntryPoint, so no driver library is linked.
 
@@ -672,6 +673,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// the box at coordinates (c0 innermost, c1) of a 2-d tensor map written
+// from shared memory (in the map's swizzle); elements past the tensor's
+// extent are not written.  One thread issues it, after the writers'
+// fence_proxy_async and a barrier.  PTX:
+// cp.async.bulk.tensor.2d.global.shared::cta.bulk_group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// the issuing thread's stores since the last commit made one group
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// at most N of the issuing thread's store groups still read shared
+// memory (their sources may be written again)
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// at most N of the issuing thread's store groups are still in flight
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // register budget of a warpgroup's threads from here on (all four warps

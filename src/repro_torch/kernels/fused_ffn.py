@@ -13,7 +13,7 @@ bf16 runs on the tensor cores:
   D x 16 weight slices fit in shared memory (every M <= 64 at D <= 512,
   M <= 32 at D 1024): one launch on ``mma.sync`` that splits F and the
   output columns;
-- otherwise, at D > 512, M <= 24 takes ``"stream"``: two persistent
+- otherwise M <= 24 (at D > 512) takes ``"stream"``: two persistent
   launches on ``wgmma`` (at most one block an SM), each block a producer
   warp streaming the weights by TMA through a ring and a consumer
   warpgroup; pass 1 forms H = act(x Wg) (x Wu) in units of 64 F columns
@@ -21,15 +21,21 @@ bf16 runs on the tensor cores:
   the (output tile, F chunk) steps of H Wd evenly over the blocks
   (stream-K), tiles split between blocks summed in block order from
   two f32 partials a block (:func:`stream_plan`, :func:`ffn_tma_map`);
-- larger M takes 64-row tiles on ``wgmma`` that keep H on chip
-  (``"tiles"``) at D <= 512, and at D > 512 two launches on ``wgmma``
-  (``"two_pass"``): H = act(x Wg) (x Wu) once per row into an (M, F) bf16
-  workspace, then H Wd.
+- larger M takes ``"two_pass"``: two persistent launches of one kernel
+  on ``wgmma`` (at most one block an SM, each a producer warpgroup
+  issuing TMA loads into an mbarrier ring and two consumer warpgroups on
+  128 x 256 tiles, written back by TMA stores); pass 1 forms H = act(x
+  Wg) (x Wu) once per row into an (M, F) bf16 workspace, pass 2 H Wd.
+  A last wave that would leave half the SMs idle is cut into K parts
+  whose f32 shares the last block of a tile sums in part order
+  (:func:`two_pass_plan`).  Its bound is the 6 M
+  D F operations; its share of it on the H100 at the served prefill and
+  train shapes, beside the unfused cuBLAS chain, is in PERF.md.
 
 f32 runs on the CUDA cores (``"cuda_cores"``), since the tensor cores
 would round f32 to TF32.  The plan is the one place that sizes a bf16
-launch: the kernels launch its grids (and, but for ``tiles``, its
-shared memory) as given, on the workspaces the wrapper allocates.  A
+launch: the kernels launch its grids (and its shared memory) as given,
+on the workspaces the wrapper allocates.  A
 tensor on the CPU takes the plain version.  A tensor on the card
 launches its route's kernel or raises — there is no fallback.  Each call
 adds one to ``fused_ffn.launches`` (the two kernels of ``two_pass`` and
@@ -65,19 +71,21 @@ _ACT_CODES = {"silu": 0, "gelu": 1}
 BLOCK_M, BLOCK_D, BLOCK_F = 64, 256, 64
 # blocks wanted in flight: two per SM of an H100 (132 SMs)
 TARGET_BLOCKS = 264
-# the bf16 tile kernel (csrc/fused_ffn.cu, namespace wg): rows and
-# output columns a block; the largest D it takes (its x tile stays in
-# shared memory and H on chip)
-TC_BLOCK_M, TC_BLOCK_D, TC_MAX_D = 64, 256, 512
 # the bf16 small-M kernel (namespace sm): F columns and output columns a
 # block, its warps, the most rows it holds, and the shared memory it may
 # ask for
 SMALL_F, SMALL_D, SMALL_WARPS = 16, 64, 8
 SMALL_MAX_M, SMALL_SMEM = 64, 200 * 1024
-# the bf16 two-pass kernels (namespace tp): columns a block ([G | U] of
-# 128 F columns in pass 1, 256 output columns in pass 2), K a ring chunk,
-# ring slots
-PASS_N, PASS_KC, PASS_STAGES = 256, 64, 4
+# the bf16 two-pass kernels (namespace tp): rows, columns and K of a
+# tile, ring slots, the row tiles of a raster group, dynamic shared memory
+# a block (1024 to align the swizzle atoms, the ring, four 64 x 64 bf16
+# staging boxes, barriers and flags).  The tiles of a last wave that
+# would leave at least half the SMs idle are cut into K parts, at most
+# PASS_MAX_PARTS, each at least PASS_PART_MIN_CHUNKS K chunks.
+PASS_BM, PASS_BN, PASS_KC, PASS_STAGES, PASS_GROUP_M = 128, 256, 64, 4, 8
+PASS_SMEM = (1024 + PASS_STAGES * (PASS_BM * 128 + PASS_KC * PASS_BN * 2)
+             + 4 * 64 * 128 + 16 * PASS_STAGES + 16)
+PASS_MAX_PARTS, PASS_PART_MIN_CHUNKS = 8, 8
 # the bf16 stream kernels (namespace st): F columns of a pass-1 unit, D
 # rows of its ring chunk, output columns of a pass-2 tile, F rows of its
 # ring chunk, ring slots, the most rows the route takes, and the H100's
@@ -114,21 +122,35 @@ class StreamPlan:
 
 
 @dataclass(frozen=True)
+class TwoPassPlan:
+    """The two launches of the ``two_pass`` route (pass 1: x [Wg | Wu]
+    into H; pass 2: H Wd), each a persistent grid over tiles of
+    ``PASS_BM`` rows by ``PASS_BN`` product columns (pass 1: 128 F
+    columns of G and U; pass 2: 256 output columns), each tile K chunks
+    of ``PASS_KC``: a pass's ``blocks`` (at most one an SM) and the K
+    ``parts`` its last wave's tiles are cut into (1: whole).  The kernel
+    derives the rest of its schedule (``tp_tile``, ``TpSegments``) from
+    these and the shapes."""
+    parts: Tuple[int, int]
+    blocks: Tuple[int, int]
+
+
+@dataclass(frozen=True)
 class FfnPlan:
     """How one call runs: its route, its grid, and the f32 workspace and
     arrival counters it needs (``ws_floats`` f32 elements; ``counters``
     int32 entries, zero between launches)."""
-    route: str   # "cuda_cores" | "tiles" | "small_m" | "stream" | "two_pass"
-    grid: Tuple[int, int, int]   # two_pass: (row tiles, F tiles, D tiles);
-    #                              stream: (pass-1 blocks, pass-2 blocks, 1)
+    route: str   # "cuda_cores" | "small_m" | "stream" | "two_pass"
+    grid: Tuple[int, int, int]   # two_pass, stream: (pass-1 blocks,
+    #                              pass-2 blocks, 1)
     nsplit: int = 1          # F splits summed through the workspace
     per: int = 0             # cuda_cores: F tiles a split
     ws_floats: int = 0
     counters: int = 0
     smem: int = 0            # dynamic shared memory a block, bytes
     h_elems: int = 0         # two_pass, stream: the bf16 H workspace
-    block_m: int = 0         # two_pass: rows a tile, 64 or 128
     stream: Optional[StreamPlan] = None
+    two_pass: Optional[TwoPassPlan] = None
 
 
 def split_plan(m: int, d: int, f: int):
@@ -153,11 +175,39 @@ def small_smem_bytes(m: int, d: int) -> int:
             + 4 * (SMALL_WARPS * mp * SMALL_F * 2 + mp * SMALL_F))
 
 
-def pass_smem_bytes(block_m: int) -> int:
-    """Shared memory of a two-pass kernel: the ring's slots, each an A
-    chunk (block_m rows of 128 bytes) and a B chunk (64 rows of 256
-    columns), plus 1024 bytes to align the swizzle atoms."""
-    return PASS_STAGES * (block_m * 128 + PASS_KC * PASS_N * 2) + 1024
+def pass_parts(tiles: int, nk: int) -> int:
+    """The K parts of a two-pass launch's last wave: the ``tiles %
+    132`` tiles that a wave of whole tiles would leave to fewer than half
+    the SMs are cut into as many parts as fill them (at most
+    ``PASS_MAX_PARTS``, each at least ``PASS_PART_MIN_CHUNKS`` chunks):
+    qwen1.5-32b's pass 2 at M 1024 (160 tiles: 132, then 28 in 4 parts),
+    the decode steps of 25..64 rows (yi-34b's pass 2: 28 tiles in 4)."""
+    rem = tiles % H100_SMS
+    if rem == 0:
+        return 1
+    return max(1, min(H100_SMS // rem, PASS_MAX_PARTS,
+                      nk // PASS_PART_MIN_CHUNKS))
+
+
+def two_pass_plan(m: int, d: int, f: int) -> FfnPlan:
+    """The ``two_pass`` route's plan (``ffn_plan``'s for M > 24 at D >
+    512 and M > 64 below): persistent grids of at most one block an
+    SM and the (M, F) bf16 H workspace; where a pass cuts its last wave
+    into K parts, a 64 x 256 f32 share a block and consumer warpgroup
+    and two arrival counters a tile of that wave (one a warpgroup)."""
+    rt = -(-m // PASS_BM)
+    nk = (-(-d // PASS_KC), -(-f // PASS_KC))
+    tiles = (rt * -(-f // (PASS_BN // 2)), rt * -(-d // PASS_BN))
+    parts = tuple(pass_parts(t, k) for t, k in zip(tiles, nk))
+    blocks = tuple(H100_SMS if t >= H100_SMS else t * p
+                   for t, p in zip(tiles, parts))
+    cut = [(b, t % b) for b, t, p in zip(blocks, tiles, parts) if p > 1]
+    return FfnPlan("two_pass", (*blocks, 1),
+                   ws_floats=max((b * 2 * 64 * PASS_BN for b, _ in cut),
+                                 default=0),
+                   counters=max((2 * r for _, r in cut), default=0),
+                   smem=PASS_SMEM, h_elems=m * f,
+                   two_pass=TwoPassPlan(parts, blocks))
 
 
 def stream_plan(m: int, d: int, f: int) -> FfnPlan:
@@ -259,9 +309,10 @@ def ffn_tma_map(t: torch.Tensor, box: Tuple[int, int]) -> TmaMap2d:
                     TMA_SWIZZLE_BYTES)
 
 
-class _StreamNumbers(NamedTuple):
-    """What the ``stream`` entry takes besides the pointers: the plan's
-    10 numbers and the 5 maps' 6 numbers each (x, Wg, Wu, Wd, H)."""
+class _EntryNumbers(NamedTuple):
+    """What the ``stream`` and ``two_pass`` entries take besides the
+    pointers: the plan's numbers (10 and 9) and 6 numbers a tensor map
+    (5 maps and 6)."""
     plan_arr: ctypes.Array
     maps_arr: ctypes.Array
 
@@ -281,27 +332,45 @@ def stream_numbers(x, w_gate, w_up, w_down, h, plan: FfnPlan) -> list:
             for v in (*tm.dims, tm.stride, *tm.box, tm.swizzle)]
 
 
-# _StreamNumbers by (M, D, F): the operands are contiguous (``_check``),
-# so the plan and map numbers depend on the shapes alone and are worked
-# out once a shape; the bases' alignment is checked on every call
-_STREAM_SHAPES: dict = {}
-_STREAM_SHAPES_MAX = 256
+def two_pass_numbers(x, w_gate, w_up, w_down, h, out) -> list:
+    """The 36 numbers the ``two_pass`` entry encodes its tensor maps
+    from: for x, Wg, Wu, Wd, the (M, F) H workspace and the output in
+    turn (boxes of 64 columns by 64 rows, all), the dims, the row stride,
+    the box and the swizzle span."""
+    return [v for t in (x, w_gate, w_up, w_down, h, out)
+            for tm in (ffn_tma_map(t, (64, 64)),)
+            for v in (*tm.dims, tm.stride, *tm.box, tm.swizzle)]
 
 
-def _stream_numbers(x, w_gate, w_up, w_down, h, plan) -> _StreamNumbers:
+# _EntryNumbers by (M, D, F): the operands are contiguous (``_check``),
+# so the route, plan and map numbers depend on the shapes alone and are
+# worked out once a shape; the bases' alignment is checked on every call
+_ENTRY_SHAPES: dict = {}
+_ENTRY_SHAPES_MAX = 256
+
+
+def _entry_numbers(x, w_gate, w_up, w_down, h, out, plan) -> _EntryNumbers:
     key = (x.shape[0], x.shape[1], w_up.shape[1])
-    nums = _STREAM_SHAPES.get(key)
+    nums = _ENTRY_SHAPES.get(key)
     if nums is None:
-        sp = plan.stream
-        nums = _StreamNumbers(
-            (ctypes.c_int * 10)(
-                sp.rows, STREAM_UNIT_F, STREAM_KC, STREAM_TILE_D, STREAM_FC,
-                sp.stages, *sp.blocks, *sp.smem),
-            (ctypes.c_longlong * 30)(*stream_numbers(x, w_gate, w_up,
-                                                     w_down, h, plan)))
-        if len(_STREAM_SHAPES) >= _STREAM_SHAPES_MAX:
-            _STREAM_SHAPES.clear()
-        _STREAM_SHAPES[key] = nums
+        if plan.route == "stream":
+            sp = plan.stream
+            nums = _EntryNumbers(
+                (ctypes.c_int * 10)(
+                    sp.rows, STREAM_UNIT_F, STREAM_KC, STREAM_TILE_D,
+                    STREAM_FC, sp.stages, *sp.blocks, *sp.smem),
+                (ctypes.c_longlong * 30)(*stream_numbers(
+                    x, w_gate, w_up, w_down, h, plan)))
+        else:
+            tp = plan.two_pass
+            nums = _EntryNumbers(
+                (ctypes.c_int * 9)(PASS_BM, PASS_BN, PASS_KC, PASS_STAGES,
+                                   PASS_SMEM, *tp.blocks, *tp.parts),
+                (ctypes.c_longlong * 36)(*two_pass_numbers(
+                    x, w_gate, w_up, w_down, h, out)))
+        if len(_ENTRY_SHAPES) >= _ENTRY_SHAPES_MAX:
+            _ENTRY_SHAPES.clear()
+        _ENTRY_SHAPES[key] = nums
     return nums
 
 
@@ -320,15 +389,9 @@ def ffn_plan(dtype: torch.dtype, m: int, d: int, f: int) -> FfnPlan:
         nsplit, chunks = -(-f // SMALL_F), -(-d // SMALL_D)
         return FfnPlan("small_m", (nsplit, chunks, 1), nsplit,
                        ws_floats=nsplit * m * d, counters=chunks, smem=smem)
-    if d <= TC_MAX_D:
-        return FfnPlan("tiles", (-(-m // TC_BLOCK_M), -(-d // TC_BLOCK_D),
-                                 1))
     if m <= STREAM_MAX_M:
         return stream_plan(m, d, f)
-    bm = 64 if m <= 64 else 128
-    return FfnPlan("two_pass", (-(-m // bm), -(-f // (PASS_N // 2)),
-                                -(-d // PASS_N)),
-                   smem=pass_smem_bytes(bm), h_elems=m * f, block_m=bm)
+    return two_pass_plan(m, d, f)
 
 
 def _fn(name: str, argtypes):
@@ -341,10 +404,9 @@ def _fn(name: str, argtypes):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fused_ffn": [_P] * 6 + [_I] * 7 + [_P],
-             "fused_ffn_bf16_tiles": [_P] * 5 + [_I] * 6 + [_P],
              "fused_ffn_bf16_small": [_P] * 7 + [_I] * 7 + [_P],
              "fused_ffn_bf16_stream": [_P] * 8 + [_I] * 4 + [_P] * 3,
-             "fused_ffn_bf16_two_pass": [_P] * 6 + [_I] * 9 + [_P]}
+             "fused_ffn_bf16_two_pass": [_P] * 8 + [_I] * 4 + [_P] * 3}
 
 
 def _check(x, w_gate, w_up, w_down, activation) -> None:
@@ -422,13 +484,10 @@ def _launch(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
         err = _fn("fused_ffn", _ARGTYPES["fused_ffn"])(
             *ptrs, None if ws is None else ws.data_ptr(), m, d, f,
             plan.nsplit, plan.per, act, _DTYPE_CODES[x.dtype], stream)
-    elif plan.route == "tiles":
-        err = _fn("fused_ffn_bf16_tiles", _ARGTYPES["fused_ffn_bf16_tiles"])(
-            *ptrs, m, d, f, act, plan.grid[0], plan.grid[1], stream)
     elif plan.route == "stream":
         h = torch.empty(2 * plan.stream.rows, f, dtype=torch.bfloat16,
                         device=x.device)
-        nums = _stream_numbers(x, w_gate, w_up, w_down, h, plan)
+        nums = _entry_numbers(x, w_gate, w_up, w_down, h, out, plan)
         counters = _build.arrival_counters(x.device, stream,
                                             plan.counters)
         err = _fn("fused_ffn_bf16_stream",
@@ -436,11 +495,15 @@ def _launch(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
             *ptrs, h.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, d, f,
             act, nums.plan_arr, nums.maps_arr, stream)
     elif plan.route == "two_pass":
-        h = torch.empty(plan.h_elems, dtype=torch.bfloat16, device=x.device)
+        h = torch.empty(m, f, dtype=torch.bfloat16, device=x.device)
+        nums = _entry_numbers(x, w_gate, w_up, w_down, h, out, plan)
+        counters = _build.arrival_counters(x.device, stream,
+                                            plan.counters)
         err = _fn("fused_ffn_bf16_two_pass",
                   _ARGTYPES["fused_ffn_bf16_two_pass"])(
-            *ptrs, h.data_ptr(), m, d, f, act, plan.block_m, *plan.grid,
-            plan.smem, stream)
+            *ptrs, h.data_ptr(), None if ws is None else ws.data_ptr(),
+            counters.data_ptr(), m, d, f, act, nums.plan_arr, nums.maps_arr,
+            stream)
     else:
         counters = _build.arrival_counters(x.device, stream,
                                             plan.counters)

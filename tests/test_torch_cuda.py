@@ -624,14 +624,14 @@ def test_ffn_kernel_rejects_what_it_does_not_take(cuda):
     (65, 2048, 1032), (1, 6144, 16384), (8, 6144, 16384),
     (64, 6144, 16384), (65, 6144, 2056), (2049, 6144, 16384)])
 def test_ffn_bf16_routes_ragged_and_wide(cuda, m, d, f):
-    """The bf16 routes (small_m and tiles up to D 512, stream and
-    two_pass above): ragged M and F, D over several output tiles and
-    chunks, and a repeat bit for bit (no atomics; the arrival counters
-    reset themselves)."""
+    """The bf16 routes (small_m up to M 64 at D <= 512, stream for the
+    other M <= 24, two_pass above): ragged M and F, D over several output
+    tiles and chunks, and a repeat bit for bit (no atomics; the arrival
+    counters reset themselves)."""
     x, wg, wu, wd = _ffn(m + f, m, d, f, torch.bfloat16)
     plan = ffn_plan(torch.bfloat16, m, d, f)
     if d <= 512:
-        assert plan.route == ("small_m" if m <= 64 else "tiles")
+        assert plan.route == ("small_m" if m <= 64 else "two_pass")
     elif plan.route != "small_m":
         assert plan.route == ("stream" if m <= 24 else "two_pass")
     out = fused_ffn(x, wg, wu, wd, "gelu")
@@ -687,6 +687,91 @@ def test_ffn_stream_route_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(y, fused_ffn(fresh, wg, wu, wd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+@pytest.mark.parametrize("m,d,f", [
+    (25, 2048, 1000), (65, 2048, 1032), (129, 1544, 1000),
+    (300, 1544, 1032), (129, 2048, 8192), (300, 1544, 4104),
+    (32, 7168, 20480), (64, 6144, 16384), (1024, 256, 1024),
+    (127, 264, 200), (4096, 2048, 8192), (2048, 1544, 4104),
+    (4096, 2056, 1032)])
+def test_ffn_two_pass_route(cuda, m, d, f, activation):
+    """The two_pass route against the plain version: ragged M (rows past
+    M zero-filled and never stored), ragged F (1000, 1032) and D (1544, 264:
+    boxes partly or wholly past the edge), a pass whose last wave is cut
+    into K parts (M 129 at F 8192: pass 2's 16 tiles in 8 parts; M 300 at
+    F 4104: both passes), the 32- and 64-row decode steps at yi-34b's and
+    internvl2-26b's widths, paper-backbone's D 256, a train step's M
+    4096, and last column tiles that store one of their boxes (D mod 256
+    = 8, F mod 128 = 8) over several tiles a block; one count a call and
+    20 repeats bit for bit (the parts' shares are summed in part order,
+    the counters reset themselves, a staging box is rewritten only once
+    the store that read it is done)."""
+    x, wg, wu, wd = _ffn(m * 7 + f, m, d, f, torch.bfloat16)
+    plan = ffn_plan(torch.bfloat16, m, d, f)
+    assert plan.route == "two_pass"
+    before = fused_ffn.launches
+    out = fused_ffn(x, wg, wu, wd, activation)
+    torch.cuda.synchronize()
+    assert fused_ffn.launches == before + 1
+    assert fused_ffn.last_route == "two_pass"
+    torch.testing.assert_close(out, fused_ffn_ref(x, wg, wu, wd, activation),
+                               **FFN_TOL[torch.bfloat16])
+    for _ in range(20):
+        assert torch.equal(out, fused_ffn(x, wg, wu, wd, activation))
+
+
+@pytest.mark.gpu
+def test_ffn_two_pass_route_in_a_cuda_graph(cuda):
+    """The two_pass route at a 32-row decode step (both passes' last
+    waves cut into K parts, so the arrival counters and the f32 shares
+    are used) captured in a CUDA graph and replayed twice on new inputs
+    copied in place: each replay equals the eager call bit for bit, so
+    the counters are back at zero after every replay."""
+    m, d, f = 32, 2048, 8192
+    assert max(ffn_plan(torch.bfloat16, m, d, f).two_pass.parts) > 1
+    x, wg, wu, wd = _ffn(8, m, d, f, torch.bfloat16)
+    fused_ffn(x, wg, wu, wd)                       # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = fused_ffn(x, wg, wu, wd)
+    for seed in (9, 10):
+        fresh = _ffn(seed, m, d, f, torch.bfloat16)[0]
+        x.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, fused_ffn(fresh, wg, wu, wd))
+
+
+@pytest.mark.gpu
+def test_fused_ffn_op_two_pass_under_autograd(cuda):
+    """K3's custom operator at a train step's shape (M 4096, D 2048, F
+    8192, bf16: the two_pass route) under autograd: one launch, the plain
+    version's output within FFN_TOL, and the gradients of
+    ``fused_ffn_backward`` on the same inputs, bit for bit."""
+    m, d, f = 4096, 2048, 8192
+    assert ffn_plan(torch.bfloat16, m, d, f).route == "two_pass"
+    x, wg, wu, wd = (t.detach().requires_grad_()
+                     for t in _ffn(14, m, d, f, torch.bfloat16))
+    dy = torch.randn(m, d, generator=torch.Generator().manual_seed(3)
+                     ).to(torch.bfloat16).cuda()
+    before = fused_ffn.launches
+    y = torch.ops.repro_torch.fused_ffn(x, wg, wu, wd, "gelu")
+    assert fused_ffn.launches == before + 1 and y.requires_grad
+    assert fused_ffn.last_route == "two_pass"
+    torch.testing.assert_close(
+        y.detach().float(),
+        fused_ffn_ref(x.detach(), wg.detach(), wu.detach(), wd.detach(),
+                      "gelu").float(), **FFN_TOL[torch.bfloat16])
+    got = torch.autograd.grad(y, (x, wg, wu, wd), dy)
+    want = fused_ffn_backward(x.detach(), wg.detach(), wu.detach(),
+                              wd.detach(), dy, "gelu")
+    assert fused_ffn.launches == before + 1
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
 
 
 @pytest.mark.gpu

@@ -71,7 +71,7 @@ def test_every_config_has_kernel_plans(arch):
         assert plan.splits == 16 and 0 < plan.smem <= H100_SMEM
     for m in (8, 4096):
         plan = ffn_plan(torch.bfloat16, m, cfg.d_model, cfg.d_ff)
-        assert plan.route in ("small_m", "tiles", "stream", "two_pass")
+        assert plan.route in ("small_m", "stream", "two_pass")
         assert plan.smem <= H100_SMEM
 
 

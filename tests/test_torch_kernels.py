@@ -382,43 +382,43 @@ def test_flash_checks_accept_head_dim_256_and_reject_48(dtype):
     (8, 256, 1024, "small_m", (64, 4, 1)),        # a decode step
     (1, 256, 1000, "small_m", (63, 4, 1)),        # ragged F
     (64, 256, 1024, "small_m", (64, 4, 1)),
-    (65, 256, 1024, "tiles", (2, 1, 1)),
-    (16384, 256, 1024, "tiles", (256, 1, 1)),     # the prefill burst
+    (65, 256, 1024, "two_pass", (8, 2, 1)),
+    (16384, 256, 1024, "two_pass", (132, 128, 1)),    # the prefill burst
     # D > 512 and M > 64: two passes
-    (100, 1024, 4096, "two_pass", (1, 32, 4)),
+    (100, 1024, 4096, "two_pass", (64, 32, 1)),
     # x too wide for small M, M above the stream route's 24: two passes
-    # in 64-row tiles
-    (64, 1024, 4096, "two_pass", (1, 32, 4)),
+    (64, 1024, 4096, "two_pass", (64, 32, 1)),
     (16, 1024, 4096, "small_m", (256, 16, 1)),
     # zamba2-1.2b's FFN (D 2048, F 8192): decode, prefill, train, burst
     (8, 2048, 8192, "stream", (132, 132, 1)),
-    (2048, 2048, 8192, "two_pass", (16, 64, 8)),
-    (4096, 2048, 8192, "two_pass", (32, 64, 8)),
-    (8192, 2048, 8192, "two_pass", (64, 64, 8)),
+    (2048, 2048, 8192, "two_pass", (132, 128, 1)),
+    (4096, 2048, 8192, "two_pass", (132, 132, 1)),
+    (8192, 2048, 8192, "two_pass", (132, 132, 1)),
     # the stream route's boundary: M 24
     (24, 2048, 8192, "stream", (132, 132, 1)),
-    (25, 2048, 8192, "two_pass", (1, 64, 8)),
+    (25, 2048, 8192, "two_pass", (128, 64, 1)),
     # internvl2-26b's FFN (D 6144, F 16384)
     (1, 6144, 16384, "stream", (132, 132, 1)),
     (8, 6144, 16384, "stream", (132, 132, 1)),
-    (64, 6144, 16384, "two_pass", (1, 128, 24)),
-    (65, 6144, 16384, "two_pass", (1, 128, 24)),
-    (2048, 6144, 16384, "two_pass", (16, 128, 24)),
-    (4096, 6144, 16384, "two_pass", (32, 128, 24)),
-    (8192, 6144, 16384, "two_pass", (64, 128, 24)),
+    (64, 6144, 16384, "two_pass", (128, 120, 1)),
+    (65, 6144, 16384, "two_pass", (128, 120, 1)),
+    (2048, 6144, 16384, "two_pass", (132, 132, 1)),
+    (4096, 6144, 16384, "two_pass", (132, 132, 1)),
+    (8192, 6144, 16384, "two_pass", (132, 132, 1)),
 ])
 def test_ffn_plan_bf16(m, d, f, route, grid):
     """bf16: small M splits F into 16-column slices and D into 64-column
     chunks (at least 132 blocks at the served shapes), with an f32
     workspace of one (M, D) partial a slice, one counter a chunk and the
     shared memory the kernel lays out (it takes M up to 64 while that
-    fits in 200 KiB); larger M takes 64-row tiles at D <= 512.  Above
-    D 512, M <= 24 takes the stream route (two persistent launches of at
-    most one block an SM, an (2 MP, F) bf16 H workspace, two 64 x MP f32
-    partials a block, one counter a split item), and the rest takes two
-    passes in 128-row tiles (64 rows for M <= 64) with an (M, F) bf16 H
-    workspace.  Every block fits the H100's 232,448 bytes of shared
-    memory."""
+    fits in 200 KiB).  Above D 512, M <= 24 takes the stream route (two
+    persistent launches of at most one block an SM, an (2 MP, F) bf16 H
+    workspace, two 64 x MP f32 partials a block, one counter a split
+    item), and every larger M takes two persistent passes of 128 x 256
+    tiles (at most one block an SM) with an (M, F) bf16 H workspace and,
+    where a pass cuts its last wave into K parts, a 64 x 256 f32 share a
+    block and consumer warpgroup and two counters a tile of that wave.
+    Every block fits the H100's 232,448 bytes of shared memory."""
     from repro_torch.kernels.fused_ffn import (MAX_SMEM, SMALL_SMEM,
                                                ffn_plan)
     plan = ffn_plan(torch.bfloat16, m, d, f)
@@ -452,19 +452,28 @@ def test_ffn_plan_bf16(m, d, f, route, grid):
         assert sp.smem == (1024 + 4 * (2 * 64 * 128 + mp * 128 + 16),
                            1024 + 4 * (128 * 128 + 2 * 2 * mp * 128 + 16))
         assert plan.smem == max(sp.smem)
-    elif route == "two_pass":
-        bm = 64 if m <= 64 else 128
-        assert d > 512 and plan.block_m == bm
-        assert grid == (-(-m // bm), -(-f // 128), -(-d // 256))
-        assert plan.h_elems == m * f
-        assert plan.ws_floats == plan.counters == 0
-        # four ring slots of an A chunk (bm rows of 128 bytes) and a B
-        # chunk (64 rows of 256 bf16), + 1024 to align the atoms
-        assert plan.smem == 4 * (bm * 128 + 64 * 256 * 2) + 1024
     else:
-        assert d <= 512
-        assert plan.ws_floats == plan.counters == plan.smem == 0
-        assert plan.h_elems == plan.block_m == 0
+        tp = plan.two_pass
+        rt = -(-m // 128)
+        tiles = (rt * -(-f // 128), rt * -(-d // 256))
+        assert route == "two_pass" and m > 24
+        # a block a tile (a part of one in a cut last wave) up to one an SM
+        assert tp.blocks == tuple(132 if t >= 132 else t * p
+                                  for t, p in zip(tiles, tp.parts))
+        assert tp.blocks == grid[:2] and max(grid) <= 132   # one an SM
+        assert plan.h_elems == m * f
+        cut = [(b, t % b) for b, t, p in zip(tp.blocks, tiles,
+                                             tp.parts) if p > 1]
+        # a 64 x 256 f32 share a block and consumer warpgroup, two
+        # counters a tile of a last wave cut into K parts
+        assert plan.ws_floats == max((b * 2 * 64 * 256 for b, _ in cut),
+                                     default=0)
+        assert plan.counters == max((2 * r for _, r in cut), default=0)
+        # four ring slots of A's 128 rows of 128 bytes and B's 64 rows of
+        # 256 bf16, four 64 x 64 bf16 staging boxes, barriers and two
+        # flags, + 1024 to align the atoms
+        assert plan.smem == (1024 + 4 * (128 * 128 + 64 * 256 * 2)
+                             + 4 * 64 * 128 + 4 * 16 + 16) == 230480
 
 
 # every shape of PERF.md's K3 rows: (M, D, F)
@@ -481,20 +490,28 @@ def test_ffn_plan_large_d_workspace_and_small_d_unchanged():
     (16, F) bf16 H
     workspace (2 MP F bf16: 256 KB at F 8192, 512 KB at F 16384),
     together at most 2 % of the weight bytes (1.3 % at D 2048, F 8192);
-    larger M takes two_pass; and the
-    plans at D <= 512 are unchanged (small_m at M 8, tiles above)."""
+    larger M takes two_pass; and at D <= 512 the decode step keeps
+    small_m while larger M takes two_pass too (faster on the H100 than
+    the tile route it replaced, PERF.md): pass 2 at M 1024 is one tile of
+    F's 16 chunks, cut into two K parts (a 64 x 256 f32 share a block and
+    warpgroup, two counters); M 16384 fills 132 blocks whole."""
     from repro_torch.kernels.fused_ffn import FfnPlan, ffn_plan
     d256 = {(8, 256, 1024): FfnPlan("small_m", (64, 4, 1), 64,
                                     ws_floats=64 * 8 * 256, counters=4,
                                     smem=2 * (16 * 264 + 2 * 256 * 24
                                               + 16 * 64)
                                     + 4 * (8 * 16 * 16 * 2 + 16 * 16)),
-            (1024, 256, 1024): FfnPlan("tiles", (16, 1, 1)),
-            (16384, 256, 1024): FfnPlan("tiles", (256, 1, 1))}
+            (1024, 256, 1024): ("two_pass", (64, 16, 1), (1, 2),
+                                16 * 2 * 64 * 256, 16),
+            (16384, 256, 1024): ("two_pass", (132, 128, 1), (1, 1), 0, 0)}
     for m, d, f in K3_ROWS:
         plan = ffn_plan(torch.bfloat16, m, d, f)
-        if d <= 512:
+        if m == 8 and d <= 512:
             assert plan == d256[(m, d, f)]
+            continue
+        if d <= 512:
+            assert (plan.route, plan.grid, plan.two_pass.parts,
+                    plan.ws_floats, plan.counters) == d256[(m, d, f)]
             continue
         weight_bytes = 3 * d * f * 2
         if m <= 64:
@@ -504,7 +521,11 @@ def test_ffn_plan_large_d_workspace_and_small_d_unchanged():
             assert 4 * plan.ws_floats + 2 * plan.h_elems \
                 <= 0.02 * weight_bytes
         else:
-            assert plan.route == "two_pass" and plan.ws_floats == 0
+            # an f32 share a block and warpgroup where a last wave is cut
+            # into K parts (17.3 MB at most), none otherwise
+            assert plan.route == "two_pass"
+            assert plan.ws_floats <= 132 * 2 * 64 * 256
+            assert (plan.ws_floats > 0) == (max(plan.two_pass.parts) > 1)
     assert 4 * ffn_plan(torch.bfloat16, 8, 2048, 8192).ws_floats == 1081344
     assert 4 * ffn_plan(torch.bfloat16, 8, 6144, 16384).ws_floats \
         == 1081344
