@@ -374,15 +374,21 @@ def phase_device(torch):
 
 # ---------------------------------------------------------------- phase 2
 def make_case(torch, gen, *, slots, heads, kvh, hd, bs, mb, pool_dtype,
-              q_dtype, pos_kind, layers=2, layer=1):
+              q_dtype, pos_kind, layers=2, layer=1, card_gen=None):
     """One paged-decode problem on the card.  The pool interleaves
     ``layers`` layers like the serving pool does, and the kernel reads
-    layer ``layer`` in place through its block stride."""
+    layer ``layer`` in place through its block stride.  With
+    ``card_gen`` (a CUDA generator) the pool is drawn and quantized on
+    the card, which is quicker at the large pools."""
     from repro_torch.kernels.act_quant import kv_quant_rows
     nb = slots * mb + 1
     shape = (nb, layers, bs, kvh, hd)
-    k = torch.randn(shape, generator=gen)
-    v = torch.randn(shape, generator=gen)
+    if card_gen is None:
+        k = torch.randn(shape, generator=gen)
+        v = torch.randn(shape, generator=gen)
+    else:
+        k = torch.randn(shape, generator=card_gen, device="cuda")
+        v = torch.randn(shape, generator=card_gen, device="cuda")
     scales = {}
     if pool_dtype == "int8":
         k, ks = kv_quant_rows(k)
@@ -546,11 +552,12 @@ def check_close(name, out, ref, tol, what):
 
 
 def phase_paged(torch):
-    from repro_torch.kernels.paged_decode_attn import paged_decode_attention
+    from repro_torch.kernels.paged_decode_attn import decode_plan
     from repro_torch.kernels.ref import paged_decode_attn_ref
     gen = torch.Generator().manual_seed(1234)
     max_err = 0.0
     n_cases = 0
+    routes = {}
     # tables of max_seq 512 (mb 32) over the full grid; of max_seq 2048
     # (mb 128) over pools, groupings and lengths
     grids = [(32, ("int8", "bfloat16"), ("bfloat16", "float32"),
@@ -567,6 +574,10 @@ def phase_paged(torch):
                                 torch, gen, slots=8, hd=32, bs=16, mb=mb,
                                 heads=heads, kvh=kvh, pool_dtype=pool_dtype,
                                 q_dtype=q_dtype, pos_kind=pos_kind)
+                            routes[f"{q_dtype} q, {pool_dtype} pool"] = \
+                                decode_plan(8, heads, kvh, 32, 16, mb,
+                                            args[1].dtype, args[0].dtype
+                                            ).route
                             out = k1_repeated(torch, args, sc, window)
                             ref = paged_decode_attn_ref(
                                 *args, window=window, **sc)
@@ -609,12 +620,13 @@ def phase_paged(torch):
     # 256 at group 1 (gemma-7b) and 2 (gemma3-12b) with and without its
     # window of 1024, group 7 (yi-34b); positions whose window starts on
     # and beside a split boundary
+    card_gen = torch.Generator(device="cuda").manual_seed(1235)
     for heads, kvh, hd, windows, pools in DENSE_K1_SHAPES:
         for pool_dtype in pools:
             args, sc = make_case(
                 torch, gen, slots=8, hd=hd, bs=16, mb=128, heads=heads,
                 kvh=kvh, pool_dtype=pool_dtype, q_dtype="bfloat16",
-                pos_kind="zero")
+                pos_kind="zero", card_gen=card_gen)
             args[4].copy_(torch.tensor(DENSE_POS, dtype=torch.int32))
             for window in windows:
                 out = k1_repeated(torch, args, sc, window)
@@ -627,50 +639,77 @@ def phase_paged(torch):
                 n_cases += 1
             del args, sc, out, ref
     log(f"paged_decode_attention == plain version on {n_cases} cases "
-        f"(mb 1, 32 and 128, split edges, hd 32/96/128/256, groups 1, 2, "
-        f"4 and 7), each repeating bit for bit; max_abs_err {max_err:.3g}")
-
-    def timed(args, sc, what):
-        """CUDA-event and device time of K1 beside its plain version, its
-        bound and SDPA."""
-        ms = cuda_ms(torch, lambda: paged_decode_attention(*args, **sc))
-        dev = device_ms(torch, lambda: paged_decode_attention(*args, **sc),
-                        part="paged_decode")
-        plain = cuda_ms(torch, lambda: paged_decode_attn_ref(*args, **sc))
-        lib_ms, lib_dev = sdpa_yardstick(torch, args, sc)
-        bound_ms, bound_by = paged_bound_ms(args, sc)
-        log(f"paged_decode_attention ({what}): kernel_ms {ms:.4f} device "
-            f"{fmt(dev)}; plain_ms {plain:.4f}; SDPA {lib_ms:.4f} ms, "
-            f"device {fmt(lib_dev)}; bound_ms {bound_ms:.5f} ({bound_by})")
-        return ms, dev, plain, lib_ms, bound_ms, bound_by
-
-    # timing at the short waves' shapes: 8 slots, 8 kv heads, int8 pool
-    # interleaving 8 layers, bf16 activations, decode positions 16..288
-    args, sc = make_case(torch, gen, heads=8, kvh=8, pool_dtype="int8",
-                         q_dtype="bfloat16", pos_kind="serving", layers=8,
-                         layer=3, slots=8, hd=32, bs=16, mb=32)
-    ms, dev, plain_ms, library_ms, bound_ms, bound_by = timed(
-        args, sc, "8 slots, mb 32, positions 16..288")
-    # the long wave's tables (mb 128), slots holding 600..1056 tokens,
-    # then full 2048-token tables
-    args2, sc2 = make_case(torch, gen, heads=8, kvh=8, pool_dtype="int8",
-                           q_dtype="bfloat16", pos_kind="long", layers=8,
-                           layer=3, slots=8, hd=32, bs=16, mb=128)
-    timed(args2, sc2, "8 slots, mb 128, 600..1056 tokens")
-    args2[4].fill_(2048)
-    ms_full, dev_full, plain_full, lib_full, bound_full, _ = timed(
-        args2, sc2, "8 slots, mb 128, full 2048-token tables")
+        f"(mb 1, 32 and 128, split edges, hd 32/64/96/128/256, groups 1, "
+        f"2, 4, 6 and 7), each repeating bit for bit; max_abs_err "
+        f"{max_err:.3g}; routes {routes}")
+    served = k1_served_times(torch, gen, card_gen)
+    pb, full = served["paper-backbone"], served["paper-backbone full 2048"]
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode_attn.cu",
             "replaces": "src/repro/kernels/paged_decode_attn.py:175",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "device_ms": dev, "ms_2048": ms_full,
-            "device_ms_2048": dev_full, "plain_ms_2048": plain_full,
-            "library_ms_2048": lib_full, "bound_ms_2048": bound_full,
+            "launches": None, "max_abs_err": max_err, "ms": pb["ms"],
+            "plain_ms": pb["plain_ms"], "bound_ms": pb["bound_ms"],
+            "bound_by": pb["bound_by"], "library_ms": pb["library_ms"],
+            "device_ms": pb["device_ms"], "ms_2048": full["ms"],
+            "device_ms_2048": full["device_ms"],
+            "plain_ms_2048": full["plain_ms"],
+            "library_ms_2048": full["library_ms"],
+            "bound_ms_2048": full["bound_ms"],
+            "routes": routes, "served": served,
             "shape": "8 slots x 8 kv heads x hd 32, int8 pool, mb 32, "
-                     "positions 16..288; *_2048: mb 128, pos 2048"}
+                     "positions 16..288; *_2048: mb 128, pos 2048; "
+                     "served: K1_SERVED"}
+
+
+# K1 at the served decode shapes, 8 slots, an int8 pool, bf16 q: (label,
+# heads, kv heads, hd, mb, lowest position, highest, window), as
+# tools/k1_ab.py times them
+K1_SERVED = (("paper-backbone", 8, 8, 32, 32, 16, 288, 0),
+             ("paper-backbone full 2048", 8, 8, 32, 128, 2048, 2048, 0),
+             ("olmoe-1b-7b", 16, 16, 128, 64, 8, 314, 0),
+             ("whisper-small", 12, 12, 64, 32, 16, 288, 0),
+             ("internvl2-26b", 48, 8, 128, 64, 16, 288, 0),
+             ("gemma3-12b", 16, 8, 256, 128, 1024, 2048, 0),
+             ("gemma3-12b local", 16, 8, 256, 128, 1024, 2048, 1024),
+             ("phi3-mini", 32, 32, 96, 64, 512, 1024, 0),
+             ("gemma-7b", 16, 16, 256, 64, 512, 1024, 0),
+             ("yi-34b", 56, 8, 128, 64, 512, 1024, 0),
+             ("qwen1.5-32b", 40, 40, 128, 64, 512, 1024, 0))
+
+
+def k1_served_times(torch, gen, card_gen):
+    """K1 at ``K1_SERVED``: each shape held to its plain version
+    (repeating bit for bit), then ``k1_times`` (CUDA events, device time,
+    the plain version, SDPA, the bound) and the route and splits of its
+    plan.  Returns ``{label: fields}``."""
+    from repro_torch.kernels.paged_decode_attn import decode_plan
+    from repro_torch.kernels.ref import paged_decode_attn_ref
+    table = {}
+    for label, h, kvh, hd, mb, lo, hi, window in K1_SERVED:
+        args, sc = make_case(torch, gen, slots=8, heads=h, kvh=kvh, hd=hd,
+                             bs=16, mb=mb, pool_dtype="int8",
+                             q_dtype="bfloat16", pos_kind="zero",
+                             card_gen=card_gen)
+        args[4].copy_(torch.randint(lo, hi + 1, (8,), generator=gen,
+                                    dtype=torch.int32))
+        err = check_close("paged_decode_attention",
+                          k1_repeated(torch, args, sc, window),
+                          paged_decode_attn_ref(*args, window=window, **sc),
+                          TOL["bfloat16"], f"served {label}")
+        plan = decode_plan(8, h, kvh, hd, 16, mb, torch.int8,
+                           torch.bfloat16)
+        t = dict(k1_times(torch, args, sc, window), max_abs_err=err,
+                 route=plan.route, splits=plan.splits)
+        table[label] = t
+        log(f"paged_decode_attention served {label} ({h}/{kvh} heads of "
+            f"{hd}, mb {mb}, positions {lo}..{hi}"
+            + (f", window {window}" if window else "") + f"): route "
+            f"{plan.route} x {plan.splits} splits, device "
+            f"{fmt(t['device_ms'])}, events {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ({t['bound_by']}), SDPA device "
+            f"{fmt(t['library_device_ms'])}, plain {t['plain_ms']:.4f} ms")
+        del args, sc
+    return table
 
 
 # (mb, positions of the 8 slots, window): K1's split edges
@@ -691,6 +730,10 @@ DENSE_K1_SHAPES = [
     (16, 16, 256, (0, 1024), ("int8",)),            # gemma-7b
     (16, 8, 256, (0, 1024), ("int8",)),             # gemma3-12b
     (56, 8, 128, (0,), ("int8", "bfloat16")),       # yi-34b: group 7
+    (48, 8, 128, (0,), ("int8",)),                  # internvl2-26b: 6
+    (16, 16, 128, (0,), ("int8",)),                 # olmoe-1b-7b
+    (12, 12, 64, (0,), ("int8",)),                  # whisper-small
+    (40, 40, 128, (0,), ("int8",)),                 # qwen1.5-32b
 ]
 # 8 decode positions at mb 128: under a window of 1024 the window's first
 # column falls on split boundary 128 (pos 1151), one before (1150) and

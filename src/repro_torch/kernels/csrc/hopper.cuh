@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core kernels:
-// the fused FFN (fused_ffn.cu) and flash attention (flash_attn.cu).
+// the fused FFN (fused_ffn.cu), flash attention (flash_attn.cu) and
+// paged decode attention (paged_decode_attn.cu).
 //
 // - cp.async copies, ldmatrix and mma.sync m16n8k16 (bf16 in, f32
 //   accumulate), the older warp-level route;
@@ -12,7 +13,9 @@
 //   and, for a few rows on the N side (the FFN's decode route), the ss
 //   products m64nNk16 for N = 8, 16, 24, 32, 48 with A MN-major (a
 //   row-major weight read transposed: its 64 rows are the weight's
-//   columns) and B K-major;
+//   columns) and B K-major, and for N = 8, 16 with A from registers and
+//   B K-major (a paged decode tile's 64 keys beside a GQA group's query
+//   heads);
 // - mbarriers (init, arrive, arrive with an expected byte count, a
 //   parity wait), TMA tile loads of a 2-d and a 4-d tensor map, TMA
 //   stores of a 2-d one with their commit and waits, a named barrier of
@@ -117,6 +120,14 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float* r, int n) {
 #pragma unroll
   for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// ... and an operand held in registers (wgmma's A from registers) made
+// ready before the wgmma.fence that precedes its products, so the
+// compiler cannot sink its computation past the fence (it would then
+// inject fences of its own between the products and serialize them)
+__device__ __forceinline__ void fence_regs(uint32_t* r, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 // the copies' writes (generic proxy) made visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
@@ -595,6 +606,62 @@ template <int N>
 __device__ __forceinline__ void wgmma_mn(float* d, uint64_t a, uint64_t b,
                                          int accumulate) {
   WgmmaMN<N>::ss(d, a, b, accumulate);
+}
+
+// d (64 x N f32, laid out as in Wgmma) (+)= a (64 x 16) * b (16 x N), a
+// from registers as mma.sync A fragments of each warp's 16 rows, b
+// K-major in shared memory (imm-trans-b 0).  PTX:
+// wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16 d, {a0..a3},
+// b-desc, p, 1, 1, 0 for N = 8, 16: 64 keys of a paged decode tile
+// against a GQA group's few query heads.
+template <int N>
+struct WgmmaK;
+
+template <>
+struct WgmmaK<8> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t a[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaK<16> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t a[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_k_rs(float* d, const uint32_t a[4],
+                                           uint64_t b, int accumulate) {
+  WgmmaK<N>::rs(d, a, b, accumulate);
 }
 
 // ---------------------------------------------------- mbarriers and TMA --

@@ -34,7 +34,8 @@ from repro_torch.kernels.flash_attn import (attention_route, flash_attention,
                                             flash_plan)
 from repro_torch.kernels.fused_ffn import (ffn_plan, fused_ffn,
                                           fused_ffn_backward)
-from repro_torch.kernels.paged_decode_attn import paged_decode_attention
+from repro_torch.kernels.paged_decode_attn import (decode_plan,
+                                                   paged_decode_attention)
 from repro_torch.kernels.ref import (flash_attn_ref, fused_ffn_ref,
                                      paged_decode_attn_ref,
                                      ssd_scan_kernel_ref, ssd_scan_ref)
@@ -321,6 +322,151 @@ def test_kernel_one_block_tables(cuda, q_dtype):
     ref = paged_decode_attn_ref(*args, **sc)
     torch.testing.assert_close(out, ref, **TOL[q_dtype])
     assert torch.equal(out[0], args[6][0].repeat_interleave(2, dim=0))
+
+
+# ------------------------------------------- K1's bf16 route on wgmma --
+# (heads, kv heads, hd, mb): the served decode shapes (paper-backbone at
+# max_seq 512 and 2048, olmoe-1b-7b, whisper-small, internvl2-26b group 6,
+# gemma3-12b group 2, phi3-mini hd 96, gemma-7b and gemma3 hd 256, yi-34b
+# group 7, qwen1.5-32b), 8 slots, block 16
+K1_SERVED = [(8, 8, 32, 32), (8, 8, 32, 128), (16, 16, 128, 64),
+             (12, 12, 64, 32), (48, 8, 128, 64), (16, 8, 256, 128),
+             (32, 32, 96, 64), (16, 16, 256, 64), (56, 8, 128, 64),
+             (40, 40, 128, 64)]
+# (mb, positions of the 8 slots, window): split and tile edges (64-column
+# tiles, splits of whole tiles), windows starting on and beside them,
+# tables full to their last row, one-block tables
+K1_WG_EDGES = [
+    (128, [128, 256, 127, 129, 384, 1, 2047, 2048], 0),
+    (128, [140, 130, 260, 2048, 300, 129, 1000, 16], 20),
+    (128, [2048] * 8, 0),
+    (128, [2048] * 8, 300),
+    (128, [1, 129, 1023, 1150, 1151, 1152, 1279, 2048], 1024),
+    (128, [64, 65, 63, 192, 193, 191, 0, 1024], 64),
+    (1, [0, 1, 2, 5, 8, 15, 16, 16], 0),
+    (1, [0, 1, 2, 5, 8, 15, 16, 16], 4),
+]
+
+
+def _k1_checked(args, sc, window=0):
+    """One bf16 call on the wgmma route: exactly one launch, equal to the
+    plain version within the bf16 tolerance, bit for bit on a repeat and
+    inside a CUDA graph (captured on a side stream, replayed), pos 0
+    giving v_new exactly."""
+    q, kb = args[0], args[1]
+    slots, h, hd = q.shape
+    _, bs, kvh, _ = kb.shape
+    assert decode_plan(slots, h, kvh, hd, bs, args[3].shape[1], kb.dtype,
+                       q.dtype).route == "wgmma"
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(*args, **sc, window=window)
+    assert paged_decode_attention.launches == before + 1
+    again = paged_decode_attention(*args, **sc, window=window)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_decode_attention(*args, **sc, window=window)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = paged_decode_attention(*args, **sc, window=window)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, captured)
+    ref = paged_decode_attn_ref(*args, **sc, window=window)
+    torch.testing.assert_close(out, ref, **TOL[torch.bfloat16])
+    group = h // kvh
+    for slot in range(slots):
+        if int(args[4][slot]) == 0:
+            assert torch.equal(out[slot],
+                               args[6][slot].repeat_interleave(group, dim=0))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,hd,mb", K1_SERVED, ids=[
+    f"H{h}-kvh{k}-hd{d}-mb{m}" for h, k, d, m in K1_SERVED])
+def test_k1_wgmma_route_at_served_shapes(cuda, pool, h, kvh, hd, mb):
+    """K1's bf16 route at every served (H, kvh, hd): groups 1, 2, 6 and
+    7, hd 32, 64, 96, 128 and 256, int8 and bf16 pools; ragged
+    positions, one slot at 0 and one full to its last row."""
+    args, sc = _case(h + hd + mb, slots=8, kvh=kvh, group=h // kvh, hd=hd,
+                     bs=16, mb=mb, pool=pool, q_dtype=torch.bfloat16)
+    _k1_checked(args, sc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("kvh,group,hd", [(2, 4, 32), (8, 7, 128),
+                                          (8, 2, 256), (4, 1, 96),
+                                          (2, 16, 64), (1, 12, 128)])
+@pytest.mark.parametrize("edge", range(len(K1_WG_EDGES)))
+def test_k1_wgmma_route_edges(cuda, pool, kvh, group, hd, edge):
+    """Positions on and beside the tile and split edges, windows whose
+    first column falls on and beside them, full tables, one-block
+    tables; groups 1 to 16 (N 8 and 16)."""
+    mb, pos, window = K1_WG_EDGES[edge]
+    args, sc = _case(edge * 31 + hd + group, slots=8, kvh=kvh, group=group,
+                     hd=hd, bs=16, mb=mb, pool=pool, q_dtype=torch.bfloat16,
+                     layers=2)
+    args[4].copy_(torch.tensor(pos, dtype=torch.int32))
+    _k1_checked(args, sc, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,mb", [(4, 64), (8, 32), (16, 16)])
+def test_k1_wgmma_route_block_sizes(cuda, bs, mb):
+    """Block sizes 4 and 8 (16 and 8 TMA boxes a 64-column tile)."""
+    args, sc = _case(bs, slots=4, kvh=2, group=4, hd=64, bs=bs, mb=mb,
+                     pool=torch.int8, q_dtype=torch.bfloat16)
+    _k1_checked(args, sc)
+
+
+@pytest.mark.gpu
+def test_k1_f32_takes_the_cuda_core_route(cuda):
+    """f32 q, and bf16 q over an f32 pool, keep the CUDA-core kernel
+    (the plan says so, and it holds the f32 tolerance)."""
+    for q_dtype, pool in ((torch.float32, torch.int8),
+                          (torch.float32, torch.bfloat16),
+                          (torch.bfloat16, torch.float32)):
+        args, sc = _case(9, slots=8, kvh=2, group=4, hd=64, bs=16, mb=32,
+                         pool=pool, q_dtype=q_dtype)
+        assert decode_plan(8, 8, 2, 64, 16, 32, pool, q_dtype).route \
+            == "cuda_cores"
+        out = paged_decode_attention(*args, **sc)
+        torch.testing.assert_close(out, paged_decode_attn_ref(*args, **sc),
+                                   **TOL[q_dtype])
+
+
+@pytest.mark.gpu
+def test_k1_wgmma_route_rejects_what_it_does_not_take(cuda):
+    """A CUDA call the bf16 route cannot take raises; nothing falls back
+    to the CUDA-core kernel or the plain version."""
+    cases = []
+    args, sc = _case(1, slots=2, kvh=1, group=17, hd=64, bs=16, mb=2,
+                     pool=torch.int8, q_dtype=torch.bfloat16)
+    cases.append((args, sc))                          # group 17
+    args, sc = _case(2, slots=2, kvh=2, group=2, hd=24, bs=16, mb=2,
+                     pool=torch.bfloat16, q_dtype=torch.bfloat16)
+    cases.append((args, sc))                          # hd 24
+    args, sc = _case(3, slots=2, kvh=2, group=2, hd=64, bs=2, mb=8,
+                     pool=torch.int8, q_dtype=torch.bfloat16)
+    cases.append((args, sc))                          # 8-byte scale boxes
+    args, sc = _case(4, slots=2, kvh=2, group=2, hd=64, bs=16, mb=2,
+                     pool=torch.int8, q_dtype=torch.bfloat16)
+    nb = sc["k_scale"].shape[0]
+    bad = {}
+    for name, t in sc.items():                        # 68-byte scale stride
+        bad[name] = torch.zeros(nb, 17, device="cuda")[:, :16]
+        bad[name].copy_(t)
+    cases.append((args, bad))
+    for args, sc in cases:
+        before = paged_decode_attention.launches
+        with pytest.raises(ValueError):
+            paged_decode_attention(*args, **sc)
+        assert paged_decode_attention.launches == before
 
 
 # ------------------------------------------------------------ flash (K2) --

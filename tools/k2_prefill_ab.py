@@ -30,10 +30,11 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+from ab_timing import card, event_ms as _event_ms, issue_us
 
 
 def main() -> int:
@@ -52,28 +53,6 @@ def main() -> int:
     from repro_torch.models.model import init_cache, prefill
     from repro_torch.models.transformer import param_tree
 
-    def event_ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def issue_us(fn, iters=200):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return 1e6 * (t1 - t0) / iters
-
     def wall_ms(fn, iters=100, warmup=3):
         for _ in range(warmup):
             fn()
@@ -88,10 +67,10 @@ def main() -> int:
         return statistics.median(times), min(times), statistics.median(issued)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {"root": str(root), "card": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip(), "k2": {}}
+    result = {"root": str(root), "card": card(), "k2": {}}
+
+    def event_ms(fn, iters):
+        return _event_ms(fn, iters, warmup=1)
 
     def qkv(b, sq, sk, h, hd):
         # the model's (B, S, H, hd) tensors as (B, H, S, hd) views

@@ -38,9 +38,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+from ab_timing import card, device_ms, event_ms
 
 # (label, M, D, F, activation)
 DECODE = tuple((label, 8, d, f, act) for label, d, f, act in (
@@ -81,46 +82,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels.fused_ffn import ffn_plan, fused_ffn
 
-    def event_ms(fn, iters, warmup=5):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def device_ms(fn, iters, part="", tries=6):
-        best, whole = None, 0
-        for _ in range(tries):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            hits = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and part in e.key and e.count]
-            if hits and all(e.count % iters == 0 for e in hits):
-                ms = sum(e.self_device_time_total for e in hits) / 1e3 / iters
-                best = ms if best is None else max(best, ms)
-                whole += 1
-                if whole == 3:
-                    break
-        return best
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = card()
     card = torch.Generator(device="cuda").manual_seed(3030)
 
     def normal(shape, std):
