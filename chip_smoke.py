@@ -1238,7 +1238,7 @@ def ssd_work(b, s, h, g, p, n, chunk, x_bytes, y_bytes):
 def phase_ssd(torch):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssd_scan_kernel_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan
     from repro_torch.models.ssm import ssd_scan_ref
     gen = torch.Generator().manual_seed(8642)
     max_err = 0.0
@@ -1350,14 +1350,19 @@ def phase_ssd(torch):
                 f"{dtype}, chunk 256): kernel_ms "
                 f"{times[dtype, rows][0]:.4f} device "
                 f"{fmt(times[dtype, rows][1])}")
+    # K6's launches by device time: bf16 one (the wgmma route), f32 two
+    # (chunk state, chunk scan on the CUDA cores)
+    parts = {(dtype, part): device_ms(
+        torch, lambda: ssd_scan(*burst[dtype], chunk=256), iters=10,
+        part=part)
+        for dtype, part in (("bfloat16", "ssd_scan_wg"),
+                            ("float32", "chunk_state"),
+                            ("float32", "chunk_y"))}
+    log("ssd_scan burst by launch (device): " + ", ".join(
+        f"{dtype} {part} {fmt(v)}" for (dtype, part), v in parts.items()))
+    routes = {dtype: ssd_plan(getattr(torch, dtype), b, s, h, p, n,
+                              256).route for dtype in burst}
     x, dt, a, bm, cm = burst["bfloat16"]
-    # K6's three launches, by device time
-    parts = {part: device_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm,
-                                                     chunk=256),
-                             iters=10, part=part)
-             for part in ("chunk_state", "chunk_y")}
-    log("ssd_scan bf16 burst by launch (device): " + ", ".join(
-        f"{k} {fmt(v)}" for k, v in parts.items()))
     plain_ms = cuda_ms(torch, lambda: ssd_scan_ref(x, dt, a, bm, cm,
                                                    chunk=256),
                        iters=3, warmup=1)
@@ -1379,8 +1384,9 @@ def phase_ssd(torch):
             "f32_device_ms": times["float32", b][1],
             "one_prompt_ms": times["bfloat16", 1][0],
             "one_prompt_device_ms": times["bfloat16", 1][1],
+            "routes": routes,
             "shape": "8 x 2048 tokens, H 32, P 64, N 128, bf16, chunk 256; "
-                     "one_prompt_*: 1 x 2048"}
+                     "one_prompt_*: 1 x 2048; routes: by dtype"}
 
 
 # K4/K5: the SSM state of mamba2-370m after an (8, 2048) prefill, as rows

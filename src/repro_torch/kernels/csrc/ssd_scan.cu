@@ -19,16 +19,89 @@
 // sums are f32; y is rounded once to the requested dtype.  The decay
 // exponent is masked before exp (only pairs s <= l are evaluated), so
 // the upper triangle, where the segment sum is positive and could
-// overflow, never produces inf * 0.
+// overflow, never produces inf * 0.  x, dt, b, c and y are read and
+// written in place through their strides, so the model's (B, S, H, P)
+// views of the conv output need no copy, and the Pallas layout (BH, S,
+// P) is the view B = 1, H = G = BH.  No atomics on values: a repeat is
+// bit for bit the same.
 //
-// Bound on the H100: at the served prefill burst (8 prompts x 2048
-// tokens, H 32, P 64, N 128, L 256) the causal products are ~43 GFLOP
-// and the bytes ~150 MB (x and y in bf16, b, c, dt, the f32 state), so
-// operations and bytes are close, ~0.05 ms either way.
+// Two routes, by dtype:
 //
-// Design: SSD's chunk decomposition, in two launches on the caller's
-// stream, so a sequence's chunks run in parallel instead of one block
-// walking them in order:
+// * bf16 x, b, c (y bf16 or f32): namespace wg, one launch.  What bounds
+//   it on the H100: at the served prefill burst (mamba2-370m, 8 prompts
+//   x 2048 tokens, H 32, P 64, N 128, G 1, L 256) each input read once
+//   and each output written once is ~153 MB (x and y 67 MB each, b and c
+//   8.4, dt 2.1, the final state 8.4): 0.046 ms at 3.35 TB/s; the causal
+//   products alone, ~43 GFLOP, about as long.  The products this route
+//   issues, with every f32 operand split in two (below): per (head,
+//   chunk) 10.5 MFLOP of scores, 10.5 of W' x, 8.4 of the carried
+//   state's term and 8.4 of the chunk's own state, ~77 GFLOP in all,
+//   0.078 ms at 989 TFLOP/s.  At zamba2-1.2b's 8 x 1024 (H 64, P 64, N
+//   64) ~147 MB (0.044 ms) and ~49 GFLOP issued (0.050 ms).  The design:
+//   - one launch, persistent (a block an SM, 384 threads: a producer
+//     warpgroup and two consumer warpgroups).  A work item is one chunk
+//     of one batch element and head; blocks take items from a ticket
+//     counter in chunk order (every item of chunk 0, then chunk 1, ...),
+//     never by blockIdx.  Two heads an item sharing the scores of a
+//     group were built and timed slower (their registers spilled past
+//     the 168 a thread a 384-thread block allows; PERF.md);
+//   - the state is chained through L2 in chunk order: an item computes
+//     its chunk's own state S = X'^T B, then reads the state entering
+//     its chunk, which the item of chunk k - 1 publishes into the
+//     final-state buffer (one f32 (P, N) a (batch, head), 8.4 MB at the
+//     burst, L2 resident), past L1 (ld.cg), and publishes exp(cs_last)
+//     state_in + S for chunk k + 1 (the final state at the last chunk).
+//     Each consumer warp that writes the head's state counts itself on
+//     the head's flag after its stores (a fence, then an atomic add);
+//     the item of chunk k reads once the flag reaches k x the warps a
+//     chunk (one thread's acquire load, then a barrier of the two
+//     consumer warpgroups).  A wait is only ever on a smaller ticket,
+//     which a running block holds, so nothing deadlocks; the last chunk
+//     resets the flag (it publishes nothing) and the last ticket taken
+//     resets the counter, so every launch leaves them at zero (a CUDA
+//     graph replays it as it is).  No (BH, chunks, P, N) workspace, no
+//     second launch;
+//   - the producer thread loads, through 4-d tensor maps over the
+//     strided (B, S, H|G, P|N) views, the item's B and X in 64-row
+//     tiles, one mbarrier each, the last tile first (the consumers free
+//     the key tiles from the last down as their query tiles stop needing
+//     them, so the next item's loads start during this item's last query
+//     tiles), and the C tiles into two slots a consumer group; TMA fills
+//     rows past S and columns past P or N with zeros.  Each byte of x, b
+//     and c is read from device memory once an item (b and c once for
+//     each of the H items of a (batch, chunk), from L2 after the first).
+//     Two warps of the producer warpgroup work out the next item's
+//     per-row values (dt, cumulative decays, the state weights, the
+//     scores' decay factors) while the consumers compute this one;
+//   - the consumers run every product on wgmma m64nNk16: the chunk's
+//     own state X'^T B (X' = exp(cs_last - cs_s) dt_s x_s, split, as the
+//     A operand from registers; B read N-major; a 64-column block each
+//     group at N 128; two key tiles a product phase), then, a 64-row
+//     query tile at a time (the two warpgroups take tiles {T-1, T-4} and
+//     {T-2, T-3}), the scores C_i B_j^T with both operands in shared
+//     memory (C_i stays in its slot for the tile; tile j + 1's scores
+//     run while tile j's W' is worked out), W' = scores o decay o dt_s
+//     (masked before exp on the diagonal tile; off it the decay is
+//     factored at the key tile's last row, both exponents <= 0), split,
+//     as the A operand from registers of W' X_j (X read N-major), and
+//     last C_i state_in^T with the split state in shared memory.  P 32
+//     runs in P 64's layout and N 32 in N 64's (the extra rows and
+//     columns are TMA's zeros and are not stored);
+//   - ptxas (CUDA 12.8, sm_90a): 168 registers a thread, no spills (it
+//     allocates the consumers at the launch bound whatever setmaxnreg
+//     gives them, so every design here fits 168).
+//   f32 operands are split into a bf16 high part and a bf16 low part and
+//   multiplied twice against the exact bf16 operand, which leaves
+//   ~2^-17 of their value: W' against x (so xd is never rounded), the
+//   carried state against C, X' against b.  C and B are exact bf16
+//   operands.  The decays take ex2 of cs in log2 units (~2^-22
+//   relative).  Chunks up to 256 rows (the whole chunk's B and X stay
+//   in shared memory); the wrapper's plan refuses longer ones.
+//
+// * f32 x, b, c (y f32): namespace f32, the CUDA cores (TF32 would round
+//   the products), in two launches on the caller's stream, so a
+//   sequence's chunks run in parallel instead of one block walking them
+//   in order:
 //   1. chunk state, one block per (batch * head, chunk), the chunks of a
 //      head adjacent: the chunk's cumulative decay cs (written to a
 //      (BH, S) f32 workspace) and its local state sum_s exp(cs_last -
@@ -42,28 +115,14 @@
 //   2. chunk scan, grid (batch * head, chunk, 64-row query tile, the
 //      heaviest tiles first): y = ((C B^T) o decay) xd + exp(cs) (C
 //      state_in^T), key tiles j <= i of the chunk in turn.
-// bf16 inputs run their products on the tensor cores (mma.sync
-// m16n8k16, f32 sums, 4 warps of 16 rows).  C and B are exact bf16
-// operands.  Every f32 operand is split into a bf16 high part and a
-// bf16 low part and multiplied twice against the exact operand, which
-// leaves ~2^-17 of its value: the decayed weights
-// W'_ls = (c_l . b_s) exp(cs_l - cs_s) dt_s against x (so xd is never
-// rounded), the carried state against C, and exp(cs_last - cs_s) dt_s
-// x_s against b for the chunk state.  f32 inputs keep every product
-// in f32 on the CUDA cores (TF32 would round them), with the same split
-// into two launches.  x, dt, b, c and y are read and written in place
-// through their strides, so the model's (B, S, H, P) views of the conv
-// output need no copy, and the Pallas layout (BH, S, P) is the view
-// B = 1, H = G = BH.  No atomics: a repeat is bit for bit the same.
 //
-// Interface: plain C, bound with ctypes; returns the first
-// cudaGetLastError() of the two launches.  It launches on the caller's
-// stream and allocates nothing: the wrapper passes the two workspaces
+// Interface: plain C, bound with ctypes.  `ssd_scan` (the f32 route)
+// and `ssd_scan_wg` (the bf16 route) return the first cudaGetLastError()
+// of their launches.  They launch on the caller's stream and allocate
+// nothing: the wrapper passes the outputs, the f32 route's workspaces
 // and the counters, sized by its plan.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -71,8 +130,6 @@ constexpr int kT = 64;                   // rows per tile
 constexpr int kMaxChunk = 1024;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-typedef __nv_bfloat16 bf16;
 
 struct Args {
   const void* x;
@@ -455,259 +512,97 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_chunk_y(Args a) {
 
 }  // namespace f32
 
-// ========================================= bf16: the tensor cores ==
-namespace tc {
+// ================================================ bf16: wgmma, one launch ==
+// Switches of the kernel's parts, all on; tools/k6_ab.py --variants
+// turns them off one at a time to trace where the time goes.
+#define SSD_PRODUCTS 1
+#define SSD_LO_PARTS 1
+#define SSD_CHAIN_WAIT 1
+#define SSD_STATE_TERM 1
+#define SSD_DIAG 1
 
-constexpr int kWarps = 4;                // 16 rows each
-constexpr int kThreads = 32 * kWarps;
+namespace wg {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+using namespace hopper;
+
+constexpr int kRows = 64;                // a tile: 64 rows of a chunk
+constexpr int kMaxTiles = 4;
+constexpr int kMaxRows = kRows * kMaxTiles;   // the longest chunk
+constexpr int kBox = kRows * 128;        // a 64-row x 64-column bf16 box
+constexpr int kThreads = 384;            // a producer warpgroup + two
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block, from a 1024-byte aligned base: B and X of
+// the item's chunk (kMaxRows rows of 128 bytes a 64-column block), the
+// split state entering the chunk (kNCB boxes of 64 rows, the high parts
+// then the low parts), two C tiles a consumer group, then two buffers
+// (items n and n + 1) of the per-row values (dt, cs in log2 units, the
+// state weights, the column factors of the scores' decay; the decay at
+// each 64-row tile's last row; cs_last), the barriers and two tickets.
+// NP is N padded to 64.
+template <int NP>
+struct Smem {
+  static constexpr int kCSlots = 2;      // C tiles in flight a group
+  static constexpr int kNCB = NP / 64;
+  static constexpr int kB = 0;
+  static constexpr int kX = kB + kNCB * kMaxRows * 128;
+  static constexpr int kShi = kX + kMaxRows * 128;
+  static constexpr int kSlo = kShi + kNCB * kBox;
+  static constexpr int kC = kSlo + kNCB * kBox;
+  static constexpr int kAux = kC + 2 * kCSlots * kNCB * kBox;
+  static constexpr int kAuxFloats = 4 * kMaxRows + 8;
+  static constexpr int kBar = kAux + 2 * kAuxFloats * 4;
+  static constexpr int kBars = 23;
+  static constexpr int kItem = kBar + 8 * kBars;
+  static constexpr int kBytes = 1024 + kItem + 16;
+};
+
+struct Args {
+  const float* dt;
+  const float* a;
+  const float* init;                     // (B, H, P, N) or null
+  void* y;
+  float* state;                          // (B, H, P, N): the chain, then the final state
+  int* counters;                         // [0] tickets, [1 + b H + h] flags; 0 between launches
+  int batch, seq, heads, groups, head_dim, state_dim, chunk, chunks;
+  int q_tiles, items;                    // 64-row tiles a chunk; items
+  long long dt_sb, dt_ss, dt_sh;
+  long long y_sb, y_ss, y_sh;
+};
+
+// Item t: chunk-major, then batch element, then head
+struct Item {
+  int b, k, h, g, c0, rows;
+};
+__device__ __forceinline__ Item item_of(const Args& a, int t) {
+  const int per_chunk = a.batch * a.heads;
+  Item it;
+  it.k = t / per_chunk;
+  const int r = t % per_chunk;
+  it.b = r / a.heads;
+  it.h = r % a.heads;
+  it.g = it.h / (a.heads / a.groups);
+  it.c0 = it.k * a.chunk;
+  it.rows = min(a.chunk, a.seq - it.c0);
+  return it;
 }
 
-// 16-byte global -> shared copy; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x in one MUFU op (relative error ~2^-22; results below 2^-126 flush
-// to 0, a decay that small is 0 beside the row's own weight of 1)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// v = hi + lo + O(2^-17 |v|), both parts bf16
-__device__ __forceinline__ void split_bf16(float v, bf16& hi, bf16& lo) {
-  hi = __float2bfloat16_rn(v);
-  lo = __float2bfloat16_rn(v - __bfloat162float(hi));
-}
+// v0, v1 split into high and low bf16 pairs
 __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
                                        uint32_t& lo) {
-  __nv_bfloat162 h, l;
-  split_bf16(v0, h.x, l.x);
-  split_bf16(v1, h.y, l.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
-
-// rows of bf16 in shared memory padded by 16 bytes: ldmatrix reads them
-// without bank conflicts
-template <int W>
-struct Pad {
-  static constexpr int kStride = W + 8;
-};
-
-// Copy `n_rows` rows of W bf16 (16-byte chunks) starting at row `row0`
-// of a strided tensor into a kT-row tile; rows at or past `rows` are
-// zero-filled.  Every thread of the block takes part.
-template <int W, int kBlockThreads = kThreads>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long ss, int row0, int rows,
-                                          int tid) {
-  constexpr int kChunks = W / 8;
-  constexpr int kStride = Pad<W>::kStride;
-  for (int i = tid; i < kT * kChunks; i += kBlockThreads) {
-    const int r = i / kChunks, c8 = (i % kChunks) * 8;
-    const int row = row0 + r;
-    const bool ok = row < rows;
-    cp_async16(dst + r * kStride + c8,
-               src + (long long)(ok ? row : 0) * ss + c8, ok);
-  }
+// v0 * w0, v1 * w1 (v a pair of bf16) split the same way
+__device__ __forceinline__ void split_scaled(uint32_t raw, float w0, float w1,
+                                             uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&raw);
+  split2(__bfloat162float(v.x) * w0, __bfloat162float(v.y) * w1, hi, lo);
 }
-
-template <int P, int N>
-struct StateSmem {
-  // up to 8 warps, each at least 16 rows of P by 16 columns of N
-  static constexpr int kWarps = P * N / 256 < 8 ? P * N / 256 : 8;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kXS = Pad<P>::kStride, kBS = Pad<N>::kStride;
-  // one slot of the row-tile ring: B then X, as they lie in memory
-  static constexpr int kSlot = kT * kBS + kT * kXS;
-  static size_t bytes(int chunk) {
-    return sizeof(bf16) * (2 * (size_t)kSlot + 2 * (size_t)kT * kXS) +
-           sizeof(float) * 2 * (size_t)chunk;
-  }
-};
-
-// (1) the chunk's local state S (P x N) = X'^T B, X'_s = exp(cs_last -
-// cs_s) dt_s x_s split into bf16 high and low parts, B exact.  Row tiles
-// of B and X stream through a two-slot cp.async ring; warps cut P into
-// 16-row tiles and N into equal parts.  Then the arrival, which carries
-// the state in the last block of a head.
-template <int P, int N>
-__global__ void __launch_bounds__(StateSmem<P, N>::kThreads)
-    ssd_scan_chunk_state(Args a) {
-  using L = StateSmem<P, N>;
-  constexpr int kWarps = L::kWarps, kThreads = L::kThreads;
-  constexpr int kXS = L::kXS, kBS = L::kBS;
-  constexpr int kMT = P / 16;                    // 16-row tiles of P
-  constexpr int kNSplit = kWarps / kMT;          // warps along N
-  constexpr int kNW = N / kNSplit;               // N columns a warp
-  constexpr int kNB = kNW / 8;                   // n-blocks a warp
-  static_assert(kMT * kNSplit == kWarps && kNB % 2 == 0, "warp layout");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // 2 x L::kSlot
-  bf16* xh_s = ring + 2 * L::kSlot;                // kT x kXS
-  bf16* xl_s = xh_s + kT * kXS;                    // kT x kXS
-  float* dt_s = reinterpret_cast<float*>(xl_s + kT * kXS);  // chunk
-  float* cs_s = dt_s + a.chunk;                    // chunk
-
-  int bh, k;
-  chunk_of(a, bh, k);
-  const Head hd = head_of(a, bh);
-  const int c0 = k * a.chunk;
-  const int rows = min(a.chunk, a.seq - c0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;
-
-  const bf16* xb = static_cast<const bf16*>(a.x) + hd.bi * a.x_sb +
-                   hd.h * a.x_sh + (long long)c0 * a.x_ss;
-  const float* dtb = a.dt + hd.bi * a.dt_sb + hd.h * a.dt_sh;
-  const bf16* bb = static_cast<const bf16*>(a.b) + hd.bi * a.b_sb +
-                   hd.g * a.b_sg + (long long)c0 * a.b_ss;
-
-  auto load_rows = [&](int tile) {
-    bf16* bs = ring + (tile & 1) * L::kSlot;
-    load_tile<N, kThreads>(bs, bb, a.b_ss, tile * kT, rows, tid);
-    load_tile<P, kThreads>(bs + kT * kBS, xb, a.x_ss, tile * kT, rows, tid);
-  };
-  load_rows(0);
-  cp_async_commit();
-
-  chunk_cumsum<kThreads>(dtb, a.dt_ss, c0, rows, a.a[hd.h], tid, dt_s,
-                         cs_s, a.cs_ws + (long long)hd.bh * a.seq);
-  const float cs_last = cs_s[rows - 1];
-  // the weight of row s in the state, in place of dt_s
-  for (int r = tid; r < rows; r += kThreads)
-    dt_s[r] = expf(cs_last - cs_s[r]) * dt_s[r];
-
-  const int m0 = (warp % kMT) * 16;
-  const int n0 = (warp / kMT) * kNW;
-  float acc[kNB][4];
-#pragma unroll
-  for (int j = 0; j < kNB; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int tiles = (rows + kT - 1) / kT;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int k0 = tile * kT;
-    // tile `tile` has landed; every warp is done with the last tile's
-    // products, so its slot and the split X' are free; the weights are
-    // ready
-    cp_async_wait<0>();
-    __syncthreads();
-    if (tile + 1 < tiles) load_rows(tile + 1);
-    cp_async_commit();
-    const bf16* bs = ring + (tile & 1) * L::kSlot;
-    const bf16* xs = bs + kT * kBS;
-    // X' = w_s x_s, split, 8 columns a thread
-    constexpr int kChunks = P / 8;
-    constexpr int kPer = kT * kChunks / kThreads;
-#pragma unroll
-    for (int it = 0; it < kPer; ++it) {
-      const int i = tid + it * kThreads;
-      const int r = i / kChunks, c8 = (i % kChunks) * 8;
-      const int row = k0 + r;
-      const float w = row < rows ? dt_s[row] : 0.f;
-      const uint4 raw = *reinterpret_cast<const uint4*>(xs + r * kXS + c8);
-      const bf16* xv = reinterpret_cast<const bf16*>(&raw);
-      uint4 hv, lv;
-      uint32_t* hp = reinterpret_cast<uint32_t*>(&hv);
-      uint32_t* lp = reinterpret_cast<uint32_t*>(&lv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split2(__bfloat162float(xv[2 * e]) * w,
-               __bfloat162float(xv[2 * e + 1]) * w, hp[e], lp[e]);
-      *reinterpret_cast<uint4*>(xh_s + r * kXS + c8) = hv;
-      *reinterpret_cast<uint4*>(xl_s + r * kXS + c8) = lv;
-    }
-    __syncthreads();
-
-    const int ksteps = (min(kT, rows - k0) + 15) / 16;
-    for (int kk = 0; kk < ksteps; ++kk) {
-      // A = X'^T: the split tiles hold [s][p], so the transposed load
-      const int a_off = (16 * kk + (mi >> 1) * 8 + mr) * kXS + m0 +
-                        (mi & 1) * 8;
-      uint32_t ah[4], al[4];
-      ldmatrix_x4_trans(ah, xh_s + a_off);
-      ldmatrix_x4_trans(al, xl_s + a_off);
-#pragma unroll
-      for (int j = 0; j < kNB; j += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, bs + (16 * kk + (mi & 1) * 8 + mr) * kBS +
-                                  n0 + 8 * (j + (mi >> 1)));
-        mma_bf16(acc[j], ah, bf[0], bf[1]);
-        mma_bf16(acc[j + 1], ah, bf[2], bf[3]);
-        mma_bf16(acc[j], al, bf[0], bf[1]);
-        mma_bf16(acc[j + 1], al, bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  float* out = a.st_ws + ((long long)hd.bh * a.chunks + k) * P * N;
-#pragma unroll
-  for (int j = 0; j < kNB; ++j) {
-    const int n = n0 + 8 * j + 2 * t;
-    *reinterpret_cast<float2*>(out + (m0 + g) * N + n) =
-        make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(out + (m0 + g + 8) * N + n) =
-        make_float2(acc[j][2], acc[j][3]);
-  }
-  arrive_and_carry<P, N, kThreads>(a, hd.bh, tid);
-}
-
-template <int P, int N>
-struct ScanSmem {
-  static constexpr int kXS = Pad<P>::kStride, kBS = Pad<N>::kStride;
-  // one slot of the key-tile ring: B_j then X_j
-  static constexpr int kSlot = kT * kBS + kT * kXS;
-  // the ring's space holds the split state (P rows of N, twice) first
-  static constexpr int kRing =
-      2 * kSlot > 2 * P * kBS ? 2 * kSlot : 2 * P * kBS;
-  static size_t bytes(int chunk) {
-    return sizeof(bf16) * ((size_t)kT * kBS + kRing) +
-           sizeof(float) * 2 * (size_t)chunk;
-  }
-};
 
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
@@ -716,204 +611,680 @@ __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-// (2) y of one 64-row query tile: the carried state's term first
-// (C state_in^T, state split), then for key tiles j <= i the scores
-// S = C_i B_j^T, W' = S exp(cs_l - cs_s) dt_s under the causal mask
-// (split, kept in registers as the next A operand), y += W' X_j.  Key
-// tiles stream through a two-slot cp.async ring.  The decays take ex2
-// of cs in log2 units, ~2^-22 relative: far inside y's bf16 rounding.
-template <int P, int N, typename O>
-__global__ void __launch_bounds__(kThreads) ssd_scan_chunk_y(Args a) {
-  using L = ScanSmem<P, N>;
-  constexpr int kXS = L::kXS, kBS = L::kBS;
-  constexpr int kND = P / 8;             // y n-blocks
-  constexpr int kKN = N / 16;            // k-steps over N
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// a compile-time int, to unroll a loop by a runtime bound's value
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+// (row p, column n) of a K-major 64-row operand in 64-column boxes of the
+// 128-byte swizzle (the split state: rows p, k = n)
+__device__ __forceinline__ int kmajor_off(int p, int n) {
+  return (n >> 6) * kBox + p * 128 + ((((n & 63) >> 3) ^ (p & 7)) << 4) +
+         (n & 7) * 2;
+}
+
+// One persistent block: its producer thread takes items from the ticket
+// counter and loads them, two row warps work out their per-row values,
+// and its two consumer warpgroups compute them.
+template <int NP, typename O>
+__global__ void __launch_bounds__(kThreads, 1)
+    ssd_scan_wg_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_b,
+                       const __grid_constant__ CUtensorMap tm_c, Args a) {
+  using L = Smem<NP>;
+  constexpr int kNCB = L::kNCB;
+  constexpr int kKN = NP / 16;           // k-steps over the state dim
+  // the warps that write the head's state: both groups (a 64-column
+  // block each) at NP 128, group 0 at NP 64
+  constexpr int kHeadWarps = NP == 64 ? 4 : 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* c_s = reinterpret_cast<bf16*>(smem_raw);   // kT x kBS
-  bf16* ring = c_s + kT * kBS;                      // L::kRing
-  float* dt_s = reinterpret_cast<float*>(ring + L::kRing);  // chunk
-  float* cs_s = dt_s + a.chunk;                     // chunk
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* b_s = smem + L::kB;
+  unsigned char* x_s = smem + L::kX;
+  unsigned char* shi_s = smem + L::kShi;
+  unsigned char* slo_s = smem + L::kSlo;
+  unsigned char* c_s = smem + L::kC;
+  // buffer u of the per-row values: dt, cs, ws, uf (kMaxRows each), ce
+  // (4), cs_last
+  float* aux_s = reinterpret_cast<float*>(smem + L::kAux);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* it_full = bar;               // 2: ticket n in item_s[n & 1]
+  uint64_t* bx_full = bar + 2;           // 4: a 64-row tile of B and X
+  uint64_t* bx_empty = bar + 6;          // 4: ... is free
+  uint64_t* c_full = bar + 10;           // 2 x 2: a group's C slot ...
+  uint64_t* c_empty = bar + 14;          // 2 x 2: ... is free
+  uint64_t* cs_full = bar + 18;          // 2: an item's per-row values
+  uint64_t* cs_empty = bar + 20;         // 2: ... are free
+  uint64_t* st_full = bar + 22;          // the split entering state
+  volatile int* item_s = reinterpret_cast<volatile int*>(smem + L::kItem);
+  const int tid = threadIdx.x;
+  const int T = a.q_tiles;
 
-  const Head hd = head_of(a, blockIdx.x);
-  const int k = blockIdx.y, c0 = k * a.chunk;
-  const int rows = min(a.chunk, a.seq - c0);
-  const int qi = a.q_tiles - 1 - (int)blockIdx.z;
-  const int q0 = qi * kT;
-  if (q0 >= rows) return;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(&it_full[u], 1);
+      mbar_init(&cs_full[u], 2);         // the two row warps
+      mbar_init(&cs_empty[u], 8);        // each consumer warp, an item
+    }
+    for (int j = 0; j < kMaxTiles; ++j) {
+      mbar_init(&bx_full[j], 1);
+      mbar_init(&bx_empty[j], 8);        // each consumer warp, an item
+    }
+    for (int c = 0; c < 2 * L::kCSlots; ++c) {
+      mbar_init(&c_full[c], 1);
+      mbar_init(&c_empty[c], 4);         // the consuming group's warps
+    }
+    mbar_init(st_full, 8);               // each consumer warp, an item
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup.  Thread 0 takes the items and issues every
+    // load; it takes item n + 1's ticket as soon as item n's B and X are
+    // issued, so that warps 1 and 2 work out item n + 1's per-row values
+    // while the consumers compute item n.  A wait is still only on a
+    // smaller ticket, held by a running block.  A fresh barrier's
+    // previous phase counts as complete, so each first wait on a free
+    // stage passes.
+    setmaxnreg_dec<kProducerRegs>();
+    const int pw = tid >> 5, lane = tid & 31;
+    if (tid == 0) {
+      tma_prefetch(&tm_x);
+      tma_prefetch(&tm_b);
+      tma_prefetch(&tm_c);
+      // ticket m into item_s[m & 1]; -1 past the last item
+      auto take = [&](int m) {
+        const int t = atomicAdd(a.counters, 1);
+        // each block's last take overshoots once: the launch's last take
+        // of all resets the counter for the next launch
+        if (t >= a.items && t == a.items + (int)gridDim.x - 1)
+          a.counters[0] = 0;
+        item_s[m & 1] = t < a.items ? t : -1;
+        mbar_arrive(&it_full[m & 1]);
+        return t < a.items ? t : -1;
+      };
+      int nc[2] = {0, 0};                // C loads of each group
+      int t = take(0);
+      for (int n = 0; t >= 0; ++n) {
+        const Item it = item_of(a, t);
+        // the last tile first: the consumers free the key tiles from the
+        // last down as their query tiles no longer need them
+        for (int j = T - 1; j >= 0; --j) {
+          const int row = it.c0 + j * kRows;
+          mbar_wait(&bx_empty[j], (n & 1) ^ 1);
+          mbar_expect_tx(&bx_full[j], (kNCB + 1) * kBox);
+#pragma unroll
+          for (int cb = 0; cb < kNCB; ++cb)
+            tma_load_4d(b_s + cb * (kMaxRows * 128) + j * kBox, &tm_b,
+                        &bx_full[j], cb * 64, row, it.g, it.b);
+          tma_load_4d(x_s + j * kBox, &tm_x, &bx_full[j], 0, row, it.h,
+                      it.b);
+        }
+        const int next = take(n + 1);
+        // the C tiles, the heaviest query tile first: loads 0 and 3 go
+        // to group 0, 1 and 2 to group 1, each group's through its own
+        // ring of slots
+        for (int q = 0; q < T; ++q) {
+          const int i = T - 1 - q;
+          const int grp = (q == 0 || q == 3) ? 0 : 1;
+          const int m = nc[grp]++;
+          const int c = grp * L::kCSlots + m % L::kCSlots;
+          mbar_wait(&c_empty[c], ((m / L::kCSlots) & 1) ^ 1);
+          mbar_expect_tx(&c_full[c], kNCB * kBox);
+#pragma unroll
+          for (int cb = 0; cb < kNCB; ++cb)
+            tma_load_4d(c_s + (c * kNCB + cb) * kBox, &tm_c, &c_full[c],
+                        cb * 64, it.c0 + i * kRows, it.g, it.b);
+        }
+        t = next;
+      }
+    } else if (pw == 1 || pw == 2) {
+      // ---- the row warps: item m's dt, the cumulative decay (warp 1
+      // scans), the state weights exp(cs_last - cs_s) dt_s, cs in log2
+      // units and the scores' decay factors, into buffer m & 1
+      const int rt = tid - 32;           // 0..63
+      for (int m = 0;; ++m) {
+        const int u = m & 1;
+        mbar_wait(&it_full[u], (m >> 1) & 1);
+        const int ticket = item_s[u];
+        if (ticket < 0) break;
+        const Item it = item_of(a, ticket);
+        const int rows = it.rows;
+        float* dt_s = aux_s + u * L::kAuxFloats;
+        float* cs_s = dt_s + kMaxRows;
+        float* ws_s = cs_s + kMaxRows;
+        float* uf_s = ws_s + kMaxRows;
+        float* ce_s = uf_s + kMaxRows;
+        float* el_s = ce_s + 4;
+        mbar_wait(&cs_empty[u], ((m >> 1) & 1) ^ 1);
+        for (int r = rt; r < kMaxRows; r += 64)
+          dt_s[r] = r < rows ? a.dt[it.b * a.dt_sb +
+                                    (long long)(it.c0 + r) * a.dt_ss +
+                                    (long long)it.h * a.dt_sh]
+                             : 0.f;
+        named_bar_sync(2, 64);
+        if (pw == 1) {
+          const float av = a.a[it.h];
+          const int per = (rows + 31) / 32;
+          const int r0 = lane * per;
+          float run = 0.f;
+          for (int k = 0; k < per; ++k) {
+            const int r = r0 + k;
+            if (r < rows) {
+              run += dt_s[r] * av;
+              cs_s[r] = run;
+            }
+          }
+          float incl = run;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const float v = __shfl_up_sync(0xffffffffu, incl, off);
+            if (lane >= off) incl += v;
+          }
+          const float before = incl - run;
+          for (int k = 0; k < per; ++k) {
+            const int r = r0 + k;
+            if (r < rows) {
+              cs_s[r] += before;
+              if (r == rows - 1) el_s[0] = cs_s[r];
+            }
+          }
+        }
+        named_bar_sync(2, 64);
+        for (int r = rt; r < kMaxRows; r += 64) {
+          const float c = cs_s[r];
+          ws_s[r] = r < rows ? expf(el_s[0] - c) * dt_s[r] : 0.f;
+          cs_s[r] = r < rows ? c * kLog2e : 0.f;
+        }
+        named_bar_sync(2, 64);
+        // the scores' decay off the diagonal tiles, factored at the last
+        // row e of each key tile: exp2(cs_l - cs_s) = exp2(cs_l - cs_e)
+        // exp2(cs_e - cs_s), both exponents <= 0 for s <= e < l
+        for (int r = rt; r < kMaxRows; r += 64) {
+          const float ce = cs_s[min(r | (kRows - 1), rows - 1)];
+          uf_s[r] = r < rows ? ex2(ce - cs_s[r]) * dt_s[r] : 0.f;
+          if ((r & (kRows - 1)) == 0) ce_s[r / kRows] = ce;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&cs_full[u]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: two warpgroups
+  setmaxnreg_inc<kConsumerRegs>();
+  const int ct = tid - 128;              // 0..255
+  const int cw = ct >> 7;                // the group
+  const int warp = (ct >> 5) & 3, lane = ct & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;
-  const bool has_state = k > 0 || a.init != nullptr;
+  const int P = a.head_dim, N = a.state_dim;
+  // this group's share of the chunk's own state: a 64-column block
+  const int ucb = NP == 128 ? cw : 0;
+  const bool has_unit = NP == 128 || cw == 0;
+  // descriptor bases: the start address field takes byte offsets / 16
+  const uint64_t d_bk = wgmma_desc(b_s, 16, 1024);          // B K-major
+  const uint64_t d_bn =                                      // B N-major
+      wgmma_desc(b_s + ucb * (kMaxRows * 128), kMaxRows * 128, 1024);
+  const uint64_t d_x = wgmma_desc(x_s, kMaxRows * 128, 1024);  // N-major
+  const uint64_t d_shi = wgmma_desc(shi_s, 16, 1024);       // K-major
+  const uint64_t d_slo = wgmma_desc(slo_s, 16, 1024);
+  int mc = 0;                            // this group's C loads
 
-  const bf16* xb = static_cast<const bf16*>(a.x) + hd.bi * a.x_sb +
-                   hd.h * a.x_sh + (long long)c0 * a.x_ss;
-  const float* dtb = a.dt + hd.bi * a.dt_sb + hd.h * a.dt_sh;
-  const bf16* bb = static_cast<const bf16*>(a.b) + hd.bi * a.b_sb +
-                   hd.g * a.b_sg + (long long)c0 * a.b_ss;
-  const bf16* cb = static_cast<const bf16*>(a.c) + hd.bi * a.c_sb +
-                   hd.g * a.c_sg + (long long)c0 * a.c_ss;
-  O* yb = static_cast<O*>(a.y) + hd.bi * a.y_sb + hd.h * a.y_sh +
-          (long long)c0 * a.y_ss;
+  for (int n = 0;; ++n) {
+    const int u = n & 1;
+    mbar_wait(&it_full[u], (n >> 1) & 1);
+    const int ticket = item_s[u];
+    if (ticket < 0) break;
+    const Item it = item_of(a, ticket);
+    const int rows = it.rows;
+    const bool has_state = it.k > 0 || a.init != nullptr;
+    // the item's dt, cs (log2 units), state weights, decay factors and
+    // cs_last, worked out by the row warps
+    const float* dt_s = aux_s + u * L::kAuxFloats;
+    const float* cs_s = dt_s + kMaxRows;
+    const float* ws_s = cs_s + kMaxRows;
+    const float* uf_s = ws_s + kMaxRows;
+    const float* ce_s = uf_s + kMaxRows;
+    const float* el_s = ce_s + 4;
+    mbar_wait(&cs_full[u], (n >> 1) & 1);
 
-  load_tile<N>(c_s, cb + (long long)q0 * a.c_ss, a.c_ss, 0, rows - q0, tid);
-  cp_async_commit();
-  // cs in log2 units: a pair's decay is one subtraction and one ex2
-  constexpr float kLog2e = 1.4426950408889634f;
-  const int seen = min(q0 + kT, rows);   // rows this tile reads
-  const float* csg = a.cs_ws + (long long)hd.bh * a.seq + c0;
-  for (int r = tid; r < seen; r += kThreads) {
-    cs_s[r] = csg[r] * kLog2e;
-    dt_s[r] = dtb[(long long)(c0 + r) * a.dt_ss];
-  }
+    // (b) the chunk's own state S = X'^T B of this group's 64 columns:
+    // A = X'^T from registers (X's rows read transposed, weighted,
+    // split), B N-major, a 64-row tile at a time as the tiles land
+    float sacc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = 0.f;
+    // this warp is done with key tiles (lo, hi] of the item: the producer
+    // may load the next item's there (X was read by ldmatrix too)
+    auto release = [&](int hi, int lo) {
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0)
+        for (int j = hi; j > lo; --j) mbar_arrive(&bx_empty[j]);
+    };
+    // this group's query tiles: C loads 0 and 3 (group 0) or 1 and 2,
+    // tile T - 1 - q, -1 where T has none
+    const int qa = cw == 0 ? 0 : 1, qb = cw == 0 ? 3 : 2;
+    const int ia = qa < T ? T - 1 - qa : -1, ib = qb < T ? T - 1 - qb : -1;
+    // two key tiles a product phase, in the order they are loaded (the
+    // last first); a tile below 0 stands in as tile 0 with zero weights,
+    // a tile past the sequence's end has zero weights already.  Returns
+    // the tile read
+    auto x_frags = [&](int j, uint32_t (*ah)[4], uint32_t (*al)[4]) {
+      const bool on = j >= 0;
+      j = on ? j : 0;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int s = j * kRows + 16 * kk + (mi >> 1) * 8 + mr;
+        const int ch = 2 * warp + (mi & 1);
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, x_s + s * 128 + ((ch ^ (s & 7)) << 4));
+        const int s0 = j * kRows + 16 * kk + 2 * t4;
+        float2 w01 = *reinterpret_cast<const float2*>(ws_s + s0);
+        float2 w89 = *reinterpret_cast<const float2*>(ws_s + s0 + 8);
+        if (!on) w01 = w89 = make_float2(0.f, 0.f);
+        split_scaled(r[0], w01.x, w01.y, ah[kk][0], al[kk][0]);
+        split_scaled(r[1], w01.x, w01.y, ah[kk][1], al[kk][1]);
+        split_scaled(r[2], w89.x, w89.y, ah[kk][2], al[kk][2]);
+        split_scaled(r[3], w89.x, w89.y, ah[kk][3], al[kk][3]);
+      }
+      return j;
+    };
+    for (int jj = 0; jj < T; jj += 2) {
+      const int j0 = T - 1 - jj, j1 = j0 - 1;
+      mbar_wait(&bx_full[j0], n & 1);
+      if (j1 >= 0) mbar_wait(&bx_full[j1], n & 1);
+      if (!has_unit) continue;
+      uint32_t ah[2][4][4], al[2][4][4];
+      const int t0 = x_frags(j0, ah[0], al[0]);
+      const int t1 = x_frags(j1, ah[1], al[1]);
+      fence_regs(&ah[0][0][0], 32);
+      fence_regs(&al[0][0][0], 32);
+      fence_regs(sacc, 32);
+      wgmma_fence();
+#if SSD_PRODUCTS
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = q == 0 ? t0 : t1;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t d = d_bn + (((j * kRows + 16 * kk) * 128) >> 4);
+          wgmma_rs<64, 1>(sacc, ah[q][kk], d, 1);
+#if SSD_LO_PARTS
+          wgmma_rs<64, 1>(sacc, al[q][kk], d, 1);
+#endif
+        }
+      }
+#endif
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc, 32);
+    }
 
-  const int r_lo = warp * 16;                      // the warp's rows
-  const int row0 = q0 + r_lo + g, row1 = row0 + 8; // the lane's rows
-  const bf16* c_frag = c_s + (r_lo + (mi & 1) * 8 + mr) * kBS +
-                       (mi >> 1) * 8;
-  float y[kND][4];
-#pragma unroll
-  for (int n = 0; n < kND; ++n) y[n][0] = y[n][1] = y[n][2] = y[n][3] = 0.f;
-
-  if (has_state) {
-    // y = exp(cs_l) (C_l state^T), the state split in the ring's space
-    bf16* sh_s = ring;                             // P x kBS
-    bf16* sl_s = ring + P * kBS;
-    const float4* sg = reinterpret_cast<const float4*>(
-        a.st_ws + ((long long)hd.bh * a.chunks + k) * P * N);
-    constexpr int kPer = P * N / 4 / kThreads;     // float4s a thread
-    constexpr int kBatch = kPer < 8 ? kPer : 8;
-#pragma unroll
-    for (int it0 = 0; it0 < kPer; it0 += kBatch) {
-      float4 v[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j)
-        v[j] = __ldg(sg + tid + (it0 + j) * kThreads);
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int i = 4 * (tid + (it0 + j) * kThreads);
-        const int p = i / N, n = i % N;
-        uint2 hi, lo;
-        split2(v[j].x, v[j].y, hi.x, lo.x);
-        split2(v[j].z, v[j].w, hi.y, lo.y);
-        *reinterpret_cast<uint2*>(sh_s + p * kBS + n) = hi;
-        *reinterpret_cast<uint2*>(sl_s + p * kBS + n) = lo;
+    release(T - 1, ia);
+    // (c) the chain: wait for the state entering this chunk, publish
+    // the state entering the next (exp(cs_last) state_in + S), keep the
+    // entering state split in shared memory for the state term.  The
+    // head's flag counts the warps that have published its state: the
+    // state entering chunk k is there at k x kHeadWarps
+    int* flag = a.counters + 1 + (long long)it.b * a.heads + it.h;
+#if SSD_CHAIN_WAIT
+    if (it.k > 0 && ct == 0) {
+      for (uint32_t polls = 0; ld_acquire(flag) != it.k * kHeadWarps;
+           ++polls) {
+        __nanosleep(32);
+        if (polls == (1u << 24)) asm volatile("trap;");
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();
+#endif
+    named_bar_sync(1, 256);
+    // the last chunk publishes nothing: its flag goes back to zero (no
+    // one reads it again in this launch)
+    if (it.k > 0 && it.k == a.chunks - 1 && ct == 0) *flag = 0;
+    // the entering state at this thread's accumulator places, all loads
+    // in flight at once (past L1: the last item wrote it on another SM)
+    float2 v[16];
+    const long long off = ((long long)it.b * a.heads + it.h) * P * N;
+    float* st = a.state + off;
+    if (has_unit) {
+      const float el = expf(el_s[0]);
+      const float* in = it.k > 0 ? st : a.init ? a.init + off : nullptr;
 #pragma unroll
-    for (int kk = 0; kk < kKN; ++kk) {
-      uint32_t af[4];
-      ldmatrix_x4(af, c_frag + 16 * kk);
+      for (int jn = 0; jn < 8; ++jn) {
 #pragma unroll
-      for (int n = 0; n < kND; n += 2) {
-        const int off = (8 * (n + (mi >> 1)) + mr) * kBS + 16 * kk +
-                        (mi & 1) * 8;
-        uint32_t bf[4];
-        ldmatrix_x4(bf, sh_s + off);
-        mma_bf16(y[n], af, bf[0], bf[1]);
-        mma_bf16(y[n + 1], af, bf[2], bf[3]);
-        ldmatrix_x4(bf, sl_s + off);
-        mma_bf16(y[n], af, bf[0], bf[1]);
-        mma_bf16(y[n + 1], af, bf[2], bf[3]);
+        for (int half = 0; half < 2; ++half) {
+          const int p = 16 * warp + g + 8 * half;
+          const int nn = ucb * 64 + 8 * jn + 2 * t4;
+          float2 w = make_float2(0.f, 0.f);
+          if (in != nullptr && p < P && nn < N)
+            w = __ldcg(reinterpret_cast<const float2*>(in + p * N + nn));
+          v[2 * jn + half] = w;
+        }
+      }
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int p = 16 * warp + g + 8 * half;
+          const int nn = ucb * 64 + 8 * jn + 2 * t4;
+          if (p < P && nn < N)
+            store2(st + p * N + nn,
+                   fmaf(el, v[2 * jn + half].x, sacc[4 * jn + 2 * half]),
+                   fmaf(el, v[2 * jn + half].y, sacc[4 * jn + 2 * half + 1]));
+        }
+      }
+      // each warp publishes its share: its stores ordered before the
+      // warp barrier, then one lane's fence and count (cumulativity)
+      if (it.k < a.chunks - 1) {
+        __syncwarp();
+        if (lane == 0) {
+          __threadfence();
+          atomicAdd(flag, 1);
+        }
+      }
+      // off the chain: the entering state split into shared memory for
+      // the state term
+      if (has_state) {
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int p = 16 * warp + g + 8 * half;
+            const int nn = ucb * 64 + 8 * jn + 2 * t4;
+            uint32_t hi, lo;
+            split2(v[2 * jn + half].x, v[2 * jn + half].y, hi, lo);
+            const int o = kmajor_off(p, nn);
+            *reinterpret_cast<uint32_t*>(shi_s + o) = hi;
+            *reinterpret_cast<uint32_t*>(slo_s + o) = lo;
+          }
+        }
       }
     }
-    const float e0 = row0 < rows ? exp2f(cs_s[row0]) : 0.f;
-    const float e1 = row1 < rows ? exp2f(cs_s[row1]) : 0.f;
-#pragma unroll
-    for (int n = 0; n < kND; ++n) {
-      y[n][0] *= e0;
-      y[n][1] *= e0;
-      y[n][2] *= e1;
-      y[n][3] *= e1;
-    }
-    __syncthreads();                     // the ring's space is free again
-  }
+    fence_proxy_async();                 // the split state, for wgmma
+    __syncwarp();
+    if (lane == 0) mbar_arrive(st_full);
+    bool state_ready = false;
 
-  auto load_keys = [&](int kj) {
-    bf16* bs = ring + (kj & 1) * L::kSlot;
-    bf16* xs = bs + kT * kBS;
-    load_tile<N>(bs, bb, a.b_ss, kj * kT, rows, tid);
-    load_tile<P>(xs, xb, a.x_ss, kj * kT, rows, tid);
-  };
-  load_keys(0);
-  cp_async_commit();
+    // (d) y, a 64-row query tile at a time: group 0 takes the tiles of C
+    // loads 0 and 3 (tiles T-1, T-4), group 1 of loads 1 and 2.  C_i
+    // stays in its slot for the tile: the scores and the state term read
+    // it there (the group's other slot takes its next tile meanwhile)
+    for (int slot = 0; slot < 2; ++slot) {
+      const int i = slot == 0 ? ia : ib;
+      if (i < 0) break;
+      const int c = cw * L::kCSlots + mc % L::kCSlots;
+      mbar_wait(&c_full[c], (mc / L::kCSlots) & 1);
+      ++mc;
+      const uint64_t d_c = wgmma_desc(c_s + c * kNCB * kBox, 16, 1024);
+      // the key tiles this group's next query tile does not need
+      const int keep = slot == 0 ? ib : -1;
+      if (i * kRows < rows) {            // else a tile past the sequence
+        const int l0 = i * kRows + 16 * warp + g, l1 = l0 + 8;
+        const float cl0 = cs_s[l0], cl1 = cs_s[l1];
+        float y[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) y[e] = 0.f;
+        // C_i against an operand K-major over the state dim, its 64-column
+        // blocks `stride` bytes apart: B_j^T (scores) or the split state
+        auto c_products = [&](float* d, uint64_t db, int stride, int acc0) {
+#pragma unroll
+          for (int kk = 0; kk < kKN; ++kk) {
+            const int o = (kk & 3) * 32;
+            wgmma_ss<64, 0>(d, d_c + (((kk >> 2) * kBox + o) >> 4),
+                            db + (((kk >> 2) * stride + o) >> 4),
+                            acc0 || kk > 0);
+          }
+        };
+        auto d_b = [&](int j) { return d_bk + ((j * kBox) >> 4); };
 
-  for (int kj = 0; kj <= qi; ++kj) {
-    // tile kj has landed (and C with it); every warp is done with tile
-    // kj - 1, whose slot the copy issued below refills
-    cp_async_wait<0>();
-    __syncthreads();
-    if (kj < qi) load_keys(kj + 1);
-    cp_async_commit();
-    const bf16* bs = ring + (kj & 1) * L::kSlot;
-    const bf16* xs = bs + kT * kBS;
-    const int k0 = kj * kT;
+#if SSD_DIAG
+        // the chunk's own rows, key tiles j <= i in turn: the scores C_i
+        // B_j^T, W' = scores o exp2(cs_l - cs_s) dt_s (split), y += W'
+        // X_j.  Unrolled by the tile's index, so that tile j + 1's scores
+        // run on the tensor cores while tile j's W' is worked out
+        auto diag = [&](auto tile) {
+          constexpr int I = decltype(tile)::value;
+          float sc[2][32];
+          wgmma_fence();
+#if SSD_PRODUCTS
+          c_products(sc[0], d_b(0), kMaxRows * 128, 0);
+#endif
+          wgmma_commit();
+#pragma unroll
+          for (int j = 0; j <= I; ++j) {
+            float* cur = sc[j & 1];
+            wgmma_wait<0>();
+            fence_regs(cur, 32);
+            fence_regs(y, 32);
+            if (j < I) {
+              float* nxt = sc[(j + 1) & 1];
+              fence_regs(nxt, 32);
+              wgmma_fence();
+#if SSD_PRODUCTS
+              c_products(nxt, d_b(j + 1), kMaxRows * 128, 0);
+#endif
+              wgmma_commit();
+            }
+            uint32_t wh[4][4], wl[4][4];
+            if (j < I) {
+              // every pair s < l: the factored decay, no mask (rows past
+              // S get 0)
+              const float ce = ce_s[j];
+              const float r0 = l0 < rows ? ex2(cl0 - ce) : 0.f;
+              const float r1 = l1 < rows ? ex2(cl1 - ce) : 0.f;
+#pragma unroll
+              for (int jn = 0; jn < 8; ++jn) {
+                const int s = j * kRows + 8 * jn + 2 * t4;
+                const float2 f = *reinterpret_cast<const float2*>(uf_s + s);
+                split2(cur[4 * jn] * r0 * f.x, cur[4 * jn + 1] * r0 * f.y,
+                       wh[jn >> 1][(jn & 1) * 2], wl[jn >> 1][(jn & 1) * 2]);
+                split2(cur[4 * jn + 2] * r1 * f.x,
+                       cur[4 * jn + 3] * r1 * f.y,
+                       wh[jn >> 1][(jn & 1) * 2 + 1],
+                       wl[jn >> 1][(jn & 1) * 2 + 1]);
+              }
+            } else {
+              // the diagonal tile: masked before exp, only s <= l < rows
+              // is evaluated
+#pragma unroll
+              for (int jn = 0; jn < 8; ++jn) {
+                const int s = j * kRows + 8 * jn + 2 * t4;
+                const float2 c2 = *reinterpret_cast<const float2*>(cs_s + s);
+                const float2 d2 = *reinterpret_cast<const float2*>(dt_s + s);
+                const float w0 = (s <= l0 && l0 < rows)
+                                     ? cur[4 * jn] * ex2(cl0 - c2.x) * d2.x
+                                     : 0.f;
+                const float w1 =
+                    (s + 1 <= l0 && l0 < rows)
+                        ? cur[4 * jn + 1] * ex2(cl0 - c2.y) * d2.y : 0.f;
+                const float w2 = (s <= l1 && l1 < rows)
+                                     ? cur[4 * jn + 2] * ex2(cl1 - c2.x) * d2.x
+                                     : 0.f;
+                const float w3 =
+                    (s + 1 <= l1 && l1 < rows)
+                        ? cur[4 * jn + 3] * ex2(cl1 - c2.y) * d2.y : 0.f;
+                split2(w0, w1, wh[jn >> 1][(jn & 1) * 2],
+                       wl[jn >> 1][(jn & 1) * 2]);
+                split2(w2, w3, wh[jn >> 1][(jn & 1) * 2 + 1],
+                       wl[jn >> 1][(jn & 1) * 2 + 1]);
+              }
+            }
+            fence_regs(&wh[0][0], 16);
+            fence_regs(&wl[0][0], 16);
+            fence_regs(y, 32);
+            wgmma_fence();
+#if SSD_PRODUCTS
+            const uint64_t dxj = d_x + ((j * kBox) >> 4);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint64_t d = dxj + ((16 * kk * 128) >> 4);
+              wgmma_rs<64, 1>(y, wh[kk], d, 1);
+#if SSD_LO_PARTS
+              wgmma_rs<64, 1>(y, wl[kk], d, 1);
+#endif
+            }
+#endif
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+          fence_regs(y, 32);
+        };
+        switch (i) {
+          case 0: diag(Int<0>{}); break;
+          case 1: diag(Int<1>{}); break;
+          case 2: diag(Int<2>{}); break;
+          default: diag(Int<3>{}); break;
+        }
+#endif
 
-    // ---- S = C_i B_j^T: 16 rows x 64 keys a warp
-    float s[8][4];
+        // the carried state's term, after the chunk's own rows (its split
+        // state is in shared memory by then): y += exp(cs_l) (C_i
+        // state_in^T)
+#if SSD_STATE_TERM
+        if (has_state) {
+          if (!state_ready) {
+            mbar_wait(st_full, n & 1);
+            state_ready = true;
+          }
+          float ys[32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+          for (int e = 0; e < 32; ++e) ys[e] = 0.f;
+          fence_regs(ys, 32);
+          wgmma_fence();
+#if SSD_PRODUCTS
+          c_products(ys, d_shi, kBox, 1);
+#if SSD_LO_PARTS
+          c_products(ys, d_slo, kBox, 1);
+#endif
+#endif
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(ys, 32);
+          const float e0 = l0 < rows ? exp2f(cl0) : 0.f;
+          const float e1 = l1 < rows ? exp2f(cl1) : 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kKN; ++kk) {
-      uint32_t af[4];
-      ldmatrix_x4(af, c_frag + 16 * kk);
+          for (int jn = 0; jn < 8; ++jn) {
+            y[4 * jn] = fmaf(e0, ys[4 * jn], y[4 * jn]);
+            y[4 * jn + 1] = fmaf(e0, ys[4 * jn + 1], y[4 * jn + 1]);
+            y[4 * jn + 2] = fmaf(e1, ys[4 * jn + 2], y[4 * jn + 2]);
+            y[4 * jn + 3] = fmaf(e1, ys[4 * jn + 3], y[4 * jn + 3]);
+          }
+        }
+#endif
+
+        // y of the tile's rows below S and its first P columns
+        O* yb = static_cast<O*>(a.y) + it.b * a.y_sb +
+                (long long)it.h * a.y_sh + (long long)it.c0 * a.y_ss;
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, bs + (8 * (j + (mi >> 1)) + mr) * kBS + 16 * kk +
-                            (mi & 1) * 8);
-        mma_bf16(s[j], af, bf[0], bf[1]);
-        mma_bf16(s[j + 1], af, bf[2], bf[3]);
+        for (int jn = 0; jn < 8; ++jn) {
+          const int p = 8 * jn + 2 * t4;
+          if (p < P) {
+            if (l0 < rows)
+              store2(yb + (long long)l0 * a.y_ss + p, y[4 * jn],
+                     y[4 * jn + 1]);
+            if (l1 < rows)
+              store2(yb + (long long)l1 * a.y_ss + p, y[4 * jn + 2],
+                     y[4 * jn + 3]);
+          }
+        }
       }
+      // the group is done with C_i (the products that read it have
+      // completed) and with the key tiles its next tile does not need
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&c_empty[c]);
+      release(i, keep);
     }
-    // ---- W' = S exp(cs_l - cs_s) dt_s, masked before exp (col <= row
-    // < rows), split into the A fragments of the next product: the C
-    // fragment of n-block j is half of k-block j / 2's A fragment
-    uint32_t ph[4][4], pl[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row0 : row1;
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        w[e] = (col <= row && row < rows)
-                   ? s[j][e] * ex2(cs_s[row] - cs_s[col]) * dt_s[col]
-                   : 0.f;
-      }
-      split2(w[0], w[1], ph[j >> 1][(j & 1) * 2], pl[j >> 1][(j & 1) * 2]);
-      split2(w[2], w[3], ph[j >> 1][(j & 1) * 2 + 1],
-             pl[j >> 1][(j & 1) * 2 + 1]);
-    }
-    // ---- y += W' X_j (X_j holds [s][p]: the transposed load)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kND; n += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, xs + (16 * kk + (mi & 1) * 8 + mr) * kXS +
-                                  8 * (n + (mi >> 1)));
-        mma_bf16(y[n], ph[kk], bf[0], bf[1]);
-        mma_bf16(y[n + 1], ph[kk], bf[2], bf[3]);
-        mma_bf16(y[n], pl[kk], bf[0], bf[1]);
-        mma_bf16(y[n + 1], pl[kk], bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int n = 0; n < kND; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (row0 < rows) store2(yb + (long long)row0 * a.y_ss + col, y[n][0],
-                            y[n][1]);
-    if (row1 < rows) store2(yb + (long long)row1 * a.y_ss + col, y[n][2],
-                            y[n][3]);
+    // the item's per-row values are free
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&cs_empty[u]);
   }
 }
 
-}  // namespace tc
+// One 4-d map (columns, S, heads or groups, batch) of a bf16 view from
+// the wrapper's numbers (flash_attn.tma_map): 4 dims, the byte strides
+// of S, heads and batch, the box (64 columns, 64 rows); 128-byte
+// swizzle, boxes past the view's extent filled with zeros.
+bool encode_map(CUtensorMap* map, const void* base, const long long* p) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4] = {(cuuint32_t)p[7], (cuuint32_t)p[8], 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)p[i];
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)p[4 + i];
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the card's SMs, the persistent grid's size
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+template <int NP, typename O>
+cudaError_t launch(const void* x, const void* b, const void* c,
+                   const Args& a, const int* plan, const long long* maps,
+                   cudaStream_t stream) {
+  using L = Smem<NP>;
+  if (plan[2] != kThreads || plan[3] != L::kBytes) return cudaErrorInvalidValue;
+  CUtensorMap tx, tb, tc;
+  if (!encode_map(&tx, x, maps) || !encode_map(&tb, b, maps + 9) ||
+      !encode_map(&tc, c, maps + 18))
+    return cudaErrorInvalidValue;
+  auto kernel = ssd_scan_wg_kernel<NP, O>;
+  // the shared memory attribute, once a device: it holds for later
+  // launches
+  static unsigned long long attr_set = 0;   // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(attr_set & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    attr_set |= bit;
+  }
+  const int sms = sm_count();
+  if (sms == 0) return cudaErrorInvalidValue;
+  const int grid = a.items < sms ? a.items : sms;
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(tx, tb, tc, a);
+  return cudaGetLastError();
+}
+
+template <typename O>
+cudaError_t dispatch(int np, const void* x, const void* b, const void* c,
+                     const Args& a, const int* plan, const long long* maps,
+                     cudaStream_t stream) {
+  if (np == 128) return launch<128, O>(x, b, c, a, plan, maps, stream);
+  if (np == 64) return launch<64, O>(x, b, c, a, plan, maps, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace wg
 
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, int threads, size_t bytes,
@@ -927,51 +1298,37 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t bytes,
   return cudaGetLastError();
 }
 
-// the two launches of one scan, in stream order
-template <typename T, typename O, int P, int N>
+// the f32 route's two launches of one scan, in stream order
+template <int P, int N>
 cudaError_t run(const Args& a, int bh, cudaStream_t stream) {
-  constexpr bool kTc = sizeof(T) == 2;
   const dim3 chunk_grid(bh * a.chunks);
   const dim3 scan_grid(bh, a.chunks, a.q_tiles);
-  cudaError_t err;
-  if constexpr (kTc) {
-    err = launch(tc::ssd_scan_chunk_state<P, N>, chunk_grid,
-                 tc::StateSmem<P, N>::kThreads,
-                 tc::StateSmem<P, N>::bytes(a.chunk), a, stream);
-  } else {
-    err = launch(f32::ssd_scan_chunk_state<P, N>, chunk_grid,
-                 f32::kThreads,
-                 sizeof(float) * f32::state_smem_floats<P, N>(a.chunk), a,
-                 stream);
-  }
+  cudaError_t err = launch(
+      f32::ssd_scan_chunk_state<P, N>, chunk_grid, f32::kThreads,
+      sizeof(float) * f32::state_smem_floats<P, N>(a.chunk), a, stream);
   if (err != cudaSuccess) return err;
-  if constexpr (kTc) {
-    return launch(tc::ssd_scan_chunk_y<P, N, O>, scan_grid, tc::kThreads,
-                  tc::ScanSmem<P, N>::bytes(a.chunk), a, stream);
-  } else {
-    return launch(f32::ssd_scan_chunk_y<P, N>, scan_grid, f32::kThreads,
-                  sizeof(float) * f32::scan_smem_floats<P, N>(a.chunk), a,
-                  stream);
-  }
+  return launch(f32::ssd_scan_chunk_y<P, N>, scan_grid, f32::kThreads,
+                sizeof(float) * f32::scan_smem_floats<P, N>(a.chunk), a,
+                stream);
 }
 
-template <typename T, typename O>
 cudaError_t dispatch_pn(int p, int n, const Args& a, int bh,
                         cudaStream_t stream) {
   if (p == 64) {
-    if (n == 128) return run<T, O, 64, 128>(a, bh, stream);
-    if (n == 64) return run<T, O, 64, 64>(a, bh, stream);
-    if (n == 32) return run<T, O, 64, 32>(a, bh, stream);
+    if (n == 128) return run<64, 128>(a, bh, stream);
+    if (n == 64) return run<64, 64>(a, bh, stream);
+    if (n == 32) return run<64, 32>(a, bh, stream);
   } else if (p == 32) {
-    if (n == 128) return run<T, O, 32, 128>(a, bh, stream);
-    if (n == 64) return run<T, O, 32, 64>(a, bh, stream);
-    if (n == 32) return run<T, O, 32, 32>(a, bh, stream);
+    if (n == 128) return run<32, 128>(a, bh, stream);
+    if (n == 64) return run<32, 64>(a, bh, stream);
+    if (n == 32) return run<32, 32>(a, bh, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The f32 route (f32 x, b, c and y): two launches on the CUDA cores.
 extern "C" int ssd_scan(
     const void* x, const void* dt, const void* a_vec, const void* b,
     const void* c, const void* init, void* y, void* state, void* cs_ws,
@@ -983,6 +1340,7 @@ extern "C" int ssd_scan(
     long long y_sb, long long y_ss, long long y_sh, int in_dtype,
     int out_dtype, void* stream) {
   if (batch == 0 || heads == 0) return cudaSuccess;
+  if (in_dtype != kF32 || out_dtype != kF32) return cudaErrorInvalidValue;
   if (seq < 1 || chunk < 1 || chunk > kMaxChunk || groups < 1 ||
       heads % groups || chunks < 1 || chunks > 65535 ||
       (long long)chunks * chunk < seq || (chunks - 1) * chunk >= seq ||
@@ -997,13 +1355,49 @@ extern "C" int ssd_scan(
          groups, seq, chunk, chunks,
          q_tiles, x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg,
          c_sb, c_ss, c_sg, y_sb, y_ss, y_sh};
+  return dispatch_pn(head_dim, state_dim, a, (int)bh,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 route (bf16 x, b, c; y bf16 or f32): one persistent launch on
+// wgmma.  plan: q_tiles, items, threads, smem bytes
+// (ssd_plan); maps: the tensor maps of x, b and c, 9 numbers each
+// (flash_attn.tma_map of the (B, H|G, S, P|N) views); counters: 1 + B H
+// ints, 0, which the launch leaves at 0.
+extern "C" int ssd_scan_wg(
+    const void* x, const void* dt, const void* a_vec, const void* b,
+    const void* c, const void* init, void* y, void* state, void* counters,
+    int batch, int seq, int heads, int groups, int head_dim, int state_dim,
+    int chunk, int chunks, long long dt_sb, long long dt_ss, long long dt_sh,
+    long long y_sb, long long y_ss, long long y_sh, int out_dtype,
+    const int* plan, const long long* maps, void* stream) {
+  if (batch == 0 || heads == 0) return cudaSuccess;
+  const int q_tiles = plan[0], items = plan[1];
+  if (seq < 1 || chunk < 1 || chunk > wg::kMaxRows || groups < 1 ||
+      heads % groups || chunks < 1 || (long long)chunks * chunk < seq ||
+      (chunks - 1) * chunk >= seq ||
+      q_tiles != (chunk + wg::kRows - 1) / wg::kRows ||
+      (head_dim != 32 && head_dim != 64) ||
+      (state_dim != 32 && state_dim != 64 && state_dim != 128) ||
+      (long long)batch * chunks * heads != items)
+    return cudaErrorInvalidValue;
+  const long long dims[3] = {head_dim, state_dim, state_dim};
+  for (int m = 0; m < 3; ++m)
+    if (maps[9 * m] != dims[m] || maps[9 * m + 7] != 64 ||
+        maps[9 * m + 8] != wg::kRows)
+      return cudaErrorInvalidValue;
+  const wg::Args a{static_cast<const float*>(dt),
+                   static_cast<const float*>(a_vec),
+                   static_cast<const float*>(init), y,
+                   static_cast<float*>(state), static_cast<int*>(counters),
+                   batch, seq, heads, groups, head_dim, state_dim, chunk,
+                   chunks, q_tiles, items, dt_sb, dt_ss, dt_sh, y_sb, y_ss,
+                   y_sh};
+  const int np = state_dim == 128 ? 128 : 64;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int p = head_dim, n = state_dim, nb = (int)bh;
-  if (in_dtype == kF32 && out_dtype == kF32)
-    return dispatch_pn<float, float>(p, n, a, nb, s);
-  if (in_dtype == kBF16 && out_dtype == kBF16)
-    return dispatch_pn<bf16, bf16>(p, n, a, nb, s);
-  if (in_dtype == kBF16 && out_dtype == kF32)
-    return dispatch_pn<bf16, float>(p, n, a, nb, s);
+  if (out_dtype == kBF16)
+    return wg::dispatch<hopper::bf16>(np, x, b, c, a, plan, maps, s);
+  if (out_dtype == kF32)
+    return wg::dispatch<float>(np, x, b, c, a, plan, maps, s);
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-"""Mamba2 chunked SSD scan: the CUDA kernel's wrapper.
+"""Mamba2 chunked SSD scan: the CUDA kernels' wrapper.
 
 Replaces the Pallas TPU kernel ``ssd_scan`` of the JAX package
 (``kernels/ssd_scan.py``), which computes what the model's jnp
@@ -6,12 +6,17 @@ Replaces the Pallas TPU kernel ``ssd_scan`` of the JAX package
 ``csrc/ssd_scan.cu`` (its header notes the design and the bound on the
 H100); their plain version is :func:`repro_torch.kernels.ref.ssd_scan_ref`.
 
-:func:`ssd_plan` sizes a call from its shapes alone: the route (bf16 on
-the tensor cores, f32 on the CUDA cores), the chunk and the chunk
-count, which size the two launches (chunk state, whose last block of
-each head carries the state across the chunks; chunk scan), the two f32
-workspaces, which the wrapper allocates on the caller's stream, and the
-arrival counters.
+:func:`ssd_plan` sizes a call from its shapes alone.  bf16 x, b and c
+take the ``wgmma`` route: one persistent launch whose blocks take work
+items (one chunk of one batch element and head) from a ticket counter
+in chunk order and chain the state through L2, with per-(batch, head)
+flags; it reads x, b and c through
+the tensor maps of :func:`ssd_tma_numbers`, and takes chunks of up to
+``WG_MAX_CHUNK`` rows.  f32 takes the ``cuda_cores`` route: two launches
+(chunk state, whose last block of each head carries the state across the
+chunks; chunk scan) through two f32 workspaces, which the wrapper
+allocates on the caller's stream.  Both count on zeroed counters from
+``_build.arrival_counters`` and leave them at zero.
 
 A tensor on the CPU takes the plain version.  A tensor on the card
 launches the kernels or raises — there is no fallback.  Each call adds
@@ -33,32 +38,65 @@ from typing import Optional
 import torch
 
 from . import _build
+from .flash_attn import tma_map
 from .ref import ssd_scan_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
 STATE_DIMS = (32, 64, 128)
 MAX_CHUNK = 1024
-# rows of a query tile of the chunk scan (csrc/ssd_scan.cu: kT)
+# the wgmma route keeps a whole chunk's B and X in shared memory
+WG_MAX_CHUNK = 256
+# rows of a tile: a query tile of the scan, a TMA box of the wgmma route
 TILE_ROWS = 64
-_ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
+_ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
+# the wgmma route's block (csrc/ssd_scan.cu, namespace wg): a producer
+# warpgroup and two consumer warpgroups, one block an SM
+WG_THREADS = 384
+# C tiles in flight for each consumer group (Smem<NP, HPI>::kCSlots)
+C_SLOTS = 2
 
 
 @dataclass(frozen=True)
 class SsdPlan:
-    """How one call runs: its route, chunk, chunk count and query tiles
-    (the chunk-state launch has a block a (batch x head, chunk), the
-    chunk scan a block a (batch x head, chunk, query tile)), its f32
-    workspaces (``cs_floats``: the cumulative decay of every row;
-    ``state_floats``: one (P, N) state a chunk) and its int32 arrival
-    counters (one a head, zero between launches)."""
-    route: str                   # "tensor_cores" | "cuda_cores"
+    """How one call runs: its route, chunk, chunk count and 64-row tiles
+    a chunk.  ``wgmma``: ``items`` items (tickets: one a (chunk, batch
+    element, head)), ``threads`` and ``smem`` of a block (the grid is
+    the SMs, or fewer where there are fewer items), ``flags`` (one a
+    (batch, head)) after the ticket counter in ``counters``.
+    ``cuda_cores``: a chunk-state launch of a block a (batch x head,
+    chunk) and a chunk-scan launch of a block a (batch x head, chunk,
+    query tile) (no items, threads or smem: the C entry sizes them), f32
+    workspaces
+    (``cs_floats``: the cumulative decay of every row; ``state_floats``:
+    one (P, N) state a chunk) and ``counters`` arrival counters (one a
+    (batch x head)).  Every counter is zero between launches."""
+    route: str                   # "wgmma" | "cuda_cores"
     chunk: int
     chunks: int
-    q_tiles: int                 # 64-row query tiles a chunk
+    q_tiles: int
+    items: int
+    threads: int
+    smem: int
     cs_floats: int
     state_floats: int
+    flags: int
     counters: int
+
+
+def wg_smem(state_dim: int) -> int:
+    """Shared memory of one block of the wgmma route (``Smem<NP>`` of
+    ``csrc/ssd_scan.cu``): 1024 bytes of alignment; B (N padded to NP =
+    max(N, 64) columns) and X over ``WG_MAX_CHUNK`` rows; the split
+    state (high and low parts, 64 rows x NP); two 64-row C tiles for
+    each consumer group; two buffers of the per-row values (dt, cs, the
+    state weights, the scores' decay factors; the decay at each 64-row
+    tile's end; cs_last); the 23 barriers and two tickets."""
+    np_ = 128 if state_dim == 128 else 64
+    rows, box = WG_MAX_CHUNK, TILE_ROWS * 128
+    return (1024 + np_ * rows * 2 + rows * 128 + 2 * (np_ // 64) * box
+            + 2 * C_SLOTS * (np_ // 64) * box + 2 * 4 * (4 * rows + 8)
+            + 8 * 23 + 16)
 
 
 @functools.lru_cache(maxsize=256)
@@ -72,16 +110,59 @@ def ssd_plan(dtype: torch.dtype, batch: int, seq: int, heads: int,
         raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
     if seq < 1:
         raise ValueError("empty sequence")
+    route = _ROUTES[dtype]
     chunk = min(chunk, seq)
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} not in [1, {MAX_CHUNK}]")
+    limit = WG_MAX_CHUNK if route == "wgmma" else MAX_CHUNK
+    if not 1 <= chunk <= limit:
+        raise ValueError(f"chunk {chunk} not in [1, {limit}] ({route})")
     chunks = -(-seq // chunk)
     q_tiles = -(-chunk // TILE_ROWS)
     bh = batch * heads
-    return SsdPlan(_ROUTES[dtype], chunk, chunks, q_tiles,
+    if route == "wgmma":
+        if head_dim not in HEAD_DIMS or state_dim not in STATE_DIMS:
+            raise ValueError(f"(P, N) = ({head_dim}, {state_dim}) not in "
+                             f"{HEAD_DIMS} x {STATE_DIMS}")
+        return SsdPlan(route, chunk, chunks, q_tiles,
+                       items=batch * chunks * heads, threads=WG_THREADS,
+                       smem=wg_smem(state_dim),
+                       cs_floats=0, state_floats=0, flags=bh,
+                       counters=1 + bh)
+    return SsdPlan(route, chunk, chunks, q_tiles, 0, 0, 0,
                    cs_floats=bh * seq,
                    state_floats=bh * chunks * head_dim * state_dim,
-                   counters=bh)
+                   flags=0, counters=bh)
+
+
+def ssd_tma_numbers(x: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor) -> list:
+    """The 27 numbers the wgmma route encodes its tensor maps from: for
+    x (B, S, H, P), b and c (B, S, G, N) in turn, the 4 dims (columns, S,
+    heads or groups, B), the 3 byte strides of S, heads and B, and the
+    box (64 columns, 64 rows) (:func:`flash_attn.tma_map` of the (B,
+    H|G, S, P|N) view).  Raises ``ValueError`` where TMA cannot read a
+    view in place."""
+    return [v for t in (x, b, c)
+            for m in (tma_map(t.permute(0, 2, 1, 3), TILE_ROWS),)
+            for v in (*m.dims, *m.strides, *m.box)]
+
+
+# the wgmma route's tensor-map numbers as a ctypes array, by the dtype,
+# shapes and strides of x, b and c: a prefill repeats a few layouts once
+# a layer, so they are worked out and checked once a layout; only the
+# bases' alignment changes from call to call (checked by _check)
+_MAPS: dict = {}
+_MAPS_MAX = 256
+
+
+def _wg_maps(x, b, c) -> ctypes.Array:
+    key = (x.dtype, x.shape, x.stride(), b.shape, b.stride(), c.stride())
+    maps = _MAPS.get(key)
+    if maps is None:
+        maps = (ctypes.c_longlong * 27)(*ssd_tma_numbers(x, b, c))
+        if len(_MAPS) >= _MAPS_MAX:
+            _MAPS.clear()
+        _MAPS[key] = maps
+    return maps
 
 
 def _kernel_fn():
@@ -89,6 +170,15 @@ def _kernel_fn():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p] * 11 + [i] * 9 + [ll] * 15 + [i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _wg_fn():
+    fn = _build.load("ssd_scan").ssd_scan_wg
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 9 + [i] * 8 + [ll] * 6 + [i, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -129,11 +219,14 @@ def _check(x, dt, a, b, c, initial_state, out_dtype) -> None:
         raise ValueError(f"initial_state must be (B,H,P,N) = "
                          f"{(bsz, h, p, n)} on {x.device}")
     if x.dtype == torch.bfloat16:
-        # the tensor-core route copies rows of x, b and c 16 bytes at a time
+        # the wgmma route reads x, b and c through TMA maps: their
+        # strides once a layout, their bases every call
+        _wg_maps(x, b, c)
         for name, t in (("x", x), ("b", b), ("c", c)):
-            if t.data_ptr() % 16 or any(
-                    t.stride(i) % 8 and t.shape[i] > 1 for i in range(3)):
-                raise ValueError(f"bf16 {name} needs 16-byte aligned rows")
+            if t.data_ptr() % 16:
+                raise ValueError(f"TMA needs {name}'s base 16-byte "
+                                 f"aligned, got {t.data_ptr() % 16} bytes "
+                                 f"off")
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -179,20 +272,33 @@ def _launch(x, dt, a, b, c, initial_state, chunk, out_dtype):
     dev = x.device
     y = torch.empty((bsz, s, h, p), dtype=out_dtype, device=dev)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
-    cs_ws = torch.empty(plan.cs_floats, dtype=torch.float32, device=dev)
-    st_ws = torch.empty(plan.state_floats, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     counters = _build.arrival_counters(dev, stream, plan.counters)
-    strides = [t.stride(i) for t in (x, dt, b, c, y) for i in range(3)]
-    err = _kernel_fn()(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), None if init is None else init.data_ptr(),
-        y.data_ptr(), state.data_ptr(), cs_ws.data_ptr(), st_ws.data_ptr(),
-        counters.data_ptr(), bsz, s, h, g, p, n, plan.chunk, plan.chunks,
-        plan.q_tiles, *strides, _DTYPE_CODES[x.dtype],
-        _DTYPE_CODES[out_dtype], stream)
+    if plan.route == "wgmma":
+        err = _wg_fn()(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), None if init is None else init.data_ptr(),
+            y.data_ptr(), state.data_ptr(), counters.data_ptr(), bsz, s, h,
+            g, p, n, plan.chunk, plan.chunks,
+            *(t.stride(i) for t in (dt, y) for i in range(3)),
+            _DTYPE_CODES[out_dtype],
+            (ctypes.c_int * 4)(plan.q_tiles, plan.items, plan.threads,
+                               plan.smem), _wg_maps(x, b, c), stream)
+    else:
+        cs_ws = torch.empty(plan.cs_floats, dtype=torch.float32, device=dev)
+        st_ws = torch.empty(plan.state_floats, dtype=torch.float32,
+                            device=dev)
+        strides = [t.stride(i) for t in (x, dt, b, c, y) for i in range(3)]
+        err = _kernel_fn()(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), None if init is None else init.data_ptr(),
+            y.data_ptr(), state.data_ptr(), cs_ws.data_ptr(),
+            st_ws.data_ptr(), counters.data_ptr(), bsz, s, h, g, p, n,
+            plan.chunk, plan.chunks, plan.q_tiles, *strides,
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan launch failed ({plan.route}): CUDA "
+                           f"error {err}")
     ssd_scan.launches += 1
     return y, state
 

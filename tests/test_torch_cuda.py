@@ -1032,6 +1032,174 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
                  chunk=2048)
 
 
+def _conv_case(seed, b, s, h, g, p, n):
+    """x, b and c as views of one bf16 conv row (the model's layout, read
+    in place), dt after softplus, a < 0, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    conv = torch.randn(b, s, h * p + 2 * g * n, generator=gen)
+    conv[..., h * p:] *= n ** -0.25
+    conv = conv.to(torch.bfloat16).cuda()
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bm = conv[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = conv[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen) - 1.0).cuda()
+    a = -torch.exp(torch.randn(h, generator=gen) * 0.5).cuda()
+    return x, dt, a, bm, cm
+
+
+def _k6_checked(args, init=None, out_dtype=None):
+    """One call of K6's wgmma route: one launch, a bit-for-bit repeat, a
+    CUDA graph replay equal to the eager call, and the plain version
+    within SSD_TOL (y in its dtype; f32 y against the plain version on
+    f32 x) and STATE_TOL."""
+    from repro_torch.kernels.ssd_scan import ssd_plan
+    x, dt, a, bm, cm = args
+    bsz, s, h, p = x.shape
+    assert ssd_plan(x.dtype, bsz, s, h, p, bm.shape[3],
+                    256).route == "wgmma"
+
+    def call():
+        return ssd_scan(x, dt, a, bm, cm, chunk=256, initial_state=init,
+                        out_dtype=out_dtype)
+
+    before = ssd_scan.launches
+    y, st = call()
+    assert ssd_scan.launches == before + 1
+    y2, st2 = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        yg, sg = call()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert torch.equal(y, yg) and torch.equal(st, sg)
+    f32_y = out_dtype == torch.float32
+    yr, sr = ssd_scan_ref(x.float() if f32_y else x, dt, a, bm, cm,
+                          chunk=256, initial_state=init)
+    assert y.dtype == (out_dtype or x.dtype)
+    torch.testing.assert_close(y, yr.to(y.dtype), **SSD_TOL[y.dtype])
+    torch.testing.assert_close(st, sr, **STATE_TOL)
+    return y, st
+
+
+# (B, S, H, G, P, N): the served calls (mamba2-370m's burst and one
+# prompt, zamba2-1.2b's prefill, ragged prefill and train step)
+K6_SERVED = [(8, 2048, 32, 1, 64, 128), (1, 2048, 32, 1, 64, 128),
+             (8, 1024, 64, 1, 64, 64), (8, 1000, 64, 1, 64, 64),
+             (4, 1024, 64, 1, 64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K6_SERVED, ids=str)
+def test_k6_wgmma_served_shapes(cuda, shape):
+    _k6_checked(_conv_case(sum(shape), *shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [32, 64])
+@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("out", [None, torch.float32])
+def test_k6_wgmma_every_head_and_state_dim(cuda, p, n, out):
+    _k6_checked(_conv_case(p + n, 2, 257, 4, 1, p, n), out_dtype=out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_k6_wgmma_groups(cuda, g):
+    """G 1, 4 (two heads a group) and G = H (ops.ssd's grouping)."""
+    _k6_checked(_conv_case(g, 2, 1000, 8, g, 64, 128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 16, 200, 255, 256, 257, 1000, 4096])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_k6_wgmma_lengths_and_initial_state(cuda, s, with_state):
+    """Below one tile, ragged, the chunk split's edges and 16 chunks,
+    with and without an initial state carried through the chain."""
+    args = _conv_case(s, 2, s, 4, 1, 64, 128)
+    init = (torch.randn(2, 4, 64, 128, generator=torch.Generator()
+                        .manual_seed(s)).cuda() if with_state else None)
+    _k6_checked(args, init=init)
+
+
+@pytest.mark.gpu
+def test_k6_wgmma_ops_ssd_layout(cuda):
+    """ops.ssd's layout (BH, S, P): transposed views, one head a group,
+    f32 y, against ref.ssd_scan_kernel_ref on f32 x."""
+    x, dt, a, b, c = _conv_case(9, 1, 512, 6, 6, 32, 128)
+    kx, kdt = x[0].transpose(0, 1), dt[0].transpose(0, 1)
+    kb, kc = b[0].transpose(0, 1), c[0].transpose(0, 1)
+    before = ssd_scan.launches
+    y, st = ops.ssd(kx, kdt, a, kb, kc, chunk=128)
+    y2, st2 = ops.ssd(kx, kdt, a, kb, kc, chunk=128)
+    assert ssd_scan.launches == before + 2
+    yr, sr = ssd_scan_kernel_ref(kx.float(), kdt, a, kb, kc, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert y.dtype == torch.float32 and y.shape == kx.shape
+    torch.testing.assert_close(y, yr, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(st, sr, **STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_k6_f32_takes_the_cuda_core_route(cuda, monkeypatch):
+    """f32 inputs never reach the wgmma entry."""
+    import importlib
+    k6 = importlib.import_module("repro_torch.kernels.ssd_scan")
+    assert k6.ssd_plan(torch.float32, 2, 300, 4, 64, 64, 256).route == \
+        "cuda_cores"
+
+    def refuse():
+        raise AssertionError("f32 reached the wgmma route")
+
+    monkeypatch.setattr(k6, "_wg_fn", refuse)
+    args = _ssd(5, 2, 300, 4, 1, 64, 64, torch.float32)
+    y, st = ssd_scan(*args, chunk=256)
+    yr, sr = ssd_scan_ref(*args, chunk=256)
+    torch.testing.assert_close(y, yr, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_k6_wgmma_refuses_what_tma_cannot_read(cuda):
+    """A view whose base is off 16 bytes, a conv row whose stride is not a
+    multiple of 16 bytes, and a bf16 chunk above 256 rows raise
+    ValueError; nothing falls back."""
+    x, dt, a, bm, cm = _conv_case(3, 2, 256, 4, 1, 64, 64)
+    before = ssd_scan.launches
+    flat = torch.zeros(2 * 256 * 384 + 8, dtype=torch.bfloat16,
+                       device="cuda")
+    off = flat[1:1 + 2 * 256 * 384].view(2, 256, 6, 64)[:, :, :4]
+    with pytest.raises(ValueError):
+        ssd_scan(off, dt, a, bm, cm, chunk=256)
+    odd = torch.zeros(2, 256, 388, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        ssd_scan(odd[..., :256].unflatten(-1, (4, 64)), dt, a, bm, cm,
+                 chunk=256)
+    with pytest.raises(ValueError):
+        ssd_scan(*_conv_case(5, 1, 600, 4, 1, 64, 64), chunk=512)
+    assert ssd_scan.launches == before
+
+
+@pytest.mark.gpu
+def test_k6_wgmma_autograd_forward_equals_no_grad(cuda):
+    """_SsdScan's forward launches the same kernel: bit for bit the
+    no-grad call."""
+    x, dt, a, bm, cm = _conv_case(4, 2, 512, 8, 1, 64, 64)
+    with torch.no_grad():
+        y0, s0 = ssd_scan(x, dt, a, bm, cm, chunk=256)
+    xg = x.detach().clone().requires_grad_()
+    y1, s1 = ssd_scan(xg, dt, a, bm, cm, chunk=256)
+    assert y1.grad_fn is not None
+    assert torch.equal(y0, y1.detach()) and torch.equal(s0, s1.detach())
+
+
 # ------------------------------------------------------ batched engine --
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["mamba2-370m", "paper-backbone"])

@@ -597,28 +597,41 @@ def test_decode_plan_shared_memory_and_ring_depth():
     (4096, 1000, 1000, 5, 16)])
 def test_ssd_plan_splits_the_sequence_into_chunks(seq, asked, chunk, chunks,
                                                   q_tiles):
-    """K6: the chunk is min(chunk, S), cut into 64-row query tiles.  The
-    workspaces: the cumulative decay of every row, and one (P, N) f32
-    state a chunk; one arrival counter a (batch x head), whose last
-    chunk-state block carries the state."""
-    from repro_torch.kernels.ssd_scan import ssd_plan
+    """K6: the chunk is min(chunk, S), cut into 64-row tiles.  bf16 runs
+    on the wgmma route: items of one head (32 a batch element at N 128),
+    no f32 workspace, one flag a (batch x head) after the ticket counter,
+    chunks of up to 256 rows (a longer one raises).  f32
+    keeps the CUDA-core route's workspaces: the cumulative decay of
+    every row, and one (P, N) f32 state a chunk."""
+    from repro_torch.kernels.ssd_scan import WG_MAX_CHUNK, ssd_plan
+    f32 = ssd_plan(torch.float32, 8, seq, 32, 64, 128, asked)
+    assert f32.route == "cuda_cores"
+    assert (f32.chunk, f32.chunks, f32.q_tiles) == (chunk, chunks, q_tiles)
+    assert f32.cs_floats == 256 * seq
+    assert f32.state_floats == 256 * chunks * 64 * 128
+    if chunk > WG_MAX_CHUNK:
+        with pytest.raises(ValueError):
+            ssd_plan(torch.bfloat16, 8, seq, 32, 64, 128, asked)
+        return
     plan = ssd_plan(torch.bfloat16, 8, seq, 32, 64, 128, asked)
-    assert plan.route == "tensor_cores"
+    assert plan.route == "wgmma"
     assert (plan.chunk, plan.chunks, plan.q_tiles) == (chunk, chunks,
                                                        q_tiles)
-    assert plan.cs_floats == 256 * seq
-    assert plan.state_floats == 256 * chunks * 64 * 128
-    assert plan.counters == 256
+    assert plan.items == 8 * chunks * 32
+    assert plan.cs_floats == 0 and plan.state_floats == 0
+    assert plan.flags == 256 and plan.counters == 257
 
 
 def test_ssd_plan_routes_and_limits():
-    """bf16 runs on the tensor cores, f32 on the CUDA cores; the burst's
-    chunk states are 67 MB of f32 workspace; chunks above 1024, empty
-    sequences and other dtypes raise."""
+    """bf16 runs on wgmma in one launch with no chunk-state workspace (the
+    burst's chain is its 8.4 MB final state), f32 on the CUDA cores;
+    chunks above 1024 (f32) or 256 (bf16), empty sequences and other
+    dtypes raise."""
     from repro_torch.kernels.ssd_scan import MAX_CHUNK, ssd_plan
     burst = ssd_plan(torch.bfloat16, 8, 2048, 32, 64, 128, 256)
-    assert (burst.chunks, burst.q_tiles, burst.counters) == (8, 4, 256)
-    assert 4 * burst.state_floats == 67108864
+    assert (burst.chunks, burst.q_tiles, burst.flags) == (8, 4, 256)
+    assert burst.state_floats == 0 and burst.items == 2048
+    assert burst.smem <= 232448
     f32 = ssd_plan(torch.float32, 2, 200, 8, 32, 32, 256)
     assert f32.route == "cuda_cores" and f32.state_floats == 16 * 1024
     assert ssd_plan(torch.float32, 1, 4096, 4, 64, 64,
@@ -626,7 +639,8 @@ def test_ssd_plan_routes_and_limits():
     for args in ((torch.float16, 1, 64, 4, 64, 64, 64),
                  (torch.float32, 1, 0, 4, 64, 64, 64),
                  (torch.float32, 1, 4096, 4, 64, 64, MAX_CHUNK + 1),
-                 (torch.float32, 1, 64, 4, 64, 64, 0)):
+                 (torch.float32, 1, 64, 4, 64, 64, 0),
+                 (torch.bfloat16, 1, 4096, 4, 64, 64, 512)):
         with pytest.raises(ValueError):
             ssd_plan(*args)
 
