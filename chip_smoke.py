@@ -20,7 +20,9 @@ Phases (any failure exits non-zero):
    cores) over its masks, dtypes, head dims 16..256 (96 among them, also
    at a ragged S of 1000), head groupings and lengths up to 2048, K3
    fused gated FFN
-   (bf16 small_m for a few rows at D <= 512, stream for M <= 24 above,
+   (bf16 small_m for a few rows at D <= 576 — one launch of clusters
+   whose F split is summed through distributed shared memory —, stream
+   for M <= 24 above,
    two_pass for the rest; f32) over both activations, dtypes, ragged and
    large M, ragged F and widths up to 7168 (stream at MP 8, 16 and 24, a
    D that is no multiple of 64; two_pass at M 25..300 over D 1544 and
@@ -55,7 +57,9 @@ Phases (any failure exits non-zero):
    prefill call (with K1's, K2's and K3's device time in each), and the
    graph-replayed paged int8 and mamba2 decode steps beside the same
    steps run eagerly on clones of the same state (host clock, device
-   time, idle share; the tokens must be equal).  Then the engine's other
+   time, idle share; the tokens must be equal), and paper-backbone's
+   graph step's host ms and device split into K3, K1 and the rest.  Then
+   the engine's other
    paths at full width: a wave of 16 requests of 100-250 tokens x 128 new
    tokens through a roomy pool and through a pool of 97 blocks
    (preemption: at least one freeze, as many thaws, budgets met, tables
@@ -1198,6 +1202,14 @@ def phase_ffn(torch):
             "chain_device_ms_m16384": big[6],
             "ms_m16384_gelu": gelu_ms, "device_ms_m16384_gelu": gelu_dev_ms,
             "routes": routes, "served": served,
+            "designs": {"small_m": "clusters of up to 16 blocks splitting "
+                                   "F, TMA ring, wgmma, F-split sum "
+                                   "through distributed shared memory",
+                        "stream": "two persistent wgmma launches, TMA "
+                                  "weight streaming",
+                        "two_pass": "two persistent wgmma launches, TMA "
+                                    "ring, TMA stores",
+                        "cuda_cores": "f32 on the CUDA cores"},
             "shape": "M 8 (a decode step; small-M route), D 256, F 1024, "
                      "bf16, silu; *_m16384: M 8 x 2048 (two_pass); "
                      "routes: the routes the sweep ran, by cases; served: "
@@ -1687,6 +1699,10 @@ def phase_serving(torch, name):
         cfg, params, slots=8, max_seq=512, block_size=16, opts=opts,
         decode_mode="paged", compile_cache=eng.compile_cache,
         device="cuda"), "paper-backbone paged int8 step", name)
+    step_split(torch, ServingEngine(
+        cfg, params, slots=8, max_seq=512, block_size=16, opts=opts,
+        decode_mode="paged", compile_cache=eng.compile_cache,
+        device="cuda"), "paper-backbone paged int8 graph step", name)
 
     # --- path 2: the long wave at max_seq 2048, then its repeat on a
     # second engine that shares the program cache.  (On one engine the
@@ -1837,6 +1853,43 @@ def graph_vs_eager(torch, eng, what, smi, steps=16):
         f"replayed step's tokens equal the eager step's")
     return graph_ms, eager_ms, g_busy, e_busy
 
+
+
+def step_split(torch, eng, what, smi, steps=16):
+    """The graph-replayed decode step of ``eng`` (a fresh engine, its 8
+    slots filled with greedy requests): host ms a step over ``steps``
+    replays, and the device time a step from one profile of
+    ``PROFILE_STEPS`` replays, split into K3 (``fused_ffn`` kernels), K1
+    (``paged_decode``) and the rest.  Returns the five figures."""
+    from torch.profiler import ProfilerActivity, profile
+    fill_slots(eng, 4 * steps + 16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ms(part):
+        return sum(e.self_device_time_total for e in kernels
+                   if part in e.key) / 1e3 / PROFILE_STEPS
+
+    busy, k3, k1 = (ms(""), ms(PROFILED_KERNELS["K3"]),
+                    ms(PROFILED_KERNELS["K1"]))
+    if min(busy, k3, k1) <= 0:
+        raise RuntimeError(f"{what}: the split found device {busy}, K3 {k3}, "
+                           f"K1 {k1} ms")
+    log(f"{what} on {smi}, 8 busy slots: {host_ms:.3f} ms/step on the host "
+        f"clock; device {busy:.4f} ms = K3 {k3:.4f} + K1 {k1:.4f} + the "
+        f"rest {busy - k3 - k1:.4f}")
+    return dict(host_ms=host_ms, device_ms=busy, k3_ms=k3, k1_ms=k1,
+                rest_ms=busy - k3 - k1)
 
 
 def _tight_prompts(seed, vocab, n=16, lo=100, hi=250):

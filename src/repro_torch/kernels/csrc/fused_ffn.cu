@@ -1,7 +1,7 @@
 // Fused gated FFN, y = (act(x @ Wg) * (x @ Wu)) @ Wd, for Hopper (sm_90a),
-// in four routes: three for bf16 (small_m for a few rows where x fits
-// beside the weight slices, stream for the other M <= 24, two_pass for
-// the rest) and the f32 CUDA-core kernel.  The wrapper's plan (ffn_plan in
+// in four routes: three for bf16 (small_m for a few rows at D up to 576,
+// or 1440 at fewer rows, stream for the other M <= 24, two_pass for the
+// rest) and the f32 CUDA-core kernel.  The wrapper's plan (ffn_plan in
 // kernels/fused_ffn.py) picks the route and sizes its launch.
 //
 // Replaces the Pallas TPU kernel `fused_ffn` in
@@ -27,23 +27,37 @@
 //   M 8192, D 2048, F 8192 (0.834 ms); 1.24 TFLOP at M 2048, D 6144,
 //   F 16384 (1.251 ms).
 //
-// bf16, small M ("small_m", fused_ffn_small_kernel: M <= 64 while x and
-// the slices fit in 200 KiB, so every M <= 64 at D <= 512): bound
-// by the weight bytes, so the grid splits F into 16-column slices and the
-// output into 64-column chunks: 256 blocks of 8 warps at F 1024, D 256.
-// Each block stages x (M rows), its Wg/Wu slices and its Wd rows whole
-// with cp.async, computes G and U for its slice on mma.sync (warps split
-// D; their f32 partials are added in a fixed order), H in f32, and its
-// f32 partial of the output chunk on the CUDA cores, written to the
-// workspace.  The last block of a chunk to arrive (__threadfence, then a
-// counter) adds the partials in split order, 16 splits' loads in flight
-// at a time, rounds once and resets the counter: one launch, no float
-// atomics.
+// bf16, small M ("small_m", fused_ffn_small_kernel: every M <= 64 at D
+// <= 576, and up to D 1440 at fewer rows: the domain of PR 16's kernel,
+// which held x and D x 16 weight slices in 200 KiB).  Bound by the
+// weight bytes, and at a decode step's few MB by latency: the weights of
+// paper-backbone's FFN (1.5 MB) stay in L2 across graph-replayed steps.
+// One launch of clusters of up to 16 blocks (cudaLaunchKernelEx with a
+// cluster dimension): the blocks of a cluster split F into units of 64
+// columns, each cluster owns a group of 64-column output tiles (a cluster
+// beside another recomputes H) and, at large D x F, one of a few ranges
+// of F.  A block is a producer warp, whose one thread issues every TMA
+// load (x once, then a unit's Wg/Wu tiles chunk by chunk and its Wd
+// tiles) into a ring of mbarrier slots, and a consumer warpgroup on wgmma
+// with the weight tile as the 64-row operand and x (then H as bf16 hi +
+// lo) on the N side: the first products start on the first chunk to
+// land.  Each block keeps its F slice's f32 share of the group's output
+// in shared memory; the shares are summed through distributed shared
+// memory (each block stores every owner's columns into the owner's
+// shared memory, one cluster barrier, each owner adds the ranks' shares
+// in order), rounded once.  At paper-backbone's decode step (M 8, D 256,
+// F 1024) four clusters of 16 blocks each take one 64-column output tile
+// and all of F, 64 F columns a block.  It replaced PR 16's kernel
+// (mma.sync after one cp.async wait, Wg/Wu read once per 64-column
+// output chunk by 256 blocks, an f32 workspace of 64 splits summed by the
+// last block of each chunk behind a __threadfence and a counter), which
+// reached 5 % of the byte bound (PERF.md).
 //
-// Why small_m does not carry to D 2048 or 6144: it holds x and D x 16
-// slices whole (282 KB at D 2048, above the 227 KB a block may have) and
-// reads Wg/Wu once per 64-column output chunk.
-//
+// Why small_m does not carry to D 2048 or 6144: a unit's Wg/Wu tiles over
+// all of D are 256 KB a block at D 1024, and the F ranges beyond one go
+// through a global workspace; above D 512 the stream route spreads the
+// weights over every SM in even runs.
+
 // bf16, D > 512, small M ("stream", fused_ffn_stream_gate_kernel and
 // fused_ffn_stream_down_kernel: M <= 24 where small_m does not fit).
 // Bound by the weight bytes, 3 D F 2: 881 MB at yi-34b (D 7168, F 20480:
@@ -358,168 +372,353 @@ __device__ __forceinline__ float activate_fast(float g, int act) {
   return activate(g, act);
 }
 
-namespace sm {
-constexpr int kFS = 16;                   // F columns a block
-constexpr int kWR = kFS + 8;              // Wg/Wu slice row, in bf16
-constexpr int kDC = 64;                   // output columns a block
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxM = 64;
-__host__ __device__ inline int m_pad(int m) {
-  return (m + 15) / 16 * 16;
+// the slot's release by one consumer warp, once its products are done
+__device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
 }
-__host__ __device__ inline int d_pad(int d) {
-  return (d + 15) / 16 * 16;
+
+// ----------------------------------- bf16 small M: one launch of clusters
+// The blocks of a cluster split its F range into units of 64 columns; a
+// cluster owns a column group of the output (tiles_g 64-column tiles) and
+// one of `fsplits` ranges of F.  A block is a consumer warpgroup (warps
+// 0-3) and a producer warp (warp 4) whose one thread issues every TMA
+// load: x once, then, a unit at a time, Wg's and Wu's 64 x 64 tiles of
+// each 64-row D chunk (one ring slot), then Wd's 64 x 64 tiles of the
+// unit's rows and the group's columns, two tiles a slot.  The consumers
+// form G^T and U^T of the unit on wgmma (the weight tile as the MN-major
+// 64-row A operand, x^T on the N side), H = act(G) U in f32 as bf16 hi +
+// lo rows in shared memory, then y^T += Wd^T [H_hi; H_lo]^T (N = 2 MP)
+// into the block's f32 share of the group's output in shared memory,
+// units added in order.  Then the cluster's blocks sum the shares through
+// distributed shared memory: block r owns a run of the group's columns;
+// every block stores its share of each run into the owner's shared memory
+// (mapa, st.shared::cluster), and after one cluster barrier each owner
+// adds what ranks 0, 1, ... sent in turn.  With one F range the sum is
+// rounded once and written: no workspace, counter or float atomic.  With
+// several (large D x F, where one cluster's 16 SMs would stream all of Wg
+// and Wu), each cluster's sums go to an f32 workspace and the last of the
+// ranges' blocks to arrive (a counter it resets) adds them in range order
+// and rounds once.  A call repeats bit for bit either way.
+namespace sm {
+constexpr int kUnitF = 64;        // F columns of a unit
+constexpr int kKC = 64;           // D rows of a gate chunk
+constexpr int kTileD = 64;        // output columns of a tile
+constexpr int kSlot = 16384;      // a ring slot: two 64 x 64 bf16 tiles
+constexpr int kMaxStages = 8;     // ring slots at most
+constexpr int kMaxCluster = 16;   // blocks a cluster at most
+constexpr int kThreads = 160;     // a consumer warpgroup + a producer warp
+// the most quads (4 output columns) of a group of tiles_g tiles that one
+// block of a cluster owns
+__host__ __device__ constexpr int owned_quads(int tiles_g, int cluster) {
+  return (tiles_g * kTileD / 4 + cluster - 1) / cluster;
+}
+// dynamic shared memory of a block, in the kernel's layout: 1024 to align
+// the swizzle atoms, the ring, H's 2 MP rows (hi, then lo) of 128 bytes,
+// x's nk blocks of MP rows x 128 bytes, the f32 share of the group's
+// output (MP rows of tiles_g * 64 + 4 floats: the 4 keep the rows' banks
+// apart), the shares received of the owned quads (cluster x MP rows of
+// owned_quads x 16 bytes), a full and an empty mbarrier a slot, x's and a
+// flag
+__host__ __device__ constexpr int smem_bytes(int mp, int nk, int tiles_g,
+                                             int stages, int cluster) {
+  return 1024 + stages * kSlot + 2 * mp * 128 + nk * mp * 128 +
+         mp * (tiles_g * kTileD + 4) * 4 +
+         cluster * mp * owned_quads(tiles_g, cluster) * 16 + 16 * stages +
+         16;
 }
 }  // namespace sm
 
 struct SmallArgs {
-  const bf16* x;
-  const bf16* wg;
-  const bf16* wu;
-  const bf16* wd;
-  bf16* out;
-  float* ws;            // nsplit x M x D partial sums
-  int* counters;        // one per output chunk, 0 between launches
-  int m, d, f, act, nsplit;
+  bf16* out;           // (M, D)
+  float* ws;           // fsplits > 1: fsplits x M x D f32 sums
+  int* counters;       // fsplits > 1: one a (group, rank), 0 between launches
+  int m, d, f, act;
+  int units;           // ceil(F / 64)
+  int nk;              // ceil(D / 64): gate chunks a unit, x's blocks
+  int tiles_g;         // output tiles of a column group
+  int groups;          // column groups
+  int fsplits;         // ranges of F, a cluster each (for each group)
+  int stages;          // ring slots
 };
 
-__global__ void __launch_bounds__(sm::kThreads)
-    fused_ffn_small_kernel(SmallArgs a) {
-  constexpr int kFS = sm::kFS, kWR = sm::kWR, kDC = sm::kDC;
-  constexpr int kThreads = sm::kThreads, kWarps = sm::kWarps;
-  constexpr int kMaxM = sm::kMaxM;
+template <int MP>
+__global__ void __launch_bounds__(sm::kThreads, 1)
+    fused_ffn_small_kernel(const __grid_constant__ CUtensorMap tm_x,
+                           const __grid_constant__ CUtensorMap tm_wg,
+                           const __grid_constant__ CUtensorMap tm_wu,
+                           const __grid_constant__ CUtensorMap tm_wd,
+                           SmallArgs a) {
+  constexpr int kV = MP / 2;                  // G's (U's) values a thread
+  constexpr int kHalf = sm::kSlot / 2;        // one 64 x 64 bf16 tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int M = a.m, D = a.d, F = a.f;
-  // the layout that the wrapper's small_smem_bytes sizes
-  const int mp = sm::m_pad(M), dp = sm::d_pad(D), xs = dp + 8;
-  bf16* x_s = reinterpret_cast<bf16*>(smem_raw);    // mp x xs
-  bf16* wg_s = x_s + mp * xs;                        // dp x kWR
-  bf16* wu_s = wg_s + dp * kWR;                      // dp x kWR
-  bf16* wd_s = wu_s + dp * kWR;                      // kFS x kDC
-  float* red_s = reinterpret_cast<float*>(wd_s + kFS * kDC);
-  float* h_s = red_s + kWarps * mp * kFS * 2;        // mp x kFS
-
-  const int split = blockIdx.x, f0 = split * kFS;
-  const int d0 = blockIdx.y * kDC;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;
-
-  for (int i = tid; i < mp * (dp / 8); i += kThreads) {
-    const int r = i / (dp / 8), col = (i % (dp / 8)) * 8;
-    const bool ok = r < M && col < D;
-    cp_async16(x_s + r * xs + col, a.x + (ok ? (long long)r * D + col : 0),
-               ok);
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int S = a.stages, nk = a.nk;
+  const int cs = (int)cluster_size(), rank = (int)cluster_rank();
+  const int pstride = a.tiles_g * sm::kTileD + 4;
+  const int rstride = 4 * sm::owned_quads(a.tiles_g, cs);   // floats a row
+  unsigned char* h_s = smem + S * sm::kSlot;
+  unsigned char* x_s = h_s + 2 * MP * 128;
+  float* part = reinterpret_cast<float*>(x_s + nk * MP * 128);
+  // the shares received of the owned quads: MP rows a rank, in rank order
+  float* recv = part + MP * pstride;
+  uint64_t* full = reinterpret_cast<uint64_t*>(recv + cs * MP * rstride);
+  uint64_t* empty = full + S;
+  uint64_t* x_full = empty + S;
+  volatile int* last = reinterpret_cast<volatile int*>(x_full + 1);
+  const int cluster = (int)blockIdx.x / cs;
+  const int group = cluster % a.groups, split = cluster / a.groups;
+  // the cluster's F range, then this block's units of it
+  const int c0 = split * a.units / a.fsplits;
+  const int c1 = (split + 1) * a.units / a.fsplits;
+  const int u0 = c0 + rank * (c1 - c0) / cs;
+  const int u1 = c0 + (rank + 1) * (c1 - c0) / cs;
+  const int tiles = (a.d + sm::kTileD - 1) / sm::kTileD;
+  const int t0 = group * a.tiles_g;
+  const int t1 = min(t0 + a.tiles_g, tiles);
+  const int pairs = (t1 - t0 + 1) / 2;
+  const int tid = threadIdx.x;
+  if (tid == 128) {
+    tma_prefetch(&tm_x);
+    tma_prefetch(&tm_wg);
+    tma_prefetch(&tm_wu);
+    tma_prefetch(&tm_wd);
   }
-  for (int i = tid; i < dp * (kFS / 8); i += kThreads) {
-    const int k = i / (kFS / 8), c = (i % (kFS / 8)) * 8;
-    const bool ok = k < D && f0 + c < F;
-    const long long off = ok ? (long long)k * F + f0 + c : 0;
-    cp_async16(wg_s + k * kWR + c, a.wg + off, ok);
-    cp_async16(wu_s + k * kWR + c, a.wu + off, ok);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);             // one arrival a consumer warp
+    }
+    mbar_init(x_full, 1);
+    fence_mbar_init();
   }
-  for (int i = tid; i < kFS * (kDC / 8); i += kThreads) {
-    const int r = i / (kDC / 8), c = (i % (kDC / 8)) * 8;
-    const bool ok = f0 + r < F && d0 + c < D;
-    cp_async16(wd_s + r * kDC + c,
-               a.wd + (ok ? (long long)(f0 + r) * D + d0 + c : 0), ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
+  // the first half of a cluster barrier, whose wait (before the first
+  // store into another block) ensures every block of the cluster runs
+  cluster_arrive_relaxed();
 
-  // ---- G, U for the slice: warps split D, partials added in warp order
-  float gacc[kMaxM / 16][2][4], uacc[kMaxM / 16][2][4];
+  if (tid >= 128) {
+    // ---- producer: one thread issues every load.  A fresh barrier's
+    // previous phase counts as complete, so each first wait passes.
+    if (tid == 128) {
+      mbar_expect_tx(x_full, nk * MP * 128);
+      for (int c = 0; c < nk; ++c)
+        tma_load_2d(x_s + c * MP * 128, &tm_x, x_full, c * sm::kKC, 0);
+      int i = 0;
+      auto take = [&](uint32_t bytes) {
+        const int s = i % S;
+        mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        mbar_expect_tx(&full[s], bytes);
+        ++i;
+        return s;
+      };
+      for (int u = u0; u < u1; ++u) {
+        for (int c = 0; c < nk; ++c) {
+          const int s = take(sm::kSlot);
+          unsigned char* sp = smem + s * sm::kSlot;
+          tma_load_2d(sp, &tm_wg, &full[s], u * sm::kUnitF, c * sm::kKC);
+          tma_load_2d(sp + kHalf, &tm_wu, &full[s], u * sm::kUnitF,
+                      c * sm::kKC);
+        }
+        // a slot's second tile is loaded only where the group has one
+        for (int p = 0; p < pairs; ++p) {
+          const int ta = t0 + 2 * p;
+          const bool two = ta + 1 < t1;
+          const int s = take(two ? sm::kSlot : kHalf);
+          unsigned char* sp = smem + s * sm::kSlot;
+          tma_load_2d(sp, &tm_wd, &full[s], ta * sm::kTileD,
+                      u * sm::kUnitF);
+          if (two)
+            tma_load_2d(sp + kHalf, &tm_wd, &full[s], (ta + 1) * sm::kTileD,
+                        u * sm::kUnitF);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // ---- consumers
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    mbar_wait(x_full, 0);
+    int i = 0;
+    for (int u = u0; u < u1; ++u) {
+      // G^T and U^T (64 x MP each) of unit u in acc[0, kV), acc[kV, 2 kV).
+      // A: the chunk's 64 D rows of the unit's 64 F columns, MN-major; a
+      // k-step is 16 rows of 128 bytes.  B: x's block c, K-major; a
+      // k-step is 32 bytes into its rows.
+      float acc[2 * kV];
 #pragma unroll
-  for (int i = 0; i < kMaxM / 16; ++i)
+      for (int j = 0; j < 2 * kV; ++j) acc[j] = 0.f;
+      for (int c = 0; c < nk; ++c, ++i) {
+        const int s = i % S;
+        mbar_wait(&full[s], (i / S) & 1);
+        const unsigned char* sp = smem + s * sm::kSlot;
+        const uint64_t dg = wgmma_desc(sp, 16, 1024);
+        const uint64_t du = wgmma_desc(sp + kHalf, 16, 1024);
+        const uint64_t dx = wgmma_desc(x_s + c * MP * 128, 16, 1024);
+        fence_regs(acc, 2 * kV);
+        wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+        for (int kk = 0; kk < sm::kKC / 16; ++kk) {
+          wgmma_mn<MP>(acc, dg + ((kk * 16 * 128) >> 4),
+                       dx + ((kk * 32) >> 4), 1);
+          wgmma_mn<MP>(acc + kV, du + ((kk * 16 * 128) >> 4),
+                       dx + ((kk * 32) >> 4), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc, 2 * kV);
+        release_slot(&empty[s], lane);
+      }
+      // H = act(G) U of the unit: A row 16 warp + g (+ 8) is its F column,
+      // n-block j holds x rows 8 j + 2 t and + 1.  Its bf16 hi part goes
+      // to row n of h_s, its lo part to row MP + n, in the 128-byte
+      // swizzle wgmma's K-major B reads; H stays within ~2^-17 of f32
+      named_bar_sync(1, 128);      // the last unit's products are done
 #pragma unroll
-      for (int e = 0; e < 4; ++e) gacc[i][n][e] = uacc[i][n][e] = 0.f;
-  for (int kk = warp; kk < dp / 16; kk += kWarps) {
-    uint32_t bg[4], bu[4];          // b0, b1 of n-blocks 0 and 1
-    const int off = (16 * kk + (mi & 1) * 8 + mr) * kWR + (mi >> 1) * 8;
-    ldmatrix_x4_trans(bg, wg_s + off);
-    ldmatrix_x4_trans(bu, wu_s + off);
+      for (int j = 0; j < MP / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < kMaxM / 16; ++i) {
-      if (16 * i < mp) {
-        uint32_t af[4];
-        ldmatrix_x4(af, x_s + (16 * i + (mi & 1) * 8 + mr) * xs + 16 * kk +
-                            (mi >> 1) * 8);
-        mma_bf16(gacc[i][0], af, bg[0], bg[1]);
-        mma_bf16(gacc[i][1], af, bg[2], bg[3]);
-        mma_bf16(uacc[i][0], af, bu[0], bu[1]);
-        mma_bf16(uacc[i][1], af, bu[2], bu[3]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = 16 * warp + g + 8 * (e >> 1);
+          const int n = 8 * j + 2 * t + (e & 1);
+          const float hv = activate_fast(acc[4 * j + e], a.act) *
+                           acc[kV + 4 * j + e];
+          const bf16 hi = __float2bfloat16(hv);
+          const int off = swz(n, col >> 3) + 2 * (col & 7);
+          *reinterpret_cast<bf16*>(h_s + off) = hi;
+          *reinterpret_cast<bf16*>(h_s + MP * 128 + off) =
+              __float2bfloat16(hv - __bfloat162float(hi));
+        }
+      fence_proxy_async();                  // visible to wgmma's reads
+      named_bar_sync(1, 128);
+      // the unit's share of the group's tiles, two a slot: y^T (64 output
+      // columns x 2 MP) += Wd^T (A: the slot's 64 x 64 tile, MN-major)
+      // [H_hi; H_lo]^T (B: h_s, K-major).  A slot holding one tile has
+      // stale bytes in its second half: that product is never stored.
+      const uint64_t dh = wgmma_desc(h_s, 16, 1024);
+      for (int p = 0; p < pairs; ++p, ++i) {
+        const int s = i % S;
+        float y[2 * MP];
+#pragma unroll
+        for (int j = 0; j < 2 * MP; ++j) y[j] = 0.f;
+        mbar_wait(&full[s], (i / S) & 1);
+        const unsigned char* sp = smem + s * sm::kSlot;
+        const uint64_t d0 = wgmma_desc(sp, 16, 1024);
+        const uint64_t d1 = wgmma_desc(sp + kHalf, 16, 1024);
+        fence_regs(y, 2 * MP);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < sm::kUnitF / 16; ++kk) {
+          const uint64_t bk = dh + ((kk * 32) >> 4);
+          wgmma_mn<2 * MP>(y, d0 + ((kk * 16 * 128) >> 4), bk, 1);
+          wgmma_mn<2 * MP>(y + MP, d1 + ((kk * 16 * 128) >> 4), bk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(y, 2 * MP);
+        release_slot(&empty[s], lane);
+        // y^T row 16 warp + g (+ 8) of tile 2 p + h is the group's column
+        // (2 p + h) 64 + that row; x rows 8 j + 2 t (+ 1): hi + lo
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 1 && t0 + 2 * p + 1 >= t1) break;
+#pragma unroll
+          for (int j = 0; j < MP / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = (2 * p + h) * sm::kTileD + 16 * warp + g +
+                              8 * (e >> 1);
+              const int n = 8 * j + 2 * t + (e & 1);
+              const float v = y[h * MP + 4 * j + e] +
+                              y[h * MP + 4 * (j + MP / 8) + e];
+              float* dst = part + n * pstride + col;
+              *dst = u == u0 ? v : *dst + v;
+            }
+        }
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < kMaxM / 16; ++i) {
-    if (16 * i < mp) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = 16 * i + g + (e < 2 ? 0 : 8);
-          const int col = 8 * n + 2 * t + (e & 1);
-          float* r = red_s + ((warp * mp + row) * kFS + col) * 2;
-          r[0] = gacc[i][n][e];
-          r[1] = uacc[i][n][e];
-        }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < mp * kFS; i += kThreads) {
-    float gs = 0.f, us = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      gs += red_s[(w * mp * kFS + i) * 2];
-      us += red_s[(w * mp * kFS + i) * 2 + 1];
-    }
-    h_s[i] = activate_fast(gs, a.act) * us;
-  }
-  __syncthreads();
 
-  // ---- this slice's f32 share of the output chunk, to the workspace
-  for (int i = tid; i < M * kDC; i += kThreads) {
-    const int row = i / kDC, c = i % kDC;
-    if (d0 + c >= D) continue;
-    float acc = 0.f;
-#pragma unroll
-    for (int ff = 0; ff < kFS; ++ff)
-      acc = fmaf(h_s[row * kFS + ff], __bfloat162float(wd_s[ff * kDC + c]),
-                 acc);
-    a.ws[((long long)split * M + row) * D + d0 + c] = acc;
-  }
-  __threadfence();
-  __syncthreads();
-  __shared__ int last;
-  if (tid == 0) last = atomicAdd(a.counters + blockIdx.y, 1) == a.nsplit - 1;
-  __syncthreads();
-  if (!last) return;
-  // ---- the last block of this chunk adds the splits in order, with 16
-  // splits' loads in flight at a time
-  __threadfence();
-  const long long step = (long long)M * D;
-  for (int i = tid; i < M * kDC; i += kThreads) {
-    const int row = i / kDC, c = i % kDC;
-    if (d0 + c >= D) continue;
-    const float* p = a.ws + (long long)row * D + d0 + c;
-    float acc = 0.f;
-    int sp = 0;
-    for (; sp + 16 <= a.nsplit; sp += 16) {
-      float v[16];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) v[r] = __ldcg(p + (sp + r) * step);
-#pragma unroll
-      for (int r = 0; r < 16; ++r) acc += v[r];
+  // ---- the cluster's sum.  Block r owns quads [r quads / cs, (r + 1)
+  // quads / cs) of the group's columns within D (quads of 4 columns).
+  // Every block stores its share of each owner's quads into the owner's
+  // receive rows for its rank (remote stores, once every block of the
+  // cluster runs); after the barrier each owner adds what it received
+  // from ranks 0, 1, ... in turn.  Nothing reads another block's shared
+  // memory after the barrier, so no block waits for another to leave.
+  const int quads = (min(t1 * sm::kTileD, a.d) - t0 * sm::kTileD) / 4;
+  const int q_mine = rank * quads / cs;
+  const int nq_mine = (rank + 1) * quads / cs - q_mine;
+  cluster_wait();
+  if (tid < 128) {
+    named_bar_sync(1, 128);              // every unit's share is in `part`
+    for (int it = tid; it < a.m * quads; it += 128) {
+      const int n = it / quads, q = it % quads;
+      // the owner: the largest r whose run begins at or before quad q
+      const int r = ((q + 1) * cs - 1) / quads;
+      const float* dst =
+          recv + (rank * MP + n) * rstride + 4 * (q - r * quads / cs);
+      st_cluster_f4(cluster_map(smem_addr(dst), r),
+                    *reinterpret_cast<const float4*>(part + n * pstride +
+                                                     4 * q));
     }
-    for (; sp < a.nsplit; ++sp) acc += __ldcg(p + sp * step);
-    a.out[(long long)row * D + d0 + c] = __float2bfloat16(acc);
   }
-  if (tid == 0) a.counters[blockIdx.y] = 0;          // ready for the next
+  cluster_arrive();
+  cluster_wait();
+  const bool whole = a.fsplits == 1;
+  for (int it = tid; it < a.m * nq_mine; it += sm::kThreads) {
+    const int n = it / nq_mine, q = it % nq_mine;
+    const int col = t0 * sm::kTileD + 4 * (q_mine + q);
+    const float4* src =
+        reinterpret_cast<const float4*>(recv + n * rstride + 4 * q);
+    float4 v[sm::kMaxCluster];            // every load issued, then added
+#pragma unroll
+    for (int r = 0; r < sm::kMaxCluster; ++r)
+      if (r < cs) v[r] = src[r * MP * rstride / 4];
+    float4 sum = v[0];
+#pragma unroll
+    for (int r = 1; r < sm::kMaxCluster; ++r)
+      if (r < cs) {
+        sum.x += v[r].x;
+        sum.y += v[r].y;
+        sum.z += v[r].z;
+        sum.w += v[r].w;
+      }
+    if (whole)
+      *reinterpret_cast<uint2*>(a.out + (long long)n * a.d + col) =
+          make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+    else
+      *reinterpret_cast<float4*>(
+          a.ws + ((long long)split * a.m + n) * a.d + col) = sum;
+  }
+  if (whole) return;
+  // the last of the F ranges' blocks of this (group, rank) to arrive adds
+  // the ranges' sums in range order and rounds once
+  __threadfence();
+  __syncthreads();
+  int* counter = a.counters + group * cs + rank;
+  if (tid == 0) *last = atomicAdd(counter, 1) == a.fsplits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int it = tid; it < a.m * nq_mine; it += sm::kThreads) {
+    const int n = it / nq_mine;
+    const int col = t0 * sm::kTileD + 4 * (q_mine + it % nq_mine);
+    const float* src = a.ws + (long long)n * a.d + col;
+    float4 sum = __ldcg(reinterpret_cast<const float4*>(src));
+    for (int c = 1; c < a.fsplits; ++c) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          src + (long long)c * a.m * a.d));
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    *reinterpret_cast<uint2*>(a.out + (long long)n * a.d + col) =
+        make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+  }
+  if (tid == 0) *counter = 0;                // ready for the next launch
 }
 
 // ------------------------- bf16 small M at D > 512: TMA weight streaming
@@ -638,12 +837,6 @@ __device__ __forceinline__ bool stream_fixup(float* v, float* ws,
   }
   if (tid == 0) *counter = 0;                // ready for the next launch
   return true;
-}
-
-// the slot's release by one consumer warp, once its products are done
-__device__ __forceinline__ void release_slot(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(empty);
 }
 
 // Pass 1: H = act(x Wg) * (x Wu) in units of 64 F columns over all of D.
@@ -1208,18 +1401,74 @@ bool encode_map_2d(CUtensorMap* map, const void* base, const long long* p) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the dynamic shared memory attribute of a kernel, set once a device
+// a kernel attribute set once a device
 template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, unsigned long long* set) {
+cudaError_t func_attr_once(K kernel, cudaFuncAttribute attr, int value,
+                           unsigned long long* set) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (*set & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  err = cudaFuncSetAttribute(kernel, attr, value);
   if (err == cudaSuccess) *set |= bit;
   return err;
+}
+
+// the dynamic shared memory attribute of a kernel, set once a device
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, unsigned long long* set) {
+  return func_attr_once(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                        bytes, set);
+}
+
+// plan: rows (MP), unit columns, gate chunk, tile columns, slot bytes,
+// cluster size, column groups, tiles a group, ring slots, shared memory,
+// F ranges (small_plan); maps: x, Wg, Wu, Wd, 6 numbers each.  One launch
+// of groups x F ranges clusters of `cluster` blocks (cudaLaunchKernelEx
+// with a cluster dimension; a size above 8 is allowed by the kernel's
+// non-portable attribute), which a CUDA graph captures like any launch.
+template <int MP>
+cudaError_t launch_small(const void* x, const void* wg, const void* wu,
+                         const void* wd, SmallArgs a, const int* plan,
+                         const long long* maps, cudaStream_t stream) {
+  const int smem =
+      sm::smem_bytes(MP, a.nk, a.tiles_g, a.stages, plan[5]);
+  if (plan[9] != smem || smem > 232448 ||
+      maps[3] != 64 || maps[4] != MP ||                       // x
+      maps[9] != sm::kUnitF || maps[10] != sm::kKC ||         // Wg
+      maps[15] != sm::kUnitF || maps[16] != sm::kKC ||        // Wu
+      maps[21] != sm::kTileD || maps[22] != sm::kUnitF)       // Wd
+    return cudaErrorInvalidValue;
+  CUtensorMap tx, tg, tu, td;
+  if (!encode_map_2d(&tx, x, maps) || !encode_map_2d(&tg, wg, maps + 6) ||
+      !encode_map_2d(&tu, wu, maps + 12) ||
+      !encode_map_2d(&td, wd, maps + 18))
+    return cudaErrorInvalidValue;
+  auto kernel = fused_ffn_small_kernel<MP>;
+  static unsigned long long set_smem = 0, set_cluster = 0;
+  cudaError_t err = allow_smem(kernel, 232448, &set_smem);
+  if (err == cudaSuccess)
+    err = func_attr_once(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1,
+                         &set_cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan[5] * plan[6] * plan[10], 1, 1);
+  cfg.blockDim = dim3(sm::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan[5];
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&tx, &tg, &tu, &td, &a};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
+                            args);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // plan: rows (MP), unit columns, pass-1 chunk, tile columns, pass-2
@@ -1298,24 +1547,42 @@ extern "C" int fused_ffn(const void* x, const void* wg, const void* wu,
 
 // The bf16 entries launch the grid of the wrapper's plan (ffn_plan in
 // kernels/fused_ffn.py) as given.
+// ws: F ranges x M x D f32 sums and counters: one int a (column group,
+// rank), 0 before and after each launch, where the plan has more than one
+// F range (else unused, may be null)
 extern "C" int fused_ffn_bf16_small(const void* x, const void* wg,
                                     const void* wu, const void* wd,
                                     void* out, void* ws, void* counters,
-                                    int m, int d, int f, int act, int nsplit,
-                                    int nchunks, int smem_bytes,
+                                    int m, int d, int f, int act,
+                                    const int* plan, const long long* maps,
                                     void* stream) {
   if (m == 0 || d == 0) return cudaSuccess;
-  SmallArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
-              static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
-              static_cast<bf16*>(out), static_cast<float*>(ws),
-              static_cast<int*>(counters), m, d, f, act, nsplit};
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ffn_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return err;
-  fused_ffn_small_kernel<<<dim3(nsplit, nchunks), sm::kThreads, smem_bytes,
-                           static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  const int units = (f + sm::kUnitF - 1) / sm::kUnitF;
+  const int tiles = (d + sm::kTileD - 1) / sm::kTileD;
+  const int cluster = plan[5], groups = plan[6], tiles_g = plan[7];
+  const int fsplits = plan[10];
+  // every block at least one unit, every group at least one tile
+  if (plan[1] != sm::kUnitF || plan[2] != sm::kKC || plan[3] != sm::kTileD ||
+      plan[4] != sm::kSlot || m > plan[0] || cluster < 1 ||
+      cluster > sm::kMaxCluster || fsplits < 1 ||
+      units / fsplits < cluster || tiles_g < 1 ||
+      groups != (tiles + tiles_g - 1) / tiles_g || plan[8] < 1 ||
+      plan[8] > sm::kMaxStages || (fsplits > 1 && (!ws || !counters)))
+    return cudaErrorInvalidValue;
+  SmallArgs a{static_cast<bf16*>(out), static_cast<float*>(ws),
+              static_cast<int*>(counters), m, d, f, act, units,
+              (d + sm::kKC - 1) / sm::kKC, tiles_g, groups, fsplits,
+              plan[8]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (plan[0]) {
+    case 8: return launch_small<8>(x, wg, wu, wd, a, plan, maps, s);
+    case 16: return launch_small<16>(x, wg, wu, wd, a, plan, maps, s);
+    case 24: return launch_small<24>(x, wg, wu, wd, a, plan, maps, s);
+    case 32: return launch_small<32>(x, wg, wu, wd, a, plan, maps, s);
+    case 48: return launch_small<48>(x, wg, wu, wd, a, plan, maps, s);
+    case 64: return launch_small<64>(x, wg, wu, wd, a, plan, maps, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // h: the (2 MP, F) bf16 H workspace between the passes; ws: two 64 x MP

@@ -9,10 +9,17 @@ workspace); their plain version is
 :func:`ffn_plan` picks the route from the dtype and the shapes alone.
 bf16 runs on the tensor cores:
 
-- a decode step's few rows (M <= 64) take ``"small_m"`` where x and its
-  D x 16 weight slices fit in shared memory (every M <= 64 at D <= 512,
-  M <= 32 at D 1024): one launch on ``mma.sync`` that splits F and the
-  output columns;
+- a decode step's few rows take ``"small_m"`` (every M <= 64 at D <=
+  576, M <= 32 up to D 1040, M <= 16 up to D 1440: :func:`small_m_fits`):
+  one launch of thread-block clusters of up to 16 blocks
+  (:func:`small_plan`).  A cluster's blocks split F into 64-column units,
+  each streaming its Wg/Wu/Wd tiles by TMA through an mbarrier ring (a
+  producer warp) into ``wgmma`` products (a consumer warpgroup, the
+  weight tile as the 64-row operand, x and then H as bf16 hi + lo on the
+  N side); each cluster owns a group of output columns, and its blocks'
+  f32 shares are summed through distributed shared memory in rank order.
+  At large D x F a few clusters split F as well, their sums added in
+  order by the last to arrive through an f32 workspace;
 - otherwise M <= 24 (at D > 512) takes ``"stream"``: two persistent
   launches on ``wgmma`` (at most one block an SM), each block a producer
   warp streaming the weights by TMA through a ring and a consumer
@@ -71,11 +78,24 @@ _ACT_CODES = {"silu": 0, "gelu": 1}
 BLOCK_M, BLOCK_D, BLOCK_F = 64, 256, 64
 # blocks wanted in flight: two per SM of an H100 (132 SMs)
 TARGET_BLOCKS = 264
-# the bf16 small-M kernel (namespace sm): F columns and output columns a
-# block, its warps, the most rows it holds, and the shared memory it may
-# ask for
-SMALL_F, SMALL_D, SMALL_WARPS = 16, 64, 8
-SMALL_MAX_M, SMALL_SMEM = 64, 200 * 1024
+# the most dynamic shared memory a block may have on the H100
+MAX_SMEM = 232448
+# the bf16 small-M kernel (namespace sm): F columns of a unit, D rows of
+# a gate chunk, output columns of a tile, bytes of a ring slot, ring slots
+# and blocks a cluster at most; the row counts it is built for (M padded
+# up to one of them); the most rows the route takes, and its largest D at
+# M padded to 16 (PR 16's kernel's reach: x and D x 16 weight slices in
+# 200 KiB)
+SMALL_UNIT_F, SMALL_KC, SMALL_TILE_D, SMALL_SLOT = 64, 64, 64, 16384
+SMALL_MAX_STAGES, SMALL_MAX_CLUSTER = 8, 16
+SMALL_ROWS = (8, 16, 24, 32, 48, 64)
+SMALL_MAX_M = 64
+SMALL_MAX_D = {16: 1440, 32: 1040, 48: 768, 64: 576}
+# the clusters of a small_m launch at most (6 x 16 blocks ran at once on
+# the H100; 8 did not, PERF.md), and what an F range beyond the first
+# costs its blocks in weight bytes' worth of time
+SMALL_MAX_CLUSTERS = 6
+SMALL_SPLIT_BYTES = 48 * 1024
 # the bf16 two-pass kernels (namespace tp): rows, columns and K of a
 # tile, ring slots, the row tiles of a raster group, dynamic shared memory
 # a block (1024 to align the swizzle atoms, the ring, four 64 x 64 bf16
@@ -92,8 +112,27 @@ PASS_MAX_PARTS, PASS_PART_MIN_CHUNKS = 8, 8
 # SMs (at most one block each)
 STREAM_UNIT_F, STREAM_KC, STREAM_TILE_D, STREAM_FC = 64, 64, 64, 128
 STREAM_STAGES, STREAM_MAX_M, H100_SMS = 4, 24, 132
-# the most dynamic shared memory a block may have on the H100
-MAX_SMEM = 232448
+
+
+@dataclass(frozen=True)
+class SmallPlan:
+    """The one launch of the ``small_m`` route: ``groups`` clusters of
+    ``cluster`` blocks for each of ``fsplits`` F ranges.  ``rows``: M
+    padded to one of ``SMALL_ROWS``, wgmma's N for G and U (twice it for H
+    Wd: H's hi and lo rows).  Cluster k takes column group ``k % groups``
+    (output tiles ``[g tiles_g, (g + 1) tiles_g)`` of ``SMALL_TILE_D``
+    columns) and F range ``k // groups`` (units ``[s units / fsplits, (s
+    + 1) units / fsplits)`` of ``SMALL_UNIT_F`` columns), of which its
+    block r runs the r-th of ``cluster`` even runs, over D in ``nk``
+    chunks of ``SMALL_KC`` rows.  ``stages``: ring slots."""
+    rows: int
+    cluster: int
+    groups: int
+    tiles_g: int
+    units: int
+    nk: int
+    stages: int
+    fsplits: int
 
 
 @dataclass(frozen=True)
@@ -142,8 +181,9 @@ class FfnPlan:
     int32 entries, zero between launches)."""
     route: str   # "cuda_cores" | "small_m" | "stream" | "two_pass"
     grid: Tuple[int, int, int]   # two_pass, stream: (pass-1 blocks,
-    #                              pass-2 blocks, 1)
-    nsplit: int = 1          # F splits summed through the workspace
+    #                              pass-2 blocks, 1); small_m: (blocks, 1,
+    #                              1) in clusters of small.cluster
+    nsplit: int = 1          # cuda_cores: F splits summed through ws
     per: int = 0             # cuda_cores: F tiles a split
     ws_floats: int = 0
     counters: int = 0
@@ -151,6 +191,7 @@ class FfnPlan:
     h_elems: int = 0         # two_pass, stream: the bf16 H workspace
     stream: Optional[StreamPlan] = None
     two_pass: Optional[TwoPassPlan] = None
+    small: Optional[SmallPlan] = None
 
 
 def split_plan(m: int, d: int, f: int):
@@ -165,14 +206,92 @@ def split_plan(m: int, d: int, f: int):
     return -(-f_tiles // per), per
 
 
-def small_smem_bytes(m: int, d: int) -> int:
-    """Shared memory of the small-M kernel, in the order the kernel lays
-    it out: x (M padded to 16, rows of D padded to 16 plus 8), the
-    Wg/Wu slices (rows of 16 F columns plus 8) and the Wd rows in bf16,
-    then the warps' f32 partials of G and U, and H."""
-    mp, dp = -(-m // 16) * 16, -(-d // 16) * 16
-    return (2 * (mp * (dp + 8) + 2 * dp * (SMALL_F + 8) + SMALL_F * SMALL_D)
-            + 4 * (SMALL_WARPS * mp * SMALL_F * 2 + mp * SMALL_F))
+def small_m_fits(m: int, d: int) -> bool:
+    """Whether ``(M, D)`` is in the ``small_m`` route's domain: M <= 64
+    and D at most ``SMALL_MAX_D`` of M padded to 16."""
+    return 0 < m <= SMALL_MAX_M and d <= SMALL_MAX_D[-(-m // 16) * 16]
+
+
+def small_owned_quads(tiles_g: int, cluster: int) -> int:
+    """The most quads (4 output columns) of a column group that one block
+    of a cluster owns, sums and writes (``sm::owned_quads``)."""
+    return -(-(tiles_g * SMALL_TILE_D // 4) // cluster)
+
+
+def small_smem(rows: int, nk: int, tiles_g: int, stages: int,
+               cluster: int) -> int:
+    """Dynamic shared memory of a ``small_m`` block, in the kernel's
+    layout (``sm::smem_bytes``): 1024 bytes to align the swizzle atoms,
+    the ring's slots, H's 2 MP rows of 128 bytes (hi, then lo), x's
+    ``nk`` blocks of MP rows x 128 bytes, the block's f32 share of the
+    group's output (MP rows of ``tiles_g * 64 + 4`` floats), the shares it
+    receives of the quads it owns (``cluster`` x MP rows of owned quads x
+    16 bytes), 16 bytes of barriers a slot and 16 for x's and a flag."""
+    return (1024 + stages * SMALL_SLOT + 2 * rows * 128 + nk * rows * 128
+            + rows * (tiles_g * SMALL_TILE_D + 4) * 4
+            + cluster * rows * small_owned_quads(tiles_g, cluster) * 16
+            + 16 * stages + 16)
+
+
+def _small_fit(rows: int, units: int, nk: int, tiles: int, cs: int,
+               groups: int):
+    """``(tiles_g, stages)`` of the fewest column groups, at least
+    ``groups``, whose block fits its shared memory with at least 2 ring
+    slots (as many as a block's loads need, up to ``SMALL_MAX_STAGES``)."""
+    while True:
+        tiles_g = -(-tiles // groups)
+        loads = -(-units // cs) * (nk + -(-tiles_g // 2))
+        stages = min(SMALL_MAX_STAGES, loads)
+        while stages > 2 and small_smem(rows, nk, tiles_g, stages,
+                                        cs) > MAX_SMEM:
+            stages -= 1
+        if small_smem(rows, nk, tiles_g, stages, cs) <= MAX_SMEM:
+            return tiles_g, stages
+        groups += 1
+
+
+def small_plan(m: int, d: int, f: int, groups: Optional[int] = None,
+               fsplits: Optional[int] = None) -> FfnPlan:
+    """The ``small_m`` route's plan: clusters of ``min(16, units)``
+    blocks, ``groups`` column groups (the fewest that fit a block's
+    shared memory, at least the number asked for) and ``fsplits`` F
+    ranges.  What is not given is chosen: the geometry whose blocks
+    stream the fewest weight bytes, an F range beyond the first counted
+    ``SMALL_SPLIT_BYTES`` more (its sums' round trip through the f32
+    workspace), among those of at most ``SMALL_MAX_CLUSTERS`` clusters.
+    Several F ranges take an f32 workspace of their sums and one arrival
+    counter a (group, rank).  As many ring slots (up to
+    ``SMALL_MAX_STAGES``) as a block's loads and the shared memory allow,
+    at least 2."""
+    if not small_m_fits(m, d):
+        raise ValueError(f"the small_m route does not take M {m} at D {d}")
+    rows = next(r for r in SMALL_ROWS if r >= m)
+    units, nk = -(-f // SMALL_UNIT_F), -(-d // SMALL_KC)
+    tiles = -(-d // SMALL_TILE_D)
+    cs = min(SMALL_MAX_CLUSTER, units)
+    if fsplits is not None and not 1 <= fsplits <= units // cs:
+        raise ValueError(f"{fsplits} F ranges of {units} units do not give "
+                         f"each of {cs} blocks a unit")
+
+    def geometry(g, c):
+        """(cost, groups, F ranges, tiles a group, ring slots)"""
+        tiles_g, stages = _small_fit(rows, units, nk, tiles, cs, g)
+        block = (-(-units // (c * cs)) * (nk * SMALL_SLOT
+                                            + tiles_g * SMALL_SLOT // 2))
+        return (block + (SMALL_SPLIT_BYTES if c > 1 else 0),
+                -(-tiles // tiles_g), c, tiles_g, stages)
+
+    cands = [geometry(g, c)
+             for g in ([min(groups, tiles)] if groups else range(1, tiles + 1))
+             for c in ([fsplits] if fsplits else range(1, units // cs + 1))]
+    _, groups, fsplits, tiles_g, stages = min(
+        [x for x in cands if x[1] * x[2] <= SMALL_MAX_CLUSTERS] or cands)
+    return FfnPlan("small_m", (cs * groups * fsplits, 1, 1),
+                   ws_floats=fsplits * m * d if fsplits > 1 else 0,
+                   counters=groups * cs if fsplits > 1 else 0,
+                   smem=small_smem(rows, nk, tiles_g, stages, cs),
+                   small=SmallPlan(rows, cs, groups, tiles_g, units, nk,
+                                   stages, fsplits))
 
 
 def pass_parts(tiles: int, nk: int) -> int:
@@ -283,11 +402,12 @@ class TmaMap2d(NamedTuple):
 
 
 def ffn_tma_map(t: torch.Tensor, box: Tuple[int, int]) -> TmaMap2d:
-    """The tensor map through which the ``stream`` route reads a 2-d bf16
-    matrix in place, boxes of ``box`` (columns, rows) swizzled over the
-    box's row (128 bytes).  Raises ``ValueError`` where TMA cannot read
-    it: a base not 16-byte aligned, a row stride not a positive multiple
-    of 16 bytes or not below 2**40, rows that are not dense, a box TMA
+    """The tensor map through which the ``small_m``, ``stream`` and
+    ``two_pass`` routes read (or write) a 2-d bf16 matrix in place, boxes
+    of ``box`` (columns, rows) swizzled over the box's row (128 bytes).
+    Raises ``ValueError`` where TMA cannot read it: a base not 16-byte
+    aligned, a row stride not a positive multiple of 16 bytes or not
+    below 2**40, rows that are not dense, a box TMA
     does not take."""
     if t.dim() != 2 or t.dtype != torch.bfloat16:
         raise ValueError(f"ffn_tma_map takes a 2-d bf16 matrix, got "
@@ -310,11 +430,35 @@ def ffn_tma_map(t: torch.Tensor, box: Tuple[int, int]) -> TmaMap2d:
 
 
 class _EntryNumbers(NamedTuple):
-    """What the ``stream`` and ``two_pass`` entries take besides the
-    pointers: the plan's numbers (10 and 9) and 6 numbers a tensor map
-    (5 maps and 6)."""
+    """What the ``small_m``, ``stream`` and ``two_pass`` entries take
+    besides the pointers: the plan's numbers (11, 10 and 9) and 6 numbers
+    a tensor map (4, 5 and 6 maps)."""
     plan_arr: ctypes.Array
     maps_arr: ctypes.Array
+
+
+def small_numbers(x, w_gate, w_up, w_down, plan: FfnPlan) -> list:
+    """The 24 numbers the ``small_m`` entry encodes its tensor maps from:
+    for x (boxes of 64 columns by MP rows), Wg and Wu (64 by 64) and Wd
+    (64 by 64) in turn, the dims, the row stride, the box and the swizzle
+    span."""
+    return [v for t, box in ((x, (64, plan.small.rows)),
+                             (w_gate, (SMALL_UNIT_F, SMALL_KC)),
+                             (w_up, (SMALL_UNIT_F, SMALL_KC)),
+                             (w_down, (SMALL_TILE_D, SMALL_UNIT_F)))
+            for tm in (ffn_tma_map(t, box),)
+            for v in (*tm.dims, tm.stride, *tm.box, tm.swizzle)]
+
+
+def small_entry_plan(plan: FfnPlan) -> list:
+    """The 11 plan numbers the ``small_m`` entry takes (and checks against
+    its constants): rows, unit columns, gate chunk, tile columns, slot
+    bytes, cluster size, column groups, tiles a group, ring slots, shared
+    memory, F ranges."""
+    sp = plan.small
+    return [sp.rows, SMALL_UNIT_F, SMALL_KC, SMALL_TILE_D, SMALL_SLOT,
+            sp.cluster, sp.groups, sp.tiles_g, sp.stages, plan.smem,
+            sp.fsplits]
 
 
 def stream_numbers(x, w_gate, w_up, w_down, h, plan: FfnPlan) -> list:
@@ -353,7 +497,12 @@ def _entry_numbers(x, w_gate, w_up, w_down, h, out, plan) -> _EntryNumbers:
     key = (x.shape[0], x.shape[1], w_up.shape[1])
     nums = _ENTRY_SHAPES.get(key)
     if nums is None:
-        if plan.route == "stream":
+        if plan.route == "small_m":
+            nums = _EntryNumbers(
+                (ctypes.c_int * 11)(*small_entry_plan(plan)),
+                (ctypes.c_longlong * 24)(*small_numbers(
+                    x, w_gate, w_up, w_down, plan)))
+        elif plan.route == "stream":
             sp = plan.stream
             nums = _EntryNumbers(
                 (ctypes.c_int * 10)(
@@ -384,11 +533,8 @@ def ffn_plan(dtype: torch.dtype, m: int, d: int, f: int) -> FfnPlan:
                        nsplit * m * d if nsplit > 1 else 0)
     if dtype != torch.bfloat16:
         raise ValueError(f"dtype {dtype} not supported (f32 or bf16)")
-    smem = small_smem_bytes(m, d)
-    if m <= SMALL_MAX_M and smem <= SMALL_SMEM:
-        nsplit, chunks = -(-f // SMALL_F), -(-d // SMALL_D)
-        return FfnPlan("small_m", (nsplit, chunks, 1), nsplit,
-                       ws_floats=nsplit * m * d, counters=chunks, smem=smem)
+    if small_m_fits(m, d):
+        return small_plan(m, d, f)
     if m <= STREAM_MAX_M:
         return stream_plan(m, d, f)
     return two_pass_plan(m, d, f)
@@ -404,7 +550,7 @@ def _fn(name: str, argtypes):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"fused_ffn": [_P] * 6 + [_I] * 7 + [_P],
-             "fused_ffn_bf16_small": [_P] * 7 + [_I] * 7 + [_P],
+             "fused_ffn_bf16_small": [_P] * 7 + [_I] * 4 + [_P] * 3,
              "fused_ffn_bf16_stream": [_P] * 8 + [_I] * 4 + [_P] * 3,
              "fused_ffn_bf16_two_pass": [_P] * 8 + [_I] * 4 + [_P] * 3}
 
@@ -505,11 +651,12 @@ def _launch(x, w_gate, w_up, w_down, activation) -> torch.Tensor:
             counters.data_ptr(), m, d, f, act, nums.plan_arr, nums.maps_arr,
             stream)
     else:
-        counters = _build.arrival_counters(x.device, stream,
-                                            plan.counters)
+        nums = _entry_numbers(x, w_gate, w_up, w_down, None, out, plan)
+        counters = (_build.arrival_counters(x.device, stream, plan.counters)
+                    .data_ptr() if plan.counters else None)
         err = _fn("fused_ffn_bf16_small", _ARGTYPES["fused_ffn_bf16_small"])(
-            *ptrs, ws.data_ptr(), counters.data_ptr(), m, d, f, act,
-            plan.nsplit, plan.grid[1], plan.smem, stream)
+            *ptrs, None if ws is None else ws.data_ptr(), counters, m, d, f,
+            act, nums.plan_arr, nums.maps_arr, stream)
     if err != 0:
         raise RuntimeError(f"fused_ffn ({plan.route}) launch failed: CUDA "
                            f"error {err}")

@@ -787,6 +787,72 @@ def test_ffn_bf16_routes_ragged_and_wide(cuda, m, d, f):
         assert torch.equal(out, fused_ffn(x, wg, wu, wd, "gelu"))
 
 
+# small_m at its edges: every M <= 64 at D 16..512 (multiples of 8, some
+# not of 64), and D 1024 at M <= 32 (F split over clusters); F not a
+# multiple of the 64-column unit
+SMALL_M_CASES = ([(m, d, 1000) for m in (1, 7, 8, 9, 16, 24, 33, 48, 64)
+                  for d in (16, 24, 96, 256, 264, 512)]
+                 + [(m, 1024, 4104) for m in (1, 8, 17, 32)]
+                 + [(64, 512, 2056), (8, 256, 200), (48, 576, 3080)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+@pytest.mark.parametrize("m,d,f", SMALL_M_CASES)
+def test_ffn_small_m_route(cuda, m, d, f, activation):
+    """The small_m route (one launch of thread-block clusters, the F split
+    summed through distributed shared memory) against the plain version
+    under FFN_TOL: one count a call, and three repeats bit for bit (the
+    cluster's sum and the F ranges' sums go in a fixed order; the
+    counters reset themselves)."""
+    x, wg, wu, wd = _ffn(m * 3 + d + f, m, d, f, torch.bfloat16)
+    assert ffn_plan(torch.bfloat16, m, d, f).route == "small_m"
+    before = fused_ffn.launches
+    out = fused_ffn(x, wg, wu, wd, activation)
+    torch.cuda.synchronize()
+    assert fused_ffn.launches == before + 1
+    assert fused_ffn.last_route == "small_m"
+    torch.testing.assert_close(out, fused_ffn_ref(x, wg, wu, wd, activation),
+                               **FFN_TOL[torch.bfloat16])
+    for _ in range(3):
+        assert torch.equal(out, fused_ffn(x, wg, wu, wd, activation))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,f", [(8, 256, 1024), (16, 1024, 4104)])
+def test_ffn_small_m_route_in_a_cuda_graph(cuda, m, d, f):
+    """The small_m route captured in a CUDA graph (a cluster launch; at D
+    1024 with F split over clusters, its workspace from the graph's pool
+    and its counters) and replayed on new inputs copied in place: each
+    replay equals the eager call bit for bit, and counts as one launch."""
+    x, wg, wu, wd = _ffn(11, m, d, f, torch.bfloat16)
+    fused_ffn(x, wg, wu, wd)                       # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = fused_ffn.launches
+    with torch.cuda.graph(graph):
+        y = fused_ffn(x, wg, wu, wd)
+    assert fused_ffn.launches == before + 1
+    for seed in (12, 13):
+        fresh = _ffn(seed, m, d, f, torch.bfloat16)[0]
+        x.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, fused_ffn(fresh, wg, wu, wd))
+
+
+@pytest.mark.gpu
+def test_ffn_small_m_repeats_with_f_split(cuda):
+    """A shape whose F is split over clusters (D 1024): 20 calls give the
+    first call's output bit for bit (the last range to arrive adds the
+    ranges in order and resets its counter)."""
+    x, wg, wu, wd = _ffn(14, 32, 1024, 4096, torch.bfloat16)
+    assert ffn_plan(torch.bfloat16, 32, 1024, 4096).small.fsplits > 1
+    out = fused_ffn(x, wg, wu, wd, "gelu")
+    for _ in range(20):
+        assert torch.equal(out, fused_ffn(x, wg, wu, wd, "gelu"))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("activation", ["silu", "gelu"])
 @pytest.mark.parametrize("f", [1000, 1032])

@@ -1,16 +1,20 @@
-"""K3's ``stream`` and ``two_pass`` routes planned on the CPU: the plan at
-every config's FFN, the even split of the weight bytes over the SMs
-(``stream``), the persistent tile schedule (``two_pass``: every tile and
-K chunk once, the raster groups, the last wave's K parts summed in part
-order), the workspaces, and the numbers of the 2-d TMA tensor maps
-(``kernels/fused_ffn.py``).  The kernels themselves run only on the card
-(``test_torch_cuda.py``, ``chip_smoke.py`` phase 2); what they take from
-these plans is checked here, shape by shape.  No JAX: the plans are the
-port's own."""
+"""K3's ``small_m``, ``stream`` and ``two_pass`` routes planned on the CPU:
+the plan at every config's FFN, the clusters of ``small_m`` (every F
+unit and output column once, the fixed order of the cluster's sum, the F
+ranges, shared memory in the kernel's layout, an emulation of its
+rounding points against the plain version), the even split of the weight
+bytes over the SMs (``stream``), the persistent tile schedule
+(``two_pass``: every tile and K chunk once, the raster groups, the last
+wave's K parts summed in part order), the workspaces, and the numbers of
+the 2-d TMA tensor maps (``kernels/fused_ffn.py``). The kernels
+themselves run only on the card (``test_torch_cuda.py``,
+``chip_smoke.py`` phase 2); what they take from these plans is checked
+here, shape by shape. No JAX: the plans are the port's own."""
 import re
 import statistics
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,14 +23,22 @@ from repro_torch.kernels.fused_ffn import (H100_SMS, MAX_SMEM, PASS_BM,
                                            PASS_BN, PASS_GROUP_M, PASS_KC,
                                            PASS_MAX_PARTS,
                                            PASS_PART_MIN_CHUNKS, PASS_SMEM,
-                                           PASS_STAGES, SMALL_MAX_M,
-                                           SMALL_SMEM, STREAM_FC, STREAM_KC,
+                                           PASS_STAGES, SMALL_KC,
+                                           SMALL_MAX_CLUSTER,
+                                           SMALL_MAX_CLUSTERS, SMALL_MAX_D,
+                                           SMALL_MAX_M, SMALL_MAX_STAGES,
+                                           SMALL_ROWS,
+                                           SMALL_SLOT, SMALL_TILE_D,
+                                           SMALL_UNIT_F, STREAM_FC, STREAM_KC,
                                            STREAM_STAGES, STREAM_TILE_D,
                                            STREAM_UNIT_F, ffn_plan,
-                                           ffn_tma_map,
-                                           small_smem_bytes, stream_numbers,
+                                           ffn_tma_map, small_entry_plan,
+                                           small_m_fits, small_numbers,
+                                           small_owned_quads, small_plan,
+                                           small_smem, stream_numbers,
                                            stream_shares, two_pass_numbers,
                                            two_pass_plan)
+from repro_torch.kernels.ref import fused_ffn_ref
 
 torch.set_num_threads(2)
 
@@ -40,14 +52,15 @@ SERVED = ((7168, 20480), (5120, 27392), (6144, 16384), (3072, 24576),
 
 
 def _wants_stream(m, d):
-    return not (m <= SMALL_MAX_M and small_smem_bytes(m, d) <= SMALL_SMEM)
+    return not small_m_fits(m, d)
 
 
 @pytest.mark.parametrize("m", [1, 8, 24])
 @pytest.mark.parametrize("d,f", WIDE)
 def test_stream_plan_at_every_config(m, d, f):
     """Every config's FFN above D 512 at M 1, 8 and 24: the stream route
-    wherever small_m does not fit (whisper-small's D 768 keeps small_m),
+    wherever small_m does not take the shape (whisper-small's D 768 keeps
+    small_m),
     units of 64 F columns over D in 64-row chunks, pass 2's (64-column
     tile, 128-row F chunk) steps, at most one block an SM in each pass,
     shared memory within the H100's 232,448 bytes."""
@@ -356,3 +369,295 @@ def test_two_pass_constants_match_the_kernels():
     assert PASS_SMEM == (1024 + PASS_STAGES * (PASS_BM * 128
                                                + PASS_KC * PASS_BN * 2)
                          + 4 * 64 * 128 + 16 * PASS_STAGES + 16)
+
+
+# ------------------------------------------------------------ small_m ----
+CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+        / "kernels" / "csrc" / "fused_ffn.cu")
+
+
+def _pr16_bytes(m, d):
+    """The shared memory of PR 16's small_m kernel at (M, D), whose reach
+    (200 KiB) is the route's domain: x, D x 16 Wg/Wu slices and a 16 x 64
+    Wd block in bf16, 8 warps' f32 partials of G and U, and H."""
+    mp, dp = -(-m // 16) * 16, -(-d // 16) * 16
+    return (2 * (mp * (dp + 8) + 2 * dp * 24 + 16 * 64)
+            + 4 * (8 * mp * 16 * 2 + mp * 16))
+
+
+# (D, F) of every config's dense gated FFN in small_m's reach, at full
+# width and reduced (the tiny test configs, d 64 and 256), paper-backbone's
+# among them, beside ragged shapes of the card tests
+SMALL_SHAPES = sorted(
+    {(c.d_model, c.d_ff)
+     for a in sorted(set(ARCHS) | {"paper-backbone"})
+     for c in (get_config(a), get_config(a).reduced(),
+               get_config(a).reduced(d_model=64))
+     if c.d_ff > 0 and small_m_fits(1, c.d_model)}
+    | {(16, 64), (96, 200), (264, 1000), (512, 2048), (512, 1032),
+       (1024, 4096), (1024, 4104), (1440, 200), (576, 8192)})
+SMALL_M = (1, 7, 8, 9, 16, 24, 32, 33, 48, 64)
+
+
+def test_small_domain_is_that_of_pr16s_kernel():
+    """small_m takes exactly the shapes PR 16's kernel took: M <= 64 where
+    its x and slices fit 200 KiB (every M at D <= 576, M <= 32 up to D
+    1040, M <= 16 up to D 1440)."""
+    for m in range(1, 80):
+        for d in range(8, 2049, 8):
+            assert small_m_fits(m, d) == (
+                m <= SMALL_MAX_M and _pr16_bytes(m, d) <= 200 * 1024), (m, d)
+    assert SMALL_MAX_D == {16: 1440, 32: 1040, 48: 768, 64: 576}
+
+
+def _small_blocks(plan, f):
+    """Block by block, as the kernel derives them from its cluster and
+    rank: ``(block, cluster, rank, group, F range, units [u0, u1))``."""
+    sp = plan.small
+    out = []
+    for b in range(plan.grid[0]):
+        k, r = divmod(b, sp.cluster)
+        g, s = k % sp.groups, k // sp.groups
+        c0 = s * sp.units // sp.fsplits
+        c1 = (s + 1) * sp.units // sp.fsplits
+        out.append((b, k, r, g, s, c0 + r * (c1 - c0) // sp.cluster,
+                    c0 + (r + 1) * (c1 - c0) // sp.cluster))
+    return out
+
+
+@pytest.mark.parametrize("m", SMALL_M)
+@pytest.mark.parametrize("d,f", SMALL_SHAPES)
+def test_small_plan_covers_every_column_once(m, d, f):
+    """At every config's FFN in reach and every row count: the cluster
+    size divides the grid and is at most 16, every block runs at least
+    one 64-column F unit, each column group sees every unit exactly once
+    (over its F ranges), the groups cover every 64-column output tile
+    exactly once, at most ``SMALL_MAX_CLUSTERS`` clusters, and the
+    workspace and counters exist exactly when F is split over
+    clusters."""
+    if not small_m_fits(m, d):
+        assert ffn_plan(torch.bfloat16, m, d, f).route != "small_m"
+        return
+    plan = ffn_plan(torch.bfloat16, m, d, f)
+    sp = plan.small
+    assert plan.route == "small_m" and plan == small_plan(m, d, f)
+    assert sp.rows == min(r for r in SMALL_ROWS if r >= m)
+    assert 1 <= sp.cluster <= SMALL_MAX_CLUSTER == 16
+    assert plan.grid[0] % sp.cluster == 0 and plan.grid[1:] == (1, 1)
+    assert plan.grid[0] == sp.cluster * sp.groups * sp.fsplits
+    assert sp.groups * sp.fsplits <= SMALL_MAX_CLUSTERS
+    units, tiles = -(-f // SMALL_UNIT_F), -(-d // SMALL_TILE_D)
+    assert (sp.units, sp.nk) == (units, -(-d // SMALL_KC))
+    seen = {}
+    for b, k, r, g, s, u0, u1 in _small_blocks(plan, f):
+        assert u0 < u1, f"block {b} runs no unit"
+        for u in range(u0, u1):
+            assert (g, u) not in seen
+            seen[(g, u)] = b
+    assert len(seen) == sp.groups * units
+    groups = [range(g * sp.tiles_g, min((g + 1) * sp.tiles_g, tiles))
+              for g in range(sp.groups)]
+    assert all(groups) and sorted(t for g in groups for t in g) \
+        == list(range(tiles))
+    split = sp.fsplits > 1
+    assert plan.ws_floats == (sp.fsplits * m * d if split else 0)
+    assert plan.counters == (sp.groups * sp.cluster if split else 0)
+    assert plan.h_elems == 0
+
+
+@pytest.mark.parametrize("m", (1, 8, 33, 64))
+@pytest.mark.parametrize("d,f", SMALL_SHAPES)
+def test_small_sum_order_is_fixed(m, d, f):
+    """The cluster's sum: each rank owns one run of the group's quads (4
+    columns within D) in rank order, the runs tile the quads without a
+    gap, and the kernel's owner formula (the largest rank whose run
+    begins at or before the quad) picks that run's rank; every owner's
+    receive rows (one run a rank) fit its receive buffer.  The owner adds
+    ranks 0, 1, ... in turn, and the F ranges' sums are added in range
+    order: no order depends on timing."""
+    if not small_m_fits(m, d):
+        return
+    plan = ffn_plan(torch.bfloat16, m, d, f)
+    sp = plan.small
+    cs = sp.cluster
+    for g in range(sp.groups):
+        t0 = g * sp.tiles_g
+        t1 = min(t0 + sp.tiles_g, -(-d // SMALL_TILE_D))
+        quads = (min(t1 * SMALL_TILE_D, d) - t0 * SMALL_TILE_D) // 4
+        runs = [range(r * quads // cs, (r + 1) * quads // cs)
+                for r in range(cs)]
+        assert [q for run in runs for q in run] == list(range(quads))
+        for r, run in enumerate(runs):
+            assert len(run) <= small_owned_quads(sp.tiles_g, cs)
+            for q in run:
+                assert ((q + 1) * cs - 1) // quads == r
+
+
+@pytest.mark.parametrize("m", SMALL_M)
+@pytest.mark.parametrize("d,f", SMALL_SHAPES)
+def test_small_shared_memory_fits(m, d, f):
+    """A block's shared memory is the kernel's layout (ring, H, x, its
+    share, the received shares, barriers) at no fewer than 2 ring slots,
+    within the H100's 232,448 bytes."""
+    if not small_m_fits(m, d):
+        return
+    plan = ffn_plan(torch.bfloat16, m, d, f)
+    sp = plan.small
+    assert plan.smem == small_smem(sp.rows, sp.nk, sp.tiles_g, sp.stages,
+                                   sp.cluster) <= MAX_SMEM == 232448
+    assert 2 <= sp.stages <= SMALL_MAX_STAGES
+
+
+def test_small_paper_backbone_decode_step():
+    """paper-backbone's decode step (M 8, D 256, F 1024): four clusters
+    of 16 blocks, each cluster one 64-column output tile over all of F,
+    each block one 64-column F unit; no workspace, no counter; five ring
+    slots (a block's four Wg/Wu chunks and its Wd tile, all in flight at
+    once)."""
+    plan = ffn_plan(torch.bfloat16, 8, 256, 1024)
+    assert plan.route == "small_m" and plan.grid == (64, 1, 1)
+    sp = plan.small
+    assert (sp.rows, sp.cluster, sp.groups, sp.tiles_g, sp.units, sp.nk,
+            sp.stages, sp.fsplits) == (8, 16, 4, 1, 16, 4, 5, 1)
+    assert plan.ws_floats == plan.counters == 0
+    # 1024 + 5 slots + H (16 rows of 128 bytes) + x (4 blocks of 8 rows)
+    # + share (8 x 68 floats) + received (16 ranks x 8 rows x 1 quad)
+    # + barriers
+    assert plan.smem == (1024 + 5 * 16384 + 2048 + 4096 + 8 * 68 * 4
+                         + 16 * 8 * 16 + 96) == 93408
+
+
+def test_small_splits_f_at_large_d_times_f():
+    """Where one cluster's blocks would each stream several units' tiles
+    over a wide D (D 1024, F 4096: 1.5 MB a block), F is split over
+    clusters (4 ranges of 16 units), so each block streams one unit."""
+    plan = ffn_plan(torch.bfloat16, 16, 1024, 4096)
+    sp = plan.small
+    assert sp.fsplits > 1 and plan.grid[0] >= 64
+    assert -(-sp.units // (sp.fsplits * sp.cluster)) == 1
+    assert plan.ws_floats == sp.fsplits * 16 * 1024
+    with pytest.raises(ValueError, match="do not give"):
+        small_plan(8, 256, 1024, groups=1, fsplits=2)
+    with pytest.raises(ValueError, match="does not take"):
+        small_plan(65, 256, 1024)
+
+
+def _c_expr(name):
+    """The return expression of ``sm::<name>`` in the kernel's source, as
+    Python (integer division)."""
+    src = CSRC.read_text()
+    ns = src[src.index("namespace sm {"):src.index("}  // namespace sm")]
+    body = ns[ns.index(f" {name}("):]
+    expr = body[body.index("return") + 6:body.index(";")]
+    return " ".join(expr.split()).replace("/", "//")
+
+
+def test_small_constants_match_the_kernel():
+    """The C entry refuses a plan whose numbers differ from the kernel's
+    constants (namespace sm of csrc/fused_ffn.cu): the plan mirrors them,
+    and its shared-memory formula is the kernel's ``smem_bytes``
+    (evaluated from the source) at every planned shape."""
+    src = CSRC.read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);",
+        src[src.index("namespace sm {"):src.index("}  // namespace sm")])}
+    assert consts == {"kUnitF": SMALL_UNIT_F, "kKC": SMALL_KC,
+                      "kTileD": SMALL_TILE_D, "kSlot": SMALL_SLOT,
+                      "kMaxStages": SMALL_MAX_STAGES,
+                      "kMaxCluster": SMALL_MAX_CLUSTER, "kThreads": 160}
+    owned, smem = _c_expr("owned_quads"), _c_expr("smem_bytes")
+    for d, f in SMALL_SHAPES:
+        for m in SMALL_M:
+            if not small_m_fits(m, d):
+                continue
+            sp = small_plan(m, d, f).small
+            env = dict(consts, mp=sp.rows, nk=sp.nk, tiles_g=sp.tiles_g,
+                       stages=sp.stages, cluster=sp.cluster)
+            env["owned_quads"] = lambda t, c: eval(
+                owned, dict(consts, tiles_g=t, cluster=c))
+            assert eval(smem, env) == small_smem(
+                sp.rows, sp.nk, sp.tiles_g, sp.stages, sp.cluster)
+            assert eval(owned, env) == small_owned_quads(sp.tiles_g,
+                                                         sp.cluster)
+
+
+def test_small_entry_numbers():
+    """The 11 plan numbers and the 24 map numbers the entry takes, for a
+    (9, 264) x (264, 1000) FFN: MP 16, x in boxes of 64 columns by 16
+    rows, Wg/Wu/Wd in 64 x 64 boxes."""
+    m, d, f = 9, 264, 1000
+    plan = ffn_plan(torch.bfloat16, m, d, f)
+    sp = plan.small
+    assert small_entry_plan(plan) == [16, 64, 64, 64, 16384, sp.cluster,
+                                      sp.groups, sp.tiles_g, sp.stages,
+                                      plan.smem, sp.fsplits]
+    x = torch.zeros(m, d, dtype=torch.bfloat16)
+    w = torch.zeros(d, f, dtype=torch.bfloat16)
+    wd = torch.zeros(f, d, dtype=torch.bfloat16)
+    assert small_numbers(x, w, w, wd, plan) == [
+        264, 9, 528, 64, 16, 128,             # x: 64 columns x MP rows
+        1000, 264, 2000, 64, 64, 128,         # Wg
+        1000, 264, 2000, 64, 64, 128,         # Wu
+        264, 1000, 528, 64, 64, 128]          # Wd
+
+
+def _emulate_small(x, wg, wu, wd, act, plan):
+    """The small_m kernel's arithmetic, block by block, at its rounding
+    points: G and U f32 over all of D, H = act(G) U as bf16 hi + lo, each
+    block's f32 share (its units' hi and lo products, units in order),
+    the cluster's sum over ranks in order, the F ranges' sums in order,
+    one rounding to bf16.  The products' own summation order is left to
+    torch (the card's wgmma sums in its own)."""
+    sp = plan.small
+    m, d = x.shape
+    xf, gf, uf, df = (t.float() for t in (x, wg, wu, wd))
+    share = {}
+    for b, k, r, g, s, u0, u1 in _small_blocks(plan, wg.shape[1]):
+        cols = slice(g * sp.tiles_g * SMALL_TILE_D,
+                     (g + 1) * sp.tiles_g * SMALL_TILE_D)
+        acc = None
+        for u in range(u0, u1):
+            fs = slice(u * SMALL_UNIT_F, (u + 1) * SMALL_UNIT_F)
+            gg, uu = xf @ gf[:, fs], xf @ uf[:, fs]
+            h = (torch.nn.functional.silu(gg) if act == "silu"
+                 else torch.nn.functional.gelu(gg, approximate="tanh")) * uu
+            hi = h.to(torch.bfloat16).float()
+            lo = (h - hi).to(torch.bfloat16).float()
+            v = hi @ df[fs, cols] + lo @ df[fs, cols]
+            acc = v if acc is None else acc + v
+        share[(g, s, r)] = (cols, acc)
+    out = torch.zeros(m, d)
+    for g in range(sp.groups):
+        total = None
+        for s in range(sp.fsplits):
+            cols, y = share[(g, s, 0)]
+            for r in range(1, sp.cluster):
+                y = y + share[(g, s, r)][1]
+            total = y if total is None else total + y
+        out[:, cols] = total
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("m,d,f", [(8, 256, 1024), (1, 256, 1000),
+                                   (33, 96, 200), (64, 512, 1032),
+                                   (16, 1024, 4104), (9, 264, 1000)])
+def test_small_emulation_matches_the_plain_version(m, d, f, act):
+    """The kernel's rounding points and its plan's split of F and of the
+    output (emulated on the CPU) give the plain version's output within
+    the card tests' bf16 tolerance, and a repeat of the emulation is bit
+    for bit (no order depends on anything but the plan)."""
+    rng = np.random.default_rng(m + d + f)
+
+    def normal(shape, std):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(
+            np.float32)).to(torch.bfloat16)
+
+    x = normal((m, d), 1.0)
+    wg, wu = normal((d, f), d ** -0.5), normal((d, f), d ** -0.5)
+    wd = normal((f, d), f ** -0.5)
+    plan = ffn_plan(torch.bfloat16, m, d, f)
+    got = _emulate_small(x, wg, wu, wd, act, plan)
+    torch.testing.assert_close(got.float(), fused_ffn_ref(
+        x, wg, wu, wd, act).float(), atol=2e-2, rtol=1e-2)
+    assert torch.equal(got, _emulate_small(x, wg, wu, wd, act, plan))

@@ -379,16 +379,16 @@ def test_flash_checks_accept_head_dim_256_and_reject_48(dtype):
 
 
 @pytest.mark.parametrize("m,d,f,route,grid", [
-    (8, 256, 1024, "small_m", (64, 4, 1)),        # a decode step
-    (1, 256, 1000, "small_m", (63, 4, 1)),        # ragged F
-    (64, 256, 1024, "small_m", (64, 4, 1)),
+    (8, 256, 1024, "small_m", (64, 1, 1)),        # a decode step
+    (1, 256, 1000, "small_m", (64, 1, 1)),        # ragged F
+    (64, 256, 1024, "small_m", (64, 1, 1)),
     (65, 256, 1024, "two_pass", (8, 2, 1)),
     (16384, 256, 1024, "two_pass", (132, 128, 1)),    # the prefill burst
     # D > 512 and M > 64: two passes
     (100, 1024, 4096, "two_pass", (64, 32, 1)),
     # x too wide for small M, M above the stream route's 24: two passes
     (64, 1024, 4096, "two_pass", (64, 32, 1)),
-    (16, 1024, 4096, "small_m", (256, 16, 1)),
+    (16, 1024, 4096, "small_m", (64, 1, 1)),
     # zamba2-1.2b's FFN (D 2048, F 8192): decode, prefill, train, burst
     (8, 2048, 8192, "stream", (132, 132, 1)),
     (2048, 2048, 8192, "two_pass", (132, 128, 1)),
@@ -407,35 +407,41 @@ def test_flash_checks_accept_head_dim_256_and_reject_48(dtype):
     (8192, 6144, 16384, "two_pass", (132, 132, 1)),
 ])
 def test_ffn_plan_bf16(m, d, f, route, grid):
-    """bf16: small M splits F into 16-column slices and D into 64-column
-    chunks (at least 132 blocks at the served shapes), with an f32
-    workspace of one (M, D) partial a slice, one counter a chunk and the
-    shared memory the kernel lays out (it takes M up to 64 while that
-    fits in 200 KiB).  Above D 512, M <= 24 takes the stream route (two
-    persistent launches of at most one block an SM, an (2 MP, F) bf16 H
+    """bf16: small M (up to 64 rows in PR 16's reach) takes one launch of
+    clusters of up to 16 blocks (a cluster's blocks split F into 64-column
+    units; clusters split the output columns and, at large D x F, F), no
+    workspace or counter but for F split over clusters (its sums and one
+    counter a group and rank), and the shared memory the kernel lays out.
+    Above D 512, M <= 24 takes the stream route (two persistent launches
+    of at most one block an SM, an (2 MP, F) bf16 H
     workspace, two 64 x MP f32 partials a block, one counter a split
     item), and every larger M takes two persistent passes of 128 x 256
     tiles (at most one block an SM) with an (M, F) bf16 H workspace and,
     where a pass cuts its last wave into K parts, a 64 x 256 f32 share a
     block and consumer warpgroup and two counters a tile of that wave.
     Every block fits the H100's 232,448 bytes of shared memory."""
-    from repro_torch.kernels.fused_ffn import (MAX_SMEM, SMALL_SMEM,
-                                               ffn_plan)
+    from repro_torch.kernels.fused_ffn import (MAX_SMEM, ffn_plan,
+                                               small_smem)
     plan = ffn_plan(torch.bfloat16, m, d, f)
     assert (plan.route, plan.grid) == (route, grid)
     assert plan.smem <= MAX_SMEM == 232448
     if route == "small_m":
-        assert plan.nsplit == grid[0]
-        assert plan.ws_floats == grid[0] * m * d and plan.h_elems == 0
+        sp = plan.small
+        assert sp.cluster <= 16 and grid[0] % sp.cluster == 0
+        assert grid[0] == sp.cluster * sp.groups * sp.fsplits
+        assert plan.h_elems == 0
+        assert plan.ws_floats == (sp.fsplits * m * d if sp.fsplits > 1
+                                  else 0)
     if route == "small_m":
-        assert plan.counters == grid[1]
-        assert 0 < plan.smem <= SMALL_SMEM
+        assert plan.counters == (sp.groups * sp.cluster if sp.fsplits > 1
+                                 else 0)
+        sp = plan.small
+        assert plan.smem == small_smem(sp.rows, sp.nk, sp.tiles_g,
+                                       sp.stages, sp.cluster)
         if (m, d, f) == (8, 256, 1024):
-            assert grid[0] * grid[1] >= 132
-            # bf16 x (M padded to 16, D to 16, +8), two D x 16 slices in
-            # rows of 24, a 16 x 64 Wd block; f32 partials of 8 warps, H
-            assert plan.smem == 2 * (16 * 264 + 2 * 256 * 24 + 16 * 64) \
-                + 4 * (8 * 16 * 16 * 2 + 16 * 16)
+            assert grid[0] >= 64
+            # ring, H, x, the share, the received shares and barriers
+            assert plan.smem == small_smem(8, 4, 1, 5, 16) == 93408
     elif route == "stream":
         sp, mp = plan.stream, -(-m // 8) * 8
         assert d > 512 and m <= 24 and sp.rows == mp
@@ -491,16 +497,15 @@ def test_ffn_plan_large_d_workspace_and_small_d_unchanged():
     workspace (2 MP F bf16: 256 KB at F 8192, 512 KB at F 16384),
     together at most 2 % of the weight bytes (1.3 % at D 2048, F 8192);
     larger M takes two_pass; and at D <= 512 the decode step keeps
-    small_m while larger M takes two_pass too (faster on the H100 than
+    small_m (four clusters of 16 blocks, no workspace) while larger M
+    takes two_pass too (faster on the H100 than
     the tile route it replaced, PERF.md): pass 2 at M 1024 is one tile of
     F's 16 chunks, cut into two K parts (a 64 x 256 f32 share a block and
     warpgroup, two counters); M 16384 fills 132 blocks whole."""
-    from repro_torch.kernels.fused_ffn import FfnPlan, ffn_plan
-    d256 = {(8, 256, 1024): FfnPlan("small_m", (64, 4, 1), 64,
-                                    ws_floats=64 * 8 * 256, counters=4,
-                                    smem=2 * (16 * 264 + 2 * 256 * 24
-                                              + 16 * 64)
-                                    + 4 * (8 * 16 * 16 * 2 + 16 * 16)),
+    from repro_torch.kernels.fused_ffn import FfnPlan, SmallPlan, ffn_plan
+    d256 = {(8, 256, 1024): FfnPlan("small_m", (64, 1, 1), smem=93408,
+                                    small=SmallPlan(8, 16, 4, 1, 16, 4, 5,
+                                                    1)),
             (1024, 256, 1024): ("two_pass", (64, 16, 1), (1, 2),
                                 16 * 2 * 64 * 256, 16),
             (16384, 256, 1024): ("two_pass", (132, 128, 1), (1, 1), 0, 0)}
