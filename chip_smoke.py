@@ -825,8 +825,17 @@ def max_sm_clock_hz():
 
 
 FLASH_HDS = (16, 32, 64, 96, 128, 256)
-# K2 at the served prefill shapes of hd >= 64: (label, B, S, S_k, H, K,
-# hd, mask), the configs' prompt buckets as phases 8.0-13.0 run them
+# K2 at the served prefill shapes: (label, B, S, S_k, H, K, hd, mask),
+# the configs' prompt buckets as phases 8.0-13.0 run them, then
+# paper-backbone's (8 heads of 32: the burst prefills of phase 3 at the
+# short buckets, the long wave's 8 x 1024 and 8 x 2048, an adaptation
+# infer's 4 x 256, the train step's 8 x 256), whose device times the
+# kernels line reports: last, the furthest from phase 2's correctness
+# loops (the profiler's windows that followed them have lost events)
+PAPER_K2 = tuple((f"paper-backbone {b} x {s}", b, s, s, 8, 8, 32,
+                  dict(causal=True))
+                 for b, s in ((8, 16), (8, 128), (8, 256), (4, 256),
+                              (8, 1024), (8, 2048)))
 K2_SERVED = (
     ("gemma3-12b", 8, 2048, 2048, 16, 8, 256, dict(causal=True)),
     ("gemma3-12b window", 8, 2048, 2048, 16, 8, 256,
@@ -844,7 +853,7 @@ K2_SERVED = (
      dict(causal=False)),
     ("whisper-small cross 16", 8, 16, 1500, 12, 12, 64,
      dict(causal=False)),
-)
+) + PAPER_K2
 
 
 def flash_served_times(torch, gen):
@@ -852,12 +861,15 @@ def flash_served_times(torch, gen):
     one launch, a repeat bit for bit), then timed by CUDA events and by
     the profiler's device time beside SDPA (``enable_gqa`` where the
     installed torch has it, else K/V repeated to H before the timed
-    region; the window's rows by a boolean mask) and the bound
-    (operations of the valid pairs, bytes of q, k, v and out once).
+    region; the window's rows by a boolean mask), the bound (operations
+    of the valid pairs, bytes of q, k, v and out once) and the ex2 floor
+    (one ex2 a valid pair at 16 a clock per SM on 132 SMs at the card's
+    top SM clock), each device time from up to 10 profiler windows.
     Returns ``{label: fields}``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn as fa
     gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+    clock = max_sm_clock_hz()
     table = {}
     for label, b, s, sk, h, kvh, hd, mask in K2_SERVED:
         q, k, v = flash_case(torch, gen, b, h, kvh, s, hd, "bfloat16", sk)
@@ -888,27 +900,28 @@ def flash_served_times(torch, gen):
                             sk) * b * h
         t = dict(route=route, max_abs_err=err,
                  ms=cuda_ms(torch, run, iters=50),
-                 device_ms=device_ms(torch, run, part="flash_attn"))
+                 device_ms=device_ms(torch, run, part="flash_attn",
+                                     tries=10))
         t["library_ms"] = cuda_ms(torch, sdpa, iters=50)
-        t["library_device_ms"] = device_ms(torch, sdpa)
+        t["library_device_ms"] = device_ms(torch, sdpa, tries=10)
         t["bound_ms"], t["bound_by"] = bound(
             (2 * q.numel() + 2 * k.numel()) * 2, 4 * hd * pairs,
             H100_BF16_FLOPS)
+        t["ex2_floor_ms"] = 1e3 * pairs / (16 * 132 * clock)
         sizes = f"{b} x {s}" + (f" over {sk} keys" if sk != s else "")
         log(f"K2 {label} ({sizes}, {h}/{kvh} heads of {hd}, {mask}): "
             f"{route} {t['ms']:.4f} ms, device {fmt(t['device_ms'])}"
             f"; SDPA ({how}) {t['library_ms']:.4f} ms, device "
-            f"{fmt(t['library_device_ms'])}; bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}); max_abs_err {err:.3g}")
+            f"{fmt(t['library_device_ms'])}; bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), ex2 floor {t['ex2_floor_ms']:.5f} ms; "
+            f"max_abs_err {err:.3g}")
         table[label] = t
         del q, k, v, kd, vd
     return table
 
 
 def phase_flash(torch):
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn import (attention_route,
-                                                flash_attention)
+    from repro_torch.kernels.flash_attn import attention_route
     gen = torch.Generator().manual_seed(4321)
     max_err = 0.0
     n_cases = 0
@@ -975,47 +988,32 @@ def phase_flash(torch):
         f"repeating bit for bit, max_abs_err {max_err:.3g}")
     served = flash_served_times(torch, gen)
 
-    # timing at the long wave's prefill bursts: 8 prompts x 8 heads x hd
-    # 32, bf16, causal (the engine passes no kv_len)
-    clock = max_sm_clock_hz()
-    timed = {}
-    for b, s in ((8, 2048), (8, 1024)):
-        q, k, v = flash_case(torch, gen, b, 8, 8, s, 32, "bfloat16")
-        ms = cuda_ms(torch, lambda: flash_attention(q, k, v), iters=50)
-        plain_ms = cuda_ms(torch, lambda: flash_plain(q, k, v), iters=5,
-                           warmup=2)
-        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), iters=50)
-        dev_ms = device_ms(torch, lambda: flash_attention(q, k, v),
-                           part="flash_attn")
-        library_dev_ms = device_ms(torch, lambda: (
-            F.scaled_dot_product_attention(q, k, v, is_causal=True)))
-        nbytes = 4 * q.numel() * q.element_size()
-        pairs = flash_pairs(s, True, 0, None) * b * 8
-        bound_ms, bound_by = bound(nbytes, 4 * 32 * pairs, H100_BF16_FLOPS)
-        # one ex2 per valid pair at 16 a clock per SM on 132 SMs
-        exp_ms = 1e3 * pairs / (16 * 132 * clock)
-        timed[s] = (ms, plain_ms, library_ms, bound_ms, bound_by, exp_ms,
-                    dev_ms, library_dev_ms)
-        log(f"flash_attention ({b} x {s} tokens, 8 heads, hd 32, bf16, "
-            f"causal): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {library_ms:.4f} bound_ms {bound_ms:.5f} "
-            f"({bound_by}); device time kernel {fmt(dev_ms)}, SDPA "
-            f"{fmt(library_dev_ms)}; exponential floor {exp_ms:.5f} ms "
-            f"({pairs} pairs at {clock / 1e9:.3f} GHz)")
-    (ms, plain_ms, library_ms, bound_ms, bound_by, exp_ms, dev_ms,
-     library_dev_ms) = timed[2048]
+    # the kernels line's figures: the long wave's prefill bursts (8
+    # prompts x 8 heads x hd 32, bf16, causal; the engine passes no
+    # kv_len), timed in the served table, and the plain version there
+    long, mid = (served[f"paper-backbone 8 x {s}"] for s in (2048, 1024))
+    q, k, v = flash_case(torch, gen, 8, 8, 8, 2048, 32, "bfloat16")
+    plain_ms = cuda_ms(torch, lambda: flash_plain(q, k, v), iters=5,
+                       warmup=2)
+    del q, k, v
+    log(f"flash_attention (8 x 2048 tokens, 8 heads, hd 32, bf16, "
+        f"causal): kernel_ms {long['ms']:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {long['library_ms']:.4f} bound_ms "
+        f"{long['bound_ms']:.5f} ({long['bound_by']}); device time kernel "
+        f"{fmt(long['device_ms'])}, SDPA {fmt(long['library_device_ms'])}; "
+        f"exponential floor {long['ex2_floor_ms']:.5f} ms")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn.py:96",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "exp_floor_ms": exp_ms, "device_ms": dev_ms,
-            "library_device_ms": library_dev_ms,
-            "ms_8x1024": timed[1024][0], "library_ms_8x1024": timed[1024][2],
-            "device_ms_8x1024": timed[1024][6],
-            "library_device_ms_8x1024": timed[1024][7],
+            "launches": None, "max_abs_err": max_err, "ms": long["ms"],
+            "plain_ms": plain_ms, "bound_ms": long["bound_ms"],
+            "bound_by": long["bound_by"], "library_ms": long["library_ms"],
+            "exp_floor_ms": long["ex2_floor_ms"],
+            "device_ms": long["device_ms"],
+            "library_device_ms": long["library_device_ms"],
+            "ms_8x1024": mid["ms"], "library_ms_8x1024": mid["library_ms"],
+            "device_ms_8x1024": mid["device_ms"],
+            "library_device_ms_8x1024": mid["library_device_ms"],
             "shape": "8 x 2048 tokens, 8 heads, hd 32, bf16, causal "
                      "(tensor cores)",
             "routes": routes,

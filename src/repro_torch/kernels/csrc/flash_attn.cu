@@ -1,8 +1,8 @@
 // Flash attention for prefill (causal / windowed / kv_len-masked) for
-// Hopper (sm_90a), in three routes picked by dtype and head dim (the
-// wrapper's flash_plan in kernels/flash_attn.py): bf16 at hd 64..256 on
-// wgmma with TMA and a producer warp, bf16 at hd 16 and 32 on mma.sync,
-// f32 on the CUDA cores.
+// Hopper (sm_90a), in three kernels picked by dtype and head dim (the
+// wrapper's flash_plan in kernels/flash_attn.py): bf16 at hd 64..256 and
+// bf16 at hd 16 and 32, both on wgmma with TMA and a producer warpgroup
+// (the plan's "wgmma" route), f32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention` in
 // src/repro/kernels/flash_attn.py (pallas_call at line 96, kernel body
@@ -71,9 +71,9 @@
 // - tiles of 128 keys (64 at hd 256, whose O alone takes 128 registers
 //   a thread); hd 96 runs in hd 128's layout (its S products stop at
 //   column 96, its P V products run at n 128 on zero columns);
-// - the online softmax stays in registers as on the mma.sync route (a
-//   quad-lane row max, one FFMA and one ex2 a weight, f32 row sums a
-//   lane, added across the quad once at the end).  Masks are evaluated
+// - the online softmax stays in registers (a quad-lane row max, one
+//   FFMA and one ex2 a weight, f32 row sums a lane, added across the
+//   quad once at the end).  Masks are evaluated
 //   only on tiles that cross the causal diagonal, the window's edge,
 //   kv_len or S_k; a group skips the key tiles its 64 rows cannot see,
 //   the block the tiles none of its rows can;
@@ -84,31 +84,46 @@
 // The consumers' loop tests for the end of the walk at its top: with
 // the test after the wait inside the loop, ptxas spilled at hd 256.
 //
-// bf16 at hd 16 and 32 (flash_attn_tc_kernel), FlashAttention-2 on
-// mma.sync m16n8k16 (bf16 in, f32 accumulate): one block of 4 warps per
-// (batch*head, 64-row query tile); each warp owns 16 query rows.  The
-// grid starts the heaviest causal tiles of every (batch, head) first, so
-// the light ones fill the tail.  Q is staged once (cp.async) and kept in
-// registers as A fragments (ldmatrix).  64-key tiles of K and V are
-// staged in bf16 with cp.async 16-byte copies into a two-slot ring, one
-// barrier a tile, so the next tile loads while this one computes; each
-// thread's copy addresses are computed once; rows are padded by 16 bytes
-// so ldmatrix is free of bank conflicts.  S = Q K^T runs on the tensor
-// cores with K's rows as the B operand.  The online softmax stays in
-// registers: the row max goes through the four lanes of a quad, and each
-// weight is one FFMA and one ex2.approx (the f32 scores scaled by scale
-// * log2(e) in the same FFMA).  P is rounded to bf16 in registers and is
-// the A operand of O += P V directly (the C fragment of one m16n8k16 is
-// the A fragment of the next); V is the B operand through
-// ldmatrix.trans, and the row sums of P come from one more mma against a
-// fragment of ones.  Masks are evaluated only on tiles that cross the
-// causal diagonal, the window's edge, kv_len or S; a warp skips a tile
-// that no row of its own can see, and the block skips the tiles outside
-// the window.  Rows past S and keys past S are zero-filled by the
-// copies, so nothing undefined enters a product.  The kernel is held to
-// 96 registers so five blocks share an SM.  What limits it at hd 32 is
-// the issue of the softmax's instructions (two per weight plus the max)
-// and their latencies: it runs at about three times the ex2 floor.
+// bf16 at hd 16 and 32 (flash_attn_nw_kernel), paper-backbone's prefill
+// (8 heads of 32).  Here the products are the smaller part: a valid pair
+// costs 4 hd = 128 flops at hd 32 (1/32 of a clock of an SM's tensor
+// cores) but one ex2 (1/16 of a clock of its MUFU), and the softmax's
+// other instructions (an FFMA, a max, half a pack a weight) and each key
+// tile's bookkeeping compete with the ex2s for issue slots:
+// - the FlashAttention-3 skeleton of the route above (persistent blocks
+//   over a tile counter, a producer warpgroup of which one thread issues
+//   every TMA load into a ring of K/V stages with full and empty
+//   mbarriers and two Q slots, setmaxnreg moving the producer's
+//   registers to the consumers), with rows of hd bf16 in the 64-byte
+//   (hd 32) or 32-byte (hd 16) swizzle that TMA writes and the wgmma
+//   descriptors name (CU_TENSOR_MAP_SWIZZLE_64B / 32B: one box of hd
+//   columns a tile, no padding);
+// - a block is the producer and one consumer warpgroup of 64 query
+//   rows, three blocks an SM, each over its own tiles: the blocks drift
+//   apart, so one block's softmax overlaps another's products and
+//   barriers (three or four consumer warpgroups of one block sharing a
+//   ring ran their softmaxes in lockstep, the MUFU idle between them);
+// - in a warpgroup, key tile j's S = Q K^T (m64n64k16, both operands in
+//   shared memory) and tile j - 1's O += P V (P from registers, V
+//   N-major) are issued together; S is waited, and the softmax runs on
+//   the CUDA cores and the MUFU while the tensor cores finish P V
+//   (FlashAttention-3's order).  No branch and no ring wait stands
+//   between a product and its wait (ptxas would serialize the
+//   products): a tile that needs masks runs its own copy of the step,
+//   whose masks are selects on each row's valid columns [lo, hi), and
+//   the first tile's P V is 0 times a landed V;
+// - the row sums of P, as rounded to bf16 (the weights O is built
+//   from), come out of P V itself: V's tile is followed, one swizzle
+//   atom on, by a tile of ones, so P V runs at n = hd + 8 and its last 8
+//   columns are the sums (no FADD a weight, no product of its own);
+// - a block's first tile is blockIdx.x (no counter on the path to its
+//   first loads); the counter hands out the rest, query tile first, the
+//   heaviest causal tiles of every (batch, head) before any lighter one.
+// The geometry (NwTile: keys a tile, blocks an SM, ring stages), the
+// row sums' form (FADDs a weight lost from 8 x 1024 up) and the order
+// (issuing the next tile's S before this tile's softmax kept two S
+// register sets and lost) were chosen among measured variants:
+// tools/k2_prefill_ab.py --variants and PERF.md.
 //
 // f32 route (flash_attn_kernel), kept from the first version: the
 // tensor cores would compute f32 as TF32 (about three decimal digits),
@@ -322,281 +337,6 @@ cudaError_t dispatch_hd(int hd, const Args& a, int blocks,
   }
 }
 
-// ------------------------------------------------ bf16 tensor-core route --
-// Tile shapes of the mma.sync route (hd 16 and 32).
-template <int HD>
-struct TcTile {
-  static_assert(HD == 16 || HD == 32, "hd 64..256 run on wgmma");
-  static constexpr int kWarps = 4;                  // 16 rows each
-  static constexpr int kBQ = 16 * kWarps;           // query rows a block
-  static constexpr int kBK = 64;                    // keys a tile
-  static constexpr int kStages = 2;                 // K/V ring slots
-  static constexpr int kMinBlocks = 5;              // a SM
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kStride = HD + 8;            // smem row, in bf16
-  static constexpr int kNB = kBK / 8;               // S n-blocks
-  static constexpr int kKD = HD / 16;               // k-steps of Q K^T
-  static constexpr int kND = HD / 8;                // O n-blocks
-  static constexpr int kChunks = HD / 8;            // 16-byte row chunks
-  static constexpr size_t kSmem =
-      sizeof(bf16) * (size_t)(kBQ + 2 * kStages * kBK) * kStride;
-};
-
-template <int HD>
-__global__ void __launch_bounds__(TcTile<HD>::kThreads,
-                                  TcTile<HD>::kMinBlocks)
-    flash_attn_tc_kernel(Args a) {
-  using C = TcTile<HD>;
-  constexpr int kBQ = C::kBQ, kBK = C::kBK, kStride = C::kStride;
-  constexpr int kStages = C::kStages;
-  constexpr float kLog2e = 1.4426950408889634f;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);    // kBQ x kStride
-  bf16* kv_s = q_s + kBQ * kStride;                  // kStages x (K, V)
-
-  const bf16* __restrict__ q = static_cast<const bf16*>(a.q);
-  const bf16* __restrict__ k = static_cast<const bf16*>(a.k);
-  const bf16* __restrict__ v = static_cast<const bf16*>(a.v);
-  bf16* __restrict__ out = static_cast<bf16*>(a.out);
-
-  // the last query tiles carry the most causal work: the grid starts
-  // them first across all (batch, head) pairs, so the light ones fill
-  // the tail
-  const int n_bh = (int)(gridDim.x / a.q_tiles);
-  const int qt = a.q_tiles - 1 - (int)(blockIdx.x / n_bh);
-  const int bh = (int)(blockIdx.x % n_bh);
-  const int b = bh / a.heads, h = bh % a.heads;
-  const int kh = h / (a.heads / a.kv_heads);
-  const int q0 = qt * kBQ;
-  const int S = a.seq, Sk = a.seq_k;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;          // ldmatrix address
-
-  const bf16* qb = q + b * a.q_sb + h * a.q_sh;
-  const bf16* kb = k + b * a.k_sb + kh * a.k_sh;
-  const bf16* vb = v + b * a.v_sb + kh * a.v_sh;
-
-  // keys any row of this tile can see
-  const int row_hi = min(q0 + kBQ, S) - 1;
-  int col_end = Sk;
-  if (a.causal) col_end = min(col_end, row_hi + 1);
-  if (a.kv_len >= 0) col_end = min(col_end, a.kv_len);
-  int col_begin = 0;
-  if (a.window > 0) col_begin = max(0, q0 - a.window + 1);
-  const int t_begin = col_begin / kBK;
-  const int t_end = col_end > 0 ? (col_end + kBK - 1) / kBK : 0;
-
-  for (int i = tid; i < kBQ * C::kChunks; i += C::kThreads) {
-    const int r = i / C::kChunks, c = i % C::kChunks;
-    const int row = q0 + r;
-    const bool ok = row < S;
-    cp_async16(q_s + r * kStride + c * 8,
-               qb + (long long)(ok ? row : 0) * a.q_ss + c * 8, ok);
-  }
-  // each thread copies the same 16-byte column chunk of rows r0, r0 +
-  // kRowStep, ... of every K and V tile
-  constexpr int kRowStep = C::kThreads / C::kChunks;
-  const int r0 = tid / C::kChunks;
-  const int c8 = (tid % C::kChunks) * 8;
-  const bf16* kp = kb + (long long)r0 * a.k_ss + c8;
-  const bf16* vp = vb + (long long)r0 * a.v_ss + c8;
-  auto load_kv = [&](int tile) {
-    bf16* ks = kv_s + ((tile - t_begin) % kStages) * 2 * kBK * kStride +
-               r0 * kStride + c8;
-    bf16* vs = ks + kBK * kStride;
-    const int c0 = tile * kBK;
-#pragma unroll
-    for (int r = 0; r < kBK; r += kRowStep) {
-      const bool ok = c0 + r0 + r < Sk;
-      const long long off = ok ? (long long)(c0 + r) : -(long long)r0;
-      cp_async16(ks + r * kStride, kp + off * a.k_ss, ok);
-      cp_async16(vs + r * kStride, vp + off * a.v_ss, ok);
-    }
-  };
-  // prologue: the first kStages - 1 tiles, one copy group each (Q rides
-  // in the first)
-#pragma unroll
-  for (int p = 0; p < kStages - 1; ++p) {
-    if (t_begin + p < t_end) load_kv(t_begin + p);
-    cp_async_commit();
-  }
-
-  const int r_lo = q0 + warp * 16;                   // this warp's rows
-  const int r_hi = r_lo + 15;
-  const int row0 = r_lo + g, row1 = row0 + 8;        // this lane's rows
-  const float sl2 = a.scale * kLog2e;
-  const bf16* q_frag = q_s + (warp * 16 + (mi & 1) * 8 + mr) * kStride +
-                       (mi >> 1) * 8;
-
-  float o[C::kND][4];
-#pragma unroll
-  for (int n = 0; n < C::kND; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  uint32_t qf[C::kKD][4];                            // Q's A fragments
-
-  for (int it = t_begin; it < t_end; ++it) {
-    // tile `it` has landed; every warp is done with tile it - 1, whose
-    // slot the copy issued below refills
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (it + kStages - 1 < t_end) load_kv(it + kStages - 1);
-    cp_async_commit();
-    const bf16* ks = kv_s + ((it - t_begin) % kStages) * 2 * kBK * kStride;
-    const bf16* vs = ks + kBK * kStride;
-    if (it == t_begin) {
-#pragma unroll
-      for (int kk = 0; kk < C::kKD; ++kk)
-        ldmatrix_x4(qf[kk], q_frag + 16 * kk);
-    }
-    const int c0 = it * kBK;
-    const bool skip = r_lo >= S || (a.causal && c0 > r_hi) ||
-                      (a.window > 0 && c0 + kBK - 1 <= r_lo - a.window) ||
-                      (a.kv_len >= 0 && c0 >= a.kv_len);
-    if (skip) continue;
-    // ---- S = Q K^T
-    float s[C::kNB][4];
-#pragma unroll
-    for (int j = 0; j < C::kNB; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < C::kKD; ++kk) {
-      uint32_t af[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) af[e] = qf[kk][e];
-#pragma unroll
-      for (int j = 0; j < C::kNB; j += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, ks + (8 * (j + (mi >> 1)) + mr) * kStride + 16 * kk +
-                            (mi & 1) * 8);
-        mma_bf16(s[j], af, bf[0], bf[1]);
-        mma_bf16(s[j + 1], af, bf[2], bf[3]);
-      }
-    }
-    // ---- mask the tiles that need it, then the online softmax in
-    // registers: the running max is kept in raw score units, and each
-    // weight is exp2(s * scale * log2(e) - m * scale * log2(e)), one FFMA
-    // and one ex2
-    const bool need_mask = c0 + kBK > Sk ||
-                           (a.causal && c0 + kBK - 1 > r_lo) ||
-                           (a.window > 0 && c0 <= r_hi - a.window) ||
-                           (a.kv_len >= 0 && c0 + kBK > a.kv_len);
-    if (need_mask) {
-#pragma unroll
-      for (int j = 0; j < C::kNB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e < 2 ? row0 : row1;
-          const int col = c0 + 8 * j + 2 * t + (e & 1);
-          bool valid = col < Sk;
-          if (a.causal) valid = valid && col <= row;
-          if (a.window > 0) valid = valid && col > row - a.window;
-          if (a.kv_len >= 0) valid = valid && col < a.kv_len;
-          if (!valid) s[j][e] = kNegInf;
-        }
-    }
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < C::kNB; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    // the four lanes of a quad hold one row
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    // no valid key yet (max still the sentinel): shift by 0, so every
-    // weight is exp2(-huge) == 0, never exp2(0) == 1
-    const float sh0 = mn0 == kNegInf ? 0.f : -mn0 * sl2;
-    const float sh1 = mn1 == kNegInf ? 0.f : -mn1 * sl2;
-    const float corr0 = ex2(fmaf(m0, sl2, sh0));
-    const float corr1 = ex2(fmaf(m1, sl2, sh1));
-    m0 = mn0;
-    m1 = mn1;
-    uint32_t pf[kBK / 16][4];
-#pragma unroll
-    for (int j = 0; j < C::kNB; ++j) {
-      // the C fragment of n-block j is half of P's A fragment
-      pf[j >> 1][(j & 1) * 2] = pack_bf16(ex2(fmaf(s[j][0], sl2, sh0)),
-                                          ex2(fmaf(s[j][1], sl2, sh0)));
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ex2(fmaf(s[j][2], sl2, sh1)),
-                                              ex2(fmaf(s[j][3], sl2, sh1)));
-    }
-    l0 *= corr0;
-    l1 *= corr1;
-#pragma unroll
-    for (int n = 0; n < C::kND; ++n) {
-      o[n][0] *= corr0;
-      o[n][1] *= corr0;
-      o[n][2] *= corr1;
-      o[n][3] *= corr1;
-    }
-    // ---- O += P V.  The row sums of P (as rounded to bf16, the weights
-    // O is built from) come from one more product, with ones as B
-    constexpr uint32_t kOnes = 0x3f803f80u;         // bf16 1.0, twice
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      float ls[4] = {l0, 0.f, l1, 0.f};
-      mma_bf16(ls, pf[kk], kOnes, kOnes);
-      l0 = ls[0];
-      l1 = ls[2];
-#pragma unroll
-      for (int n = 0; n < C::kND; n += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vs + (16 * kk + (mi & 1) * 8 + mr) * kStride +
-                                  8 * (n + (mi >> 1)));
-        mma_bf16(o[n], pf[kk], bf[0], bf[1]);
-        mma_bf16(o[n + 1], pf[kk], bf[2], bf[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // every lane of a quad holds its rows' whole sums
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  bf16* ob = out + b * a.o_sb + h * a.o_sh;
-#pragma unroll
-  for (int n = 0; n < C::kND; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * a.o_ss + col) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * a.o_ss + col) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
-  }
-}
-
-template <int HD>
-cudaError_t launch_tc(Args a, int batch, cudaStream_t stream) {
-  using C = TcTile<HD>;
-  a.q_tiles = (a.seq + C::kBQ - 1) / C::kBQ;
-  const long long blocks = (long long)batch * a.heads * a.q_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = flash_attn_tc_kernel<HD>;
-  if (C::kSmem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<(int)blocks, C::kThreads, C::kSmem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_tc(int hd, const Args& a, int batch,
-                        cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch_tc<16>(a, batch, stream);
-    case 32: return launch_tc<32>(a, batch, stream);
-    default: return cudaErrorInvalidValue;       // 64..256: wgmma
-  }
-}
-
-
 // ------------------------------------------------- bf16 route on wgmma --
 // Tile shapes of the wgmma route (hd 96 rides hd 128's layout: TMA fills
 // columns 96..127 with zeros).  flash_plan in kernels/flash_attn.py
@@ -648,6 +388,18 @@ struct WgWork {
   int b, h, kh, q0, t_begin, t_end;
 };
 
+// the key tiles [t_begin, t_end) that any of the BQ rows from q0 sees
+template <int BQ, int BK>
+__device__ __forceinline__ void tile_cols(const WgArgs& a, WgWork& w) {
+  const int row_hi = min(w.q0 + BQ, a.seq) - 1;
+  int col_end = a.seq_k;
+  if (a.causal) col_end = min(col_end, row_hi + 1);
+  if (a.kv_len >= 0) col_end = min(col_end, a.kv_len);
+  const int col_begin = a.window > 0 ? max(0, w.q0 - a.window + 1) : 0;
+  w.t_begin = col_begin / BK;
+  w.t_end = col_end > 0 ? (col_end + BK - 1) / BK : 0;
+}
+
 template <int BQ, int BK>
 __device__ __forceinline__ WgWork wg_work(const WgArgs& a, int tile) {
   const int hpg = a.heads / a.kv_heads;
@@ -658,13 +410,7 @@ __device__ __forceinline__ WgWork wg_work(const WgArgs& a, int tile) {
   w.kh = group % a.kv_heads;
   w.h = w.kh * hpg + r % hpg;
   w.q0 = (a.q_tiles - 1 - r / hpg) * BQ;
-  const int row_hi = min(w.q0 + BQ, a.seq) - 1;
-  int col_end = a.seq_k;
-  if (a.causal) col_end = min(col_end, row_hi + 1);
-  if (a.kv_len >= 0) col_end = min(col_end, a.kv_len);
-  const int col_begin = a.window > 0 ? max(0, w.q0 - a.window + 1) : 0;
-  w.t_begin = col_begin / BK;
-  w.t_end = col_end > 0 ? (col_end + BK - 1) / BK : 0;
+  tile_cols<BQ, BK>(a, w);
   return w;
 }
 
@@ -799,6 +545,7 @@ __global__ void __launch_bounds__(WgTile<HD>::kThreads, 1)
           // each block's last take overshoots once: the launch's last
           // take of all resets the counter for the next launch
           if (tile == a.tiles + (int)gridDim.x - 1) *a.counter = 0;
+          // (with one tile a block, no take reached the counter)
           mbar_wait(&q_empty[qn], q_phase ^ 1);
           tile_s[qn] = -1;
           mbar_arrive(&q_full[qn]);
@@ -1017,11 +764,441 @@ __global__ void __launch_bounds__(WgTile<HD>::kThreads, 1)
   }
 }
 
+// ---------------------------------------- bf16 route on wgmma, hd 16/32 --
+// Tile shapes of the narrow route (flash_attn_nw_kernel), chosen among
+// measured variants (tools/k2_prefill_ab.py --variants, PERF.md).
+// flash_plan in kernels/flash_attn.py mirrors them (NW_BLOCK_K,
+// NW_STAGES, NW_CONSUMER_REGS) and passes them in; the entry refuses a
+// plan that differs.  A block is the producer warpgroup and one consumer
+// warpgroup of 64 query rows, three blocks an SM.
+template <int HD>
+struct NwTile {
+  static_assert(HD == 16 || HD == 32, "hd 64..256 run on WgTile");
+  static constexpr int kBQ = 64;                        // query rows
+  static constexpr int kBK = 64;                        // keys a tile
+  static constexpr int kStages = 3;                     // K/V ring slots
+  static constexpr int kMinBlocks = 3;                  // blocks an SM
+  static constexpr int kThreads = 256;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 136;
+  // setmaxnreg: the two warpgroups' registers within what the launch
+  // gives a thread at kMinBlocks blocks an SM (a multiple of 8)
+  static_assert(128 * (kProducerRegs + kConsumerRegs) <=
+                    kThreads * ((65536 / (kMinBlocks * kThreads)) & ~7),
+                "setmaxnreg beyond the launch's registers");
+  // a row of hd bf16 is the swizzle span: 64 bytes at hd 32, 32 at 16
+  static constexpr int kRowBytes = 2 * HD;
+  static constexpr uint32_t kLayout = HD == 32 ? kSwizzle64 : kSwizzle32;
+  static constexpr int kAtom = 8 * kRowBytes;           // SBO: 8 rows
+  static constexpr int kQSlots = 2;
+  static constexpr int kQBytes = kBQ * kRowBytes;
+  static constexpr int kTileBytes = kBK * kRowBytes;    // K or V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // the row sums: a tile of ones after the ring, which P V reads as 8
+  // more columns of V (n = hd + 8): the swizzle atom after V's
+  static constexpr int kOnesBytes = kTileBytes;
+  static constexpr int kN = HD + 8;
+  // + 1024: a 1024-byte aligned base; the Q slots, the ring, the ones,
+  // the barriers (full, empty a stage and a Q slot), tile indices
+  static constexpr size_t kSmem = 1024 + (size_t)kQSlots * kQBytes +
+                                  (size_t)kStages * kStageBytes +
+                                  (size_t)kOnesBytes +
+                                  8 * (2 * kStages + 2 * kQSlots) + 16;
+};
+
+// One output tile of the narrow route: kBQ query rows of one (batch,
+// head).  Tiles are numbered query tile first, the heaviest causal tiles
+// of every (batch, head) before any lighter one, so the light tiles fill
+// the tail; at one query tile the (batch, head) pairs run side by side
+// (a GQA group's heads next to each other), and their K/V (128 bytes a
+// key at hd 32) stay in L2.
+template <int BQ, int BK>
+__device__ __forceinline__ WgWork nw_work(const WgArgs& a, int tile) {
+  const int pairs = a.tiles / a.q_tiles;
+  const int bh = tile % pairs;
+  WgWork w;
+  w.b = bh / a.heads;
+  w.h = bh % a.heads;
+  w.kh = w.h / (a.heads / a.kv_heads);
+  w.q0 = (a.q_tiles - 1 - tile / pairs) * BQ;
+  tile_cols<BQ, BK>(a, w);
+  return w;
+}
+
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+// The online softmax of one S tile of the narrow route, in registers, as
+// wg_softmax but in two halves, so that the exponentials can run in turns
+// (nw_exp), and in place (the weights, in f32, overwrite the scores;
+// nw_pack rounds them to P's A fragments).  nw_max: the masks of a tile
+// that needs them as each row's valid columns [lo, hi) (MASK), the rows'
+// new max and shift sh (the scores are turned into log2 units by sl2 in
+// the exponentials' FFMA); returns the rows' rescale of O.
+template <int BK, bool MASK>
+__device__ __forceinline__ float2 nw_max(float* sc, float& m0, float& m1,
+                                         float& sh0, float& sh1, int c0,
+                                         int lo0, int hi0, int lo1, int hi1,
+                                         int t, float sl2) {
+  if constexpr (MASK) {
+    // column c is valid for a row iff c - lo, as unsigned, is below the
+    // row's count of valid columns: one compare a score
+    const int d0 = c0 + 2 * t - lo0, d1 = c0 + 2 * t - lo1;
+    const unsigned n0 = (unsigned)max(hi0 - lo0, 0);
+    const unsigned n1 = (unsigned)max(hi1 - lo1, 0);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 8 * j + (e & 1);
+        const bool valid = e < 2 ? (unsigned)(d0 + k) < n0
+                                 : (unsigned)(d1 + k) < n1;
+        if (!valid) sc[4 * j + e] = kNegInf;
+      }
+  }
+  // each row's max in four independent chains (a chain of BK / 4 maxima
+  // would wait on each one's latency), then across the quad
+  float a[4], b[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    a[e] = sc[4 * (e >> 1) + (e & 1)];
+    b[e] = sc[4 * (e >> 1) + 2 + (e & 1)];
+  }
+#pragma unroll
+  for (int j = 2; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      a[2 * (j & 1) + e] = fmaxf(a[2 * (j & 1) + e], sc[4 * j + e]);
+      b[2 * (j & 1) + e] = fmaxf(b[2 * (j & 1) + e], sc[4 * j + 2 + e]);
+    }
+  float mx0 = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+  float mx1 = fmaxf(fmaxf(b[0], b[1]), fmaxf(b[2], b[3]));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  sh0 = mn0 == kNegInf ? 0.f : -mn0 * sl2;
+  sh1 = mn1 == kNegInf ? 0.f : -mn1 * sl2;
+  const float2 corr =
+      make_float2(mn0 == m0 ? 1.f : ex2(fmaf(m0, sl2, sh0)),
+                  mn1 == m1 ? 1.f : ex2(fmaf(m1, sl2, sh1)));
+  m0 = mn0;
+  m1 = mn1;
+  return corr;
+}
+
+// nw_exp: the weights exp2(s sl2 + sh), one FFMA and one ex2 each (the
+// row sums come out of O += P V)
+template <int BK>
+__device__ __forceinline__ void nw_exp(float* sc, float sh0, float sh1,
+                                       float sl2) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, e < 2 ? sh0 : sh1));
+}
+
+// the weights of nw_exp rounded to bf16 as the A fragments of O += P V
+// (n-blocks 2 kk and 2 kk + 1 of the S accumulator make k-step kk)
+template <int BK>
+__device__ __forceinline__ void nw_pack(const float* sc, uint32_t (*pf)[4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    pf[j >> 1][(j & 1) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+// Persistent, as flash_attn_wg_kernel: the producer thread takes the
+// tiles and runs ahead into their Q and K/V; the consumer warpgroup walks
+// each tile's key tiles, a key tile's softmax beside the last one's P V.
+template <int HD>
+__global__ void __launch_bounds__(NwTile<HD>::kThreads,
+                                  NwTile<HD>::kMinBlocks)
+    flash_attn_nw_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         WgArgs a) {
+  using C = NwTile<HD>;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK, kStages = C::kStages;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // the Q slots (kBQ rows each), the ring (each stage K's kBK rows, then
+  // V's), bf16 ones (the row sums' columns of V), barriers, tile indices
+  unsigned char* q_s = smem;
+  unsigned char* kv_s = q_s + C::kQSlots * C::kQBytes;
+  unsigned char* ones = kv_s + kStages * C::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ones + C::kOnesBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+  uint64_t* q_empty = q_full + C::kQSlots;
+  volatile int* tile_s =
+      reinterpret_cast<volatile int*>(q_empty + C::kQSlots);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);                   // a consumer warp each
+    }
+    for (int s = 0; s < C::kQSlots; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], 4);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread takes the tiles and issues
+    // every TMA load (one box of hd columns a tile of Q, K or V)
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (tid == 0) {
+      tma_prefetch(&tm_q);
+      tma_prefetch(&tm_k);
+      tma_prefetch(&tm_v);
+      int i = 0;                           // ring loads
+      for (int n = 0;; ++n) {              // tiles of this block
+        // the first tile is the block's own: no counter on the path to
+        // its loads; the counter hands out the rest from gridDim.x on,
+        // and is not touched when every block has one tile at most
+        const int tile = n == 0 ? (int)blockIdx.x
+                         : a.tiles <= (int)gridDim.x
+                             ? a.tiles
+                             : (int)gridDim.x + atomicAdd(a.counter, 1);
+        const int qn = n % C::kQSlots;
+        const uint32_t q_phase = (n / C::kQSlots) & 1;
+        if (tile >= a.tiles) {
+          // each block's last take overshoots once: the launch's last
+          // take of all resets the counter for the next launch
+          if (tile == a.tiles + (int)gridDim.x - 1) *a.counter = 0;
+          // (with one tile a block, no take reached the counter)
+          mbar_wait(&q_empty[qn], q_phase ^ 1);
+          tile_s[qn] = -1;
+          mbar_arrive(&q_full[qn]);
+          break;
+        }
+        const WgWork w = nw_work<kBQ, kBK>(a, tile);
+        auto load_q = [&]() {
+          mbar_wait(&q_empty[qn], q_phase ^ 1);
+          tile_s[qn] = tile;
+          mbar_expect_tx(&q_full[qn], C::kQBytes);
+          tma_load_4d(q_s + qn * C::kQBytes, &tm_q, &q_full[qn], 0, w.q0,
+                      w.h, w.b);
+        };
+        for (int it = w.t_begin; it < w.t_end; ++it, ++i) {
+          const int s = i % kStages;
+          mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], C::kStageBytes);
+          unsigned char* ks = kv_s + s * C::kStageBytes;
+          tma_load_4d(ks, &tm_k, &full[s], 0, it * kBK, w.kh, w.b);
+          tma_load_4d(ks + C::kTileBytes, &tm_v, &full[s], 0, it * kBK,
+                      w.kh, w.b);
+          if (it == w.t_begin) load_q();
+        }
+        if (w.t_begin >= w.t_end) load_q();   // no key to see: Q alone
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: the tile's 64 query rows
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int warp = (tid / 32) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int S = a.seq;
+    const float sl2 = a.scale * kLog2e;
+    // the ones, written while the first loads are in flight (the generic
+    // writes fenced before wgmma reads them)
+    const uint4 one8 = make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
+                                  0x3f803f80u);      // bf16 1.0, 8 times
+    for (int i = tid - 128; i < C::kOnesBytes / 16; i += 128)
+      reinterpret_cast<uint4*>(ones)[i] = one8;
+    fence_proxy_async();
+    named_bar_sync(1, 128);
+    // descriptors (the start address and LBO fields take bytes / 16): Q
+    // and K K-major; V N-major, hd columns a swizzle atom, the next atom
+    // (columns hd.. of P V: the ones) LBO bytes on, at the ones tile
+    const uint64_t dq = wgmma_desc(q_s, 16, C::kAtom, C::kLayout);
+    const uint64_t dk = wgmma_desc(kv_s, 16, C::kAtom, C::kLayout);
+    const uint64_t dv =
+        wgmma_desc(kv_s + C::kTileBytes,
+                   (uint32_t)(ones - (kv_s + C::kTileBytes)), C::kAtom,
+                   C::kLayout);
+
+    // S = Q K^T from ring slot s_: a k-step is 32 bytes into the rows
+    auto qk = [&](float* sc_, uint64_t dqn_, int s_) {
+      const uint64_t dk_ = dk + ((s_ * C::kStageBytes) >> 4);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<kBK, 0>(sc_, dqn_ + ((kk * 32) >> 4),
+                         dk_ + ((kk * 32) >> 4), kk > 0);
+    };
+    // O += P V from slot s_ (a k-step is 16 rows of V), and with them
+    // the row sums of P, as rounded to bf16: slot s_'s V is s_ stages on
+    // from slot 0's, the ones as many bytes nearer (LBO)
+    auto pv = [&](float* o_, uint32_t (*pf_)[4], int s_) {
+      const uint64_t d = (uint64_t)((s_ * C::kStageBytes) >> 4);
+      const uint64_t dv_ = dv + d - (d << 16);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs<C::kN, 1>(o_, pf_[kk],
+                           dv_ + ((kk * 16 * C::kRowBytes) >> 4), 1);
+    };
+    // this warp is done with slot s_
+    auto release = [&](int s_) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s_]);
+    };
+
+    // the arguments a step reads, in registers
+    const int causal = a.causal, window = a.window;
+    const int lim = a.kv_len >= 0 ? min(a.seq_k, a.kv_len) : a.seq_k;
+    int s_next = 0;                          // ring slot of the next tile
+    uint32_t ph_next = 0;                    // ... and its phase
+    auto advance = [&]() {
+      if (++s_next == kStages) {
+        s_next = 0;
+        ph_next ^= 1;
+      }
+    };
+    mbar_wait(&q_full[0], 0);
+    int n = 0;
+    for (int tile = tile_s[0]; tile >= 0;
+         mbar_wait(&q_full[n % C::kQSlots], (n / C::kQSlots) & 1),
+             tile = tile_s[n % C::kQSlots]) {
+      const int qn = n % C::kQSlots;
+      ++n;
+      const uint64_t dqn = dq + ((qn * C::kQBytes) >> 4);
+      const WgWork w = nw_work<kBQ, kBK>(a, tile);
+      const int r_lo = w.q0, r_hi = r_lo + kBQ - 1;
+      const int row0 = r_lo + 16 * warp + g, row1 = row0 + 8;
+      // each row's valid columns [lo, hi); the tiles [m_lo, m_hi) need
+      // no mask (past the window's edge for every row, before the
+      // diagonal, kv_len and S_k)
+      const int hi0 = causal ? min(lim, row0 + 1) : lim;
+      const int hi1 = causal ? min(lim, row1 + 1) : lim;
+      const int lo0 = window > 0 ? row0 - window + 1 : 0;
+      const int lo1 = window > 0 ? row1 - window + 1 : 0;
+      const int m_lo =
+          window > 0 && r_hi - window >= 0 ? (r_hi - window) / kBK + 1 : 0;
+      const int m_hi = min(lim / kBK, causal ? (r_lo + 1) / kBK : lim);
+
+      // O, and the row sums in its n-block hd / 8 (rows row0, row1 at
+      // [hd / 2] and [hd / 2 + 2])
+      float o[C::kN / 2];
+#pragma unroll
+      for (int j = 0; j < C::kN / 2; ++j) o[j] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf;
+      // O's rescale to a row's new max, skipped by a warp whose 16 rows
+      // all kept theirs
+      auto rescale = [&](float2 corr) {
+        if (!__any_sync(0xffffffffu, corr.x != 1.f || corr.y != 1.f))
+          return;
+#pragma unroll
+        for (int j = 0; j < C::kN / 8; ++j) {
+          o[4 * j] *= corr.x;
+          o[4 * j + 1] *= corr.x;
+          o[4 * j + 2] *= corr.y;
+          o[4 * j + 3] *= corr.y;
+        }
+      };
+      if (w.t_begin < w.t_end) {
+        // P of the last tile, rounded to bf16 (at the first: 0, so the
+        // first step's P V adds 0 times a landed V)
+        uint32_t pf[kBK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          pf[kk][0] = pf[kk][1] = pf[kk][2] = pf[kk][3] = 0u;
+        int s_last = s_next;                 // the last tile's slot
+        // tile j: its S and the last tile's P V issued, S waited, its
+        // softmax beside the P V, then that waited (FlashAttention-3's
+        // order): S in one register set
+        float sc[kBK / 2];
+        auto step = [&](auto mask, int j) {
+          const int s_cur = s_next;
+          mbar_wait(&full[s_cur], ph_next);
+          advance();
+          pin_regs(o, C::kN / 2);
+          pin_regs(&pf[0][0], kBK / 4);
+          wgmma_fence();
+          qk(sc, dqn, s_cur);
+          wgmma_commit();
+          pv(o, pf, s_last);
+          wgmma_commit();
+          wgmma_wait<1>();
+          pin_regs(sc, kBK / 2);
+          float sh0, sh1;
+          float2 corr = nw_max<kBK, decltype(mask)::value != 0>(
+              sc, m0, m1, sh0, sh1, j * kBK, lo0, hi0, lo1, hi1, t, sl2);
+          nw_exp<kBK>(sc, sh0, sh1, sl2);
+          pin_regs(sc, kBK / 2);
+          pin_regs(&corr.x, 1);
+          pin_regs(&corr.y, 1);
+          wgmma_wait<0>();
+          pin_regs(o, C::kN / 2);
+          if (j > w.t_begin) release(s_last);
+          rescale(corr);
+          nw_pack<kBK>(sc, pf);
+          s_last = s_cur;
+        };
+        for (int j = w.t_begin; j < w.t_end; ++j) {
+          if (j < m_lo || j >= m_hi)
+            step(Int<1>{}, j);
+          else
+            step(Int<0>{}, j);
+        }
+        // the last tile's P V
+        pin_regs(o, C::kN / 2);
+        pin_regs(&pf[0][0], kBK / 4);
+        wgmma_fence();
+        pv(o, pf, s_last);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin_regs(o, C::kN / 2);
+        release(s_last);
+      }
+      // done with Q and the tile index: the slot may take the next
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty[qn]);
+
+      // each lane holds its rows' sums
+      const float inv0 = 1.f / fmaxf(o[HD / 2], 1e-30f);
+      const float inv1 = 1.f / fmaxf(o[HD / 2 + 2], 1e-30f);
+      bf16* ob = a.out + w.b * a.o_sb + w.h * a.o_sh;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (row0 < S)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * a.o_ss +
+                                             col) =
+              __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        if (row1 < S)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * a.o_ss +
+                                             col) =
+              __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+    }
+  }
+}
+
 // One 4-d map (hd, S, heads, batch) of a bf16 view from the wrapper's
 // numbers (tma_map in kernels/flash_attn.py): 4 dims, the byte strides
-// of S, heads and batch, the box (64 columns, rows); 128-byte swizzle,
-// out-of-bounds boxes filled with zeros.
+// of S, heads and batch, the box (columns, rows); the swizzle spans the
+// box's row (64 columns: 128 bytes; hd 32: 64; hd 16: 32), boxes past
+// the view's edges filled with zeros.
 bool encode_map(CUtensorMap* map, const void* base, const long long* p) {
+  CUtensorMapSwizzle swizzle;
+  switch (p[7]) {
+    case 64: swizzle = CU_TENSOR_MAP_SWIZZLE_128B; break;
+    case 32: swizzle = CU_TENSOR_MAP_SWIZZLE_64B; break;
+    case 16: swizzle = CU_TENSOR_MAP_SWIZZLE_32B; break;
+    default: return false;
+  }
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t dims[4], strides[3];
@@ -1029,11 +1206,27 @@ bool encode_map(CUtensorMap* map, const void* base, const long long* p) {
   cuuint32_t elem[4] = {1, 1, 1, 1};
   for (int i = 0; i < 4; ++i) dims[i] = (cuuint64_t)p[i];
   for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)p[4 + i];
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the dynamic shared memory attribute of a kernel, once a device: it
+// holds for later launches (`set` keeps a bit a device)
+cudaError_t smem_attr_once(const void* kernel, size_t bytes,
+                           unsigned long long* set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(*set & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    *set |= bit;
+  }
+  return cudaSuccess;
 }
 
 // the card's SMs, the persistent grid's size
@@ -1069,20 +1262,41 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v,
       !encode_map(&tv, v, maps + 18))
     return cudaErrorInvalidValue;
   auto kernel = flash_attn_wg_kernel<HD>;
-  // the shared memory attribute, once a device: it holds for later
-  // launches
-  static unsigned long long attr_set = 0;   // a bit a device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static unsigned long long attr_set = 0;
+  const cudaError_t err =
+      smem_attr_once((const void*)kernel, C::kSmem, &attr_set);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(attr_set & bit)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
-    if (err != cudaSuccess) return err;
-    attr_set |= bit;
-  }
   const int grid = tiles < sms ? (int)tiles : sms;
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
+// plan: block_q, block_k, stages, threads, smem bytes (flash_plan)
+template <int HD>
+cudaError_t launch_nw(const void* q, const void* k, const void* v,
+                      WgArgs a, int batch, const int* plan,
+                      const long long* maps, cudaStream_t stream) {
+  using C = NwTile<HD>;
+  if (plan[0] != C::kBQ || plan[1] != C::kBK || plan[2] != C::kStages ||
+      plan[3] != C::kThreads || plan[4] != (int)C::kSmem ||
+      maps[7] != HD || maps[8] != C::kBQ || maps[16] != HD ||
+      maps[17] != C::kBK || maps[25] != HD || maps[26] != C::kBK)
+    return cudaErrorInvalidValue;
+  a.q_tiles = (a.seq + C::kBQ - 1) / C::kBQ;
+  const long long tiles = (long long)batch * a.heads * a.q_tiles;
+  const long long slots = (long long)sm_count() * C::kMinBlocks;
+  if (tiles > 0x7fffffffLL || slots == 0) return cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, maps) || !encode_map(&tk, k, maps + 9) ||
+      !encode_map(&tv, v, maps + 18))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attn_nw_kernel<HD>;
+  static unsigned long long attr_set = 0;
+  const cudaError_t err =
+      smem_attr_once((const void*)kernel, C::kSmem, &attr_set);
+  if (err != cudaSuccess) return err;
+  const int grid = (int)(tiles < slots ? tiles : slots);
   kernel<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
@@ -1091,6 +1305,8 @@ cudaError_t dispatch_wg(int hd, const void* q, const void* k, const void* v,
                         const WgArgs& a, int batch, const int* plan,
                         const long long* maps, cudaStream_t stream) {
   switch (hd) {
+    case 16: return launch_nw<16>(q, k, v, a, batch, plan, maps, stream);
+    case 32: return launch_nw<32>(q, k, v, a, batch, plan, maps, stream);
     case 64: return launch_wg<64>(q, k, v, a, batch, plan, maps, stream);
     case 96: return launch_wg<96>(q, k, v, a, batch, plan, maps, stream);
     case 128: return launch_wg<128>(q, k, v, a, batch, plan, maps, stream);
@@ -1101,12 +1317,12 @@ cudaError_t dispatch_wg(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-enum Route { kCudaCores = 0, kMmaSync = 1, kWgmma = 2 };
+enum Route { kCudaCores = 0, kWgmma = 2 };
 
 // route: the plan's (flash_plan); plan: block_q, block_k, stages,
 // threads, smem bytes; maps: the wgmma route's tensor maps of q, k and v,
 // 9 numbers each (tma_map); counter: one int, 0, that the wgmma route
-// counts its tiles on and leaves at 0.  The other routes read none.
+// counts its tiles on and leaves at 0.  The f32 route reads none.
 extern "C" int flash_attn(
     const void* q, const void* k, const void* v, void* out, int batch,
     int heads, int kv_heads, int seq, int seq_k, int head_dim,
@@ -1132,7 +1348,5 @@ extern "C" int flash_attn(
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (route == kCudaCores && dtype == kF32)
     return dispatch_hd<float>(head_dim, a, (int)blocks, s);
-  if (route == kMmaSync && dtype == kBF16)
-    return dispatch_tc(head_dim, a, batch, s);
   return cudaErrorInvalidValue;
 }

@@ -2,12 +2,12 @@
 // the fused FFN (fused_ffn.cu), flash attention (flash_attn.cu) and
 // paged decode attention (paged_decode_attn.cu).
 //
-// - cp.async copies, ldmatrix and mma.sync m16n8k16 (bf16 in, f32
-//   accumulate), the older warp-level route;
-// - wgmma: the shared-memory descriptor of the 128-byte swizzled layout,
-//   the fence / commit / wait of the asynchronous
+// - ldmatrix (transposed), bf16 packing and a one-op ex2;
+// - wgmma: the shared-memory descriptor of the 128-, 64- and 32-byte
+//   swizzled layouts, the fence / commit / wait of the asynchronous
 //   products, and the products m64nNk16 for N = 64, 96, 128, 256 with A
-//   from shared memory (ss) or from registers (rs); TRANS_B = 1 reads B
+//   from shared memory (ss) or from registers (rs), and N = 16, 24, 32,
+//   40 with A from registers; TRANS_B = 1 reads B
 //   N-major (its rows hold N contiguous values of one k, as a row-major
 //   weight or V lies in memory), 0 K-major (as the keys of Q K^T lie);
 //   and, for a few rows on the N side (the FFN's decode routes), the ss
@@ -42,27 +42,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ------------------------------------------------ warp-level (mma.sync) --
-// 16-byte global -> shared copy; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
+// ------------------------------------------------------- warp-level --
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
                                                   const void* p) {
   asm volatile(
@@ -70,15 +50,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
-}
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -100,15 +71,22 @@ __device__ __forceinline__ float ex2(float x) {
 // bf16 is kept as 64-column blocks; a k-step of 16 is 32 bytes into the
 // rows.  An N-major B keeps 64-column groups of N, LBO bytes apart, and
 // a k-step is 16 rows (2048 bytes).
+// Narrower rows take the 64- and 32-byte swizzles (CU_TENSOR_MAP_SWIZZLE_
+// 64B / 32B): atoms of 8 rows x 64 (32) bytes, SBO = 512 (256) bytes a
+// group of 8 rows; a K-major k-step is 32 bytes into the rows, an N-major
+// one 16 rows.  The descriptor's layout type (bits 62-63) names the
+// swizzle: kSwizzle128 (1), kSwizzle64 (2), kSwizzle32 (3).
+enum : uint32_t { kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3 };
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
+                                               uint32_t sbo,
+                                               uint32_t layout = kSwizzle128) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) |
-         (1ull << 62);                              // 128-byte swizzle
+         ((uint64_t)layout << 62);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -133,6 +111,16 @@ __device__ __forceinline__ void fence_regs(uint32_t* r, int n) {
 #pragma unroll
   for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+// as fence_regs, without ordering memory accesses: values the compiler
+// may keep in registers across it (a kernel's arguments) stay there
+__device__ __forceinline__ void pin_regs(float* r, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i]));
+}
+__device__ __forceinline__ void pin_regs(uint32_t* r, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i]));
+}
 // the copies' writes (generic proxy) made visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -145,6 +133,102 @@ __device__ __forceinline__ void fence_proxy_async() {
 // warp's 16 rows.  accumulate == 0 overwrites d.
 template <int N, int TRANS_B>
 struct Wgmma;
+
+// N = 16, 24, 32 and 40 (flash attention's O += P V at hd 16 and 32,
+// with or without 8 columns of row sums): only A from registers
+template <int TRANS_B>
+struct Wgmma<16, TRANS_B> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t a[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B>
+struct Wgmma<32, TRANS_B> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t a[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B>
+struct Wgmma<24, TRANS_B> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t a[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11"
+      "}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, %18;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B>
+struct Wgmma<40, TRANS_B> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t a[4],
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, %26;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+        "n"(TRANS_B));
+  }
+};
 
 template <int TRANS_B>
 struct Wgmma<64, TRANS_B> {

@@ -7,11 +7,12 @@ version is :func:`repro_torch.kernels.ref.flash_attn_ref`.
 
 :func:`attention_route` names the unit q's dtype runs on: bf16 on the
 tensor cores, f32 on the CUDA cores, since the tensor cores would round
-f32 to TF32.  :func:`flash_plan` picks the kernel and its tiles: bf16 at
-hd 64..256 on ``wgmma`` (TMA loads issued by a producer warpgroup, two
-consumer warpgroups), bf16 at hd 16 and 32 on ``mma.sync``, f32 on the
-CUDA cores.  :func:`tma_map` gives the tensor maps the ``wgmma`` route reads
-q, k and v through, and refuses a view that TMA cannot read.  A tensor
+f32 to TF32.  :func:`flash_plan` picks the kernel and its tiles: bf16 on
+``wgmma`` with TMA loads issued by a producer warpgroup (at hd 64..256
+two consumer warpgroups, ``WgTile``; at hd 16 and 32 one, three blocks
+an SM, ``NwTile``), f32 on the CUDA cores.  :func:`tma_map` gives the
+tensor maps the ``wgmma`` route reads q, k and v through, and refuses a
+view that TMA cannot read.  A tensor
 on the CPU takes the plain version.  A tensor on the card launches its
 plan's kernel or raises — there is no fallback.  Each launch adds one to
 ``flash_attention.launches``.
@@ -38,13 +39,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 # the C entry's route codes
-_ROUTE_CODES = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2}
-# bf16 head dims on the wgmma route; the rest of HEAD_DIMS on mma.sync
-WGMMA_HEAD_DIMS = (64, 96, 128, 256)
+_ROUTE_CODES = {"cuda_cores": 0, "wgmma": 2}
+# bf16 head dims on the wgmma route: every one
+WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 # the wgmma route's register budget a thread (setmaxnreg): the producer
-# warpgroup's and each of the two consumer warpgroups'
+# warpgroup's and, at hd 64..256, each of the two consumer warpgroups'
 PRODUCER_REGS, CONSUMER_REGS = 24, 240
-TMA_BOX_COLS = 64              # a 128-byte swizzle row of bf16
+# the hd 16/32 kernel's (NwTile): keys a tile, K/V ring stages, and the
+# registers of each thread of its one consumer warpgroup (three blocks an
+# SM)
+NW_BLOCK_K, NW_STAGES, NW_CONSUMER_REGS = 64, 3, 136
+TMA_BOX_COLS = 64              # at hd >= 64: a 128-byte swizzle row of bf16
 TMA_SWIZZLE_BYTES = 128
 
 
@@ -84,8 +89,8 @@ def flash_plan(dtype: torch.dtype, hd: int, seq: int, seq_k: int,
                heads: int, kv_heads: int) -> FlashPlan:
     """The route and launch geometry of one K2 call: a pure function of
     its arguments, mirroring the kernels' constants (``WgTile``,
-    ``TcTile``, the f32 kernel's); the C entry refuses a ``wgmma`` plan
-    that differs from ``WgTile``."""
+    ``NwTile``, the f32 kernel's); the C entry refuses
+    a ``wgmma`` plan that differs from them."""
     attention_route(dtype)
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
@@ -97,33 +102,40 @@ def flash_plan(dtype: torch.dtype, hd: int, seq: int, seq_k: int,
         smem = 4 * (bq * (hd + 1) + bk * (hd + 1) + bk * hd + bq * (bk + 1))
         return FlashPlan("cuda_cores", bq, bk, 1, 256, smem, 256 * 255,
                          -(-seq // bq))
-    if hd in WGMMA_HEAD_DIMS:
-        hdp = 128 if hd == 96 else hd        # hd 96 in hd 128's layout
-        bq, bk = 128, 64 if hd == 256 else 128
-        q_slots, stages = (1, 2) if hd == 256 else (2, 4 if hd == 64 else 2)
-        smem = 1024 + q_slots * 2 * bq * hdp + stages * 2 * 2 * bk * hdp \
-            + 8 * (2 * stages + 2 * q_slots) + 16
-        return FlashPlan("wgmma", bq, bk, stages, 384, smem,
-                         128 * PRODUCER_REGS + 256 * CONSUMER_REGS,
+    if hd <= 32:
+        # NwTile: 64 query rows; two Q slots, the ring of K and V tiles
+        # and a tile of ones (the row sums' columns), rows of hd bf16 (the
+        # swizzle span); barriers and tile indices
+        bq, bk = 64, NW_BLOCK_K
+        tile = bk * 2 * hd
+        smem = 1024 + 2 * bq * 2 * hd + NW_STAGES * 2 * tile + tile \
+            + 8 * (2 * NW_STAGES + 4) + 16
+        return FlashPlan("wgmma", bq, bk, NW_STAGES, 256, smem,
+                         128 * (PRODUCER_REGS + NW_CONSUMER_REGS),
                          -(-seq // bq))
-    # the mma.sync route (TcTile): 64 query rows of 4 warps, 64-key
-    # tiles in a two-slot cp.async ring, 16-byte padded rows, five
-    # blocks an SM at 96 registers a thread
-    bq = bk = 64
-    return FlashPlan("mma_sync", bq, bk, 2, 128,
-                     2 * (bq + 2 * 2 * bk) * (hd + 8), 128 * 96,
+    hdp = 128 if hd == 96 else hd            # hd 96 in hd 128's layout
+    bq, bk = 128, 64 if hd == 256 else 128
+    q_slots, stages = (1, 2) if hd == 256 else (2, 4 if hd == 64 else 2)
+    smem = 1024 + q_slots * 2 * bq * hdp + stages * 2 * 2 * bk * hdp \
+        + 8 * (2 * stages + 2 * q_slots) + 16
+    return FlashPlan("wgmma", bq, bk, stages, 384, smem,
+                     128 * PRODUCER_REGS + 256 * CONSUMER_REGS,
                      -(-seq // bq))
 
 
-def tma_map(t: torch.Tensor, box_rows: int) -> TmaMap:
+def tma_map(t: torch.Tensor, box_rows: int,
+            box_cols: int = TMA_BOX_COLS) -> TmaMap:
     """The tensor map through which the ``wgmma`` route reads a (B, H, S,
     hd) bf16 view in place: dims (hd, S, H, B), the views' own strides
-    in bytes, boxes of 64 columns (128 bytes, the swizzle span) by
-    ``box_rows`` rows.  A dim of extent 1 is never stepped along, so its
+    in bytes, boxes of ``box_cols`` columns by ``box_rows`` rows, the
+    box's row the swizzle span (64 columns: 128 bytes, the hd >= 64
+    kernel's and K6's; the hd 16/32 kernel's box is hd columns, 32 or 64
+    bytes).  A dim of extent 1 is never stepped along, so its
     stride is taken as the span of the dims inside it.  Raises
     ``ValueError`` where TMA cannot read the view: a base not 16-byte
     aligned, a stride not a positive multiple of 16 bytes or not below
-    2**40, a last dim that is not dense."""
+    2**40, a last dim that is not dense, a box row that is no swizzle
+    span."""
     shape, stride = t.shape, t.stride()
     if len(shape) != 4 or t.dtype != torch.bfloat16:
         raise ValueError(f"tma_map takes a 4-d bf16 view, got "
@@ -147,18 +159,23 @@ def tma_map(t: torch.Tensor, box_rows: int) -> TmaMap:
                              f"in {tuple(shape)} with strides {stride}")
         strides.append(st)
         span = max(span, st * n)
-    return TmaMap((hd, s, h, b), tuple(strides), (TMA_BOX_COLS, box_rows),
-                  TMA_SWIZZLE_BYTES)
+    if 2 * box_cols not in (32, 64, 128):
+        raise ValueError(f"TMA's swizzles span 32, 64 or 128 bytes: no "
+                         f"box of {box_cols} bf16 columns")
+    return TmaMap((hd, s, h, b), tuple(strides), (box_cols, box_rows),
+                  2 * box_cols)
 
 
 def tma_numbers(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 plan: FlashPlan) -> list:
     """The 27 numbers the C entry encodes its tensor maps from: for q
     (boxes of ``block_q`` rows), k and v (``block_k`` rows) in turn, the
-    4 dims, the 3 byte strides and the box (columns, rows)."""
+    4 dims, the 3 byte strides and the box (columns, rows): 64 columns,
+    or hd at hd 16 and 32."""
+    cols = min(q.shape[3], TMA_BOX_COLS)
     return [x for t, rows in ((q, plan.block_q), (k, plan.block_k),
                               (v, plan.block_k))
-            for m in (tma_map(t, rows),)
+            for m in (tma_map(t, rows, cols),)
             for x in (*m.dims, *m.strides, *m.box)]
 
 
@@ -200,7 +217,7 @@ def _check(q, k, v, window, kv_len, causal=False) -> None:
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be dense in its last dim")
     if attention_route(q.dtype) == "tensor_cores":
-        # both bf16 routes copy 16-byte row segments (cp.async or TMA)
+        # TMA copies 16-byte row segments
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)
                                         if t.shape[i] > 1):
@@ -248,7 +265,7 @@ class _LaunchNumbers(NamedTuple):
     plan: FlashPlan
     strides: Tuple[int, ...]     # B, H and S strides of q, k, v and out
     plan_arr: ctypes.Array       # block_q, block_k, stages, threads, smem
-    maps_arr: ctypes.Array       # tma_numbers (zeros off the wgmma route)
+    maps_arr: ctypes.Array       # tma_numbers (zeros on the f32 route)
 
 
 # _LaunchNumbers by q's dtype and the shapes and strides of q, k and v:

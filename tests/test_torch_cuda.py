@@ -707,6 +707,59 @@ def test_flash_wgmma_route_cross_lengths(cuda, hd, sq):
         _wgmma_case(q, k, v, mask)
 
 
+# every mask of chip_smoke's phase 2 at S, for the hd 16/32 kernel
+def _narrow_masks(s):
+    return [dict(causal=True), dict(causal=True, window=1),
+            dict(causal=True, window=64), dict(causal=True, window=s + 7),
+            dict(causal=True, kv_len=0),
+            dict(causal=True, kv_len=s * 2 // 3 + 5),
+            dict(causal=True, window=64, kv_len=100),
+            dict(causal=True, window=300, kv_len=500),
+            dict(causal=False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 15, 63, 64, 65, 127, 129, 1000, 2048])
+@pytest.mark.parametrize("kvh", [8, 2, 1], ids=["group1", "group4",
+                                                "group8"])
+@pytest.mark.parametrize("hd", [16, 32])
+def test_flash_narrow_route(cuda, hd, kvh, s):
+    """K2's hd 16/32 kernel (wgmma fed by TMA through the 32- and 64-byte
+    swizzles) over every mask of chip_smoke's phase 2 at S around its
+    query and key tiles, 8 heads over groups of 1, 4 and 8: the plain
+    version within TOL, one launch a call, 0 where kv_len is 0, a repeat
+    equal bit for bit."""
+    q, k, v = _qkv(s + hd + kvh, 2, 8, kvh, s, hd, torch.bfloat16)
+    for mask in _narrow_masks(s):
+        _wgmma_case(q, k, v, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [16, 448])
+@pytest.mark.parametrize("hd", [16, 32])
+def test_flash_narrow_route_cross_lengths(cuda, hd, sq):
+    """16 and 448 queries over 1500 keys on the hd 16/32 kernel, with and
+    without kv_len."""
+    q, _, _ = _qkv(sq + hd, 2, 8, 2, sq, hd, torch.bfloat16)
+    _, k, v = _qkv(1500 + hd, 2, 8, 2, 1500, hd, torch.bfloat16)
+    for mask in (dict(causal=False), dict(causal=False, kv_len=999),
+                 dict(causal=False, kv_len=0)):
+        _wgmma_case(q, k, v, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32])
+def test_flash_narrow_route_repeats(cuda, hd):
+    """20 calls at a ragged shape (3 x 1000 rows, 8 heads over 2, causal
+    under a window past kv_len) equal bit for bit: each tile is computed
+    whole by one block in a fixed order, whatever block takes it."""
+    q, k, v = _qkv(hd, 3, 8, 2, 1000, hd, torch.bfloat16)
+    mask = dict(causal=True, window=300, kv_len=777)
+    first = flash_attention(q, k, v, **mask)
+    for _ in range(20):
+        assert torch.equal(first, flash_attention(q, k, v, **mask))
+
+
 @pytest.mark.gpu
 def test_flash_tensor_core_route_rejects_misaligned_rows(cuda):
     q, k, v = _qkv(3, 1, 4, 4, 64, 32, torch.bfloat16)

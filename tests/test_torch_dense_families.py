@@ -62,8 +62,7 @@ def test_every_config_has_kernel_plans(arch):
     assert hd in flash_attn.HEAD_DIMS, f"{arch}: K2 has no hd {hd}"
     plan = flash_attn.flash_plan(torch.bfloat16, hd, 2048, 2048,
                                  cfg.num_heads, cfg.num_kv_heads)
-    assert plan.route == ("wgmma" if hd in flash_attn.WGMMA_HEAD_DIMS
-                          else "mma_sync")
+    assert hd in flash_attn.WGMMA_HEAD_DIMS and plan.route == "wgmma"
     assert 0 < plan.smem <= H100_SMEM and plan.regs <= 65536
     for pool in (torch.int8, torch.bfloat16):
         plan = decode_plan(8, cfg.num_heads, cfg.num_kv_heads, hd, 16, 128,

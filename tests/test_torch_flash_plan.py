@@ -1,8 +1,8 @@
 """K2's launch plan and TMA tensor maps, on the CPU.
 
 ``flash_plan`` picks the route and tiles of every flash-attention launch
-on the card (bf16 at hd 64..256 on ``wgmma``, hd 16 and 32 on
-``mma.sync``, f32 on the CUDA cores) and ``tma_map`` / ``tma_numbers``
+on the card (bf16 on ``wgmma`` at every head dim, hd 16 and 32 in their
+own geometry, f32 on the CUDA cores) and ``tma_map`` / ``tma_numbers``
 give the tensor maps the ``wgmma`` route reads q, k and v through.  Both
 are host-side functions: a config they refuse cannot prefill on the
 card, and a view TMA cannot read must be refused with ``ValueError``
@@ -43,8 +43,7 @@ def test_every_config_plans_k2_on_its_route(arch):
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     for s, sk in ((2048, 2048), (16, cfg.encoder_seq_len)):
         plan = flash_plan(torch.bfloat16, hd, s, sk, h, kvh)
-        assert plan.route == ("wgmma" if hd in WGMMA_HEAD_DIMS
-                              else "mma_sync")
+        assert hd in WGMMA_HEAD_DIMS and plan.route == "wgmma"
         assert 0 < plan.smem <= H100_SMEM and plan.regs <= H100_REGS
         assert plan.q_tiles == -(-s // plan.block_q)
         f32 = flash_plan(torch.float32, hd, s, sk, h, kvh)
@@ -69,11 +68,26 @@ def test_wgmma_plan_tiles(hd, bk, q_slots, stages, smem):
 
 
 def test_mma_sync_plan_at_head_dims_16_and_32():
-    for hd, smem in ((16, 15_360), (32, 25_600)):
+    """hd 16 and 32 left ``mma.sync`` for ``wgmma``: ``NwTile``'s geometry
+    (a producer warpgroup beside one consumer warpgroup of 64 query rows,
+    64-key tiles in a 3-stage ring, three blocks an SM).  Shared memory =
+    1024 (alignment) + two Q slots + the ring + a tile of ones + the
+    barriers and tile indices; three blocks' shared memory (and the 1 KB
+    each reserves) and registers fit one H100 SM."""
+    assert (flash_attn.NW_BLOCK_K, flash_attn.NW_STAGES,
+            flash_attn.NW_CONSUMER_REGS) == (64, 3, 136)
+    for hd, smem in ((16, 19_552), (32, 37_984)):
         plan = flash_plan(torch.bfloat16, hd, 2048, 2048, 8, 8)
-        assert (plan.route, plan.block_q, plan.block_k, plan.threads,
-                plan.smem, plan.q_tiles) == ("mma_sync", 64, 64, 128, smem,
-                                             32)
+        assert (plan.route, plan.block_q, plan.block_k, plan.stages,
+                plan.threads, plan.smem, plan.q_tiles) == (
+                    "wgmma", 64, 64, 3, 256, smem, 32)
+        tile = 64 * 2 * hd
+        assert smem == 1024 + 2 * tile + 3 * 2 * tile + tile + 8 * 10 + 16
+        assert 3 * (plan.smem + 1024) <= 233_472
+        # setmaxnreg's split of what the launch gives a thread at three
+        # blocks an SM: 65536 / 768 down to a multiple of 8
+        assert plan.regs == 128 * 24 + 128 * 136 == 256 * 80
+        assert 3 * plan.regs <= H100_REGS
 
 
 def test_plan_refuses_what_no_kernel_takes():
@@ -116,6 +130,50 @@ def test_tma_maps_of_the_models_views(b, s, h, kvh, hd):
     assert len(nums) == 27
     assert nums[:9] == [*mq.dims, *mq.strides, *mq.box]
     assert nums[9:18] == nums[18:] == [*mk.dims, *mk.strides, *mk.box]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd", [
+    (8, 2048, 8, 8, 32),            # paper-backbone, the long wave
+    (8, 16, 8, 8, 32),              # a short bucket
+    (4, 256, 8, 8, 32),             # an adaptation infer
+    (2, 77, 8, 2, 16),              # hd 16, group 4
+    (1, 1, 8, 8, 32),               # one row: extent-1 dims
+])
+def test_tma_maps_at_narrow_head_dims(b, s, h, kvh, hd):
+    """hd 32 and 16 are read in one box of hd columns a tile: 64- and
+    32-byte rows, each the swizzle span (CU_TENSOR_MAP_SWIZZLE_64B /
+    32B), at the model's transposed views; 27 numbers for the C entry,
+    whose box columns (numbers 7, 16, 25) the kernel checks against hd."""
+    q, k, v = _views(b, s, h, kvh, hd)
+    plan = flash_plan(torch.bfloat16, hd, s, s, h, kvh)
+    mq, mk = tma_map(q, plan.block_q, hd), tma_map(k, plan.block_k, hd)
+    assert mq.box == (hd, plan.block_q) and mk.box == (hd, plan.block_k)
+    assert mq.swizzle == mk.swizzle == 2 * hd
+    assert mq.dims == (hd, s, h, b) and mk.dims == (hd, s, kvh, b)
+    if s > 1:
+        assert mq.strides[0] == 2 * h * hd and mk.strides[0] == 2 * kvh * hd
+    nums = tma_numbers(q, k, v, plan)
+    assert nums[:9] == [*mq.dims, *mq.strides, *mq.box]
+    assert nums[9:18] == [*mk.dims, *mk.strides, *mk.box]
+    assert nums[7] == nums[16] == nums[25] == hd
+    assert nums[8] == plan.block_q and nums[17] == nums[26] == plan.block_k
+
+
+def test_tma_map_refuses_narrow_views_tma_cannot_read():
+    """At hd 16 and 32 as at 64: a base off 16 bytes, a row stride off
+    16 bytes; and a box row that is no swizzle span (24 columns: 48
+    bytes)."""
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        tma_map(torch.zeros(2, 4, 64, 40, dtype=torch.bfloat16)
+                [..., 1:33], 64, 32)
+    with pytest.raises(ValueError, match="multiple of 16"):   # 72-byte rows
+        tma_map(torch.zeros(2, 4, 64, 36, dtype=torch.bfloat16)
+                [..., :32], 64, 32)
+    with pytest.raises(ValueError, match="multiple of 16"):   # 36-byte rows
+        tma_map(torch.zeros(2, 4, 64, 18, dtype=torch.bfloat16)
+                [..., :16], 64, 16)
+    with pytest.raises(ValueError, match="swizzles span"):
+        tma_map(torch.zeros(2, 4, 64, 24, dtype=torch.bfloat16), 64, 24)
 
 
 def test_tma_maps_at_cross_attention_lengths():
@@ -172,7 +230,8 @@ def test_launch_numbers_are_worked_out_once_a_layout():
     assert other is not nums and other.strides[:3] == qc.stride()[:3]
     qs, ks, vs = _views(2, 64, 4, 4, 32)
     small = flash_attn._launch_numbers(qs, ks, vs, torch.empty_like(qs))
-    assert small.plan.route == "mma_sync" and list(small.maps_arr) == [0] * 27
+    assert small.plan.route == "wgmma"
+    assert list(small.maps_arr) == tma_numbers(qs, ks, vs, small.plan)
 
 
 def test_a_kept_layout_still_checks_each_base():
